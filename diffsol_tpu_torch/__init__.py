@@ -1,0 +1,25 @@
+"""diffsol_tpu_torch: the PyTorch and CUDA port of ``diffsol_tpu``.
+
+The JAX package ``diffsol_tpu`` is the reference; this package mirrors its
+module names and public layouts.  Plain tensor code is eager PyTorch in
+float64, and the fused small-n BDF whole-solve kernel is CUDA C++ for
+Hopper (``csrc/fused_bdf.cuh``), built with ``nvcc`` at first use.
+
+The port so far covers the stiff BDF ensemble main path: problems with
+identity or diagonal mass, the dense-LU BDF solver, ``solve_dense``, and
+``solve_dense_ensemble`` in lockstep, independent and fused modes.
+"""
+
+from . import errors  # noqa: F401
+from .drivers import Solution, solve_dense  # noqa: F401
+from .ensemble import make_lockstep_problem, solve_dense_ensemble  # noqa: F401
+from .equations import OdeEquations, make_equations  # noqa: F401
+from .problem import (  # noqa: F401
+    OdeBuilder,
+    OdeProblem,
+    OdeSolverOptions,
+    SolverConfig,
+)
+from .solvers import BdfSolver  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,552 @@
+// Fused whole-solve BDF kernel for small-n ensembles, CUDA C++ for sm_90a.
+//
+// Replaces diffsol_tpu/ops/pallas_stepper.py::make_pallas_bdf_solve (the
+// Pallas kernel body at pallas_stepper.py:656).  One thread block solves
+// one member TILE, one thread per member: the whole adaptive NDF(1-5)
+// solve -- prediction from the difference matrix D, stale-Jacobian Newton
+// with dual-number Jacobian columns and a partial-pivot LU, the WRMS error
+// test, the PI controller, the difference update, order selection, the
+// R.U rescale of D and dense output at t_eval -- in one launch.  The
+// tile's members share one step sequence (tiled lockstep): every WRMS norm
+// is the max over the tile, taken as a warp-shuffle reduction plus a
+// shared-memory reduction, so every control decision is uniform across the
+// block and the block never diverges around a __syncthreads.  The plain
+// PyTorch version of the same algorithm is
+// diffsol_tpu_torch/ops/fused_stepper.py::fused_bdf_reference.
+//
+// What bounds it on the H100: not bytes -- a member's state, D (8 x N),
+// J, the LU and its pivots live in the thread's registers and local memory
+// for the whole solve, and device memory sees only the parameters in and
+// ys out.  The bound is the latency of the serial per-step chain of
+// dependent f64 operations (rhs, N dual rhs probes, the N x N LU, the
+// triangular solves, every Newton iteration), plus one block reduction
+// (two __syncthreads) per norm: three a step and one a Newton iteration.
+// The design answers it with parallelism across members and tiles: the
+// 128-member default tile gives 79 blocks for the 10,000-member main path,
+// one per SM, whose warps hide each other's FMA latency, and the
+// tile-wide reductions stay short because the tile is small.  Registers
+// are the scarce resource: at N = 8 a thread holds some 200 doubles, so
+// the build prints ptxas's register and spill counts.  Shared-memory
+// residency, wgmma for the LU and fewer reductions are later work.
+//
+// Everything is double: the state, D, J, the LU and every heuristic (the
+// Pallas kernel keeps its heuristics in f32 and its state in double-float
+// pairs because Mosaic has no f64).
+//
+// The translation unit that includes this header first includes the model
+// header generated by eqn_codegen, which defines MODEL_N, MODEL_NP and
+// diffsol_model::model_rhs<T> / model_init<T>.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "dual.cuh"
+
+namespace diffsol_fused {
+
+constexpr int ND = 8;         // rows of the difference matrix D
+constexpr int MAX_ORDER = 5;
+// Two instantiations by block size: tiles up to 256 threads leave each up
+// to 255 registers (__launch_bounds__(256)); larger tiles, up to the
+// block limit of 1024, get 64 registers a thread and spill.
+constexpr int SMALL_TILE = 256;
+constexpr int MAX_TILE = 1024;
+
+// status codes, as pallas_stepper.py:82-89
+constexpr int OK = 0;
+constexpr int FAIL_STEP_TOO_SMALL = -1;
+constexpr int FAIL_MAX_STEPS = -2;
+constexpr int FAIL_NEWTON = -3;
+constexpr int FAIL_ERRTEST = -4;
+
+// Every number of the solve.  The host fills it as the ctypes.Structure
+// fused_stepper.py::CConfig, which mirrors this layout field for field
+// (the wrapper checks sizeof(Config) through fused_bdf_config_size).
+struct Config {
+  double t0, rtol, nl_tol, ki, kp, min_timestep, thresh_update_jac, eta_floor;
+  double atol[8];
+  double alpha[MAX_ORDER + 1], gamma[MAX_ORDER + 1], ec2[MAX_ORDER + 1];
+  double U[ND][ND];
+  double min_shrink, max_growth, dead_lo, dead_hi, eta_reset_jac, eta_reset_step;
+  int max_steps, max_newton_iter, max_newton_fails, max_err_fails;
+  int update_jac_after, update_rhs_jac_after, jac_reuse;
+  int neval, nbatch, tile, ntiles;
+};
+
+// NaN-propagating max/min, as torch.maximum / jnp.maximum
+__device__ __forceinline__ double nan_max(double a, double b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ double nan_min(double a, double b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ double nan_clamp(double x, double lo, double hi) {
+  return x != x ? x : fmin(fmax(x, lo), hi);
+}
+
+// Tile-wide max: warp shuffle, then one value per warp through shared
+// memory.  Every thread of the block must call it (blockDim % 32 == 0).
+__device__ __forceinline__ double block_max(double v, double* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();  // earlier readers of red are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  const int nw = blockDim.x >> 5;
+  double r = red[0];
+  for (int w = 1; w < nw; ++w) r = nan_max(r, red[w]);
+  return r;
+}
+
+// this member's mean over states of (x / (|y| rtol + atol))^2
+template <int N>
+__device__ __forceinline__ double wrms_local(const double* x, const double* y,
+                                             const Config& c) {
+  double acc = 0.0;
+#pragma unroll
+  for (int s = 0; s < N; ++s) {
+    const double q = x[s] / (fabs(y[s]) * c.rtol + c.atol[s]);
+    acc += q * q;
+  }
+  return acc / N;
+}
+
+// ops/controller.py pi_controller_raw on squared norms
+__device__ __forceinline__ double pi_raw(double err, double prev, double ki_num,
+                                         double kp_num, int eff_order) {
+  const double ki = ki_num / eff_order;
+  const double kp = kp_num / eff_order;
+  const double err_safe = nan_clamp(err, 1e-30, 1e30);
+  const double i_only = pow(err_safe, -ki);
+  if (kp_num == 0.0) return i_only;
+  if (prev != prev) return i_only;
+  const double prev_safe = nan_clamp(prev, 1e-30, 1e30);
+  return pow(err_safe, -(ki + kp)) * pow(prev_safe, kp);
+}
+
+// J[r][c] = df_r/dy_c from N dual probes (pallas_stepper.py:755-775)
+template <int N, int NP>
+__device__ void jacobian(double t, const double* y, const double* p, double (*J)[N]) {
+  constexpr int NPX = NP > 0 ? NP : 1;
+  const Dual<double> td(t, 0.0);
+  Dual<double> pd[NPX], yd[N], out[N];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) pd[j] = Dual<double>(p[j], 0.0);
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+#pragma unroll
+    for (int r = 0; r < N; ++r) yd[r] = Dual<double>(y[r], r == c ? 1.0 : 0.0);
+    diffsol_model::model_rhs<Dual<double> >(td, yd, pd, out);
+#pragma unroll
+    for (int r = 0; r < N; ++r) J[r][c] = out[r].d;
+  }
+}
+
+// LU with partial pivoting of A = I - c J (_lu_factor_df,
+// pallas_stepper.py:144-194, with real row swaps): the row of largest
+// |A[r][k]| (first on ties) becomes the pivot row; rdiag[k] = 1/U[k][k].
+template <int N>
+__device__ void lu_factor(double (*J)[N], double c, double (*A)[N],
+                          int* perm, double* rdiag) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    perm[r] = r;
+#pragma unroll
+    for (int q = 0; q < N; ++q) A[r][q] = (r == q ? 1.0 : 0.0) - c * J[r][q];
+  }
+  for (int k = 0; k < N - 1; ++k) {
+    int pk = k;
+    double bm = fabs(A[k][k]);
+    for (int r = k + 1; r < N; ++r) {
+      const double mag = fabs(A[r][k]);
+      if (mag > bm) pk = r;
+      bm = nan_max(mag, bm);
+    }
+    if (pk != k) {
+      for (int q = 0; q < N; ++q) {
+        const double tmp = A[k][q];
+        A[k][q] = A[pk][q];
+        A[pk][q] = tmp;
+      }
+      const int tp = perm[k];
+      perm[k] = perm[pk];
+      perm[pk] = tp;
+    }
+    const double inv = 1.0 / A[k][k];
+    rdiag[k] = inv;
+    for (int r = k + 1; r < N; ++r) {
+      const double l = A[r][k] * inv;
+      A[r][k] = l;
+      for (int q = k + 1; q < N; ++q) A[r][q] -= l * A[k][q];
+    }
+  }
+  rdiag[N - 1] = 1.0 / A[N - 1][N - 1];
+}
+
+// solve with lu_factor's output (_lu_solve_df, pallas_stepper.py:197-216)
+template <int N>
+__device__ void lu_solve(double (*A)[N], const int* perm, const double* rdiag,
+                         const double* b, double* out) {
+  double xs[N];
+  for (int r = 0; r < N; ++r) xs[r] = b[perm[r]];
+  for (int r = 1; r < N; ++r) {
+    double acc = xs[r];
+    for (int j = 0; j < r; ++j) acc -= A[r][j] * xs[j];
+    xs[r] = acc;
+  }
+  for (int r = N - 1; r >= 0; --r) {
+    double acc = xs[r];
+    for (int j = r + 1; j < N; ++j) acc -= A[r][j] * out[j];
+    out[r] = acc * rdiag[r];
+  }
+}
+
+// RU = R(f) U on rows/columns <= order, identity outside
+// (pallas_stepper.py:309-345); the block's threads fill the 8 x 8 entries
+// of the shared matrix together.
+__device__ void compute_ru(int order, double f, const Config& c, double (*ru)[ND]) {
+  __syncthreads();  // earlier readers of ru are done
+  for (int e = threadIdx.x; e < ND * ND; e += blockDim.x) {
+    const int i = e / ND, j = e % ND;
+    double v = (i == j) ? 1.0 : 0.0;
+    if (i <= order && j <= order) {
+      v = 0.0;
+      for (int k = 0; k <= j; ++k) {  // U[k][j] = 0 for k > j
+        double r = 1.0;
+        for (int m = 1; m <= i; ++m) r = r * (((m - 1.0) - f * k) / m);
+        v += r * c.U[k][j];
+      }
+    }
+    ru[i][j] = v;
+  }
+  __syncthreads();
+}
+
+template <int N, int NP, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t_eval,
+                 double* __restrict__ ys, int* __restrict__ info, const Config c) {
+  constexpr int NPX = NP > 0 ? NP : 1;
+  __shared__ double red[32];
+  __shared__ double ru[ND][ND];
+
+  // threads past the tile (blockDim is a multiple of 32) replicate the
+  // tile's last member, so they never change a tile-wide max
+  const int tid = (int)threadIdx.x;
+  const int lane = tid < c.tile ? tid : c.tile - 1;
+  const int m = blockIdx.x * c.tile + lane;  // this thread's member
+  const bool writer = tid < c.tile && m < c.nbatch;
+  // the last tile's pad members replicate the last member
+  // (pallas_stepper.py:2037-2039)
+  const int mp = m < c.nbatch ? m : c.nbatch - 1;
+  double p[NPX];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) p[j] = params[(size_t)mp * NP + j];
+
+  // ---- initial state and step size (pallas_stepper.py:837-907)
+  double t = c.t0;
+  double h;
+  double D[ND][N];
+  {
+    double y0[N], dy0[N], y1[N], f1[N];
+    diffsol_model::model_init<double>(t, p, y0);
+    diffsol_model::model_rhs<double>(t, y0, p, dy0);
+    const double d0 = sqrt(block_max(wrms_local<N>(y0, y0, c), red));
+    const double d1 = sqrt(block_max(wrms_local<N>(dy0, y0, c), red));
+    const double h0 = (d0 < 1e-5 || d1 < 1e-5) ? 1e-6 : 0.01 * (d0 / d1);
+#pragma unroll
+    for (int s = 0; s < N; ++s) y1[s] = y0[s] + h0 * dy0[s];
+    diffsol_model::model_rhs<double>(t + h0, y1, p, f1);
+#pragma unroll
+    for (int s = 0; s < N; ++s) f1[s] = f1[s] - dy0[s];
+    const double d2 = sqrt(block_max(wrms_local<N>(f1, y0, c), red)) / fabs(h0);
+    const double max_d = nan_max(d1, d2);
+    const double h1 = max_d < 1e-15 ? nan_max(h0 * 1e-3, 1e-6) : pow(0.01 / max_d, 0.5);
+    h = nan_min(100.0 * h0, h1);
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int s = 0; s < N; ++s) D[i][s] = 0.0;
+#pragma unroll
+    for (int s = 0; s < N; ++s) {
+      D[0][s] = y0[s];
+      D[1][s] = h * dy0[s];
+    }
+  }
+
+  // ---- the step loop; every branch below is uniform across the block
+  {
+    int k = 0, steps = 0, status = OK, nxt = 0, order = 1, n_equal = 0;
+    int conv_fail = 0, newton_fails = 0, err_fails = 0, h_changed = 0;
+    double prev_err = NAN, c_last = 0.0, eta_mem = c.eta_reset_jac;
+    int ssj = 0, ssrj = 0;
+    double J[N][N], LU[N][N], rdiag[N];
+    int perm[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      perm[r] = r;
+      rdiag[r] = 0.0;
+#pragma unroll
+      for (int q = 0; q < N; ++q) J[r][q] = LU[r][q] = 0.0;
+    }
+    const double mnewt = (double)c.max_newton_iter;
+
+    while (status == OK && k < c.max_steps && nxt < c.neval) {
+      const double alpha_k = c.alpha[order];
+      const double cval = h * alpha_k;
+      const double t_pred = t + h;
+
+      // ---- predict + psi from D
+      double y_pred[N], psi[N];
+#pragma unroll
+      for (int s = 0; s < N; ++s) {
+        double a = D[0][s];
+        double b = c.gamma[1] * D[1][s];
+#pragma unroll
+        for (int i = 1; i <= MAX_ORDER; ++i) {
+          if (i <= order) a += D[i][s];
+          if (i >= 2 && i <= order) b += c.gamma[i] * D[i][s];
+        }
+        y_pred[s] = a;
+        psi[s] = b * alpha_k;
+      }
+
+      // ---- stale-Jacobian policy (pallas_stepper.py:1094-1174)
+      double eta0;
+      if (c.jac_reuse) {
+        const double rel = fabs(cval / (c_last == 0.0 ? cval : c_last) - 1.0);
+        const bool refresh = k == 0 || conv_fail > 0 || ssrj >= c.update_rhs_jac_after;
+        const bool refactor = refresh || rel > c.thresh_update_jac || ssj >= c.update_jac_after;
+        if (refresh) jacobian<N, NP>(t_pred, y_pred, p, J);
+        if (refactor) lu_factor<N>(J, cval, LU, perm, rdiag);
+        if (refactor) c_last = cval;
+        ssj = refactor ? 0 : ssj + 1;
+        ssrj = refresh ? 0 : ssrj + 1;
+        eta0 = refactor ? c.eta_reset_jac : (h_changed == 1 ? c.eta_reset_step : eta_mem);
+      } else {
+        jacobian<N, NP>(t_pred, y_pred, p, J);
+        lu_factor<N>(J, cval, LU, perm, rdiag);
+        eta0 = c.eta_reset_jac;
+      }
+
+      // ---- Newton on (x - y_pred + psi) - c f(x) (pallas_stepper.py:1176-1265)
+      double ypp[N], x[N];
+#pragma unroll
+      for (int s = 0; s < N; ++s) {
+        ypp[s] = psi[s] - y_pred[s];
+        x[s] = y_pred[s];
+      }
+      double first_nrm = 0.0, eta_run = eta0;
+      int niter = 0, nstat = 0;
+      while (nstat == 0 && niter < c.max_newton_iter) {
+        double fx[N], res[N], delta[N];
+        diffsol_model::model_rhs<double>(t_pred, x, p, fx);
+#pragma unroll
+        for (int s = 0; s < N; ++s) res[s] = (x[s] + ypp[s]) - cval * fx[s];
+        lu_solve<N>(LU, perm, rdiag, res, delta);
+#pragma unroll
+        for (int s = 0; s < N; ++s) x[s] = x[s] - delta[s];
+        const double nrm = sqrt(block_max(wrms_local<N>(delta, y_pred, c), red));
+        niter += 1;
+        const bool is_first = niter == 1;
+        const double kk = (double)(niter - 1 > 1 ? niter - 1 : 1);
+        double rate = pow(nan_max(nrm / nan_max(first_nrm, 0.0), 1e-30), 1.0 / kk);
+        if (!isfinite(rate)) rate = INFINITY;
+        const int left = c.max_newton_iter - niter;
+        const double proj = pow(rate, (double)(left > 0 ? left : 0)) / (1.0 - rate) * nrm;
+        const double eta_new =
+            is_first ? pow(nan_max(eta0, c.eta_floor), 0.8) : rate / (1.0 - rate);
+        const bool diverged = !is_first && (rate > 0.9 || proj > c.nl_tol);
+        const bool converged = (eta_new * nrm < c.nl_tol) && !diverged;
+        nstat = diverged ? 2 : (converged ? 1 : 0);
+        if (is_first) first_nrm = nrm;
+        eta_run = eta_new;
+      }
+      const bool solve_ok = nstat == 1;
+      double d[N];
+#pragma unroll
+      for (int s = 0; s < N; ++s) d[s] = x[s] - y_pred[s];
+
+      // ---- error test and step-size control (pallas_stepper.py:1281-1319)
+      const double err = block_max(wrms_local<N>(d, y_pred, c), red) * c.ec2[order - 1];
+      const bool accepted = solve_ok && err <= 1.0;
+      const double safety = 0.9 * (2.0 * mnewt + 1.0) / (2.0 * mnewt + niter);
+      const bool second = !solve_ok && conv_fail == 1;
+      const bool err_fail = solve_ok && !accepted;
+      newton_fails += solve_ok ? 0 : 1;
+      const double raw = pi_raw(err, prev_err, c.ki, c.kp, order + 1);
+      const double rej_factor = nan_max(safety * raw, c.min_shrink);
+      const double factor_r = err_fail ? rej_factor : 0.3;
+      const bool do_rescale = err_fail || second;
+
+      // ---- accepted-step difference update (pallas_stepper.py:416-438)
+      double Dacc[ND][N];
+#pragma unroll
+      for (int s = 0; s < N; ++s) {
+        double dold = 0.0;
+#pragma unroll
+        for (int i = 0; i < ND; ++i)
+          if (i == order + 1) dold = D[i][s];
+        double acc = 0.0;
+#pragma unroll
+        for (int i = ND - 1; i >= 0; --i) {
+          if (i <= order) acc += D[i][s];
+          double v = i <= order ? acc + d[s] : D[i][s];
+          if (i == order + 1) v = d[s];
+          if (i == order + 2) v = d[s] - dold;
+          Dacc[i][s] = v;
+        }
+      }
+
+      // ---- order selection every order+1 equal steps (pallas_stepper.py:1329-1369)
+      const int n_equal_acc = (h_changed == 1 || do_rescale) ? 1 : n_equal + 1;
+      const bool do_sel = accepted && n_equal_acc > order;
+      bool do_change = false;
+      double sel_factor = 1.0;
+      int new_order = order;
+      if (do_sel) {  // uniform: order and accepted are the tile's
+        double em = INFINITY, ep = INFINITY;
+        if (order > 1) {
+          double row[N];
+#pragma unroll
+          for (int s = 0; s < N; ++s) {
+            row[s] = 0.0;
+#pragma unroll
+            for (int i = 0; i < ND; ++i)
+              if (i == order) row[s] = Dacc[i][s];
+          }
+          em = block_max(wrms_local<N>(row, Dacc[0], c), red) * c.ec2[order - 1];
+        }
+        if (order < MAX_ORDER) {
+          double row[N];
+#pragma unroll
+          for (int s = 0; s < N; ++s) {
+            row[s] = 0.0;
+#pragma unroll
+            for (int i = 0; i < ND; ++i)
+              if (i == order + 2) row[s] = Dacc[i][s];
+          }
+          ep = block_max(wrms_local<N>(row, Dacc[0], c), red) * c.ec2[order + 1];
+        }
+        const double f_m = pi_raw(em, err, c.ki, c.kp, order);
+        const double f_0 = pi_raw(err, err, c.ki, c.kp, order + 1);
+        const double f_p = pi_raw(ep, err, c.ki, c.kp, order + 2);
+        const int best = (f_m >= f_0 && f_m >= f_p) ? 0 : (f_0 >= f_p ? 1 : 2);
+        const double best_f = best == 0 ? f_m : (best == 1 ? f_0 : f_p);
+        sel_factor = nan_clamp(safety * best_f, c.min_shrink, c.max_growth);
+        do_change = sel_factor >= c.dead_hi || sel_factor <= c.dead_lo || best != 1;
+        new_order = order + best - 1;
+        new_order = new_order < 1 ? 1 : (new_order > MAX_ORDER ? MAX_ORDER : new_order);
+      }
+
+      // ---- dense output inside the accepted step (pallas_stepper.py:1749-1828)
+      if (accepted) {
+        while (nxt < c.neval && t_eval[nxt] <= t_pred) {
+          const double te = t_eval[nxt];
+          double yv[N];
+#pragma unroll
+          for (int s = 0; s < N; ++s) yv[s] = Dacc[0][s];
+          double tf = 1.0;
+#pragma unroll
+          for (int i = 0; i < MAX_ORDER; ++i) {
+            const double tf_new = tf * ((te - (t_pred - h * i)) / (h * (1 + i)));
+            if (i < order) {
+#pragma unroll
+              for (int s = 0; s < N; ++s) yv[s] += tf_new * Dacc[i + 1][s];
+              tf = tf_new;
+            }
+          }
+          if (writer) {
+#pragma unroll
+            for (int s = 0; s < N; ++s)
+              ys[((size_t)nxt * N + s) * c.nbatch + m] = yv[s];
+          }
+          ++nxt;
+        }
+      }
+
+      // ---- one shared D rescale for the rejected and accepted paths
+      const double ru_factor = accepted ? sel_factor : factor_r;
+      const int ru_order = accepted ? new_order : order;
+      const bool do_ru = accepted ? do_change : do_rescale;
+      if (accepted) {
+#pragma unroll
+        for (int i = 0; i < ND; ++i)
+#pragma unroll
+          for (int s = 0; s < N; ++s) D[i][s] = Dacc[i][s];
+      }
+      if (do_ru) {  // uniform
+        compute_ru(ru_order, ru_factor, c, ru);
+        double Dn[ND][N];
+#pragma unroll
+        for (int j = 0; j < ND; ++j)
+#pragma unroll
+          for (int s = 0; s < N; ++s) {
+            double acc = ru[0][j] * D[0][s];
+#pragma unroll
+            for (int i = 1; i < ND; ++i) acc += ru[i][j] * D[i][s];
+            Dn[j][s] = acc;
+          }
+#pragma unroll
+        for (int i = 0; i < ND; ++i)
+#pragma unroll
+          for (int s = 0; s < N; ++s) D[i][s] = Dn[i][s];
+      }
+      const double h_out = h * (do_ru ? ru_factor : 1.0);
+
+      // ---- bookkeeping and status (pallas_stepper.py:1830-1895)
+      err_fails = accepted ? 0 : err_fails + (err_fail ? 1 : 0);
+      int status_n = status;
+      if (err_fail && err_fails >= c.max_err_fails) status_n = FAIL_ERRTEST;
+      if (!solve_ok && newton_fails > c.max_newton_fails) status_n = FAIL_NEWTON;
+      if (do_rescale && fabs(h_out) < c.min_timestep) status_n = FAIL_STEP_TOO_SMALL;
+      if (k + 1 >= c.max_steps && nxt < c.neval && status_n == OK) status_n = FAIL_MAX_STEPS;
+      k += 1;
+      steps += accepted ? 1 : 0;
+      if (accepted) {
+        t = t_pred;
+        order = do_change ? new_order : order;
+        n_equal = do_change ? 0 : n_equal_acc;
+      }
+      h = h_out;
+      prev_err = accepted ? err : NAN;
+      conv_fail = accepted ? 0 : (solve_ok ? conv_fail : 1);
+      h_changed = accepted ? 0 : (do_rescale ? 1 : h_changed);
+      if (c.jac_reuse) eta_mem = eta_run;
+      status = status_n;
+    }
+
+    if (status == OK && nxt < c.neval) status = FAIL_MAX_STEPS;
+    if (threadIdx.x == 0) {
+      int* row = info + (size_t)blockIdx.x * 4;
+      row[0] = status;
+      row[1] = steps;
+      row[2] = k;
+      row[3] = nxt;
+    }
+  }
+}
+
+}  // namespace diffsol_fused
+
+// The C entry points, bound with ctypes.  params, t_eval, ys and info are
+// device pointers; cfg is a host Config.  Launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
+extern "C" int fused_bdf_config_size() { return (int)sizeof(diffsol_fused::Config); }
+
+extern "C" int fused_bdf_launch(const double* params, const double* t_eval, double* ys,
+                                int* info, const diffsol_fused::Config* cfg,
+                                void* stream) {
+  using namespace diffsol_fused;
+  const Config& c = *cfg;
+  if (c.tile < 1 || c.tile > MAX_TILE || c.ntiles < 1) return (int)cudaErrorInvalidValue;
+  const int threads = ((c.tile + 31) / 32) * 32;
+  if (threads <= SMALL_TILE)
+    fused_bdf_kernel<MODEL_N, MODEL_NP, SMALL_TILE>
+        <<<c.ntiles, threads, 0, (cudaStream_t)stream>>>(params, t_eval, ys, info, c);
+  else
+    fused_bdf_kernel<MODEL_N, MODEL_NP, MAX_TILE>
+        <<<c.ntiles, threads, 0, (cudaStream_t)stream>>>(params, t_eval, ys, info, c);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,75 @@
+"""ODE equation container (counterpart of ``diffsol_tpu.equations``).
+
+A problem is a set of plain torch callables with the argument order
+``(t, y, p)``:
+
+    M(t, p) dy/dt = f(t, y, p),    y(t0) = y0(t0, p)
+
+The Jacobian comes from ``torch.func.jacfwd`` where the JAX package uses
+``jax.jacfwd``.  A structurally diagonal mass keeps the elementwise fast
+path: ``mass_diag_fn`` returns the (n,) diagonal and the dense (n, n) mass
+is never built on the hot path.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+F64 = torch.float64
+
+
+class DiagMass(NamedTuple):
+    """Diagonal-mass representation handed to ``assemble``: the (..., n)
+    diagonal values."""
+
+    d: torch.Tensor
+
+
+@dataclass(frozen=True, eq=False)
+class OdeEquations:
+    """Problem callables and dimensions."""
+
+    rhs: Callable  # f(t, y, p) -> (n,)
+    init: Callable  # y0(t, p) -> (n,)
+    mass: Optional[Callable] = None  # M(t, p) -> (n, n); None => identity
+    mass_diag_fn: Optional[Callable] = None  # (t, p) -> (n,) diagonal
+    rhs_jac: Optional[Callable] = None  # (t, y, p) -> (n, n); default jacfwd
+    nstates: int = 0
+    nparams: int = 0
+
+    def jac(self, t, y, p):
+        """Dense Jacobian df/dy."""
+        if self.rhs_jac is not None:
+            return self.rhs_jac(t, y, p)
+        return torch.func.jacfwd(self.rhs, argnums=1)(t, y, p)
+
+    def mass_repr(self, t, p):
+        """None (identity), :class:`DiagMass`, or the dense matrix."""
+        if self.mass is None:
+            return None
+        if self.mass_diag_fn is not None:
+            return DiagMass(self.mass_diag_fn(t, p))
+        return self.mass(t, p)
+
+    def mass_mul(self, t, p, v):
+        if self.mass is None:
+            return v
+        if self.mass_diag_fn is not None:
+            return v * self.mass_diag_fn(t, p)
+        return (self.mass(t, p) @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def make_equations(rhs, init, params, t0=0.0, *, mass=None, mass_diag=None,
+                   rhs_jac=None) -> OdeEquations:
+    """Build an :class:`OdeEquations`, inferring ``nstates`` from one
+    evaluation of ``init`` at (t0, params)."""
+    params = torch.as_tensor(params, dtype=F64)
+    y0 = init(torch.as_tensor(t0, dtype=F64, device=params.device), params)
+    nstates = int(y0.shape[-1]) if y0.ndim else 1
+    return OdeEquations(
+        rhs=rhs, init=init, mass=mass, mass_diag_fn=mass_diag,
+        rhs_jac=rhs_jac, nstates=nstates, nparams=int(params.numel()),
+    )

@@ -1,0 +1,65 @@
+"""Carry problems and results across from the JAX package.
+
+``problem_from_jax`` copies every numeric field of a ``diffsol_tpu``
+``OdeProblem`` (params, t0, h0, rtol, atol and all solver options) into
+this package's problem as float64 tensors.  The user's callables are
+passed in torch, since a jnp body cannot be converted.
+``solution_to_numpy`` turns a :class:`~.drivers.Solution` into numpy
+arrays in the JAX package's layouts, so tests compare like with like.
+
+Neither function imports JAX: they read the JAX objects' fields through
+``numpy.asarray``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .problem import OdeBuilder, OdeProblem, OdeSolverOptions
+
+F64 = torch.float64
+
+
+def problem_from_jax(jax_problem, rhs, init, mass=None) -> OdeProblem:
+    """This package's problem with the numbers of ``jax_problem`` and the
+    torch callables ``rhs(t, y, p)``, ``init(t, p)`` and optional
+    ``mass(t, p)``."""
+    opts = jax_problem.options
+    options = OdeSolverOptions(**{
+        f.name: getattr(opts, f.name) for f in dataclasses.fields(OdeSolverOptions)
+    })
+    b = (
+        OdeBuilder()
+        .rhs(rhs)
+        .init(init)
+        .p(np.asarray(jax_problem.params, np.float64))
+        .t0(float(np.asarray(jax_problem.t0)))
+        .h0(float(np.asarray(jax_problem.h0)))
+        .rtol(float(np.asarray(jax_problem.rtol)))
+        .atol(np.asarray(jax_problem.atol, np.float64).reshape(-1))
+        .options(options)
+    )
+    if mass is not None:
+        b = b.mass(mass)
+    return b.build()
+
+
+def solution_to_numpy(sol) -> dict:
+    """``ts``, ``ys``, ``stop_reason``, ``n_points``, ``tile_steps`` and
+    ``tier`` of a solution, as numpy arrays (``tier`` as is)."""
+
+    def arr(v):
+        if v is None:
+            return None
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().numpy()
+        return np.asarray(v)
+
+    return dict(
+        ts=arr(sol.ts), ys=arr(sol.ys), stop_reason=arr(sol.stop_reason),
+        n_points=int(sol.n_points), tile_steps=arr(sol.tile_steps),
+        tier=sol.tier,
+    )

@@ -1,0 +1,652 @@
+"""Fused whole-solve BDF tier for small-n ensembles (counterpart of
+``diffsol_tpu/ops/pallas_stepper.py::make_pallas_bdf_solve``).
+
+The whole adaptive NDF(1-5) solve of a member TILE runs as one unit: the
+tile's members share one step sequence ("tiled lockstep": every WRMS norm
+is the max over the tile's members), while different tiles step
+independently.  Per attempt: predict from the difference matrix D,
+stale-Jacobian Newton on ``(x - y_pred + psi) - c f(t, x)`` with the
+rate-based convergence test, the error test, the PI controller, the
+difference update, order selection every order+1 equal steps, the R.U
+rescale of D, and dense output at ``t_eval`` inside each accepted step.
+
+Two implementations of the same algorithm with the same tile partition:
+
+* the CUDA kernel ``csrc/fused_bdf.cuh`` (one thread block per tile, one
+  thread per member), launched by :func:`launch_fused_bdf` for CUDA
+  tensors.  It is built with ``nvcc`` for ``sm_90a`` at first use from the
+  repository's sources plus the model header that :mod:`.eqn_codegen`
+  generates from the user's equations;
+* the plain PyTorch version :func:`fused_bdf_reference`, batched over
+  (ntiles, tile, n) with per-tile control tensors, eager and float64.  It
+  runs for CPU tensors (the counterpart of Pallas ``interpret=True``) and
+  is what the kernel is checked against on the card.
+
+A CUDA tensor always goes to the kernel: a build or launch failure raises,
+and nothing falls back to the plain version or to the CPU.
+
+Every quantity is float64, heuristics included: the H100 has native f64,
+whereas the Pallas kernel keeps its WRMS norms, rates and controller in
+f32 and its state in double-float pairs.  Scope is the ROADMAP's K1
+sub-slice (a): identity mass, no roots, no quadrature, n <= 8.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..solvers.bdf import MAX_ORDER, ND, _ALPHA, _ERROR_CONST2, _GAMMA, _r_mat
+from .controller import pi_controller_raw
+from .eqn_codegen import UnsupportedForKernel, emit_cuda_header, trace_model
+
+F64 = torch.float64
+
+# per-tile status codes (as pallas_stepper.py:82-89)
+OK = 0
+FAIL_STEP_TOO_SMALL = -1
+FAIL_MAX_STEPS = -2
+FAIL_NEWTON = -3
+FAIL_ERRTEST = -4
+
+MAX_STATES = 8
+# 128 members per tile: the main path's 10,000 members make 79 blocks, so
+# each of them has an SM of the H100's 132 to itself, and a small tile keeps
+# the tile-wide max (and hence the shared step size) close to each
+# member's own.  The Pallas kernel's 1024-lane multiples were for the
+# TPU's (8, 128) vector registers.
+DEFAULT_TILE = 128
+# the largest tile, one thread block of the kernel; the plain version takes
+# the same tiles (tiles above 256 run a 64-register build that spills)
+MAX_TILE = 1024
+
+ETA_RESET_JACOBIAN = 20.0**1.25
+ETA_RESET_TIMESTEP = 100.0**1.25
+# the Pallas kernel's eta floor, 1e4 * float32 eps (pallas_stepper.py:1195)
+ETA_FLOOR = 1e4 * float(np.finfo(np.float32).eps)
+# the fused kernel's limits (make_pallas_bdf_solve's defaults,
+# pallas_stepper.py:447-451) and step-size clamps (:652-654)
+MAX_NEWTON_ITER, MAX_NEWTON_FAILS, MAX_ERROR_TEST_FAILS = 10, 50, 40
+MIN_TIMESTEP = 1e-32
+MIN_SHRINK, MAX_GROWTH = 0.1, 2.1
+DEAD_LO, DEAD_HI = 0.9, 1.1
+
+# U = R(1), the constant half of the step-size transform
+_U64 = _r_mat(1.0)
+
+
+@dataclass(frozen=True)
+class FusedConfig:
+    """Static numbers of one fused solve (host side)."""
+
+    n: int
+    nparams: int
+    t0: float
+    rtol: float
+    atol: tuple
+    t_eval: tuple
+    nbatch: int
+    tile: int
+    ntiles: int
+    max_steps: int
+    max_newton_iter: int
+    max_newton_fails: int
+    max_error_test_fails: int
+    min_timestep: float
+    nl_tol: float
+    ki: float
+    kp: float
+    update_jacobian_after_steps: int
+    update_rhs_jacobian_after_steps: int
+    threshold_to_update_jacobian: float
+    jac_reuse: bool
+
+    @property
+    def neval(self) -> int:
+        return len(self.t_eval)
+
+    @property
+    def pad_b(self) -> int:
+        return self.ntiles * self.tile
+
+
+def _pad_params(cfg: FusedConfig, params_b: torch.Tensor) -> torch.Tensor:
+    """(nbatch, np) -> (ntiles*tile, np); pad members replicate the last
+    member (pallas_stepper.py:2037-2039)."""
+    if cfg.pad_b == cfg.nbatch:
+        return params_b.contiguous()
+    pad = params_b[-1:].expand(cfg.pad_b - cfg.nbatch, -1)
+    return torch.cat([params_b, pad], dim=0).contiguous()
+
+
+def _finish(cfg: FusedConfig, ys: torch.Tensor, info: torch.Tensor):
+    """Poison the members of failed tiles with NaN (loud failure,
+    pallas_stepper.py:2099-2101) and split out status and steps."""
+    status, steps = info[:, 0], info[:, 1]
+    bad = (status < 0).repeat_interleave(cfg.tile)[: cfg.nbatch]
+    ys = torch.where(bad[None, None, :], torch.nan, ys)
+    return ys, status, steps
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _wrms_sq(x, y, rtol, atol):
+    """Squared WRMS per tile: mean over states, max over the tile's
+    members.  x, y (T, tile, n) -> (T,)."""
+    q = x / (y.abs() * rtol + atol)
+    return (q * q).mean(-1).amax(-1)
+
+
+def _bcast(v, like):
+    """(T,) per-tile values -> broadcastable against (T, tile, n)."""
+    return v.reshape(v.shape + (1,) * (like.ndim - 1))
+
+
+def _compute_ru(order, factor):
+    """Per-tile (T, ND, ND) RU = R(factor) @ U, identity outside rows and
+    columns <= order (pallas_stepper.py:309-345)."""
+    T = factor.shape[0]
+    dev = factor.device
+    j = torch.arange(ND, dtype=F64, device=dev)
+    m = torch.arange(1, ND, dtype=F64, device=dev)[:, None]
+    terms = (m - 1.0 - factor[:, None, None] * j) / m  # (T, ND-1, ND)
+    r = torch.cumprod(
+        torch.cat([torch.ones(T, 1, ND, dtype=F64, device=dev), terms], 1), 1)
+    ru = r @ torch.as_tensor(_U64, dtype=F64, device=dev)
+    idx = torch.arange(ND, device=dev)
+    valid = (idx[None, :, None] <= order[:, None, None]) & (
+        idx[None, None, :] <= order[:, None, None])
+    return torch.where(valid, ru, torch.eye(ND, dtype=F64, device=dev))
+
+
+def _update_diff(D, d, order):
+    """Accepted-step difference update for per-tile orders
+    (pallas_stepper.py:416-438).  D (T, ND, tile, n), d (T, tile, n)."""
+    T = D.shape[0]
+    ar = torch.arange(T, device=D.device)
+    d_old_op1 = D[ar, order + 1]
+    acc = torch.zeros_like(d)
+    rows = [None] * ND
+    for i in range(ND - 1, -1, -1):
+        le = _bcast(i <= order, d)
+        acc = acc + torch.where(le, D[:, i], 0.0)
+        v = torch.where(le, acc + d, D[:, i])
+        v = torch.where(_bcast(order + 1 == i, d), d, v)
+        v = torch.where(_bcast(order + 2 == i, d), d - d_old_op1, v)
+        rows[i] = v
+    return torch.stack(rows, dim=1)
+
+
+def _interp(D, t_anchor, h, order, te):
+    """Interpolation polynomial of the accepted step at per-tile times
+    ``te`` (pallas_stepper.py:389-413)."""
+    yv = D[:, 0]
+    tf = torch.ones_like(h)
+    for i in range(MAX_ORDER):
+        tf_new = tf * ((te - (t_anchor - h * float(i))) / (h * float(1 + i)))
+        use = i < order
+        yv = yv + torch.where(_bcast(use, yv), _bcast(tf_new, yv) * D[:, i + 1], 0.0)
+        tf = torch.where(use, tf_new, tf)
+    return yv
+
+
+def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
+    """The plain PyTorch version of the fused kernel: the same algorithm on
+    the same tile partition, eager float64, on the device of ``params_b``.
+    Returns ``(ys (neval, n, B), info (ntiles, 4))`` with info = status,
+    accepted steps, attempts, next eval index per tile."""
+    dev = params_b.device
+    T, tile, n, neval = cfg.ntiles, cfg.tile, cfg.n, cfg.neval
+    Mb = T * tile
+    P = _pad_params(cfg, params_b)
+    rtol = cfg.rtol
+    atol = torch.tensor(cfg.atol, dtype=F64, device=dev)
+    te_all = torch.tensor(cfg.t_eval, dtype=F64, device=dev)
+    alpha = torch.tensor(_ALPHA, dtype=F64, device=dev)
+    gamma = [float(g) for g in _GAMMA]
+    ec2 = torch.tensor(_ERROR_CONST2, dtype=F64, device=dev)
+    vmap = torch.func.vmap
+    rhs_m = vmap(rhs, in_dims=(0, 0, 0))
+    jac_m = vmap(torch.func.jacfwd(rhs, argnums=1), in_dims=(0, 0, 0))
+    init_m = vmap(init, in_dims=(0, 0))
+
+    def f(t_tile, y):  # per-tile t (T,), y (T, tile, n)
+        tm = t_tile.repeat_interleave(tile)
+        return rhs_m(tm, y.reshape(Mb, n), P).reshape(T, tile, n)
+
+    def jac(t_tile, y):
+        tm = t_tile.repeat_interleave(tile)
+        return jac_m(tm, y.reshape(Mb, n), P).reshape(T, tile, n, n)
+
+    def wrms_sq(x, y):
+        return _wrms_sq(x, y, rtol, atol)
+
+    def factor(J, c):
+        eye = torch.eye(n, dtype=F64, device=dev)
+        return torch.linalg.lu_factor_ex(eye - c[:, None, None, None] * J)[:2]
+
+    def lsolve(lu, piv, b):
+        return torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)).squeeze(-1)
+
+    def tiles(v, dtype=torch.int64):
+        return torch.full((T,), v, dtype=dtype, device=dev)
+
+    # ---- initial state and step size (pallas_stepper.py:837-907)
+    t = tiles(cfg.t0, F64)
+    y0 = init_m(t.repeat_interleave(tile), P).reshape(T, tile, n)
+    dy0 = f(t, y0)
+    d0 = torch.sqrt(wrms_sq(y0, y0))
+    d1 = torch.sqrt(wrms_sq(dy0, y0))
+    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6, 0.01 * (d0 / d1))
+    y1 = y0 + _bcast(h0, y0) * dy0
+    f1 = f(t + h0, y1)
+    d2 = torch.sqrt(wrms_sq(f1 - dy0, y0)) / h0.abs()
+    max_d = torch.maximum(d1, d2)
+    h1 = torch.where(max_d < 1e-15, torch.clamp(h0 * 1e-3, min=1e-6),
+                     (0.01 / max_d) ** 0.5)
+    h = torch.minimum(100.0 * h0, h1)
+
+    D = torch.zeros(T, ND, tile, n, dtype=F64, device=dev)
+    D[:, 0] = y0
+    D[:, 1] = _bcast(h, dy0) * dy0
+    k = tiles(0)
+    steps = tiles(0)
+    status = tiles(OK)
+    nxt = tiles(0)
+    order = tiles(1)
+    n_equal = tiles(0)
+    prev_err = tiles(math.nan, F64)
+    conv_fail = tiles(0)
+    newton_fails = tiles(0)
+    err_fails = tiles(0)
+    h_changed = tiles(0)
+    J = torch.zeros(T, tile, n, n, dtype=F64, device=dev)
+    lu = torch.zeros_like(J)
+    piv = torch.ones(T, tile, n, dtype=torch.int32, device=dev)
+    c_last = tiles(0.0, F64)
+    ssj = tiles(0)
+    ssrj = tiles(0)
+    eta_mem = tiles(ETA_RESET_JACOBIAN, F64)
+    ys = torch.zeros(neval, n, T, tile, dtype=F64, device=dev)
+    ar = torch.arange(T, device=dev)
+    mnewt = float(cfg.max_newton_iter)
+
+    while True:
+        alive = (status == OK) & (k < cfg.max_steps) & (nxt < neval)
+        if not bool(alive.any()):
+            break
+        alpha_k = alpha[order]
+        cval = h * alpha_k
+        t_pred = t + h
+
+        # ---- predict + psi from D
+        y_pred = D[:, 0]
+        psi_raw = gamma[1] * D[:, 1]
+        for i in range(1, MAX_ORDER + 1):
+            le = _bcast(i <= order, y_pred)
+            y_pred = y_pred + torch.where(le, D[:, i], 0.0)
+            if i >= 2:
+                psi_raw = psi_raw + torch.where(le, gamma[i] * D[:, i], 0.0)
+        psi = psi_raw * _bcast(alpha_k, psi_raw)
+
+        # ---- stale-Jacobian policy (pallas_stepper.py:1094-1174)
+        if cfg.jac_reuse:
+            rel = (cval / torch.where(c_last == 0.0, cval, c_last) - 1.0).abs()
+            refresh_j = ((k == 0) | (conv_fail > 0)
+                         | (ssrj >= cfg.update_rhs_jacobian_after_steps))
+            refactor = (refresh_j | (rel > cfg.threshold_to_update_jacobian)
+                        | (ssj >= cfg.update_jacobian_after_steps))
+            if bool(refresh_j.any()):
+                J = torch.where(refresh_j[:, None, None, None],
+                                jac(t_pred, y_pred), J)
+            if bool(refactor.any()):
+                lu_n, piv_n = factor(J, cval)
+                lu = torch.where(refactor[:, None, None, None], lu_n, lu)
+                piv = torch.where(refactor[:, None, None], piv_n, piv)
+            c_last_n = torch.where(refactor, cval, c_last)
+            ssj_n = torch.where(refactor, 0, ssj + 1)
+            ssrj_n = torch.where(refresh_j, 0, ssrj + 1)
+            eta0 = torch.where(
+                refactor, ETA_RESET_JACOBIAN,
+                torch.where(h_changed == 1, ETA_RESET_TIMESTEP, eta_mem))
+        else:
+            J = jac(t_pred, y_pred)
+            lu, piv = factor(J, cval)
+            eta0 = tiles(ETA_RESET_JACOBIAN, F64)
+
+        # ---- Newton on (x - y_pred + psi) - c f(x) (pallas_stepper.py:1176-1265)
+        ypp = psi - y_pred
+        x = y_pred
+        first_nrm = tiles(0.0, F64)
+        niter = tiles(0)
+        nstat = tiles(0)
+        eta_run = eta0
+        while True:
+            active = (nstat == 0) & (niter < cfg.max_newton_iter)
+            if not bool(active.any()):
+                break
+            res = (x + ypp) - _bcast(cval, x) * f(t_pred, x)
+            delta = lsolve(lu, piv, res)
+            x_new = x - delta
+            nrm = torch.sqrt(wrms_sq(delta, y_pred))
+            niter = niter + active.long()
+            is_first = niter == 1
+            kk = torch.clamp(niter - 1, min=1).to(F64)
+            rate = torch.maximum(nrm / torch.clamp(first_nrm, min=0.0),
+                                 nrm.new_tensor(1e-30)) ** (1.0 / kk)
+            rate = torch.where(torch.isfinite(rate), rate, math.inf)
+            proj = (rate ** torch.clamp(cfg.max_newton_iter - niter, min=0).to(F64)
+                    / (1.0 - rate) * nrm)
+            eta_new = torch.where(
+                is_first,
+                torch.clamp(eta0, min=ETA_FLOOR) ** 0.8,
+                rate / (1.0 - rate))
+            diverged = ~is_first & ((rate > 0.9) | (proj > cfg.nl_tol))
+            converged = (eta_new * nrm < cfg.nl_tol) & ~diverged
+            nstat_new = torch.where(diverged, 2, torch.where(converged, 1, 0))
+            x = torch.where(_bcast(active, x), x_new, x)
+            first_nrm = torch.where(active & is_first, nrm, first_nrm)
+            nstat = torch.where(active, nstat_new, nstat)
+            eta_run = torch.where(active, eta_new, eta_run)
+        solve_ok = nstat == 1
+        d = x - y_pred
+
+        # ---- error test and step-size control
+        err = wrms_sq(d, y_pred) * ec2[order - 1]
+        accepted = solve_ok & (err <= 1.0)
+        safety = 0.9 * (2.0 * mnewt + 1.0) / (2.0 * mnewt + niter.to(F64))
+        second = ~solve_ok & (conv_fail == 1)
+        err_fail = solve_ok & ~accepted
+        newton_fails = newton_fails + (~solve_ok).long()
+        raw = pi_controller_raw(err, prev_err, cfg.ki, cfg.kp, order + 1)
+        rej_factor = torch.clamp(safety * raw, min=MIN_SHRINK)
+        factor_r = torch.where(err_fail, rej_factor, 0.3)
+        do_rescale = err_fail | second
+
+        # ---- accepted-step difference update and order selection
+        D_acc = _update_diff(D, d, order)
+        y_new = D_acc[:, 0]
+        n_equal_acc = torch.where((h_changed == 1) | do_rescale, 1, n_equal + 1)
+        do_sel = accepted & (n_equal_acc > order)
+
+        def pred_err(col, const_idx):
+            return wrms_sq(D_acc[ar, col], y_new) * ec2[const_idx]
+
+        em = torch.where(order > 1, pred_err(order, torch.clamp(order - 1, min=0)),
+                         math.inf)
+        ep = torch.where(order < MAX_ORDER,
+                         pred_err(torch.clamp(order + 2, max=ND - 1),
+                                  torch.clamp(order + 1, max=MAX_ORDER)),
+                         math.inf)
+        f_m = pi_controller_raw(em, err, cfg.ki, cfg.kp, order)
+        f_0 = pi_controller_raw(err, err, cfg.ki, cfg.kp, order + 1)
+        f_p = pi_controller_raw(ep, err, cfg.ki, cfg.kp, order + 2)
+        best = torch.where((f_m >= f_0) & (f_m >= f_p), 0,
+                           torch.where(f_0 >= f_p, 1, 2))
+        best_f = torch.where(best == 0, f_m, torch.where(best == 1, f_0, f_p))
+        sel_factor = torch.clamp(safety * best_f, MIN_SHRINK, MAX_GROWTH)
+        do_change = do_sel & ((sel_factor >= DEAD_HI) | (sel_factor <= DEAD_LO)
+                              | (best != 1))
+        new_order = torch.clamp(order + best - 1, 1, MAX_ORDER)
+        order_acc = torch.where(do_change, new_order, order)
+        n_equal_new = torch.where(do_change, 0, n_equal_acc)
+
+        # ---- one shared D rescale for the rejected and the accepted path
+        ru_factor = torch.where(accepted, sel_factor, factor_r)
+        ru_order = torch.where(accepted, new_order, order)
+        do_ru = torch.where(accepted, do_change, do_rescale)
+        acc4 = accepted[:, None, None, None]
+        D_out = torch.where(acc4, D_acc, D)
+        if bool(do_ru.any()):
+            ru = _compute_ru(ru_order, ru_factor)
+            D_resc = torch.einsum("tij,tisn->tjsn", ru, D_out)
+            D_out = torch.where(do_ru[:, None, None, None], D_resc, D_out)
+        h_out = h * torch.where(do_ru, ru_factor, 1.0)
+
+        # ---- dense output at the t_eval points this accepted step passed
+        walive = alive & accepted
+        ne = nxt
+        while True:
+            te = te_all[torch.clamp(ne, max=neval - 1)]
+            wm = walive & (ne < neval) & (te <= t_pred)
+            if not bool(wm.any()):
+                break
+            yv = _interp(D_acc, t_pred, h, order, te)
+            sel = wm.nonzero().squeeze(1)
+            ys[ne[sel], :, sel, :] = yv[sel].transpose(1, 2)
+            ne = ne + wm.long()
+
+        # ---- select between the accepted and rejected paths
+        status_n = status
+        err_fails_n = torch.where(accepted, 0, err_fails + err_fail.long())
+        status_n = torch.where(
+            err_fail & (err_fails_n >= cfg.max_error_test_fails),
+            FAIL_ERRTEST, status_n)
+        status_n = torch.where(
+            ~solve_ok & (newton_fails > cfg.max_newton_fails), FAIL_NEWTON,
+            status_n)
+        status_n = torch.where(do_rescale & (h_out.abs() < cfg.min_timestep),
+                               FAIL_STEP_TOO_SMALL, status_n)
+        status_n = torch.where((k + 1 >= cfg.max_steps) & (ne < neval)
+                               & (status_n == OK), FAIL_MAX_STEPS, status_n)
+        new = dict(
+            k=k + 1, steps=steps + accepted.long(), status=status_n, nxt=ne,
+            t=torch.where(accepted, t_pred, t), h=h_out,
+            order=torch.where(accepted, order_acc, order),
+            n_equal=torch.where(accepted, n_equal_new, n_equal),
+            prev_err=torch.where(accepted, err, math.nan),
+            conv_fail=torch.where(accepted, 0,
+                                  torch.where(solve_ok, conv_fail, 1)),
+            newton_fails=newton_fails, err_fails=err_fails_n,
+            h_changed=torch.where(accepted, 0,
+                                  torch.where(do_rescale, 1, h_changed)),
+            D=D_out,
+        )
+        old = dict(k=k, steps=steps, status=status, nxt=nxt, t=t, h=h,
+                   order=order, n_equal=n_equal, prev_err=prev_err,
+                   conv_fail=conv_fail, newton_fails=newton_fails,
+                   err_fails=err_fails, h_changed=h_changed, D=D)
+        if cfg.jac_reuse:
+            new.update(c_last=c_last_n, ssj=ssj_n, ssrj=ssrj_n, eta_mem=eta_run)
+            old.update(c_last=c_last, ssj=ssj, ssrj=ssrj, eta_mem=eta_mem)
+        # finished tiles keep the state they finished with
+        fz = {key: torch.where(_bcast(alive, new[key]), new[key], old[key])
+              for key in new}
+        (k, steps, status, nxt, t, h, order, n_equal, prev_err, conv_fail,
+         newton_fails, err_fails, h_changed, D) = (
+            fz["k"], fz["steps"], fz["status"], fz["nxt"], fz["t"], fz["h"],
+            fz["order"], fz["n_equal"], fz["prev_err"], fz["conv_fail"],
+            fz["newton_fails"], fz["err_fails"], fz["h_changed"], fz["D"])
+        if cfg.jac_reuse:
+            c_last, ssj, ssrj, eta_mem = (fz["c_last"], fz["ssj"], fz["ssrj"],
+                                          fz["eta_mem"])
+
+    status = torch.where((status == OK) & (nxt < neval), FAIL_MAX_STEPS, status)
+    info = torch.stack([status, steps, k, nxt], dim=1).to(torch.int32)
+    ys = ys.reshape(neval, n, Mb)[:, :, : cfg.nbatch].contiguous()
+    return ys, info
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's wrapper
+# ---------------------------------------------------------------------------
+
+_D, _I = ctypes.c_double, ctypes.c_int
+
+
+class CConfig(ctypes.Structure):
+    """The kernel's ``Config`` (csrc/fused_bdf.cuh), field for field."""
+
+    _fields_ = [
+        ("t0", _D), ("rtol", _D), ("nl_tol", _D), ("ki", _D), ("kp", _D),
+        ("min_timestep", _D), ("thresh_update_jac", _D), ("eta_floor", _D),
+        ("atol", _D * MAX_STATES),
+        ("alpha", _D * (MAX_ORDER + 1)), ("gamma", _D * (MAX_ORDER + 1)),
+        ("ec2", _D * (MAX_ORDER + 1)),
+        ("U", (_D * ND) * ND),
+        ("min_shrink", _D), ("max_growth", _D), ("dead_lo", _D), ("dead_hi", _D),
+        ("eta_reset_jac", _D), ("eta_reset_step", _D),
+        ("max_steps", _I), ("max_newton_iter", _I), ("max_newton_fails", _I),
+        ("max_err_fails", _I),
+        ("update_jac_after", _I), ("update_rhs_jac_after", _I), ("jac_reuse", _I),
+        ("neval", _I), ("nbatch", _I), ("tile", _I), ("ntiles", _I),
+    ]
+
+
+@functools.lru_cache(maxsize=64)
+def _c_config(cfg: FusedConfig) -> CConfig:
+    atol = list(cfg.atol) + [1.0] * (MAX_STATES - cfg.n)
+    return CConfig(
+        t0=cfg.t0, rtol=cfg.rtol, nl_tol=cfg.nl_tol, ki=cfg.ki, kp=cfg.kp,
+        min_timestep=cfg.min_timestep,
+        thresh_update_jac=cfg.threshold_to_update_jacobian, eta_floor=ETA_FLOOR,
+        atol=(_D * MAX_STATES)(*atol),
+        alpha=(_D * (MAX_ORDER + 1))(*map(float, _ALPHA)),
+        gamma=(_D * (MAX_ORDER + 1))(*map(float, _GAMMA)),
+        ec2=(_D * (MAX_ORDER + 1))(*map(float, _ERROR_CONST2)),
+        U=((_D * ND) * ND)(*((_D * ND)(*map(float, row)) for row in _U64)),
+        min_shrink=MIN_SHRINK, max_growth=MAX_GROWTH, dead_lo=DEAD_LO,
+        dead_hi=DEAD_HI, eta_reset_jac=ETA_RESET_JACOBIAN,
+        eta_reset_step=ETA_RESET_TIMESTEP,
+        max_steps=cfg.max_steps, max_newton_iter=cfg.max_newton_iter,
+        max_newton_fails=cfg.max_newton_fails,
+        max_err_fails=cfg.max_error_test_fails,
+        update_jac_after=cfg.update_jacobian_after_steps,
+        update_rhs_jac_after=cfg.update_rhs_jacobian_after_steps,
+        jac_reuse=int(cfg.jac_reuse), neval=cfg.neval, nbatch=cfg.nbatch,
+        tile=cfg.tile, ntiles=cfg.ntiles,
+    )
+
+
+def launch_fused_bdf(cfg: FusedConfig, model_header: str,
+                     params_b: torch.Tensor, t_eval: torch.Tensor):
+    """Launch the fused BDF kernel on ``torch.cuda.current_stream()``.
+
+    ``params_b`` is a contiguous (nbatch, nparams) float64 CUDA tensor and
+    ``t_eval`` the (neval,) float64 output times on the same device; the
+    kernel reads the last member's parameters for the pad members of the
+    last tile.  Returns ``(ys (neval, n, B), info (ntiles, 4))`` on that
+    device.  Builds the kernel for this model at first use; raises on a
+    build or launch error."""
+    from .._build import load_fused_bdf
+
+    if not params_b.is_cuda:
+        raise ValueError("launch_fused_bdf needs a CUDA tensor")
+    if params_b.dtype != F64:
+        raise TypeError(f"params must be float64, got {params_b.dtype}")
+    if tuple(params_b.shape) != (cfg.nbatch, cfg.nparams) or not params_b.is_contiguous():
+        raise ValueError(
+            f"params must be contiguous {(cfg.nbatch, cfg.nparams)}, got "
+            f"{tuple(params_b.shape)}")
+    if (t_eval.device != params_b.device or t_eval.dtype != F64
+            or tuple(t_eval.shape) != (cfg.neval,)):
+        raise ValueError("t_eval must be (neval,) float64 on the params' device")
+    lib = load_fused_bdf(model_header)
+    if lib.fused_bdf_config_size() != ctypes.sizeof(CConfig):
+        raise RuntimeError("CConfig does not match the kernel's Config layout")
+    dev = params_b.device
+    with torch.cuda.device(dev):
+        ys = torch.empty(cfg.neval, cfg.n, cfg.nbatch, dtype=F64, device=dev)
+        info = torch.empty(cfg.ntiles, 4, dtype=torch.int32, device=dev)
+        ccfg = _c_config(cfg)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fused_bdf_launch(
+            params_b.data_ptr(), t_eval.data_ptr(), ys.data_ptr(),
+            info.data_ptr(), ctypes.addressof(ccfg), stream,
+        )
+        launch_fused_bdf.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"fused_bdf kernel launch failed: CUDA error {rc}")
+    return ys, info
+
+
+launch_fused_bdf.launches = 0
+
+
+def make_fused_bdf_solve(problem, t_eval, nbatch: int, tile=None,
+                         max_steps: int = 100_000, jac_reuse: bool = True):
+    """Build ``solve(params_b (B, np) f64) -> (ys (neval, n, B) f64,
+    status (ntiles,) int32, steps (ntiles,) int32)`` running the whole
+    adaptive BDF solve per member tile (tiled-lockstep semantics).
+
+    CUDA tensors launch the kernel, CPU tensors run the plain version;
+    ``solve.reference(params_b)`` runs the plain version on any device.
+    Raises :class:`UnsupportedForKernel` out of scope, so callers can fall
+    back to the lockstep path.
+    """
+    eqn = problem.eqn
+    if eqn.mass is not None:
+        raise UnsupportedForKernel(
+            "mass matrices are not in the fused kernel yet (ROADMAP.md "
+            "queue 2 K1 (b))")
+    if problem.lockstep_nbatch != 1:
+        raise UnsupportedForKernel("pass the single-member problem")
+    n, nparams = eqn.nstates, eqn.nparams
+    if n > MAX_STATES:
+        raise UnsupportedForKernel(f"n={n} > {MAX_STATES} states")
+    if tile is not None and int(tile) > MAX_TILE:
+        raise ValueError(f"tile {int(tile)} > {MAX_TILE}, the kernel's block limit")
+    model = trace_model(eqn.rhs, eqn.init, n, nparams)
+    header = emit_cuda_header(model, getattr(eqn.rhs, "__qualname__", "rhs"))
+
+    te = np.asarray(torch.as_tensor(t_eval, dtype=F64).cpu(), np.float64).reshape(-1)
+    if te.size == 0 or np.any(np.diff(te) < 0.0):
+        raise ValueError("t_eval must be non-empty and ascending")
+    atol = np.asarray(problem.atol.cpu(), np.float64).reshape(-1)
+    if atol.size == 1:
+        atol = np.repeat(atol, n)
+    tile = DEFAULT_TILE if tile is None else int(tile)
+    tile = max(1, min(tile, nbatch))
+    ntiles = -(-nbatch // tile)
+    opts = problem.options
+    cfg = FusedConfig(
+        n=n, nparams=nparams, t0=float(problem.t0), rtol=float(problem.rtol),
+        atol=tuple(float(a) for a in atol), t_eval=tuple(float(v) for v in te),
+        nbatch=nbatch, tile=tile, ntiles=ntiles, max_steps=int(max_steps),
+        max_newton_iter=MAX_NEWTON_ITER, max_newton_fails=MAX_NEWTON_FAILS,
+        max_error_test_fails=MAX_ERROR_TEST_FAILS, min_timestep=MIN_TIMESTEP,
+        nl_tol=float(opts.nonlinear_solver_tolerance),
+        ki=float(opts.pi_control_integral),
+        kp=float(opts.pi_control_proportional),
+        update_jacobian_after_steps=int(opts.update_jacobian_after_steps),
+        update_rhs_jacobian_after_steps=int(opts.update_rhs_jacobian_after_steps),
+        threshold_to_update_jacobian=float(opts.threshold_to_update_jacobian),
+        jac_reuse=bool(jac_reuse),
+    )
+
+    def _check(params_b):
+        params_b = torch.as_tensor(params_b)
+        if params_b.dtype != F64 or tuple(params_b.shape) != (nbatch, nparams):
+            raise ValueError(
+                f"params must be ({nbatch}, {nparams}) float64, got "
+                f"{tuple(params_b.shape)} {params_b.dtype}")
+        return params_b
+
+    def reference(params_b):
+        params_b = _check(params_b)
+        return _finish(cfg, *fused_bdf_reference(cfg, eqn.rhs, eqn.init, params_b))
+
+    t_eval_on = {}  # device -> t_eval tensor there
+
+    def solve(params_b):
+        params_b = _check(params_b)
+        if params_b.is_cuda:
+            dev = params_b.device
+            if dev not in t_eval_on:
+                t_eval_on[dev] = torch.tensor(cfg.t_eval, dtype=F64, device=dev)
+            return _finish(cfg, *launch_fused_bdf(
+                cfg, header, params_b.contiguous(), t_eval_on[dev]))
+        return _finish(cfg, *fused_bdf_reference(cfg, eqn.rhs, eqn.init, params_b))
+
+    solve.reference = reference
+    solve.header = header
+    solve.tile = tile
+    solve.ntiles = ntiles
+    return solve

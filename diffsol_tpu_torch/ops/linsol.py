@@ -1,0 +1,58 @@
+"""Linear-solver tiers (counterpart of ``diffsol_tpu.ops.linsol``).
+
+Only the dense tier is ported.  It factors the iteration matrix
+``A = M - c*J`` with ``torch.linalg.lu_factor`` and solves with
+``torch.linalg.lu_solve``; both are float64 on the CPU and on CUDA and
+take a member-major (B, n, n) stack as readily as one (n, n) matrix.
+(The JAX package's hand-unrolled ``smalllu`` exists only because TPU XLA
+has no f64 LU, so it has no counterpart here.)
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from ..equations import DiagMass
+
+
+@dataclass(frozen=True)
+class LinearSolverSpec:
+    """Static vtable for one linear-solver tier: ``assemble(mass, jac, c)``
+    builds ``M - c*J`` (``mass=None`` means identity), ``factor`` and
+    ``solve`` are the two-phase LU interface."""
+
+    name: str
+    assemble: Callable[[Any, Any, Any], Any]
+    factor: Callable[[Any], Any]
+    solve: Callable[[Any, Any], Any]
+
+
+def _dense_assemble(mass, jac, c):
+    n = jac.shape[-1]
+    if mass is None:
+        m = torch.eye(n, dtype=jac.dtype, device=jac.device)
+    elif isinstance(mass, DiagMass):
+        m = torch.diag_embed(mass.d)
+    else:
+        m = mass
+    return m - c * jac
+
+
+def _dense_factor(a):
+    return torch.linalg.lu_factor_ex(a)[:2]
+
+
+def _dense_solve(factors, b):
+    lu, piv = factors
+    return torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)).squeeze(-1)
+
+
+DENSE = LinearSolverSpec(
+    name="dense",
+    assemble=_dense_assemble,
+    factor=_dense_factor,
+    solve=_dense_solve,
+)

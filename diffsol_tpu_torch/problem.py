@@ -1,0 +1,288 @@
+"""Problem definition, options and the fluent builder (counterpart of
+``diffsol_tpu.problem``; the defaults are the reference's and the JAX
+package's).
+
+Every tensor a problem holds is float64.  The builder keeps them on the
+CPU; :meth:`OdeProblem.to` moves a problem to the device of the tensors a
+caller hands to a solve, so the device is always the caller's choice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .equations import OdeEquations, make_equations
+from .ops.linsol import DENSE, LinearSolverSpec
+
+F64 = torch.float64
+
+
+@dataclass(frozen=True)
+class OdeSolverOptions:
+    """Solver-wide policies (reference problem.rs:98-152, same defaults)."""
+
+    max_nonlinear_solver_iterations: int = 10
+    max_error_test_failures: int = 40
+    max_nonlinear_solver_failures: int = 50
+    nonlinear_solver_tolerance: float = 0.2
+    min_timestep: float = 1e-13
+    max_timestep_growth: Optional[float] = None  # solver-specific default
+    min_timestep_growth: Optional[float] = None
+    max_timestep_shrink: Optional[float] = None
+    min_timestep_shrink: Optional[float] = None
+    update_jacobian_after_steps: int = 20
+    update_rhs_jacobian_after_steps: int = 50
+    threshold_to_update_jacobian: float = 0.3
+    threshold_to_update_rhs_jacobian: float = 0.2
+    pi_control_proportional: float = 0.0
+    pi_control_integral: float = 0.5
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    """Per-solver step-size clamps (reference config.rs:22-146).
+
+    ``from_options`` applies the solver-specific defaults: BDF/SDIRK growth
+    in [2, 2] and shrink dead zone [0.5, 0.9]; ERK growth [1, 2], shrink
+    [0.5, 1].
+    """
+
+    minimum_timestep: float = 1e-13
+    maximum_error_test_failures: int = 40
+    maximum_newton_fails: int = 50
+    maximum_newton_iterations: int = 10
+    maximum_timestep_growth: float = 2.0
+    minimum_timestep_growth: float = 2.0
+    maximum_timestep_shrink: float = 0.9
+    minimum_timestep_shrink: float = 0.5
+
+    @staticmethod
+    def from_options(opts: OdeSolverOptions, kind: str) -> "SolverConfig":
+        ming, maxs = (1.0, 1.0) if kind == "erk" else (2.0, 0.9)
+
+        def pick(v, default):
+            return default if v is None else v
+
+        return SolverConfig(
+            minimum_timestep=opts.min_timestep,
+            maximum_error_test_failures=opts.max_error_test_failures,
+            maximum_newton_fails=opts.max_nonlinear_solver_failures,
+            maximum_newton_iterations=opts.max_nonlinear_solver_iterations,
+            maximum_timestep_growth=pick(opts.max_timestep_growth, 2.0),
+            minimum_timestep_growth=pick(opts.min_timestep_growth, ming),
+            maximum_timestep_shrink=pick(opts.max_timestep_shrink, maxs),
+            minimum_timestep_shrink=pick(opts.min_timestep_shrink, 0.5),
+        )
+
+
+@dataclass(frozen=True, eq=False)
+class OdeProblem:
+    """An ODE problem ready for a solver (reference `OdeSolverProblem`).
+
+    ``params`` is (nparams,) for one instance and (B, nparams) for a
+    lockstep ensemble (``lockstep_nbatch = B``), whose state is member-major
+    (B, n).  ``atol`` is (n,) and broadcasts over members.
+    """
+
+    eqn: OdeEquations
+    params: torch.Tensor
+    t0: torch.Tensor
+    h0: torch.Tensor
+    rtol: torch.Tensor
+    atol: torch.Tensor
+    lockstep_nbatch: int = 1
+    options: OdeSolverOptions = field(default_factory=OdeSolverOptions)
+    linear_solver: LinearSolverSpec = DENSE
+
+    def to(self, device) -> "OdeProblem":
+        """The same problem with its tensors on ``device``."""
+        return dataclasses.replace(
+            self,
+            params=self.params.to(device),
+            t0=self.t0.to(device),
+            h0=self.h0.to(device),
+            rtol=self.rtol.to(device),
+            atol=self.atol.to(device),
+        )
+
+
+def _later(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to diffsol_tpu_torch yet (ROADMAP.md {item})"
+    )
+
+
+def _is_diagonal(m: torch.Tensor) -> bool:
+    return m.ndim == 2 and bool(
+        torch.count_nonzero(m - torch.diag_embed(torch.diagonal(m))) == 0
+    )
+
+
+class OdeBuilder:
+    """Fluent problem builder (reference builder.rs:112-1933).
+
+    Example::
+
+        problem = (
+            OdeBuilder()
+            .rhs(lambda t, y, p: -p[0] * y)
+            .init(lambda t, p: torch.ones(1, dtype=torch.float64))
+            .p([0.1])
+            .rtol(1e-6)
+            .build()
+        )
+    """
+
+    def __init__(self):
+        self._rhs = None
+        self._init = None
+        self._mass = None
+        self._p = torch.zeros(0, dtype=F64)
+        self._t0 = 0.0
+        self._h0 = 0.0  # 0 => heuristic
+        self._rtol = 1e-6
+        self._atol = 1e-6
+        self._options = OdeSolverOptions()
+
+    # equations ---------------------------------------------------------
+    def rhs(self, f: Callable):
+        self._rhs = f
+        return self
+
+    def init(self, f: Callable):
+        self._init = f
+        return self
+
+    def mass(self, m: Callable):
+        self._mass = m
+        return self
+
+    # settings ----------------------------------------------------------
+    def p(self, params):
+        if isinstance(params, torch.Tensor):
+            self._p = params.detach().to(F64).reshape(-1).clone()
+        else:
+            self._p = torch.tensor(np.asarray(params, np.float64)).reshape(-1)
+        return self
+
+    def t0(self, t0: float):
+        self._t0 = float(t0)
+        return self
+
+    def h0(self, h0: float):
+        self._h0 = float(h0)
+        return self
+
+    def rtol(self, rtol: float):
+        self._rtol = float(rtol)
+        return self
+
+    def atol(self, atol):
+        self._atol = atol
+        return self
+
+    def options(self, opts: OdeSolverOptions):
+        self._options = opts
+        return self
+
+    # outside this port's slice -------------------------------------------
+    def rhs_implicit(self, f, jac):
+        _later("rhs_implicit", "queue 1 item 2")
+
+    def root(self, g):
+        _later("root events", "queue 1 item 5")
+
+    def reset(self, r):
+        _later("reset operators", "queue 1 item 5")
+
+    def out(self, g):
+        _later("outputs and quadrature", "queue 1 item 5")
+
+    def integrate_out(self, flag: bool = True):
+        _later("quadrature", "queue 1 item 5")
+
+    def out_rtol(self, v):
+        _later("output error control", "queue 1 item 5")
+
+    def out_atol(self, v):
+        _later("output error control", "queue 1 item 5")
+
+    def sens_rtol(self, v):
+        _later("forward sensitivities", "queue 1 item 16")
+
+    def sens_atol(self, v):
+        _later("forward sensitivities", "queue 1 item 16")
+
+    def param_rtol(self, v):
+        _later("adjoint tolerances", "queue 1 item 17")
+
+    def param_atol(self, v):
+        _later("adjoint tolerances", "queue 1 item 17")
+
+    def param_scales(self, v):
+        _later("adjoint tolerances", "queue 1 item 17")
+
+    def ic_options(self, opts):
+        _later("consistent initial conditions", "queue 1 item 4")
+
+    def linear_solver(self, spec):
+        _later("linear solvers other than dense", "queue 1 items 11 and 14")
+
+    def use_coloring(self, flag: bool = True):
+        _later("sparsity coloring", "queue 1 item 11")
+
+    def build_from_diffsl(self, source: str):
+        _later("DiffSL", "queue 1 item 10")
+
+    def build_from_eqn(self, model):
+        _later("DiffSL", "queue 1 item 10")
+
+    def dtype(self, d):
+        _later("solve precisions other than float64", "queue 2 K1 (f)")
+
+    # build --------------------------------------------------------------
+    def build(self) -> OdeProblem:
+        if self._rhs is None or self._init is None:
+            raise ValueError("OdeBuilder requires at least .rhs(...) and .init(...)")
+        params = self._p
+        mass_diag = None
+        if self._mass is not None:
+            # probe at several times and perturbed params, as the JAX
+            # builder does: a mass whose off-diagonals merely vanish at
+            # (t0, p) must not be taken as diagonal
+            mass_f = self._mass
+            probes = [
+                (self._t0, params),
+                (self._t0 + 1.0, params),
+                (self._t0 + 0.5, params * 1.25 + 0.125),
+            ]
+            if all(
+                _is_diagonal(mass_f(torch.tensor(t, dtype=F64), pp))
+                for t, pp in probes
+            ):
+                def mass_diag(t, p):
+                    return torch.diagonal(mass_f(t, p), dim1=-2, dim2=-1)
+
+        eqn = make_equations(
+            self._rhs, self._init, params, self._t0,
+            mass=self._mass, mass_diag=mass_diag,
+        )
+        atol = (self._atol.detach().to(F64).cpu()
+                if isinstance(self._atol, torch.Tensor)
+                else torch.tensor(np.asarray(self._atol, np.float64))).reshape(-1)
+        if atol.numel() == 1:
+            atol = atol.expand(eqn.nstates).clone()
+        return OdeProblem(
+            eqn=eqn,
+            params=params.clone(),
+            t0=torch.tensor(self._t0, dtype=F64),
+            h0=torch.tensor(self._h0, dtype=F64),
+            rtol=torch.tensor(self._rtol, dtype=F64),
+            atol=atol,
+            options=self._options,
+        )

@@ -1,0 +1,202 @@
+"""Equation code generation (ops/eqn_codegen.py): the traced scalar IR
+against the torch callables it came from and against torch.func.jacfwd,
+the generated CUDA source (produced here, compiled only on the card), and
+the scope checks.
+
+The IR evaluator performs the callable's float64 operations in the same
+order, so values and dual-number Jacobians agree to 1e-14 relative (a few
+ulps where a power x**k is unrolled into k-1 products)."""
+
+import ctypes
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import diffsol_tpu_torch as dtt
+from diffsol_tpu_torch.models import robertson
+from diffsol_tpu_torch.ops import eqn_codegen as cg
+from diffsol_tpu_torch.ops import fused_stepper as fs
+from diffsol_tpu_torch.ops.fused_stepper import make_fused_bdf_solve
+
+torch.set_num_threads(1)
+
+TOL = 1e-14
+F64 = torch.float64
+
+
+def rhs_wide(t, y, p):
+    """Every operation in the codegen scope: literals, neg, powers,
+    exp/log/sqrt/sin/cos/tanh, indexing, slicing, stack and cat."""
+    a = 1.0 - y[0] * p[0]
+    b = y[1] ** 2 / 3e7 + torch.exp(-y[2]) * 1e4 + torch.sin(t) * p[1]
+    c = torch.cat([y[0:2] * 0.04, torch.tanh(y[2:3])])
+    d = torch.sqrt(y[1]) + torch.log(y[0]) + torch.cos(y[2]) + y[1] ** -2
+    return torch.stack([a, b, c[0] + d]) + c
+
+
+def _vmapped(fn):
+    return torch.func.vmap(fn, in_dims=(0, 0, 0))
+
+
+def _inputs(seed, B=6):
+    rng = np.random.default_rng(seed)
+    t = torch.tensor(rng.uniform(0.0, 2.0, B), dtype=F64)
+    y = torch.tensor(rng.uniform(0.5, 1.5, (B, 3)), dtype=F64)
+    p = torch.tensor(rng.uniform(0.5, 2.0, (B, 3)), dtype=F64)
+    return t, y, p
+
+
+@pytest.mark.parametrize("fn", [robertson.rhs_ode, rhs_wide], ids=["robertson", "wide"])
+def test_ir_matches_rhs_and_jacfwd(fn):
+    t, y, p = _inputs(5)
+    if fn is robertson.rhs_ode:
+        p = p * torch.tensor([0.04, 1e4, 3e7], dtype=F64)
+    ir = cg.trace_ir(fn, ("t", "y", "p"), (None, 3, 3))
+    ref = _vmapped(fn)(t, y, p)
+    got = cg.eval_rhs(ir, t, y, p)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=TOL,
+                               atol=TOL * float(ref.abs().max()))
+    J_ref = _vmapped(torch.func.jacfwd(fn, argnums=1))(t, y, p)
+    J = cg.jacobian(ir, t, y, p)
+    np.testing.assert_allclose(J.numpy(), J_ref.numpy(), rtol=TOL,
+                               atol=TOL * float(J_ref.abs().max()))
+
+
+def test_init_ir_matches_init():
+    model = cg.trace_model(robertson.rhs_ode, robertson.init, 3, 3)
+    p = torch.tensor([[0.04, 1e4, 3e7]] * 2, dtype=F64)
+    got = cg.eval_init(model.init, 0.0, p)
+    np.testing.assert_array_equal(got.numpy(), [[1.0, 0.0, 0.0]] * 2)
+
+
+def _constants(src):
+    return {float(v) for v in re.findall(r"T\(([-+0-9.eE]+)\)", src)}
+
+
+def test_generated_cuda_source():
+    """The model header is produced (not compiled: there is no nvcc here)
+    and lifts every literal at float64, exactly."""
+    model = cg.trace_model(rhs_wide, robertson.init, 3, 3)
+    src = cg.emit_cuda_header(model, "rhs_wide")
+    assert "#define MODEL_N 3" in src and "#define MODEL_NP 3" in src
+    assert "void model_rhs(const T& t, const T* y, const T* p, T* out)" in src
+    assert "void model_init(const T& t, const T* p, T* out)" in src
+    for fn in ("dsol_exp", "dsol_log", "dsol_sqrt", "dsol_sin", "dsol_cos", "dsol_tanh"):
+        assert fn in src
+    consts = _constants(src)
+    assert {1e4, 3e7, 0.04, 1.0, 0.0} <= consts
+    # 0.04 is not a float32 value: lifting at f32 would have changed it
+    assert float(np.float32(0.04)) not in consts
+    # the Robertson model has no literals in its rhs: p carries 1e4 and 3e7
+    rob = cg.emit_cuda_header(cg.trace_model(robertson.rhs_ode, robertson.init, 3, 3))
+    assert "p[1]" in rob and "p[2]" in rob
+    assert re.search(r"out\[2\] = v\d+;", rob)
+
+
+def _unsupported(name):
+    if name == "erf":
+        return lambda t, y, p: torch.erf(y)
+    if name == "branch":
+        def f(t, y, p):
+            if y[0] > 0:
+                return y
+            return -y
+        return f
+    if name == "fractional_pow":
+        return lambda t, y, p: y ** 1.5
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", ["erf", "branch", "fractional_pow"])
+def test_out_of_scope_ops_raise(name):
+    with pytest.raises(cg.UnsupportedForKernel):
+        cg.trace_ir(_unsupported(name), ("t", "y", "p"), (None, 3, 3))
+
+
+def test_out_of_scope_problems_raise_and_auto_falls_back():
+    mass_problem = (
+        dtt.OdeBuilder()
+        .rhs(lambda t, y, p: -p[0] * y)
+        .init(lambda t, p: torch.ones(2, dtype=F64))
+        .mass(lambda t, p: torch.diag(torch.tensor([1.0, 2.0], dtype=F64)))
+        .p([0.5])
+        .build()
+    )
+    with pytest.raises(cg.UnsupportedForKernel, match="mass"):
+        make_fused_bdf_solve(mass_problem, [1.0], 4)
+    big = (
+        dtt.OdeBuilder()
+        .rhs(lambda t, y, p: -p[0] * y)
+        .init(lambda t, p: torch.ones(9, dtype=F64))
+        .p([0.5])
+        .build()
+    )
+    with pytest.raises(cg.UnsupportedForKernel, match="states"):
+        make_fused_bdf_solve(big, [1.0], 4)
+    erf_problem = (
+        dtt.OdeBuilder()
+        .rhs(lambda t, y, p: -p[0] * torch.erf(y))
+        .init(lambda t, p: torch.ones(2, dtype=F64))
+        .p([0.5])
+        .build()
+    )
+    params = torch.tensor([[0.5], [0.7]], dtype=F64)
+    with pytest.raises(cg.UnsupportedForKernel):
+        dtt.solve_dense_ensemble(dtt.BdfSolver, erf_problem, [0.5, 1.0], params,
+                                 mode="fused")
+    sol = dtt.solve_dense_ensemble(dtt.BdfSolver, erf_problem, [0.5, 1.0], params,
+                                   mode="auto")
+    assert sol.tier == "lockstep"
+    assert sol.stop_reason == dtt.errors.TSTOP_REACHED
+
+
+@pytest.mark.parametrize("name", ["zeros", "full", "ones_like", "zeros_like"])
+def test_constant_factories_lift_to_constants(name):
+    f64 = torch.float64
+    fn = {
+        "zeros": lambda t, p: torch.zeros(2, dtype=f64) + p,
+        "full": lambda t, p: torch.full((2,), 2.5, dtype=f64) * p,
+        "ones_like": lambda t, p: torch.ones_like(p) - p,
+        "zeros_like": lambda t, p: torch.zeros_like(p) + 1e-3,
+    }[name]
+    ir = cg.trace_ir(fn, ("t", "p"), (None, 2))
+    p = torch.tensor([[3.0, 4.0], [0.5, 0.25]], dtype=f64)
+    ref = torch.func.vmap(fn, in_dims=(None, 0))(torch.tensor(0.0, dtype=f64), p)
+    np.testing.assert_array_equal(cg.eval_init(ir, 0.0, p).numpy(), ref.numpy())
+
+
+def _cuda_struct_fields(src, name):
+    """(c type, field name) of each member of ``struct name`` in order."""
+    body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
+    fields = []
+    for decl in body.split(";"):
+        decl = re.sub(r"//[^\n]*", "", decl).strip()
+        if decl:
+            ctype, names = decl.split(None, 1)
+            fields += [(ctype, re.match(r"\w+", v.strip()).group(0))
+                       for v in names.split(",")]
+    return fields
+
+
+def test_kernel_config_mirrors_the_cuda_struct():
+    """The wrapper's ctypes CConfig lists the kernel's Config fields in the
+    same order and with the same scalar types."""
+    src = (Path(fs.__file__).resolve().parent.parent / "csrc" / "fused_bdf.cuh").read_text()
+    cuda = _cuda_struct_fields(src, "Config")
+
+    def scalar(ct):
+        while hasattr(ct, "_type_") and hasattr(ct, "_length_"):
+            ct = ct._type_
+        return {ctypes.c_double: "double", ctypes.c_int: "int"}[ct]
+
+    assert cuda == [(scalar(ct), name) for name, ct in fs.CConfig._fields_]
+
+
+def test_tile_above_the_block_limit_raises():
+    with pytest.raises(ValueError, match="block limit"):
+        make_fused_bdf_solve(robertson.problem_ode(), [1.0], 2048, tile=fs.MAX_TILE + 1)
+    assert make_fused_bdf_solve(robertson.problem_ode(), [1.0], 2048,
+                                tile=fs.MAX_TILE).tile == fs.MAX_TILE
