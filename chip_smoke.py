@@ -1,25 +1,46 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Smoke test of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: its name and power limit from nvidia-smi;
-2. build the fused BDF kernel (csrc/fused_bdf.cuh plus the Robertson model
-   header generated from the torch rhs) with nvcc; print the build time and
-   ptxas's register and spill counts;
-3. the kernel against its plain PyTorch version on the card: 256 Robertson
-   members with k1 spread +-10%, t_eval 0.4 ... 4e10, the same tile;
-4. the main path: solve_dense_ensemble(BdfSolver, robertson.problem_ode(),
-   T_EVAL_4E10, params (10,000, 3) f64 on the card, mode="fused"), with the
-   kernel's launch counter read around it, checked against the reference's
-   CVODE table (robertson.SOLN);
-5. times of the main path and of the plain version at the same shapes
-   (CUDA events), with the card's name and power limit.
+2. build the three kernel libraries at once, one nvcc each: the fused BDF
+   kernel (csrc/fused_bdf.cuh plus the Robertson model header generated
+   from the torch rhs), the band LU (csrc/band_lu.cuh) and the fused band
+   BDF kernel (csrc/fused_band_bdf.cuh plus the heat1d rhs header); print
+   the Robertson build's time and ptxas's register and spill counts;
+3. the fused BDF kernel against its plain PyTorch version on the card: 256
+   Robertson members with k1 spread +-10%, t_eval 0.4 ... 4e10, the same
+   tile;
+4. the small-n main path: solve_dense_ensemble(BdfSolver,
+   robertson.problem_ode(), T_EVAL_4E10, params (10,000, 3), mode="fused")
+   with the kernel's launch counter read around it, checked against the
+   reference's CVODE table (robertson.SOLN);
+5. times of that path and of the plain version at the same shapes (CUDA
+   events), with the card's name and power limit;
+6. the band libraries' build times and ptxas lines;
+7. the band LU kernels (factor, solve) against their plain versions on the
+   heat1d iteration matrix M - cJ (n=128, B=1024, c=1e-3) and on a random
+   diagonally dominant band (ml=3, mu=2, numpy seed 0); times of both, of
+   the plain versions and of torch.linalg.lu_factor / lu_solve on the
+   dense (1024, 128, 128) expansion;
+8. the banded lockstep path: heat1d n=128 (mgrid=127, rtol 1e-6, atol
+   1e-8), tridiagonal, B=1024 diffusivities linspace(0.5, 2.0), t_eval
+   [0.001, 0.01, 0.05, 0.1, 0.2], mode="lockstep", with the band LU launch
+   counters read around it, checked against the analytic Fourier series;
+9. the fused band kernel against its plain version at B=256 (2 tiles);
+10. the banded fused main path at B=1024: one kernel launch, the same
+    checks, agreement with phase 8, its time (median of 5) and the plain
+    version's at the same shapes;
+11. one traced call of each of the three paths (torch.profiler): the
+    device time by kernel and the device's busy share of the call (the
+    profiler's own overhead is in the call's time).
 
-The line before the last is a JSON record of the kernel (launches, error
-against the plain version, times); the last line is the JSON result
+The line before the last is a JSON record of the four kernels (launches on
+their path, error against the plain version, times, the card's least time
+for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -28,6 +49,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,6 +67,26 @@ SEED = 0
 YS_RTOL, YS_ATOL = 1e-9, 1e-12
 # member 0 against the CVODE table, as tests/test_dae.py:71-72
 SOLN_TOL = ((5e-3, 1e-10), None, (5e-3, 1e-8))
+
+# the banded tier (bench.py row_pallas_band, examples/heat1d_band_ensemble.py)
+HEAT_MGRID = 127  # n = 128
+HEAT_T_EVAL = [0.001, 0.01, 0.05, 0.1, 0.2]
+B_BAND = 1024
+B_BAND_CHECK = 256
+# band LU kernel vs plain version: float64, the same operation order, so
+# they part only by FMA contraction, about one rounding per column step of
+# a diagonally dominant band; 1e-12 relative (of the largest entry for the
+# near-zero ones) leaves room for n = 128 such steps and fails any f32 path
+LU_RTOL = 1e-12
+# the member nearest d = 1.0 against the analytic series
+# (examples/heat1d_band_ensemble.py:74-92), and the two banded modes
+# against each other at the solver's tolerance (tests/test_pallas_band.py)
+ANALYTIC_TOL = 1e-4
+MODES_RTOL, MODES_ATOL = 5e-4, 1e-6
+# the card's peaks (NVIDIA H100 SXM data sheet): f64 without tensor cores
+# and HBM bandwidth
+PEAK_F64 = 34e12
+PEAK_BYTES = 3.35e12
 
 
 def card() -> str:
@@ -81,6 +123,23 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def bound(nbytes: float, ops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for work that moves ``nbytes`` and does ``ops`` f64 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F64 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bdf_step_ops(n: int, rhs_ops: int, solve_ops: int) -> int:
+    """f64 operations every accepted BDF step does at least once per
+    member: the prediction and psi (5n at order 1), one Newton iteration
+    (the rhs, the residual 4n, one linear solve, its norm 4n), the error
+    norm (4n) and the difference update (4n at order 1).  Rejected
+    attempts, further Newton iterations, Jacobians and factorizations come
+    on top, so a bound from it is a lower bound."""
+    return 5 * n + rhs_ops + 4 * n + solve_ops + 4 * n + 4 * n + 4 * n
+
+
 def check_close(name, got, ref, steps_got, steps_ref):
     """Equal accepted steps in every tile and ys within YS_ATOL + YS_RTOL
     |ref|; returns the largest absolute difference and the largest share
@@ -96,36 +155,55 @@ def check_close(name, got, ref, steps_got, steps_ref):
     return float((got - ref).abs().max()), float(share.max())
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+def check_lu(name, got, ref):
+    """Band LU kernel vs plain version within LU_RTOL; returns the largest
+    absolute difference."""
+    atol = LU_RTOL * float(ref.abs().max())
+    bad = (got - ref).abs() > atol + LU_RTOL * ref.abs()
+    if not bool(torch.isfinite(got).all()) or bool(bad.any()):
+        raise AssertionError(f"{name}: kernel and plain version disagree at "
+                             f"{int(bad.sum())} entries")
+    return float((got - ref).abs().max())
+
+
+def print_builds(tag, builds):
+    for b in builds:
+        print(f"[{tag}] built {b['name']} ({b['library']}) in {b['seconds']:.1f} s",
+              flush=True)
+        for ln in b["ptxas"]:
+            print(f"[{tag}]   {ln}", flush=True)
+
+
+def check_heat(name, sol, soln, d, n):
+    """TSTOP_REACHED, finite ys of the right shape, the member nearest
+    d = 1.0 against the analytic series and the midpoint decay monotone in
+    d; returns that member's error."""
+    from diffsol_tpu_torch import errors
+
+    if sol.stop_reason != errors.TSTOP_REACHED:
+        raise AssertionError(f"{name}: stop_reason {sol.stop_reason}")
+    ys = sol.ys.cpu().numpy()
+    if ys.shape != (len(HEAT_T_EVAL), len(d), n) or not np.all(np.isfinite(ys)):
+        raise AssertionError(f"{name}: ys shape {ys.shape} or non-finite values")
+    m = int(np.argmin(np.abs(d - 1.0)))
+    err = float(np.abs(ys[:, m] - soln(HEAT_T_EVAL, d[m])).max())
+    if not err < ANALYTIC_TOL:
+        raise AssertionError(f"{name}: member d={d[m]} off the analytic series by {err}")
+    mid = ys[-1, :, n // 2]
+    if not np.all(np.diff(mid) < 0):
+        raise AssertionError(f"{name}: midpoint decay not monotone in d")
+    return err
+
+
+def robertson_phases(dev, rng, card_line, problem, check_solve):
+    """Phases 3-5; returns the small-n main path (name, callable) and the
+    fused_bdf kernel's record."""
     from diffsol_tpu_torch import BdfSolver, errors, solve_dense_ensemble
-    from diffsol_tpu_torch._build import load_fused_bdf
     from diffsol_tpu_torch.models import robertson
     from diffsol_tpu_torch.ops import fused_stepper as fs
+    from diffsol_tpu_torch.ops.eqn_codegen import op_count, trace_model
 
-    dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(SEED)
-    card_line = card()
-    print(f"[1] card: {card_line}; torch {torch.__version__}, CUDA {torch.version.cuda}",
-          flush=True)
-
-    # ---- 2. build
-    problem = robertson.problem_ode()
     te = robertson.T_EVAL_4E10
-    check_solve = fs.make_fused_bdf_solve(problem, te, B_CHECK)
-    t0 = time.perf_counter()
-    load_fused_bdf(check_solve.header)
-    build_s = time.perf_counter() - t0
-    if load_fused_bdf.builds:
-        print(f"[2] built fused_bdf for robertson in {build_s:.1f} s", flush=True)
-        for ln in load_fused_bdf.builds[-1]["ptxas"]:
-            print(f"[2] {ln}", flush=True)
-    else:
-        print("[2] fused_bdf for robertson was already built under "
-              "build/diffsol_tpu_torch/ (delete it to see ptxas's report)", flush=True)
-
     # ---- 3. kernel vs plain version at B=256
     p_check = robertson_params(B_CHECK, rng, dev)
     ys_k, st_k, steps_k = check_solve(p_check)
@@ -182,19 +260,279 @@ def main() -> int:
     print(f"[5] main path (fused kernel): {kernel_ms:.3f} ms median of 5; plain "
           f"PyTorch version: {plain_ms:.1f} ms median of 3; kernel vs plain max abs "
           f"{abs5:.3e}, {share5:.3e} of the bound; card {card_line}", flush=True)
-
-    record = {"kernels": [{
-        "name": "fused_bdf",
-        "route": "cuda",
+    # the least time: params in and ys out once, or the f64 work of the
+    # accepted steps (an n x n LU solve each), whichever is longer
+    n = 3
+    rhs_ops = op_count(trace_model(problem.eqn.rhs, None, n, 3).rhs)
+    ops = B_MAIN * int(sol.tile_steps.sum()) / len(steps) * bdf_step_ops(
+        n, rhs_ops, 2 * n * n)
+    nbytes = 8 * (p_main.numel() + sol.ys.numel() + len(te))
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"[5] least time for that work: {bound_ms:.4f} ms, bound by {bound_by} "
+          f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP f64, a lower bound)", flush=True)
+    return ("small-n fused main path (B=10,000)", main_path), {
+        "name": "fused_bdf", "route": "cuda",
         "source": "diffsol_tpu_torch/csrc/fused_bdf.cuh",
         "replaces": "diffsol_tpu/ops/pallas_stepper.py:656",
-        "launches": launches,
-        "max_abs_err": abs5,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}
+        "launches": launches, "max_abs_err": abs5, "ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def band_lu_phase(dev, heat_problem, card_line):
+    """Phase 7; returns the band_lu_factor and band_lu_solve records
+    (launches filled in by phase 8)."""
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.ops.banded import _band_index
+
+    n, B = HEAT_MGRID + 1, B_BAND
+    d = torch.linspace(0.5, 2.0, B, dtype=torch.float64, device=dev)[:, None]
+    jac = torch.func.vmap(heat_problem.eqn.jac, in_dims=(None, 0, 0))(
+        torch.tensor(0.0, dtype=torch.float64, device=dev),
+        torch.zeros(B, n, dtype=torch.float64, device=dev), d)
+    heat_band = heat_problem.linear_solver.assemble(None, jac, 1e-3)
+    rng = np.random.default_rng(SEED)
+    ml_r, mu_r = 3, 2
+    rnd = rng.standard_normal((B, ml_r + mu_r + 1, n))
+    rnd[:, mu_r] += 2.0 * (ml_r + mu_r + 1)
+    rnd *= _band_index(n, ml_r, mu_r)[1]
+    rnd_band = torch.tensor(rnd, device=dev)
+    b = torch.tensor(rng.standard_normal((B, n)), device=dev)
+    errs = {"factor": 0.0, "solve": 0.0}
+    for name, band, ml, mu in (("heat1d", heat_band, 1, 1),
+                               ("random", rnd_band, ml_r, mu_r)):
+        F = band_lu.band_lu_factor(band, ml, mu)
+        x = band_lu.band_lu_solve(F, b, ml, mu)
+        F_p = band_lu.band_lu_factor_reference(band, ml, mu)
+        x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
+        torch.cuda.synchronize()
+        ef = check_lu(f"{name} factor", F, F_p)
+        ex = check_lu(f"{name} solve", x, x_p)
+        if name == "heat1d":  # the main path's shapes
+            errs = {"factor": ef, "solve": ex}
+        print(f"[7] band LU kernels vs plain, {name} (B={B}, n={n}, ml={ml}, mu={mu}): "
+              f"factors max abs diff {ef:.3e}, x max abs diff {ex:.3e} "
+              f"(bound {LU_RTOL:g} relative)", flush=True)
+
+    F = band_lu.band_lu_factor(heat_band, 1, 1)
+    k3_ms = time_ms(lambda: band_lu.band_lu_factor(heat_band, 1, 1), 20)
+    k4_ms = time_ms(lambda: band_lu.band_lu_solve(F, b, 1, 1), 20)
+    k3_plain = time_ms(lambda: band_lu.band_lu_factor_reference(heat_band, 1, 1), 3)
+    k4_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F, b, 1, 1), 3)
+    dense = torch.zeros(B, n, n, dtype=torch.float64, device=dev)
+    i = torch.arange(n, device=dev)
+    dense[:, i, i] = heat_band[:, 1]
+    dense[:, i[1:], i[:-1]] = heat_band[:, 2, :-1]
+    dense[:, i[:-1], i[1:]] = heat_band[:, 0, 1:]
+    lu, piv = torch.linalg.lu_factor(dense)
+    x_lib = torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)).squeeze(-1)
+    x_k = band_lu.band_lu_solve(F, b, 1, 1)
+    lib_err = float((x_lib - x_k).abs().max())
+    lib_f_ms = time_ms(lambda: torch.linalg.lu_factor(dense), 5)
+    lib_s_ms = time_ms(lambda: torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)), 5)
+    # bytes: the band read once and the factors written once (factor); the
+    # factors and b read once and x written once (solve); the f64 work of
+    # the column sweeps is far smaller
+    nb = 3
+    f_bytes = 8 * B * (nb * n + (n + 1) * nb)
+    s_bytes = 8 * B * ((n + 1) * nb + 2 * n)
+    f_bound = bound(f_bytes, B * n * (1 + 1 + 2))
+    s_bound = bound(s_bytes, B * (2 * (n - 1) + 3 * n))
+    print(f"[7] band LU at B={B}, n={n}, ml=mu=1 (median of 20): factor {k3_ms:.4f} ms "
+          f"(least {f_bound[0]:.4f} ms by {f_bound[1]}), solve {k4_ms:.4f} ms (least "
+          f"{s_bound[0]:.4f} ms by {s_bound[1]}); plain {k3_plain:.2f} / {k4_plain:.2f} ms; "
+          f"torch.linalg.lu_factor / lu_solve on the dense (B, n, n) expansion "
+          f"{lib_f_ms:.3f} / {lib_s_ms:.3f} ms (max abs diff to the kernel's x "
+          f"{lib_err:.2e}); card {card_line}", flush=True)
+    common = {"route": "cuda", "source": "diffsol_tpu_torch/csrc/band_lu.cuh"}
+    return [
+        dict(name="band_lu_factor", replaces="diffsol_tpu/ops/pallas_banded.py:51",
+             launches=0, max_abs_err=errs["factor"], ms=k3_ms, plain_ms=k3_plain,
+             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=lib_f_ms, **common),
+        dict(name="band_lu_solve", replaces="diffsol_tpu/ops/pallas_banded.py:72",
+             launches=0, max_abs_err=errs["solve"], ms=k4_ms, plain_ms=k4_plain,
+             bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=lib_s_ms, **common),
+    ]
+
+
+def band_phases(dev, card_line, heat_problem, soln, check_solve):
+    """Phases 7-10; returns the two banded paths (name, callable) and the
+    records of the band LU and the fused band kernels."""
+    from diffsol_tpu_torch import BdfSolver, solve_dense_ensemble
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+    from diffsol_tpu_torch.ops.eqn_codegen import op_count, trace_model
+
+    n = HEAT_MGRID + 1
+    lu_records = band_lu_phase(dev, heat_problem, card_line)
+    d = np.linspace(0.5, 2.0, B_BAND)
+    params = d[:, None]  # numpy: the entry point places it on the card
+
+    # ---- 8. the lockstep path: K3 on every factorization, K4 on every solve
+    band_lu.launch_band_lu_factor.launches = 0
+    band_lu.launch_band_lu_solve.launches = 0
+    t0 = time.perf_counter()
+    lock = solve_dense_ensemble(BdfSolver, heat_problem, HEAT_T_EVAL, params,
+                                mode="lockstep")
+    torch.cuda.synchronize()
+    lock_s = time.perf_counter() - t0
+    k3 = band_lu.launch_band_lu_factor.launches
+    k4 = band_lu.launch_band_lu_solve.launches
+    if lock.tier != "lockstep" or not lock.ys.is_cuda:
+        raise AssertionError(f"lockstep: tier {lock.tier!r}, ys on {lock.ys.device}")
+    if k3 < 1 or k4 < 1:
+        raise AssertionError(f"lockstep launched K3 {k3} and K4 {k4} times")
+    err8 = check_heat("lockstep", lock, soln, d, n)
+    st = lock.state.stats
+    print(f"[8] lockstep path: B={B_BAND}, n={n}, {st.steps} steps, {st.newton_iterations} "
+          f"Newton iterations, band LU launches factor {k3} solve {k4}, "
+          f"TSTOP_REACHED, member d=1.0 vs analytic {err8:.3e}, {lock_s:.2f} s "
+          f"(host clock, one run)", flush=True)
+    lu_records[0]["launches"], lu_records[1]["launches"] = k3, k4
+
+    # ---- 9. the fused band kernel vs its plain version at B=256
+    p_check = torch.tensor(np.linspace(0.5, 2.0, B_BAND_CHECK)[:, None], device=dev)
+    ys_k, st_k, steps_k = check_solve(p_check)
+    ys_p, st_p, steps_p = check_solve.reference(p_check)
+    torch.cuda.synchronize()
+    if int(st_k.min()) != fs.OK or int(st_p.min()) != fs.OK:
+        raise AssertionError(f"band status kernel {st_k.tolist()} plain {st_p.tolist()}")
+    abs9, share9 = check_close("band B=256", ys_k, ys_p, steps_k, steps_p)
+    print(f"[9] fused band kernel vs plain, B={B_BAND_CHECK} tile={check_solve.tile}: max "
+          f"abs diff {abs9:.3e}, {share9:.3e} of the bound; steps per tile kernel "
+          f"{steps_k.tolist()} plain {steps_p.tolist()}", flush=True)
+
+    # ---- 10. the banded fused main path
+    def main_path():
+        return solve_dense_ensemble(BdfSolver, heat_problem, HEAT_T_EVAL, params,
+                                    mode="fused")
+
+    fb.launch_fused_band_bdf.launches = 0
+    sol = main_path()
+    torch.cuda.synchronize()
+    k2 = fb.launch_fused_band_bdf.launches
+    if sol.tier != "fused_band" or k2 != 1:
+        raise AssertionError(f"fused: tier {sol.tier!r}, {k2} kernel launches")
+    err10 = check_heat("fused", sol, soln, d, n)
+    diff = (sol.ys - lock.ys).abs()
+    if bool((diff > MODES_ATOL + MODES_RTOL * lock.ys.abs()).any()):
+        raise AssertionError(f"fused and lockstep disagree: max abs {float(diff.max())}")
+    steps = sol.tile_steps.cpu().numpy()
+    print(f"[10] fused main path: B={B_BAND}, tier {sol.tier}, {k2} kernel launch, "
+          f"TSTOP_REACHED, member d=1.0 vs analytic {err10:.3e}, vs lockstep max abs "
+          f"{float(diff.max()):.3e}; accepted steps per tile {steps.tolist()}", flush=True)
+    main_solve = fb.make_fused_band_bdf_solve(heat_problem, HEAT_T_EVAL, B_BAND)
+    p_main = torch.tensor(params, device=dev)
+    t0 = time.perf_counter()
+    ys_p, st_p, steps_p = main_solve.reference(p_main)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    abs10, share10 = check_close("band B=1024", sol.ys.movedim(1, -1), ys_p,
+                                 sol.tile_steps, steps_p)
+    kernel_ms = time_ms(main_path, 5)
+    # the least time: params, the host's initial state and h per tile in,
+    # ys out once, or the f64 work of the accepted steps (a band solve
+    # each), whichever is longer
+    rhs_ops = op_count(trace_model(heat_problem.eqn.rhs, None, n, 1).rhs)
+    ops = B_BAND * int(sol.tile_steps.sum()) / len(steps) * bdf_step_ops(
+        n, rhs_ops, (2 * 1 + 2 * 1 + 1) * n)
+    nbytes = 8 * (B_BAND + 2 * n * B_BAND + len(steps) + sol.ys.numel() + 2 * n)
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"[10] fused band main path: {kernel_ms:.3f} ms median of 5; plain PyTorch "
+          f"version {plain_ms:.1f} ms (one run, host clock); kernel vs plain max abs "
+          f"{abs10:.3e}, {share10:.3e} of the bound, equal steps per tile; least time "
+          f"{bound_ms:.4f} ms by {bound_by} ({ops / 1e9:.3f} GFLOP f64, a lower bound); "
+          f"card {card_line}", flush=True)
+    paths = [
+        ("banded fused main path (B=1024)", main_path),
+        ("banded lockstep path (B=1024)", lambda: solve_dense_ensemble(
+            BdfSolver, heat_problem, HEAT_T_EVAL, params, mode="lockstep")),
+    ]
+    return paths, lu_records + [{
+        "name": "fused_band_bdf", "route": "cuda",
+        "source": "diffsol_tpu_torch/csrc/fused_band_bdf.cuh",
+        "replaces": "diffsol_tpu/ops/pallas_stepper_band.py:290",
+        "launches": k2, "max_abs_err": abs10, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }]
+
+
+def profile_paths(paths, card_line):
+    """Phase 11: trace one call of each path (after a warm-up) with
+    torch.profiler; print its wall time, the device time by kernel and the
+    busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fn in paths:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = sorted(
+            ((getattr(ev, "self_device_time_total", 0.0), ev.count, ev.key)
+             for ev in prof.key_averages()
+             if getattr(ev, "device_type", None) == DeviceType.CUDA),
+            reverse=True)
+        busy_us = sum(k[0] for k in kernels)
+        if busy_us <= 0.0:
+            print(f"[11] {name}: the profiler recorded no device time (not "
+                  f"measured)", flush=True)
+            continue
+        top = "; ".join(f"{key[:60]} {us / 1e3:.3f} ms x{cnt}" for us, cnt, key in kernels[:6])
+        print(f"[11] {name}: call {wall_us / 1e3:.3f} ms (host clock, profiled), "
+              f"device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.1%} of the call, "
+              f"{sum(k[1] for k in kernels)} kernel launches; top: {top}; card {card_line}",
+              flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from diffsol_tpu_torch import _build
+    from diffsol_tpu_torch.models import heat1d, robertson
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    card_line = card()
+    print(f"[1] card: {card_line}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+
+    # ---- 2. build every kernel library at once
+    problem = robertson.problem_ode()
+    check_solve = fs.make_fused_bdf_solve(problem, robertson.T_EVAL_4E10, B_CHECK)
+    heat_problem, soln = heat1d.make(HEAT_MGRID, rtol=1e-6, atol=1e-8, banded=True)
+    band_check = fb.make_fused_band_bdf_solve(heat_problem, HEAT_T_EVAL, B_BAND_CHECK)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=3) as ex:  # one nvcc each, all at once
+        builds = [ex.submit(_build.load_fused_bdf, check_solve.header),
+                  ex.submit(_build.load_band_lu),
+                  ex.submit(_build.load_fused_band_bdf, band_check.header, 1, 1)]
+        for b in builds:
+            b.result()
+    build_s = time.perf_counter() - t0
+    print(f"[2] kernel libraries ready in {build_s:.1f} s (parallel nvcc)", flush=True)
+    print_builds(2, [b for b in _build.BUILDS if b["name"] == "fused_bdf"])
+    if not _build.BUILDS:
+        print("[2] the libraries were already built under build/diffsol_tpu_torch/ "
+              "(delete it to see ptxas's report)", flush=True)
+
+    small_path, small_record = robertson_phases(dev, rng, card_line, problem, check_solve)
+    print_builds(6, [b for b in _build.BUILDS if b["name"] != "fused_bdf"])
+    band_paths, band_records = band_phases(dev, card_line, heat_problem, soln, band_check)
+    profile_paths([small_path] + band_paths, card_line)
+    record = [small_record] + band_records
+
     print(f"card: {card_line}")
-    print(json.dumps(record))
+    print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

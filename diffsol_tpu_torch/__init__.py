@@ -2,12 +2,15 @@
 
 The JAX package ``diffsol_tpu`` is the reference; this package mirrors its
 module names and public layouts.  Plain tensor code is eager PyTorch in
-float64, and the fused small-n BDF whole-solve kernel is CUDA C++ for
-Hopper (``csrc/fused_bdf.cuh``), built with ``nvcc`` at first use.
+float64, and every Pallas kernel of the covered paths is CUDA C++ for
+Hopper (``csrc/``), built with ``nvcc`` at first use: the fused small-n
+and banded BDF whole-solve kernels and the band LU factor and solve.
 
-The port so far covers the stiff BDF ensemble main path: problems with
-identity or diagonal mass, the dense-LU BDF solver, ``solve_dense``, and
-``solve_dense_ensemble`` in lockstep, independent and fused modes.
+The port so far covers the stiff BDF ensemble main path and the banded
+method-of-lines tier: problems with identity or diagonal mass, the dense-
+and band-LU BDF solver, ``solve_dense``, and ``solve_dense_ensemble`` in
+lockstep, independent and fused modes, on the card unless the caller
+asks for the CPU.
 """
 
 from . import errors  # noqa: F401

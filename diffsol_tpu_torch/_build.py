@@ -1,14 +1,23 @@
 """Build the CUDA kernels with ``nvcc`` at first use and load them with
 ``ctypes``.
 
-Each kernel is a shared library with a plain C entry point (no PyTorch
-headers, so a build takes seconds).  Its sources are the repository's
-``csrc/`` files plus the model header generated for the problem's
-equations; the library lands in ``build/diffsol_tpu_torch/`` beside the
-package, named by a hash of everything that went into it, so a second
-process or a second solve of the same model reuses it.  ``nvcc -Xptxas -v``
-reports each kernel's registers and spill bytes, which are printed with
-the build time.
+Each kernel library is a shared library with plain C entry points (no
+PyTorch headers, so a build takes seconds).  Its sources are the
+repository's ``csrc/`` files plus, for the fused steppers, the model
+header generated for the problem's equations; the library lands in
+``build/diffsol_tpu_torch/`` beside the package, named by a hash of
+everything that went into it, so a second process or a second solve of the
+same model reuses it.  ``nvcc -Xptxas -v`` reports each kernel's registers
+and spill bytes; :data:`BUILDS` records them with the build time.
+
+The libraries:
+
+* ``fused_bdf`` (K1): ``fused_bdf.cuh`` with a model header;
+* ``band_lu`` (K3, K4): ``band_lu.cuh``, no model header;
+* ``fused_band_bdf`` (K2): ``fused_band_bdf.cuh`` with a model header and
+  the band widths.
+
+The loaders may run in several threads at once, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -29,10 +38,36 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_FUSED_SOURCES = ("fused_bdf.cuh", "dual.cuh")
-_ENTRY = '#include "model.cuh"\n#include "fused_bdf.cuh"\n'
+_COMMON = ("bdf_common.cuh", "dual.cuh")
+_SOURCES = {
+    "fused_bdf": _COMMON + ("fused_bdf.cuh",),
+    "band_lu": ("bdf_common.cuh", "band_lu.cuh"),
+    "fused_band_bdf": _COMMON + ("band_lu.cuh", "fused_band_bdf.cuh"),
+}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# entry point -> (argtypes, restype); every pointer and the stream are
+# c_void_p so they stay 64-bit
+_SIGNATURES = {
+    "fused_bdf": {
+        "fused_bdf_launch": ([_P] * 6, _I),
+        "fused_bdf_config_size": ([], _I),
+    },
+    "band_lu": {
+        "band_lu_factor_launch": ([_P, _I, _I, _I, _I, _P], _I),
+        "band_lu_solve_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    },
+    "fused_band_bdf": {
+        # params, init, h_tile, t_eval, atol, mass diag, ys, info, scratch,
+        # &config, stream
+        "fused_band_bdf_launch": ([_P] * 11, _I),
+        "fused_band_bdf_config_size": ([], _I),
+    },
+}
 
-# model header -> loaded library (the csrc files do not change in a process)
+# every build of this process: name, library, seconds, ptxas lines
+BUILDS: list = []
+# (name, entry source) -> loaded library (the csrc files do not change in
+# a process)
 _loaded: dict = {}
 
 
@@ -49,13 +84,14 @@ def _nvcc() -> str:
     return found
 
 
-def _compile(key: str, model_header: str, out: Path) -> dict:
+def _compile(name: str, key: str, entry: str, model_header, out: Path) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix=f"fused_bdf_{key}_", dir=BUILD_DIR))
+    tmp = Path(tempfile.mkdtemp(prefix=f"{name}_{key}_", dir=BUILD_DIR))
     try:
-        (tmp / "model.cuh").write_text(model_header)
-        src = tmp / "fused_bdf_model.cu"
-        src.write_text(_ENTRY)
+        if model_header is not None:
+            (tmp / "model.cuh").write_text(model_header)
+        src = tmp / f"{name}_entry.cu"
+        src.write_text(entry)
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-I", str(tmp),
                "-o", str(tmp / out.name), str(src)]
         t0 = time.perf_counter()
@@ -63,42 +99,57 @@ def _compile(key: str, model_header: str, out: Path) -> dict:
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+                f"nvcc failed for {name} ({proc.returncode}):\n{proc.stdout}\n"
+                f"{proc.stderr}")
         os.replace(tmp / out.name, out)  # atomic: no half-written library
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # "ptxas info : Used R registers, ..." and "... bytes spill stores, ..."
+    # "Function properties for <kernel>", then "... bytes spill stores, ..."
+    # and "ptxas info : Used R registers, ..."
     ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-             if "registers" in ln or "spill" in ln]
-    build = dict(library=out.name, seconds=secs, ptxas=ptxas)
+             if "registers" in ln or "spill" in ln or "Function properties" in ln]
+    build = dict(name=name, library=out.name, seconds=secs, ptxas=ptxas)
     print(f"built {out.name} in {secs:.1f} s", file=sys.stderr)
     for ln in ptxas:
         print(ln, file=sys.stderr)
     return build
 
 
-def load_fused_bdf(model_header: str) -> ctypes.CDLL:
-    """The fused BDF kernel for one generated model header, built at first
-    use.  ``load_fused_bdf.builds`` records each build of this process
-    (library, seconds, ptxas register and spill lines)."""
-    lib = _loaded.get(model_header)
+def _load(name: str, entry: str, model_header=None) -> ctypes.CDLL:
+    """The library ``name`` built from ``entry`` (a translation unit that
+    includes csrc headers and, if given, ``model.cuh``)."""
+    cache_key = (name, entry, model_header)
+    lib = _loaded.get(cache_key)
     if lib is not None:
         return lib
-    parts = [" ".join(NVCC_FLAGS), _ENTRY, model_header]
-    parts += [(CSRC / name).read_text() for name in _FUSED_SOURCES]
+    parts = [" ".join(NVCC_FLAGS), entry, model_header or ""]
+    parts += [(CSRC / f).read_text() for f in _SOURCES[name]]
     key = hashlib.sha256("\0".join(parts).encode()).hexdigest()[:20]
-    out = BUILD_DIR / f"fused_bdf_{key}.so"
+    out = BUILD_DIR / f"{name}_{key}.so"
     if not out.exists():
-        load_fused_bdf.builds.append(_compile(key, model_header, out))
+        BUILDS.append(_compile(name, key, entry, model_header, out))
     lib = ctypes.CDLL(str(out))
-    fn = lib.fused_bdf_launch
-    # params, t_eval, ys, info, &config, stream: all 64-bit pointers
-    fn.argtypes = [ctypes.c_void_p] * 6
-    fn.restype = ctypes.c_int
-    lib.fused_bdf_config_size.argtypes = []
-    lib.fused_bdf_config_size.restype = ctypes.c_int
-    _loaded[model_header] = lib
+    for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _loaded[cache_key] = lib
     return lib
 
 
-load_fused_bdf.builds = []
+def load_fused_bdf(model_header: str) -> ctypes.CDLL:
+    """K1, the fused small-n BDF kernel, for one generated model header."""
+    return _load("fused_bdf", '#include "model.cuh"\n#include "fused_bdf.cuh"\n',
+                 model_header)
+
+
+def load_band_lu() -> ctypes.CDLL:
+    """K3 and K4, the band LU factor and solve."""
+    return _load("band_lu", '#include "band_lu.cuh"\n')
+
+
+def load_fused_band_bdf(model_header: str, ml: int, mu: int) -> ctypes.CDLL:
+    """K2, the fused banded BDF kernel, for one model header and band."""
+    entry = (f"#define BAND_ML {int(ml)}\n#define BAND_MU {int(mu)}\n"
+             '#include "model.cuh"\n#include "fused_band_bdf.cuh"\n')
+    return _load("fused_band_bdf", entry, model_header)

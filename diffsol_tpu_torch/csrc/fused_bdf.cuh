@@ -41,24 +41,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bdf_common.cuh"
 #include "dual.cuh"
 
 namespace diffsol_fused {
 
-constexpr int ND = 8;         // rows of the difference matrix D
-constexpr int MAX_ORDER = 5;
 // Two instantiations by block size: tiles up to 256 threads leave each up
 // to 255 registers (__launch_bounds__(256)); larger tiles, up to the
 // block limit of 1024, get 64 registers a thread and spill.
 constexpr int SMALL_TILE = 256;
 constexpr int MAX_TILE = 1024;
-
-// status codes, as pallas_stepper.py:82-89
-constexpr int OK = 0;
-constexpr int FAIL_STEP_TOO_SMALL = -1;
-constexpr int FAIL_MAX_STEPS = -2;
-constexpr int FAIL_NEWTON = -3;
-constexpr int FAIL_ERRTEST = -4;
 
 // Every number of the solve.  The host fills it as the ctypes.Structure
 // fused_stepper.py::CConfig, which mirrors this layout field for field
@@ -74,31 +66,6 @@ struct Config {
   int neval, nbatch, tile, ntiles;
 };
 
-// NaN-propagating max/min, as torch.maximum / jnp.maximum
-__device__ __forceinline__ double nan_max(double a, double b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ double nan_min(double a, double b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ double nan_clamp(double x, double lo, double hi) {
-  return x != x ? x : fmin(fmax(x, lo), hi);
-}
-
-// Tile-wide max: warp shuffle, then one value per warp through shared
-// memory.  Every thread of the block must call it (blockDim % 32 == 0).
-__device__ __forceinline__ double block_max(double v, double* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();  // earlier readers of red are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  const int nw = blockDim.x >> 5;
-  double r = red[0];
-  for (int w = 1; w < nw; ++w) r = nan_max(r, red[w]);
-  return r;
-}
-
 // this member's mean over states of (x / (|y| rtol + atol))^2
 template <int N>
 __device__ __forceinline__ double wrms_local(const double* x, const double* y,
@@ -110,19 +77,6 @@ __device__ __forceinline__ double wrms_local(const double* x, const double* y,
     acc += q * q;
   }
   return acc / N;
-}
-
-// ops/controller.py pi_controller_raw on squared norms
-__device__ __forceinline__ double pi_raw(double err, double prev, double ki_num,
-                                         double kp_num, int eff_order) {
-  const double ki = ki_num / eff_order;
-  const double kp = kp_num / eff_order;
-  const double err_safe = nan_clamp(err, 1e-30, 1e30);
-  const double i_only = pow(err_safe, -ki);
-  if (kp_num == 0.0) return i_only;
-  if (prev != prev) return i_only;
-  const double prev_safe = nan_clamp(prev, 1e-30, 1e30);
-  return pow(err_safe, -(ki + kp)) * pow(prev_safe, kp);
 }
 
 // J[r][c] = df_r/dy_c from N dual probes (pallas_stepper.py:755-775)
@@ -200,27 +154,6 @@ __device__ void lu_solve(double (*A)[N], const int* perm, const double* rdiag,
     for (int j = r + 1; j < N; ++j) acc -= A[r][j] * out[j];
     out[r] = acc * rdiag[r];
   }
-}
-
-// RU = R(f) U on rows/columns <= order, identity outside
-// (pallas_stepper.py:309-345); the block's threads fill the 8 x 8 entries
-// of the shared matrix together.
-__device__ void compute_ru(int order, double f, const Config& c, double (*ru)[ND]) {
-  __syncthreads();  // earlier readers of ru are done
-  for (int e = threadIdx.x; e < ND * ND; e += blockDim.x) {
-    const int i = e / ND, j = e % ND;
-    double v = (i == j) ? 1.0 : 0.0;
-    if (i <= order && j <= order) {
-      v = 0.0;
-      for (int k = 0; k <= j; ++k) {  // U[k][j] = 0 for k > j
-        double r = 1.0;
-        for (int m = 1; m <= i; ++m) r = r * (((m - 1.0) - f * k) / m);
-        v += r * c.U[k][j];
-      }
-    }
-    ru[i][j] = v;
-  }
-  __syncthreads();
 }
 
 template <int N, int NP, int MAXT>
@@ -477,7 +410,7 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
           for (int s = 0; s < N; ++s) D[i][s] = Dacc[i][s];
       }
       if (do_ru) {  // uniform
-        compute_ru(ru_order, ru_factor, c, ru);
+        compute_ru(ru_order, ru_factor, c.U, ru);
         double Dn[ND][N];
 #pragma unroll
         for (int j = 0; j < ND; ++j)

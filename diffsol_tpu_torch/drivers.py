@@ -10,6 +10,7 @@ yet.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -26,9 +27,10 @@ class Solution:
     ``ys`` is (neval, n) for one instance and (neval, B, n) for an
     ensemble.  ``stop_reason`` is an :mod:`errors` code, ``state`` the
     final solver state (None for the fused tier).  ``tier`` names the path
-    an ensemble solve took (``"lockstep"``, ``"independent"``,
-    ``"fused_small"`` on CUDA or ``"fused_small_reference"`` for the plain
-    version on the CPU).  The fused tiers share one adaptive step sequence
+    an ensemble solve took (``"lockstep"``, ``"independent"``, the kernel
+    tiers ``"fused_small"`` and ``"fused_band"`` on CUDA, or
+    ``"fused_small_reference"`` and ``"fused_band_reference"`` for their
+    plain versions on the CPU).  The fused tiers share one adaptive step sequence
     per member tile, and ``tile_steps`` holds each tile's accepted steps.
     """
 
@@ -44,14 +46,40 @@ class Solution:
         return dataclasses.replace(self, **kw)
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """The device a solve runs on: None means the card, and raises when
+    there is none; the CPU only when the caller names it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who} runs on the card by default and no CUDA device is "
+                "available; pass device='cpu' to solve on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def solve_dense(solver, t_eval, params=None, state=None,
-                max_steps: int = 100_000) -> Solution:
+                max_steps: int = 100_000, device=None) -> Solution:
     """Solve and interpolate onto ``t_eval`` (ascending).  ``ys`` has shape
-    (len(t_eval), *state.y.shape)."""
+    (len(t_eval), *state.y.shape).
+
+    ``device`` is where the solve runs: None means ``"cuda"``, and raises
+    without a card; pass ``device="cpu"`` for the CPU.  A solver whose
+    problem lies elsewhere is copied with its problem moved there.
+    """
+    dev = resolve_device(device, "solve_dense")
+    if solver.problem.t0.device != dev:
+        solver = copy.copy(solver)
+        solver.problem = solver.problem.to(dev)
     p = solver.problem
-    params = p.params if params is None else params
+    params = p.params if params is None else torch.as_tensor(
+        params, dtype=torch.float64).to(dev)
     if state is None:
         state = solver.init_state(params)
+    elif state.y.device != dev:
+        raise ValueError(f"state lies on {state.y.device}, the solve on {dev}")
     t_eval = torch.as_tensor(t_eval, dtype=torch.float64).reshape(-1)
     te = t_eval.tolist()
     neval = len(te)

@@ -7,15 +7,18 @@
   (The JAX package keeps (n, B) for the TPU's (8, 128) tiling; the
   semantics, ``tier`` and ``stats`` are the same.)
 * **independent**: one solve per member, each with its own step sequence.
-* **fused**: the whole-solve kernel tier (:mod:`.ops.fused_stepper`).  On
-  CUDA tensors it launches the hand-written kernel; on CPU tensors it runs
-  the kernel's plain PyTorch version (the counterpart of Pallas
-  ``interpret=True``) and ``Solution.tier`` says so.
-* **auto**: fused when the problem is in the kernel's scope and
-  ``params_batch`` is a CUDA tensor, lockstep otherwise.
+* **fused**: the whole-solve kernel tiers, the small-n stepper first
+  (:mod:`.ops.fused_stepper`, n <= 8, tier ``"fused_small"``), then the
+  banded stepper (:mod:`.ops.fused_band_stepper`, tier ``"fused_band"``).
+  On the card they launch the hand-written kernels; on the CPU they run
+  the kernels' plain PyTorch versions (the counterpart of Pallas
+  ``interpret=True``) and ``Solution.tier`` ends in ``"_reference"``.
+* **auto**: fused when the problem is in a kernel's scope, lockstep
+  otherwise.
 
-Every solve runs on the device of ``params_batch``; nothing is moved to
-another device.
+A solve runs on ``device``, the card unless the caller passes
+``device="cpu"``; ``params_batch`` (numpy, list or tensor) is placed
+there.  Without a card the default raises rather than run on the CPU.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import weakref
 import torch
 
 from . import errors
-from .drivers import Solution, solve_dense
+from .drivers import Solution, resolve_device, solve_dense
 from .equations import OdeEquations
 from .ops.eqn_codegen import UnsupportedForKernel
 from .problem import OdeProblem
@@ -37,10 +40,15 @@ F64 = torch.float64
 def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
     """Lift a problem to member-major (B, n) lockstep form: ``params``
     gains a leading (nbatch,) axis and the callables act on all members at
-    once."""
+    once.  The member Jacobian (dense (n, n), or the (nb, n) band of the
+    banded tier) stacks to (B, n, n) or (B, nb, n); both linear-solver
+    tiers take member-major batches as they are."""
     eqn = problem.eqn
     vmap = torch.func.vmap
-    member_jac = torch.func.jacfwd(eqn.rhs, argnums=1)
+    member_jac = eqn.rhs_jac or torch.func.jacfwd(eqn.rhs, argnums=1)
+    b_jac = vmap(member_jac, in_dims=(None, 0, 0))
+    if hasattr(member_jac, "jvp_probes"):
+        b_jac.jvp_probes = member_jac.jvp_probes
     b_mass = b_mass_diag = None
     if eqn.mass is not None:
         b_mass = vmap(eqn.mass, in_dims=(None, 0))
@@ -48,10 +56,12 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
             b_mass_diag = vmap(eqn.mass_diag_fn, in_dims=(None, 0))
     new_eqn = OdeEquations(
         rhs=vmap(eqn.rhs, in_dims=(None, 0, 0)),
-        init=vmap(eqn.init, in_dims=(None, 0)),
+        # an init that ignores p comes back from vmap as a stride-0
+        # expansion; the state must own its memory (jvp seeds it)
+        init=lambda t, pb: vmap(eqn.init, in_dims=(None, 0))(t, pb).contiguous(),
         mass=b_mass,
         mass_diag_fn=b_mass_diag,
-        rhs_jac=vmap(member_jac, in_dims=(None, 0, 0)),
+        rhs_jac=b_jac,
         nstates=eqn.nstates,
         nparams=eqn.nparams,
     )
@@ -66,21 +76,36 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
 _fused_cache: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
-def _fused_solve_cached(problem, t_eval, nbatch, max_steps, tile):
+def _make_fused_solve(problem, t_eval, nbatch, max_steps, tile):
+    """The small-n kernel first, then the banded one (JAX
+    ensemble.py:239-272); returns ``(solve, tier)``."""
+    from .ops.fused_band_stepper import make_fused_band_bdf_solve
     from .ops.fused_stepper import make_fused_bdf_solve
 
+    try:
+        return make_fused_bdf_solve(problem, t_eval, nbatch, tile=tile,
+                                    max_steps=max_steps), "fused_small"
+    except UnsupportedForKernel as e_small:
+        try:
+            return make_fused_band_bdf_solve(problem, t_eval, nbatch, tile=tile,
+                                             max_steps=max_steps), "fused_band"
+        except UnsupportedForKernel as e_band:
+            raise UnsupportedForKernel(
+                f"small-n tier: {e_small}; banded tier: {e_band}") from None
+
+
+def _fused_solve_cached(problem, t_eval, nbatch, max_steps, tile):
     te_key = tuple(float(v) for v in torch.as_tensor(t_eval).reshape(-1))
     key = (te_key, nbatch, max_steps, tile)
     hit = _fused_cache.get(problem)
     if hit is not None and hit[0] == key:
         return hit[1]
-    fsolve = make_fused_bdf_solve(problem, t_eval, nbatch, tile=tile,
-                                  max_steps=max_steps)
-    _fused_cache[problem] = (key, fsolve)
-    return fsolve
+    made = _make_fused_solve(problem, t_eval, nbatch, max_steps, tile)
+    _fused_cache[problem] = (key, made)
+    return made
 
 
-def _fused_solution(fsolve, params_batch, t_eval) -> Solution:
+def _fused_solution(fsolve, tier, params_batch, t_eval) -> Solution:
     """Run a fused solve and wrap it as a :class:`Solution`; the worst tile
     status is the batch's (shared fate, as in lockstep)."""
     from .ops import fused_stepper as fs
@@ -92,9 +117,13 @@ def _fused_solution(fsolve, params_batch, t_eval) -> Solution:
         fs.FAIL_MAX_STEPS: errors.MAX_STEPS_REACHED,
         fs.FAIL_NEWTON: errors.TOO_MANY_NONLINEAR_SOLVER_FAILURES,
         fs.FAIL_ERRTEST: errors.TOO_MANY_ERROR_TEST_FAILURES,
+        # no-pivot LU growth surfaces as the lockstep band tier's failure
+        # does, through the Newton ladder (JAX ensemble.py:369-374)
+        fs.FAIL_LU_GROWTH: errors.TOO_MANY_NONLINEAR_SOLVER_FAILURES,
     }.get(worst, errors.TSTOP_REACHED)
     te = torch.as_tensor(t_eval, dtype=F64).reshape(-1).to(ys.device)
-    tier = "fused_small" if params_batch.is_cuda else "fused_small_reference"
+    if not params_batch.is_cuda:
+        tier += "_reference"
     return Solution(
         ts=te, ys=ys.movedim(-1, 1), stop_reason=stop,
         n_points=int(te.numel()), state=None, tile_steps=steps, tier=tier,
@@ -109,43 +138,49 @@ def solve_dense_ensemble(
     mode: str = "lockstep",
     max_steps: int = 100_000,
     tile=None,
+    device=None,
 ) -> Solution:
     """Solve an ensemble over ``params_batch`` (B, nparams) float64.
 
     ``make_solver`` is a problem -> solver factory (``BdfSolver``).
     Returns a :class:`Solution` whose ``ys`` is (neval, B, nstates).
-    ``tile`` sets the fused tiers' member tile (default
-    :data:`.ops.fused_stepper.DEFAULT_TILE`); it is part of the result,
-    since each tile takes its own step sequence.
+    ``tile`` sets the fused tiers' member tile (each tier has its default);
+    it is part of the result, since each tile takes its own step sequence.
+    ``device`` is where the solve runs: None means ``"cuda"``, and raises
+    without a card; pass ``device="cpu"`` for the CPU.
     """
-    params_batch = torch.as_tensor(params_batch)
-    if params_batch.dtype != F64:
-        raise TypeError(f"params_batch must be float64, got {params_batch.dtype}")
+    dev = resolve_device(device, "solve_dense_ensemble")
+    if isinstance(params_batch, torch.Tensor):
+        if params_batch.dtype != F64:
+            raise TypeError(f"params_batch must be float64, got {params_batch.dtype}")
+    else:
+        params_batch = torch.as_tensor(params_batch, dtype=F64)
+    params_batch = params_batch.to(dev)
     nbatch = params_batch.shape[0]
 
     if mode in ("fused", "auto"):
         try:
-            if mode == "fused" or params_batch.is_cuda:
-                fsolve = _fused_solve_cached(problem, t_eval, nbatch,
-                                             max_steps, tile)
-                return _fused_solution(fsolve, params_batch, t_eval)
+            fsolve, tier = _fused_solve_cached(problem, t_eval, nbatch,
+                                               max_steps, tile)
         except UnsupportedForKernel:
             if mode == "fused":
                 raise
+        else:
+            return _fused_solution(fsolve, tier, params_batch, t_eval)
         mode = "lockstep"
 
-    problem = problem.to(params_batch.device)
+    problem = problem.to(dev)
     if mode == "lockstep":
         lp = make_lockstep_problem(problem, nbatch)
         sol = solve_dense(make_solver(lp), t_eval, params=params_batch,
-                          max_steps=max_steps)
+                          max_steps=max_steps, device=dev)
         return sol.replace(tier="lockstep")
 
     if mode == "independent":
         solver = make_solver(problem)
         sols = [
             solve_dense(solver, t_eval, params=params_batch[i],
-                        max_steps=max_steps)
+                        max_steps=max_steps, device=dev)
             for i in range(nbatch)
         ]
         return Solution(

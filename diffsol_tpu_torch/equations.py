@@ -36,12 +36,15 @@ class OdeEquations:
     init: Callable  # y0(t, p) -> (n,)
     mass: Optional[Callable] = None  # M(t, p) -> (n, n); None => identity
     mass_diag_fn: Optional[Callable] = None  # (t, p) -> (n,) diagonal
-    rhs_jac: Optional[Callable] = None  # (t, y, p) -> (n, n); default jacfwd
+    # (t, y, p) -> the linear-solver tier's Jacobian: dense (n, n) by
+    # default (jacfwd), the (nb, n) band under the banded tier
+    rhs_jac: Optional[Callable] = None
     nstates: int = 0
     nparams: int = 0
 
     def jac(self, t, y, p):
-        """Dense Jacobian df/dy."""
+        """Jacobian df/dy in the tier's representation (``rhs_jac``), else
+        dense."""
         if self.rhs_jac is not None:
             return self.rhs_jac(t, y, p)
         return torch.func.jacfwd(self.rhs, argnums=1)(t, y, p)

@@ -2,7 +2,8 @@
 
 ``problem_from_jax`` copies every numeric field of a ``diffsol_tpu``
 ``OdeProblem`` (params, t0, h0, rtol, atol and all solver options) into
-this package's problem as float64 tensors.  The user's callables are
+this package's problem as float64 tensors, and a banded linear-solver
+tier as ``make_banded_solver(ml, mu)`` from the spec's ``meta``.  The user's callables are
 passed in torch, since a jnp body cannot be converted.
 ``solution_to_numpy`` turns a :class:`~.drivers.Solution` into numpy
 arrays in the JAX package's layouts, so tests compare like with like.
@@ -44,6 +45,11 @@ def problem_from_jax(jax_problem, rhs, init, mass=None) -> OdeProblem:
     )
     if mass is not None:
         b = b.mass(mass)
+    spec = jax_problem.linear_solver
+    if spec.name.startswith("banded"):
+        from .ops.banded import make_banded_solver
+
+        b = b.linear_solver(make_banded_solver(*spec.meta[:2]))
     return b.build()
 
 

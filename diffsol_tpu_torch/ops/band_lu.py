@@ -1,0 +1,205 @@
+"""No-pivot banded LU, factor (K3) and solve (K4) (counterpart of
+``diffsol_tpu.ops.pallas_banded``).
+
+The factored band is column-leading ``(n + mu, nb, B)`` with the member
+index fastest: ``F[k, d, m] = A_m[k + d - mu, k]``, multipliers below band
+row ``mu`` (the main diagonal) and U in and above it, LAPACK gbtrf style,
+plus ``mu`` unit-diagonal pad columns.  On the card that layout makes each
+column step a coalesced warp access; the public functions take the port's
+member-major ``(B, nb, n)`` band (``band[m, d, j] = A_m[j + d - mu, j]``)
+and ``(B, n)`` right-hand sides, and transpose once at the boundary.
+
+Two implementations with the same operation order, both float64:
+
+* the CUDA kernels of ``csrc/band_lu.cuh`` (one thread per member), built
+  with ``nvcc`` at first use and launched by :func:`launch_band_lu_factor`
+  and :func:`launch_band_lu_solve` for CUDA tensors;
+* the plain PyTorch versions :func:`band_lu_factor_reference` and
+  :func:`band_lu_solve_reference`, a Python loop over columns vectorized
+  over members, for CPU tensors and as the kernels' yardstick on the card.
+
+A CUDA tensor always goes to the kernel: a build or launch failure raises,
+and nothing falls back to the plain version or to the CPU.  The Pallas
+kernels are float32 (Mosaic has no f64), so there the LU is a Newton
+preconditioner; here it is an exact solver.
+"""
+
+from __future__ import annotations
+
+import torch
+
+F64 = torch.float64
+
+
+def npadx(ml: int, mu: int) -> int:
+    """Pad rows of the solve's work vector past row n-1."""
+    return max(ml, mu, 1)
+
+
+def factor_columns(F: torch.Tensor, n: int, ml: int, mu: int,
+                   growth: bool = False):
+    """Factor ``F`` (n+mu, nb, M) in place; columns 0..n-1 hold the band,
+    the pad columns are written here.  With ``growth``, returns each
+    member's largest |Schur-update element| (M,), NaN-propagating, for
+    the fused stepper's element-growth test (csrc/band_lu.cuh
+    band_factor)."""
+    F[n:] = 0.0
+    F[n:, mu] = 1.0
+    gmax = torch.zeros(F.shape[-1], dtype=F.dtype, device=F.device) if growth else None
+    if ml == 0:
+        return gmax
+    for k in range(n):
+        inv = 1.0 / F[k, mu]
+        lk = F[k, mu + 1: mu + 1 + ml] * inv  # (ml, M)
+        F[k, mu + 1: mu + 1 + ml] = lk
+        for dj in range(1, mu + 1):
+            u = F[k + dj, mu - dj]
+            e = F[k + dj, mu + 1 - dj: mu + 1 + ml - dj] - lk * u
+            F[k + dj, mu + 1 - dj: mu + 1 + ml - dj] = e
+            if growth:
+                gmax = torch.maximum(gmax, e.abs().amax(0))
+    return gmax
+
+
+def solve_columns(F: torch.Tensor, x: torch.Tensor, n: int, ml: int, mu: int):
+    """Solve in place: ``x`` (n + npadx, M) holds b in rows 0..n-1 and the
+    solution on return (csrc/band_lu.cuh band_solve)."""
+    x[n:] = 0.0
+    if ml > 0:
+        for k in range(n - 1):
+            x[k + 1: k + 1 + ml] = x[k + 1: k + 1 + ml] - F[k, mu + 1: mu + 1 + ml] * x[k]
+        # the forward sweep writes past row n-1 (pallas_stepper_band.py:481-485)
+        x[n:] = 0.0
+    for k in range(n - 1, -1, -1):
+        acc = x[k]
+        for dj in range(1, mu + 1):
+            acc = acc - F[k + dj, mu - dj] * x[k + dj]
+        x[k] = acc / F[k, mu]
+
+
+def _as_members(band: torch.Tensor, ml: int, mu: int) -> torch.Tensor:
+    band3 = band if band.ndim == 3 else band.unsqueeze(0)
+    if band3.ndim != 3 or band3.shape[1] != ml + mu + 1:
+        raise ValueError(f"band must be (B, {ml + mu + 1}, n) or "
+                         f"({ml + mu + 1}, n), got {tuple(band.shape)}")
+    if band3.dtype != F64:
+        raise TypeError(f"band must be float64, got {band3.dtype}")
+    return band3
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def band_lu_factor_reference(band: torch.Tensor, ml: int, mu: int) -> torch.Tensor:
+    """(B, nb, n) or (nb, n) band -> factored (n+mu, nb, B) on its device."""
+    band3 = _as_members(band, ml, mu)
+    B, nb, n = band3.shape
+    F = band3.new_empty((n + mu, nb, B))
+    F[:n] = band3.permute(2, 1, 0)
+    factor_columns(F, n, ml, mu)
+    return F
+
+
+def band_lu_solve_reference(F: torch.Tensor, b: torch.Tensor, ml: int,
+                            mu: int) -> torch.Tensor:
+    """factored (n+mu, nb, B), b (B, n) -> x (B, n)."""
+    n = F.shape[0] - mu
+    x = b.new_empty((n + npadx(ml, mu), b.shape[0]))
+    x[:n] = b.t()
+    solve_columns(F, x, n, ml, mu)
+    return x[:n].t()
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def launch_band_lu_factor(band: torch.Tensor, ml: int, mu: int) -> torch.Tensor:
+    """K3 on ``torch.cuda.current_stream()``: a (B, nb, n) float64 CUDA
+    band -> factored (n+mu, nb, B).  Builds the kernel at first use;
+    raises on a build or launch error."""
+    from .._build import load_band_lu
+
+    band3 = _as_members(band, ml, mu)
+    if not band3.is_cuda:
+        raise ValueError("launch_band_lu_factor needs a CUDA tensor")
+    B, nb, n = band3.shape
+    lib = load_band_lu()
+    dev = band3.device
+    with torch.cuda.device(dev):
+        F = torch.empty((n + mu, nb, B), dtype=F64, device=dev)
+        F[:n].copy_(band3.permute(2, 1, 0))
+        rc = lib.band_lu_factor_launch(F.data_ptr(), n, ml, mu, B, _stream(dev))
+        launch_band_lu_factor.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"band_lu_factor kernel launch failed: CUDA error {rc}")
+    return F
+
+
+launch_band_lu_factor.launches = 0
+
+
+def launch_band_lu_solve(F: torch.Tensor, b: torch.Tensor, ml: int,
+                         mu: int) -> torch.Tensor:
+    """K4 on ``torch.cuda.current_stream()``: factored (n+mu, nb, B) and
+    b (B, n), float64 on one CUDA device -> x (B, n).  Raises on a build or
+    launch error."""
+    from .._build import load_band_lu
+
+    nb = ml + mu + 1
+    if not (F.is_cuda and b.is_cuda) or F.device != b.device:
+        raise ValueError("launch_band_lu_solve needs CUDA tensors on one device")
+    if F.dtype != F64 or b.dtype != F64:
+        raise TypeError("factors and b must be float64")
+    if F.ndim != 3 or F.shape[1] != nb or not F.is_contiguous():
+        raise ValueError(f"factors must be contiguous (n+mu, {nb}, B), got "
+                         f"{tuple(F.shape)}")
+    n, B = F.shape[0] - mu, F.shape[2]
+    if tuple(b.shape) != (B, n):
+        raise ValueError(f"b must be ({B}, {n}), got {tuple(b.shape)}")
+    lib = load_band_lu()
+    dev = F.device
+    with torch.cuda.device(dev):
+        bt = b.t().contiguous()
+        x = torch.empty((n + npadx(ml, mu), B), dtype=F64, device=dev)
+        rc = lib.band_lu_solve_launch(F.data_ptr(), bt.data_ptr(), x.data_ptr(),
+                                      n, ml, mu, B, _stream(dev))
+        launch_band_lu_solve.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"band_lu_solve kernel launch failed: CUDA error {rc}")
+    return x[:n].t()
+
+
+launch_band_lu_solve.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the tier's entry points: the device of the tensors decides
+# ---------------------------------------------------------------------------
+
+def band_lu_factor(band: torch.Tensor, ml: int, mu: int) -> torch.Tensor:
+    """Factor a (B, nb, n) or (nb, n) float64 band: K3 for a CUDA tensor,
+    the plain version for a CPU tensor.  Returns (n+mu, nb, B)."""
+    if band.is_cuda:
+        return launch_band_lu_factor(band, ml, mu)
+    return band_lu_factor_reference(band, ml, mu)
+
+
+def band_lu_solve(F: torch.Tensor, b: torch.Tensor, ml: int, mu: int) -> torch.Tensor:
+    """Solve with :func:`band_lu_factor`'s output for b (B, n) or (n,):
+    K4 for CUDA tensors, the plain version for CPU tensors.  A
+    factorization of one member (B = 1) serves every right-hand side
+    (pallas_banded.py:156-157)."""
+    b2 = b if b.ndim == 2 else b.unsqueeze(0)
+    if F.shape[2] == 1 and b2.shape[0] > 1:
+        F = F.expand(-1, -1, b2.shape[0]).contiguous()
+    if F.is_cuda:
+        x = launch_band_lu_solve(F, b2, ml, mu)
+    else:
+        x = band_lu_solve_reference(F, b2, ml, mu)
+    return x if b.ndim == 2 else x[0]

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -54,7 +54,7 @@ class ScalarIR:
 @dataclass(frozen=True)
 class ModelIR:
     rhs: ScalarIR
-    init: ScalarIR
+    init: Optional[ScalarIR]  # None: the kernel gets y0 from the host
     nstates: int
     nparams: int
 
@@ -105,7 +105,7 @@ def trace_ir(fn: Callable, arg_kinds, arg_sizes) -> ScalarIR:
         for s in arg_sizes
     ]
     try:
-        gm = make_fx(fn, tracing_mode="fake")(*examples)
+        gm = make_fx(fn, tracing_mode="fake", _allow_non_fake_inputs=True)(*examples)
     except UnsupportedForKernel:
         raise
     except Exception as e:  # data-dependent control flow, unknown ops, ...
@@ -237,17 +237,26 @@ def trace_ir(fn: Callable, arg_kinds, arg_sizes) -> ScalarIR:
     return ScalarIR(nodes=tuple(b.nodes), outputs=tuple(int(o) for o in outs))
 
 
-def trace_model(rhs: Callable, init: Callable, nstates: int,
+def trace_model(rhs: Callable, init: Optional[Callable], nstates: int,
                 nparams: int) -> ModelIR:
-    """Trace a problem's member ``rhs(t, y, p)`` and ``init(t, p)``."""
+    """Trace a problem's member ``rhs(t, y, p)`` and, unless ``init`` is
+    None (the banded kernel takes its initial state from the host),
+    ``init(t, p)``."""
     rhs_ir = trace_ir(rhs, ("t", "y", "p"), (None, nstates, nparams))
-    init_ir = trace_ir(init, ("t", "p"), (None, nparams))
+    init_ir = None if init is None else trace_ir(init, ("t", "p"), (None, nparams))
     for name, ir in (("rhs", rhs_ir), ("init", init_ir)):
-        if len(ir.outputs) != nstates:
+        if ir is not None and len(ir.outputs) != nstates:
             raise UnsupportedForKernel(
                 f"{name} returns {len(ir.outputs)} values for {nstates} states"
             )
     return ModelIR(rhs=rhs_ir, init=init_ir, nstates=nstates, nparams=nparams)
+
+
+def op_count(ir: ScalarIR) -> int:
+    """Floating-point operations of one evaluation of ``ir`` (a power by k
+    counts k-1 multiplies, each unary function one)."""
+    return sum(node[2] - 1 if node[0] == "powi" else 1
+               for node in ir.nodes if node[0] not in ("t", "y", "p", "c"))
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +406,16 @@ def _emit_body(ir: ScalarIR) -> list:
 
 def emit_cuda_header(model: ModelIR, name: str = "model") -> str:
     """The generated model header: ``MODEL_N``, ``MODEL_NP`` and the
-    templated ``model_rhs`` / ``model_init`` device functions."""
+    templated ``model_rhs`` (and, if traced, ``model_init``) device
+    functions.
+
+    ``model_rhs<T>(t, y, p, out)`` reads ``y[i]`` and assigns ``out[i]``
+    through whatever types it is given: plain arrays in the small-n
+    kernel, where a member's state lives in registers, and strided
+    accessors in the banded kernel, which keeps a member's n-vectors in
+    global scratch with the members fastest (csrc/fused_band_bdf.cuh), so
+    the unrolled body reads and writes that layout directly, with no
+    per-thread copy of the state."""
     lines = [
         f"// Generated from the traced equations of {name!r}; do not edit.",
         "#pragma once",
@@ -405,20 +423,22 @@ def emit_cuda_header(model: ModelIR, name: str = "model") -> str:
         f"#define MODEL_N {model.nstates}",
         f"#define MODEL_NP {model.nparams}",
         "namespace diffsol_model {",
-        "template <typename T>",
-        "__device__ __forceinline__ void model_rhs(const T& t, const T* y, "
-        "const T* p, T* out) {",
+        "template <typename T, typename Y, typename O>",
+        "__device__ __forceinline__ void model_rhs(const T& t, Y y, "
+        "const T* p, O out) {",
         "  (void)t; (void)y; (void)p;",
         *_emit_body(model.rhs),
         "}",
-        "template <typename T>",
-        "__device__ __forceinline__ void model_init(const T& t, const T* p, "
-        "T* out) {",
-        "  (void)t; (void)p;",
-        *_emit_body(model.init),
-        "}",
-        "}  // namespace diffsol_model",
-        "",
     ]
+    if model.init is not None:
+        lines += [
+            "template <typename T>",
+            "__device__ __forceinline__ void model_init(const T& t, const T* p, "
+            "T* out) {",
+            "  (void)t; (void)p;",
+            *_emit_body(model.init),
+            "}",
+        ]
+    lines += ["}  // namespace diffsol_model", ""]
     return "\n".join(lines)
 

@@ -53,6 +53,7 @@ FAIL_STEP_TOO_SMALL = -1
 FAIL_MAX_STEPS = -2
 FAIL_NEWTON = -3
 FAIL_ERRTEST = -4
+FAIL_LU_GROWTH = -6  # the banded tier's no-pivot LU growth guard
 
 MAX_STATES = 8
 # 128 members per tile: the main path's 10,000 members make 79 blocks, so
@@ -203,15 +204,10 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
     Returns ``(ys (neval, n, B), info (ntiles, 4))`` with info = status,
     accepted steps, attempts, next eval index per tile."""
     dev = params_b.device
-    T, tile, n, neval = cfg.ntiles, cfg.tile, cfg.n, cfg.neval
+    T, tile, n = cfg.ntiles, cfg.tile, cfg.n
     Mb = T * tile
     P = _pad_params(cfg, params_b)
-    rtol = cfg.rtol
     atol = torch.tensor(cfg.atol, dtype=F64, device=dev)
-    te_all = torch.tensor(cfg.t_eval, dtype=F64, device=dev)
-    alpha = torch.tensor(_ALPHA, dtype=F64, device=dev)
-    gamma = [float(g) for g in _GAMMA]
-    ec2 = torch.tensor(_ERROR_CONST2, dtype=F64, device=dev)
     vmap = torch.func.vmap
     rhs_m = vmap(rhs, in_dims=(0, 0, 0))
     jac_m = vmap(torch.func.jacfwd(rhs, argnums=1), in_dims=(0, 0, 0))
@@ -226,20 +222,21 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
         return jac_m(tm, y.reshape(Mb, n), P).reshape(T, tile, n, n)
 
     def wrms_sq(x, y):
-        return _wrms_sq(x, y, rtol, atol)
+        return _wrms_sq(x, y, cfg.rtol, atol)
 
     def factor(J, c):
         eye = torch.eye(n, dtype=F64, device=dev)
-        return torch.linalg.lu_factor_ex(eye - c[:, None, None, None] * J)[:2]
+        return torch.linalg.lu_factor_ex(eye - c[:, None, None, None] * J)[:2], None
 
-    def lsolve(lu, piv, b):
+    def lsolve(factors, b):
+        lu, piv = factors
         return torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)).squeeze(-1)
 
-    def tiles(v, dtype=torch.int64):
-        return torch.full((T,), v, dtype=dtype, device=dev)
+    def residual(x, t_pred, y_pred, psi, cval):
+        return (x + (psi - y_pred)) - _bcast(cval, x) * f(t_pred, x)
 
     # ---- initial state and step size (pallas_stepper.py:837-907)
-    t = tiles(cfg.t0, F64)
+    t = torch.full((T,), cfg.t0, dtype=F64, device=dev)
     y0 = init_m(t.repeat_interleave(tile), P).reshape(T, tile, n)
     dy0 = f(t, y0)
     d0 = torch.sqrt(wrms_sq(y0, y0))
@@ -252,10 +249,39 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
     h1 = torch.where(max_d < 1e-15, torch.clamp(h0 * 1e-3, min=1e-6),
                      (0.01 / max_d) ** 0.5)
     h = torch.minimum(100.0 * h0, h1)
+    return tiled_bdf(cfg, atol, y0, _bcast(h, dy0) * dy0, h, f, jac, factor,
+                     lsolve, residual)
 
-    D = torch.zeros(T, ND, tile, n, dtype=F64, device=dev)
+
+def tiled_bdf(cfg, atol, y0, D1, h, f, jac, factor, lsolve, residual,
+              max_lu_growth=None):
+    """The step loop the fused tiers share, batched over member tiles.
+
+    ``y0`` and ``D1 = h y0'`` are (T, tile, n) and ``h`` (T,).  The
+    tier's pieces: ``f(t, y)`` the rhs, ``jac(t, y)`` the Jacobian in the
+    tier's representation, ``factor(J, c) -> (factors, growth)`` the
+    factorization of M - cJ with its per-tile element growth (or None),
+    ``lsolve(factors, b)`` and ``residual(x, t_pred, y_pred, psi, c)``.
+    With ``max_lu_growth``, a tile whose growth is not below it fails
+    with FAIL_LU_GROWTH (pallas_stepper_band.py:637-639).  Returns
+    ``(ys (neval, n, B), info (ntiles, 4))``."""
+    dev = y0.device
+    T, tile, n, neval = cfg.ntiles, cfg.tile, cfg.n, cfg.neval
+    te_all = torch.tensor(cfg.t_eval, dtype=F64, device=dev)
+    alpha = torch.tensor(_ALPHA, dtype=F64, device=dev)
+    gamma = [float(g) for g in _GAMMA]
+    ec2 = torch.tensor(_ERROR_CONST2, dtype=F64, device=dev)
+
+    def wrms_sq(x, y):
+        return _wrms_sq(x, y, cfg.rtol, atol)
+
+    def tiles(v, dtype=torch.int64):
+        return torch.full((T,), v, dtype=dtype, device=dev)
+
+    t = tiles(cfg.t0, F64)
+    D = torch.zeros((T, ND) + tuple(y0.shape[1:]), dtype=F64, device=dev)
     D[:, 0] = y0
-    D[:, 1] = _bcast(h, dy0) * dy0
+    D[:, 1] = D1
     k = tiles(0)
     steps = tiles(0)
     status = tiles(OK)
@@ -267,9 +293,8 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
     newton_fails = tiles(0)
     err_fails = tiles(0)
     h_changed = tiles(0)
-    J = torch.zeros(T, tile, n, n, dtype=F64, device=dev)
-    lu = torch.zeros_like(J)
-    piv = torch.ones(T, tile, n, dtype=torch.int32, device=dev)
+    J = factors = None
+    growth = tiles(1.0, F64)
     c_last = tiles(0.0, F64)
     ssj = tiles(0)
     ssrj = tiles(0)
@@ -277,6 +302,10 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
     ys = torch.zeros(neval, n, T, tile, dtype=F64, device=dev)
     ar = torch.arange(T, device=dev)
     mnewt = float(cfg.max_newton_iter)
+
+    def pick(mask, new, old):
+        """Per-tile select; ``old`` None means nothing to keep yet."""
+        return new if old is None else torch.where(_bcast(mask, new), new, old)
 
     while True:
         alive = (status == OK) & (k < cfg.max_steps) & (nxt < neval)
@@ -304,12 +333,13 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
             refactor = (refresh_j | (rel > cfg.threshold_to_update_jacobian)
                         | (ssj >= cfg.update_jacobian_after_steps))
             if bool(refresh_j.any()):
-                J = torch.where(refresh_j[:, None, None, None],
-                                jac(t_pred, y_pred), J)
+                J = pick(refresh_j, jac(t_pred, y_pred), J)
             if bool(refactor.any()):
-                lu_n, piv_n = factor(J, cval)
-                lu = torch.where(refactor[:, None, None, None], lu_n, lu)
-                piv = torch.where(refactor[:, None, None], piv_n, piv)
+                fac_n, growth_n = factor(J, cval)
+                factors = tuple(pick(refactor, a, b) for a, b in
+                                zip(fac_n, factors or (None,) * len(fac_n)))
+                if growth_n is not None:
+                    growth = torch.where(refactor, growth_n, growth)
             c_last_n = torch.where(refactor, cval, c_last)
             ssj_n = torch.where(refactor, 0, ssj + 1)
             ssrj_n = torch.where(refresh_j, 0, ssrj + 1)
@@ -318,11 +348,14 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
                 torch.where(h_changed == 1, ETA_RESET_TIMESTEP, eta_mem))
         else:
             J = jac(t_pred, y_pred)
-            lu, piv = factor(J, cval)
+            factors = factor(J, cval)[0]
             eta0 = tiles(ETA_RESET_JACOBIAN, F64)
+        # element growth beyond the limit means the no-pivot factorization
+        # is meaningless (a NaN fails the test too)
+        lu_bad = (None if max_lu_growth is None
+                  else ~(growth <= max_lu_growth))
 
-        # ---- Newton on (x - y_pred + psi) - c f(x) (pallas_stepper.py:1176-1265)
-        ypp = psi - y_pred
+        # ---- Newton on the residual (pallas_stepper.py:1176-1265)
         x = y_pred
         first_nrm = tiles(0.0, F64)
         niter = tiles(0)
@@ -332,8 +365,7 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
             active = (nstat == 0) & (niter < cfg.max_newton_iter)
             if not bool(active.any()):
                 break
-            res = (x + ypp) - _bcast(cval, x) * f(t_pred, x)
-            delta = lsolve(lu, piv, res)
+            delta = lsolve(factors, residual(x, t_pred, y_pred, psi, cval))
             x_new = x - delta
             nrm = torch.sqrt(wrms_sq(delta, y_pred))
             niter = niter + active.long()
@@ -402,12 +434,11 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
         ru_factor = torch.where(accepted, sel_factor, factor_r)
         ru_order = torch.where(accepted, new_order, order)
         do_ru = torch.where(accepted, do_change, do_rescale)
-        acc4 = accepted[:, None, None, None]
-        D_out = torch.where(acc4, D_acc, D)
+        D_out = torch.where(_bcast(accepted, D), D_acc, D)
         if bool(do_ru.any()):
             ru = _compute_ru(ru_order, ru_factor)
-            D_resc = torch.einsum("tij,tisn->tjsn", ru, D_out)
-            D_out = torch.where(do_ru[:, None, None, None], D_resc, D_out)
+            D_resc = torch.einsum("tij,ti...->tj...", ru, D_out)
+            D_out = torch.where(_bcast(do_ru, D), D_resc, D_out)
         h_out = h * torch.where(do_ru, ru_factor, 1.0)
 
         # ---- dense output at the t_eval points this accepted step passed
@@ -436,6 +467,8 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
                                FAIL_STEP_TOO_SMALL, status_n)
         status_n = torch.where((k + 1 >= cfg.max_steps) & (ne < neval)
                                & (status_n == OK), FAIL_MAX_STEPS, status_n)
+        if lu_bad is not None:
+            status_n = torch.where(lu_bad, FAIL_LU_GROWTH, status_n)
         new = dict(
             k=k + 1, steps=steps + accepted.long(), status=status_n, nxt=ne,
             t=torch.where(accepted, t_pred, t), h=h_out,
@@ -470,7 +503,7 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor):
 
     status = torch.where((status == OK) & (nxt < neval), FAIL_MAX_STEPS, status)
     info = torch.stack([status, steps, k, nxt], dim=1).to(torch.int32)
-    ys = ys.reshape(neval, n, Mb)[:, :, : cfg.nbatch].contiguous()
+    ys = ys.reshape(neval, n, T * tile)[:, :, : cfg.nbatch].contiguous()
     return ys, info
 
 

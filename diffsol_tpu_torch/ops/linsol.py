@@ -1,11 +1,13 @@
 """Linear-solver tiers (counterpart of ``diffsol_tpu.ops.linsol``).
 
-Only the dense tier is ported.  It factors the iteration matrix
-``A = M - c*J`` with ``torch.linalg.lu_factor`` and solves with
-``torch.linalg.lu_solve``; both are float64 on the CPU and on CUDA and
-take a member-major (B, n, n) stack as readily as one (n, n) matrix.
-(The JAX package's hand-unrolled ``smalllu`` exists only because TPU XLA
-has no f64 LU, so it has no counterpart here.)
+* ``dense`` factors the iteration matrix ``A = M - c*J`` with
+  ``torch.linalg.lu_factor`` and solves with ``torch.linalg.lu_solve``;
+  both are float64 on the CPU and on CUDA and take a member-major
+  (B, n, n) stack as readily as one (n, n) matrix.  (The JAX package's
+  hand-unrolled ``smalllu`` exists only because TPU XLA has no f64 LU, so
+  it has no counterpart here.)
+* ``banded`` is the no-pivot band LU of :mod:`.banded`, made by
+  ``make_banded_solver(ml, mu)``; ``meta`` carries its ``(ml, mu)``.
 """
 
 from __future__ import annotations
@@ -22,12 +24,14 @@ from ..equations import DiagMass
 class LinearSolverSpec:
     """Static vtable for one linear-solver tier: ``assemble(mass, jac, c)``
     builds ``M - c*J`` (``mass=None`` means identity), ``factor`` and
-    ``solve`` are the two-phase LU interface."""
+    ``solve`` are the two-phase LU interface, ``meta`` holds the tier's
+    parameters (``(ml, mu)`` for banded)."""
 
     name: str
     assemble: Callable[[Any, Any, Any], Any]
     factor: Callable[[Any], Any]
     solve: Callable[[Any, Any], Any]
+    meta: tuple = ()
 
 
 def _dense_assemble(mass, jac, c):

@@ -3,8 +3,8 @@
 package's).
 
 Every tensor a problem holds is float64.  The builder keeps them on the
-CPU; :meth:`OdeProblem.to` moves a problem to the device of the tensors a
-caller hands to a solve, so the device is always the caller's choice.
+CPU; the solve entry points move a problem with :meth:`OdeProblem.to` to
+the device they run on, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -148,6 +148,7 @@ class OdeBuilder:
         self._rtol = 1e-6
         self._atol = 1e-6
         self._options = OdeSolverOptions()
+        self._linear_solver = DENSE
 
     # equations ---------------------------------------------------------
     def rhs(self, f: Callable):
@@ -230,8 +231,15 @@ class OdeBuilder:
     def ic_options(self, opts):
         _later("consistent initial conditions", "queue 1 item 4")
 
-    def linear_solver(self, spec):
-        _later("linear solvers other than dense", "queue 1 items 11 and 14")
+    def linear_solver(self, spec: LinearSolverSpec):
+        """The Newton linear-solver tier: ``DENSE`` (the default) or
+        ``ops.banded.make_banded_solver(ml, mu)``."""
+        if not isinstance(spec, LinearSolverSpec):
+            raise TypeError(
+                "linear_solver takes ops.linsol.DENSE or "
+                f"ops.banded.make_banded_solver(ml, mu), got {spec!r}")
+        self._linear_solver = spec
+        return self
 
     def use_coloring(self, flag: bool = True):
         _later("sparsity coloring", "queue 1 item 11")
@@ -268,9 +276,17 @@ class OdeBuilder:
                 def mass_diag(t, p):
                     return torch.diagonal(mass_f(t, p), dim1=-2, dim2=-1)
 
+        rhs_jac = None
+        if self._linear_solver.name.startswith("banded"):
+            # the tier's representation is the band (builder.rs
+            # use_coloring's role for a banded pattern)
+            from .ops.banded import make_banded_jac
+
+            ml, mu = self._linear_solver.meta[:2]
+            rhs_jac = make_banded_jac(self._rhs, ml, mu)
         eqn = make_equations(
             self._rhs, self._init, params, self._t0,
-            mass=self._mass, mass_diag=mass_diag,
+            mass=self._mass, mass_diag=mass_diag, rhs_jac=rhs_jac,
         )
         atol = (self._atol.detach().to(F64).cpu()
                 if isinstance(self._atol, torch.Tensor)
@@ -285,4 +301,5 @@ class OdeBuilder:
             rtol=torch.tensor(self._rtol, dtype=F64),
             atol=atol,
             options=self._options,
+            linear_solver=self._linear_solver,
         )

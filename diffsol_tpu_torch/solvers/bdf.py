@@ -167,7 +167,7 @@ class BdfSolver:
                     "singular mass needs consistent initial conditions, not "
                     "ported yet (ROADMAP.md queue 1 item 4)"
                 )
-        self._jvp_probes = eqn.nstates
+        self._jvp_probes = getattr(eqn.rhs_jac, "jvp_probes", eqn.nstates)
 
     def _t(self, t: float) -> torch.Tensor:
         return self.problem.t0.new_tensor(t)

@@ -20,6 +20,7 @@ from diffsol_tpu.models import robertson as jrob
 
 import diffsol_tpu_torch as dtt
 from diffsol_tpu_torch.interop import problem_from_jax, solution_to_numpy
+from diffsol_tpu_torch.models import heat1d as theat
 from diffsol_tpu_torch.models import robertson as trob
 
 torch.set_num_threads(1)
@@ -32,7 +33,7 @@ STEP_SLACK = 2
 @pytest.fixture(scope="module")
 def port_solution():
     problem = problem_from_jax(jrob.problem_ode(), trob.rhs_ode, trob.init)
-    return dtt.solve_dense(dtt.BdfSolver(problem), T_EVAL, max_steps=20_000)
+    return dtt.solve_dense(dtt.BdfSolver(problem), T_EVAL, max_steps=20_000, device="cpu")
 
 
 def test_bdf_robertson_matches_jax(port_solution):
@@ -74,7 +75,7 @@ def test_bdf_diagonal_mass_and_failures():
         .build()
     )
     assert problem.eqn.mass_diag_fn is not None
-    sol = dtt.solve_dense(dtt.BdfSolver(problem), [0.5, 1.0])
+    sol = dtt.solve_dense(dtt.BdfSolver(problem), [0.5, 1.0], device="cpu")
     assert sol.stop_reason == dtt.errors.TSTOP_REACHED
     np.testing.assert_allclose(sol.ys[:, 0].numpy(), np.exp(-0.5 * np.array([0.5, 1.0])),
                                rtol=1e-6)
@@ -89,3 +90,17 @@ def test_bdf_diagonal_mass_and_failures():
         dtt.BdfSolver(singular)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dtt.OdeBuilder().root(lambda t, y, p: y)
+
+
+def test_solve_dense_runs_on_the_card_unless_asked_for_the_cpu():
+    """Without ``device`` a single-instance solve runs on the card, the
+    banded tier's included; where there is none it raises instead of
+    running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    for problem in (trob.problem_ode(), theat.make(mgrid=7, banded=True)[0]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            dtt.solve_dense(dtt.BdfSolver(problem), [0.01])
+        sol = dtt.solve_dense(dtt.BdfSolver(problem), [0.01], device="cpu")
+        assert sol.stop_reason == dtt.errors.TSTOP_REACHED
+        assert sol.ys.device.type == "cpu" and sol.ys.dtype == torch.float64

@@ -82,7 +82,10 @@ def test_generated_cuda_source():
     model = cg.trace_model(rhs_wide, robertson.init, 3, 3)
     src = cg.emit_cuda_header(model, "rhs_wide")
     assert "#define MODEL_N 3" in src and "#define MODEL_NP 3" in src
-    assert "void model_rhs(const T& t, const T* y, const T* p, T* out)" in src
+    # y and out are any indexable types: arrays in the small-n kernel,
+    # strided accessors in the banded one
+    assert "template <typename T, typename Y, typename O>" in src
+    assert "void model_rhs(const T& t, Y y, const T* p, O out)" in src
     assert "void model_init(const T& t, const T* p, T* out)" in src
     for fn in ("dsol_exp", "dsol_log", "dsol_sqrt", "dsol_sin", "dsol_cos", "dsol_tanh"):
         assert fn in src
@@ -146,9 +149,9 @@ def test_out_of_scope_problems_raise_and_auto_falls_back():
     params = torch.tensor([[0.5], [0.7]], dtype=F64)
     with pytest.raises(cg.UnsupportedForKernel):
         dtt.solve_dense_ensemble(dtt.BdfSolver, erf_problem, [0.5, 1.0], params,
-                                 mode="fused")
+                                 mode="fused", device="cpu")
     sol = dtt.solve_dense_ensemble(dtt.BdfSolver, erf_problem, [0.5, 1.0], params,
-                                   mode="auto")
+                                   mode="auto", device="cpu")
     assert sol.tier == "lockstep"
     assert sol.stop_reason == dtt.errors.TSTOP_REACHED
 

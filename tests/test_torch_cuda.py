@@ -1,5 +1,7 @@
-"""The fused BDF kernel (csrc/fused_bdf.cuh) against its plain PyTorch
-version, on a CUDA card; every test here skips without one.
+"""The CUDA kernels against their plain PyTorch versions, on a CUDA card:
+the fused BDF kernel (csrc/fused_bdf.cuh), the band LU (csrc/band_lu.cuh)
+and the fused band BDF kernel (csrc/fused_band_bdf.cuh), and the public
+paths through them.  Every test here skips without a card.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -96,7 +98,7 @@ def test_lockstep_and_auto_modes_on_cuda():
     t_eval = [0.4, 4.0, 40.0, 400.0]
     params = torch.tensor(_params(8))
     cpu = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval, params,
-                                   mode="lockstep")
+                                   mode="lockstep", device="cpu")
     gpu = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval, params.cuda(),
                                    mode="lockstep")
     assert gpu.ys.is_cuda and gpu.tier == "lockstep"
@@ -109,3 +111,226 @@ def test_lockstep_and_auto_modes_on_cuda():
     assert auto.tier == "fused_small"
     assert fs.launch_fused_bdf.launches == before + 1
     assert auto.stop_reason == dtt.errors.TSTOP_REACHED
+
+
+# ---------------------------------------------------------------------------
+# the banded tier: band LU (K3, K4) and the fused band stepper (K2)
+# ---------------------------------------------------------------------------
+
+# band LU kernel vs plain version: both float64 with the same operation
+# order, so they part only by FMA contraction, about one rounding per
+# column step of a diagonally dominant band
+LU_RTOL = 1e-12
+
+
+def _heat1d_iteration_band(nbatch, n=128, c=1e-3, device="cuda"):
+    """M - cJ of heat1d (n states) for diffusivities linspace(0.5, 2.0),
+    as a (B, 3, n) member-major band."""
+    from diffsol_tpu_torch.models import heat1d
+
+    problem, _ = heat1d.make(n - 1, banded=True)
+    d = torch.linspace(0.5, 2.0, nbatch, dtype=torch.float64, device=device)[:, None]
+    y = torch.zeros(nbatch, n, dtype=torch.float64, device=device)
+    jac = torch.func.vmap(problem.eqn.jac, in_dims=(None, 0, 0))(
+        torch.tensor(0.0, dtype=torch.float64, device=device), y, d)
+    return problem.linear_solver.assemble(None, jac, c)
+
+
+def _random_dominant_band(nbatch, n, ml, mu, seed=0, device="cuda"):
+    from diffsol_tpu_torch.ops.banded import _band_index
+
+    rng = np.random.default_rng(seed)
+    band = rng.standard_normal((nbatch, ml + mu + 1, n))
+    band[:, mu] += 2.0 * (ml + mu + 1)
+    band *= _band_index(n, ml, mu)[1]
+    return torch.tensor(band, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["heat1d", "random_ml3_mu2"])
+def test_band_lu_kernels_match_plain_version_cuda(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.ops import band_lu
+
+    if case == "heat1d":
+        ml = mu = 1
+        band = _heat1d_iteration_band(1024)
+    else:
+        ml, mu = 3, 2
+        band = _random_dominant_band(1024, 128, ml, mu)
+    rng = np.random.default_rng(1)
+    b = torch.tensor(rng.standard_normal((1024, 128)), device="cuda")
+    f0, s0 = band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches
+    F = band_lu.band_lu_factor(band, ml, mu)
+    x = band_lu.band_lu_solve(F, b, ml, mu)
+    torch.cuda.synchronize()
+    assert band_lu.launch_band_lu_factor.launches == f0 + 1
+    assert band_lu.launch_band_lu_solve.launches == s0 + 1
+    F_p = band_lu.band_lu_factor_reference(band, ml, mu)
+    x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
+    torch.testing.assert_close(F, F_p, rtol=LU_RTOL, atol=LU_RTOL * float(F_p.abs().max()))
+    torch.testing.assert_close(x, x_p, rtol=LU_RTOL, atol=LU_RTOL * float(x_p.abs().max()))
+    # and the solution solves the system: A x = b, member by member
+    from diffsol_tpu_torch.ops.banded import band_to_dense
+
+    for m in (0, 511, 1023):
+        a = band_to_dense(band[m], ml, mu)
+        torch.testing.assert_close(a @ x[m], b[m], rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_fused_band_kernel_matches_plain_version_cuda():
+    """K2 against its plain version on heat1d n=128, B=256 (two tiles of
+    128): equal steps in every tile and ys to rtol=1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+
+    problem, _ = heat1d.make(127, rtol=1e-6, atol=1e-8, banded=True)
+    t_eval = [0.001, 0.01, 0.05, 0.1, 0.2]
+    solve = fb.make_fused_band_bdf_solve(problem, t_eval, 256)
+    assert solve.tile == 128 and solve.ntiles == 2
+    params = torch.linspace(0.5, 2.0, 256, dtype=torch.float64, device="cuda")[:, None]
+    before = fb.launch_fused_band_bdf.launches
+    ys, status, steps = solve(params)
+    torch.cuda.synchronize()
+    assert fb.launch_fused_band_bdf.launches == before + 1
+    ys_p, status_p, steps_p = solve.reference(params)
+    assert status.tolist() == status_p.tolist() == [fs.OK] * 2
+    assert torch.equal(steps, steps_p)
+    torch.testing.assert_close(ys, ys_p, rtol=YS_RTOL, atol=YS_ATOL)
+
+
+@pytest.mark.cuda
+def test_band_paths_on_cuda():
+    """heat1d n=128, B=256 on the card through both public modes: fused
+    (one K2 launch) and lockstep (K3 and K4 on every Newton matrix); each
+    tracks the analytic series and they agree at the solver tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+
+    problem, soln = heat1d.make(127, rtol=1e-6, atol=1e-8, banded=True)
+    t_eval = [0.001, 0.01, 0.05, 0.1, 0.2]
+    d = np.linspace(0.5, 2.0, 256)
+    params = d[:, None]
+    k2 = fb.launch_fused_band_bdf.launches
+    fused = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval, params, mode="fused")
+    assert fused.tier == "fused_band" and fused.ys.is_cuda
+    assert fb.launch_fused_band_bdf.launches == k2 + 1
+    k3, k4 = band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches
+    lock = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval, params,
+                                    mode="lockstep")
+    assert lock.tier == "lockstep" and lock.ys.is_cuda
+    assert band_lu.launch_band_lu_factor.launches > k3
+    assert band_lu.launch_band_lu_solve.launches > k4
+    for sol in (fused, lock):
+        assert sol.stop_reason == dtt.errors.TSTOP_REACHED
+        m = int(np.argmin(np.abs(d - 1.0)))
+        err = np.abs(sol.ys[:, m].cpu().numpy() - soln(t_eval, d[m])).max()
+        assert err < 1e-4, err
+    torch.testing.assert_close(fused.ys, lock.ys, rtol=5e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_solve_dense_runs_on_the_card_by_default():
+    """A single-instance solve of a problem the builder left on the CPU
+    runs on the card without ``device`` (the band LU kernels on every
+    Newton matrix) and agrees with the same solve on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.ops import band_lu
+
+    problem, soln = heat1d.make(127, rtol=1e-6, atol=1e-8, banded=True)
+    t_eval = [0.001, 0.01, 0.05, 0.1, 0.2]
+    k3, k4 = band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches
+    gpu = dtt.solve_dense(dtt.BdfSolver(problem), t_eval)
+    assert gpu.ys.is_cuda and gpu.stop_reason == dtt.errors.TSTOP_REACHED
+    assert band_lu.launch_band_lu_factor.launches > k3
+    assert band_lu.launch_band_lu_solve.launches > k4
+    assert not problem.params.is_cuda  # the caller's problem is left as it was
+    cpu = dtt.solve_dense(dtt.BdfSolver(problem), t_eval, device="cpu")
+    assert abs(gpu.state.stats.steps - cpu.state.stats.steps) <= STEP_SLACK
+    torch.testing.assert_close(gpu.ys.cpu(), cpu.ys, rtol=1e-6, atol=1e-14)
+    assert np.abs(gpu.ys.cpu().numpy() - soln(t_eval, 1.0)).max() < 1e-4
+
+
+def _band_case(case):
+    """(problem, t_eval, params) of the band kernel's other paths: a
+    constant diagonal mass with algebraic rows, the ml = mu = 2 build, and
+    a matrix the no-pivot LU cannot factor (test_pallas_band.py:137, :95,
+    :212)."""
+    from diffsol_tpu_torch.ops.banded import make_banded_solver
+
+    f64 = torch.float64
+    b = dtt.OdeBuilder().rtol(1e-6).atol(1e-8).p([1.0])
+    if case == "dirichlet_dae":
+        n, h = 13, 1.0 / 12
+
+        def rhs(t, y, p):
+            interior = p[0] * (y[:-2] - 2.0 * y[1:-1] + y[2:]) / (h * h)
+            return torch.cat([y[:1], interior, y[-1:]])
+
+        md = torch.ones(n, dtype=f64)
+        md[0] = md[-1] = 0.0
+        x = torch.arange(n, dtype=f64) * h
+        b = (b.rhs(rhs).init(lambda t, p: 4.0 * x.to(p.device) * (1.0 - x.to(p.device)))
+             .mass(lambda t, p: torch.diag(md.to(p.device)))
+             .linear_solver(make_banded_solver(1, 1)))
+        return b.build(), [0.02, 0.1], np.linspace(0.8, 1.2, 160)[:, None]
+    if case == "stencil5":
+        n, h = 17, 1.0 / 18
+
+        def rhs(t, y, p):
+            z2, z1 = torch.zeros_like(y[:2]), torch.zeros_like(y[:1])
+            return p[0] * (-torch.cat([z2, y[:-2]]) + 16.0 * torch.cat([z1, y[:-1]])
+                           - 30.0 * y + 16.0 * torch.cat([y[1:], z1])
+                           - torch.cat([y[2:], z2])) / (12.0 * h * h)
+
+        x = (torch.arange(n, dtype=f64) + 1.0) * h
+        b = (b.rhs(rhs).init(lambda t, p: 4.0 * x.to(p.device) * (1.0 - x.to(p.device)))
+             .linear_solver(make_banded_solver(2, 2)))
+        return b.build(), [0.02, 0.1], np.linspace(0.5, 2.0, 160)[:, None]
+    n = 12
+    m0, m1, m2 = (torch.tensor(np.arange(n) % 3 == k, dtype=f64) for k in range(3))
+
+    def rhs(t, y, p):
+        left = torch.cat([torch.zeros_like(y[:1]), y[:-1]])
+        right = torch.cat([y[1:], torch.zeros_like(y[:1])])
+        dev = y.device
+        return p[0] * (m0.to(dev) * y + m1.to(dev) * (left - right)
+                       + m2.to(dev) * (left - y))
+
+    b = (b.rhs(rhs).init(lambda t, p: (m0 + m2).to(p.device))
+         .mass(lambda t, p: torch.diag((1.0 - m1).to(p.device)))
+         .linear_solver(make_banded_solver(1, 1)))
+    return b.build(), [0.5, 1.0], np.ones((160, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dirichlet_dae", "stencil5", "lu_growth"])
+def test_fused_band_kernel_other_paths_cuda(case):
+    """K2 against its plain version where heat1d does not reach: the mass
+    diagonal in the residual and the matrix, a wider band build, and the
+    growth guard's typed failure (two tiles of 80 each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+
+    problem, t_eval, params = _band_case(case)
+    solve = fb.make_fused_band_bdf_solve(problem, t_eval, 160, tile=80, max_steps=2000)
+    p = torch.tensor(params, device="cuda")
+    ys, status, steps = solve(p)
+    ys_p, status_p, steps_p = solve.reference(p)
+    want = fs.FAIL_LU_GROWTH if case == "lu_growth" else fs.OK
+    assert status.tolist() == status_p.tolist() == [want] * 2
+    assert torch.equal(steps, steps_p)
+    if case == "lu_growth":
+        assert not bool(torch.isfinite(ys).any())
+    else:
+        torch.testing.assert_close(ys, ys_p, rtol=YS_RTOL, atol=YS_ATOL)

@@ -63,7 +63,8 @@ def test_lockstep_matches_jax(jax_runs, port_problem):
     """Same algorithm in float64 on both sides (see test_torch_bdf.py for
     the reasons behind rtol=1e-6 and the step slack)."""
     sol = dtt.solve_dense_ensemble(dtt.BdfSolver, port_problem, T_EVAL,
-                                   torch.tensor(_params(B)), mode="lockstep")
+                                   torch.tensor(_params(B)), mode="lockstep",
+                                   device="cpu")
     got = solution_to_numpy(sol)
     assert got["tier"] == "lockstep"
     assert got["stop_reason"] == jax_runs["lock_stop"] == dtt.errors.TSTOP_REACHED
@@ -87,7 +88,8 @@ def test_fused_plain_matches_jax_interpret(jax_runs, port_problem):
 
 def test_fused_mode_on_cpu_runs_the_plain_version(jax_runs, port_problem):
     sol = dtt.solve_dense_ensemble(dtt.BdfSolver, port_problem, T_EVAL,
-                                   torch.tensor(_params(B)), mode="fused", tile=4)
+                                   torch.tensor(_params(B)), mode="fused", tile=4,
+                                   device="cpu")
     got = solution_to_numpy(sol)
     assert got["tier"] == "fused_small_reference"
     assert got["stop_reason"] == dtt.errors.TSTOP_REACHED
@@ -99,16 +101,38 @@ def test_fused_mode_on_cpu_runs_the_plain_version(jax_runs, port_problem):
                                rtol=5e-3, atol=1e-8)
 
 
-def test_auto_mode_on_cpu_is_lockstep(port_problem):
-    sol = dtt.solve_dense_ensemble(dtt.BdfSolver, port_problem, T_EVAL[:2],
-                                   torch.tensor(_params(4)), mode="auto")
+def test_auto_mode_on_cpu_is_lockstep(jax_runs, port_problem):
+    """``mode="auto"`` goes lockstep for a problem outside every kernel's
+    scope: here Robertson plus ``0 * erf(y)``, an op the kernels' tracer
+    does not take, which leaves the solution as it was."""
+    def rhs(t, y, p):
+        return trob.rhs_ode(t, y, p) + 0.0 * torch.erf(y)
+
+    problem = dataclasses.replace(
+        port_problem, eqn=dataclasses.replace(port_problem.eqn, rhs=rhs))
+    sol = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, T_EVAL[:2],
+                                   _params(B), mode="auto", device="cpu")
     assert sol.tier == "lockstep"
+    assert sol.stop_reason == dtt.errors.TSTOP_REACHED
+    # a stop time of 4 in place of 400 changes the last steps: agreement
+    # at the solver tolerance
+    np.testing.assert_allclose(sol.ys.numpy(), jax_runs["lock_ys"][:2],
+                               rtol=5e-3, atol=1e-8)
+
+
+def test_auto_mode_on_cpu_takes_the_kernel_plain_version(port_problem):
+    """``mode="auto"`` takes a kernel tier whenever the problem is in its
+    scope, on any device: on the CPU that is the kernel's plain version."""
+    sol = dtt.solve_dense_ensemble(dtt.BdfSolver, port_problem, T_EVAL[:2],
+                                   _params(4), mode="auto", device="cpu")
+    assert sol.tier == "fused_small_reference"
     assert sol.stop_reason == dtt.errors.TSTOP_REACHED
 
 
 def test_independent_mode(jax_runs, port_problem):
     sol = dtt.solve_dense_ensemble(dtt.BdfSolver, port_problem, T_EVAL,
-                                   torch.tensor(_params(B)[:2]), mode="independent")
+                                   torch.tensor(_params(B)[:2]), mode="independent",
+                                   device="cpu")
     assert sol.tier == "independent"
     assert sol.stop_reason.tolist() == [dtt.errors.TSTOP_REACHED] * 2
     # each member takes its own steps: agreement at the solver tolerance
