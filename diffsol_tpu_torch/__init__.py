@@ -7,17 +7,20 @@ Hopper (``csrc/``), built with ``nvcc`` at first use: the fused small-n
 and banded BDF whole-solve kernels and the band LU factor and solve.
 
 The port so far covers the stiff BDF ensemble main path and the banded
-method-of-lines tier: problems with identity or diagonal mass, the dense-
-and band-LU BDF solver, ``solve_dense``, and ``solve_dense_ensemble`` in
-lockstep, independent and fused modes, on the card unless the caller
-asks for the CPU.
+method-of-lines tier: problems with identity or diagonal mass (semi-
+explicit DAEs with consistent initial conditions solved for), root events
+that stop the solve or reset and continue, outputs and their quadrature,
+the dense- and band-LU BDF solver, ``solve_dense`` and ``solve``, and
+``solve_dense_ensemble`` in lockstep, independent and fused modes, on the
+card unless the caller asks for the CPU.
 """
 
 from . import errors  # noqa: F401
-from .drivers import Solution, solve_dense  # noqa: F401
+from .drivers import Solution, solve, solve_dense  # noqa: F401
 from .ensemble import make_lockstep_problem, solve_dense_ensemble  # noqa: F401
 from .equations import OdeEquations, make_equations  # noqa: F401
 from .problem import (  # noqa: F401
+    InitialConditionOptions,
     OdeBuilder,
     OdeProblem,
     OdeSolverOptions,

@@ -49,7 +49,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p so they stay 64-bit
 _SIGNATURES = {
     "fused_bdf": {
-        "fused_bdf_launch": ([_P] * 6, _I),
+        # params, t_eval, ys, gs, info, root_t, &config, stream
+        "fused_bdf_launch": ([_P] * 8, _I),
         "fused_bdf_config_size": ([], _I),
     },
     "band_lu": {

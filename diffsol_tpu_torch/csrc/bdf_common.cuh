@@ -14,10 +14,12 @@ constexpr int MAX_ORDER = 5;
 
 // status codes, as pallas_stepper.py:82-89
 constexpr int OK = 0;
+constexpr int ROOT_STOP = 1;  // a root without a reset operator stops the tile
 constexpr int FAIL_STEP_TOO_SMALL = -1;
 constexpr int FAIL_MAX_STEPS = -2;
 constexpr int FAIL_NEWTON = -3;
 constexpr int FAIL_ERRTEST = -4;
+constexpr int FAIL_ROOT_INCONS = -5;  // the tile's members disagree on a root
 constexpr int FAIL_LU_GROWTH = -6;
 
 // NaN-propagating max/min, as torch.maximum / jnp.maximum
@@ -43,6 +45,15 @@ __device__ __forceinline__ double block_max(double v, double* red) {
   double r = red[0];
   for (int w = 1; w < nw; ++w) r = nan_max(r, red[w]);
   return r;
+}
+
+// Thread 0's value to every thread of the block, through one shared slot.
+// Every thread must call it.
+__device__ __forceinline__ double bcast0(double v, double* slot) {
+  __syncthreads();  // earlier readers of the slot are done
+  if (threadIdx.x == 0) *slot = v;
+  __syncthreads();
+  return *slot;
 }
 
 // ops/controller.py pi_controller_raw on squared norms

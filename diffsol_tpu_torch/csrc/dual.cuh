@@ -45,6 +45,25 @@ __device__ __forceinline__ double dsol_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ double dsol_sin(double x) { return sin(x); }
 __device__ __forceinline__ double dsol_cos(double x) { return cos(x); }
 __device__ __forceinline__ double dsol_tanh(double x) { return tanh(x); }
+__device__ __forceinline__ double dsol_expm1(double x) { return expm1(x); }
+__device__ __forceinline__ double dsol_log1p(double x) { return log1p(x); }
+__device__ __forceinline__ double dsol_rsqrt(double x) { return 1.0 / sqrt(x); }
+__device__ __forceinline__ double dsol_tan(double x) { return tan(x); }
+__device__ __forceinline__ double dsol_sinh(double x) { return sinh(x); }
+__device__ __forceinline__ double dsol_cosh(double x) { return cosh(x); }
+__device__ __forceinline__ double dsol_sigmoid(double x) { return 1.0 / (1.0 + exp(-x)); }
+// x^k for a constant k, and x^y for a traced exponent
+__device__ __forceinline__ double dsol_powc(double x, double k) { return pow(x, k); }
+__device__ __forceinline__ double dsol_pow(double x, double y) { return pow(x, y); }
+// comparisons act on the value part (an order predicate has zero tangent
+// almost everywhere, the usual forward-mode convention)
+__device__ __forceinline__ bool dsol_lt(double a, double b) { return a < b; }
+__device__ __forceinline__ bool dsol_le(double a, double b) { return a <= b; }
+__device__ __forceinline__ bool dsol_gt(double a, double b) { return a > b; }
+__device__ __forceinline__ bool dsol_ge(double a, double b) { return a >= b; }
+__device__ __forceinline__ bool dsol_eq(double a, double b) { return a == b; }
+__device__ __forceinline__ bool dsol_ne(double a, double b) { return a != b; }
+__device__ __forceinline__ double dsol_where(bool m, double a, double b) { return m ? a : b; }
 
 template <typename S>
 __device__ __forceinline__ Dual<S> dsol_exp(const Dual<S>& x) {
@@ -72,4 +91,61 @@ template <typename S>
 __device__ __forceinline__ Dual<S> dsol_tanh(const Dual<S>& x) {
   const S th = tanh(x.v);
   return Dual<S>(th, (S(1) - th * th) * x.d);
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_expm1(const Dual<S>& x) {
+  const S e = expm1(x.v);
+  return Dual<S>(e, (e + S(1)) * x.d);
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_log1p(const Dual<S>& x) {
+  return Dual<S>(log1p(x.v), x.d / (x.v + S(1)));
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_rsqrt(const Dual<S>& x) {
+  const S r = S(1) / sqrt(x.v);
+  return Dual<S>(r, -(r * x.d) / (x.v * S(2)));
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_tan(const Dual<S>& x) {
+  const S tn = tan(x.v);
+  return Dual<S>(tn, (S(1) + tn * tn) * x.d);
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_sinh(const Dual<S>& x) {
+  return Dual<S>(sinh(x.v), cosh(x.v) * x.d);
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_cosh(const Dual<S>& x) {
+  return Dual<S>(cosh(x.v), sinh(x.v) * x.d);
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_sigmoid(const Dual<S>& x) {
+  const S sg = S(1) / (S(1) + exp(-x.v));
+  return Dual<S>(sg, sg * (S(1) - sg) * x.d);
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_powc(const Dual<S>& x, S k) {
+  return Dual<S>(pow(x.v, k), k * pow(x.v, k - S(1)) * x.d);
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_pow(const Dual<S>& x, const Dual<S>& y) {
+  const S v = pow(x.v, y.v);
+  return Dual<S>(v, v * (y.d * log(x.v) + y.v * x.d / x.v));
+}
+template <typename S>
+__device__ __forceinline__ bool dsol_lt(const Dual<S>& a, const Dual<S>& b) { return a.v < b.v; }
+template <typename S>
+__device__ __forceinline__ bool dsol_le(const Dual<S>& a, const Dual<S>& b) { return a.v <= b.v; }
+template <typename S>
+__device__ __forceinline__ bool dsol_gt(const Dual<S>& a, const Dual<S>& b) { return a.v > b.v; }
+template <typename S>
+__device__ __forceinline__ bool dsol_ge(const Dual<S>& a, const Dual<S>& b) { return a.v >= b.v; }
+template <typename S>
+__device__ __forceinline__ bool dsol_eq(const Dual<S>& a, const Dual<S>& b) { return a.v == b.v; }
+template <typename S>
+__device__ __forceinline__ bool dsol_ne(const Dual<S>& a, const Dual<S>& b) { return a.v != b.v; }
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_where(bool m, const Dual<S>& a, const Dual<S>& b) {
+  return m ? a : b;
 }

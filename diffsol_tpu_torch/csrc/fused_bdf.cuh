@@ -14,6 +14,24 @@
 // PyTorch version of the same algorithm is
 // diffsol_tpu_torch/ops/fused_stepper.py::fused_bdf_reference.
 //
+// Beside the plain ODE solve the kernel computes, each switched on at
+// compile time by the generated model header so that a problem without it
+// instantiates the ODE kernel unchanged:
+//  * a diagonal mass (MODEL_HAS_MASS): Newton matrix diag(m) - cJ and
+//    residual m (x - y_pred + psi) - c f(x); a constant diagonal is literal
+//    assignments in model_mass and folds away, a t- or p-dependent one is
+//    re-evaluated at every step's t_pred (pallas_stepper.py:801);
+//  * quadrature of MODEL_NQUAD outputs (model_out, or the state itself): a
+//    second difference matrix gD beside D, with or without a share in the
+//    error test (pallas_stepper.py:1268-1325);
+//  * MODEL_NROOT root functions (pallas_stepper.py:1436-1760): after an
+//    accepted step every member scans its own sign changes, the tile must
+//    agree (else FAIL_ROOT_INCONS), member 0's crossing is polished by the
+//    modified secant with its g values broadcast from thread 0 -- so each
+//    iteration's decisions are uniform too -- and the tile is pinned to the
+//    shared root time, where it stops (ROOT_STOP) or applies model_reset
+//    and restarts the difference matrices at order 1.
+//
 // What bounds it on the H100: not bytes -- a member's state, D (8 x N),
 // J, the LU and its pivots live in the thread's registers and local memory
 // for the whole solve, and device memory sees only the parameters in and
@@ -34,11 +52,13 @@
 // pairs because Mosaic has no f64).
 //
 // The translation unit that includes this header first includes the model
-// header generated by eqn_codegen, which defines MODEL_N, MODEL_NP and
-// diffsol_model::model_rhs<T> / model_init<T>.
+// header generated by eqn_codegen, which defines MODEL_N, MODEL_NP, the
+// switches above and diffsol_model::model_rhs<T> / model_init<T> and, as
+// switched on, model_mass, model_root, model_reset and model_out.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 #include "bdf_common.cuh"
@@ -52,6 +72,15 @@ namespace diffsol_fused {
 constexpr int SMALL_TILE = 256;
 constexpr int MAX_TILE = 1024;
 
+constexpr bool HAS_MASS = MODEL_HAS_MASS != 0;
+constexpr int NROOT = MODEL_NROOT;
+constexpr bool HAS_RESET = MODEL_HAS_RESET != 0;
+constexpr int NQ = MODEL_NQUAD;  // quadrature rows
+constexpr bool OUT_IN_ERR = MODEL_OUT_IN_ERR != 0;
+// array extents that stay legal when a feature is off
+constexpr int NRX = NROOT > 0 ? NROOT : 1;
+constexpr int NQX = NQ > 0 ? NQ : 1;
+
 // Every number of the solve.  The host fills it as the ctypes.Structure
 // fused_stepper.py::CConfig, which mirrors this layout field for field
 // (the wrapper checks sizeof(Config) through fused_bdf_config_size).
@@ -64,6 +93,8 @@ struct Config {
   int max_steps, max_newton_iter, max_newton_fails, max_err_fails;
   int update_jac_after, update_rhs_jac_after, jac_reuse;
   int neval, nbatch, tile, ntiles;
+  int max_secant_iters, pad_;
+  double out_rtol, out_atol[8];
 };
 
 // this member's mean over states of (x / (|y| rtol + atol))^2
@@ -97,17 +128,19 @@ __device__ void jacobian(double t, const double* y, const double* p, double (*J)
   }
 }
 
-// LU with partial pivoting of A = I - c J (_lu_factor_df,
-// pallas_stepper.py:144-194, with real row swaps): the row of largest
-// |A[r][k]| (first on ties) becomes the pivot row; rdiag[k] = 1/U[k][k].
+// LU with partial pivoting of A = M - c J, M the identity or diag(md)
+// (_lu_factor_df, pallas_stepper.py:144-194, with real row swaps): the row
+// of largest |A[r][k]| (first on ties) becomes the pivot row;
+// rdiag[k] = 1/U[k][k].
 template <int N>
-__device__ void lu_factor(double (*J)[N], double c, double (*A)[N],
+__device__ void lu_factor(double (*J)[N], double c, const double* md, double (*A)[N],
                           int* perm, double* rdiag) {
 #pragma unroll
   for (int r = 0; r < N; ++r) {
     perm[r] = r;
 #pragma unroll
-    for (int q = 0; q < N; ++q) A[r][q] = (r == q ? 1.0 : 0.0) - c * J[r][q];
+    for (int q = 0; q < N; ++q)
+      A[r][q] = (r == q ? (HAS_MASS ? md[r] : 1.0) : 0.0) - c * J[r][q];
   }
   for (int k = 0; k < N - 1; ++k) {
     int pk = k;
@@ -156,13 +189,83 @@ __device__ void lu_solve(double (*A)[N], const int* perm, const double* rdiag,
   }
 }
 
+// the quadrature's integrand: model_out, or the state itself
+template <int N>
+__device__ __forceinline__ void eval_out(double t, const double* y, const double* p,
+                                         double* o) {
+#if MODEL_HAS_OUT
+  diffsol_model::model_out<double>(t, y, p, o);
+#else
+#pragma unroll
+  for (int s = 0; s < NQ; ++s) o[s] = y[s];
+#endif
+}
+
+// the accepted step's interpolation polynomial at te (D rows of width M)
+template <int M>
+__device__ __forceinline__ void interp(const double (*Dacc)[M], double t_new, double h,
+                                       int order, double te, double* out) {
+#pragma unroll
+  for (int s = 0; s < M; ++s) out[s] = Dacc[0][s];
+  double tf = 1.0;
+#pragma unroll
+  for (int i = 0; i < MAX_ORDER; ++i) {
+    const double tf_new = tf * ((te - (t_new - h * i)) / (h * (1 + i)));
+    if (i < order) {
+#pragma unroll
+      for (int s = 0; s < M; ++s) out[s] += tf_new * Dacc[i + 1][s];
+      tf = tf_new;
+    }
+  }
+}
+
+#if MODEL_NROOT > 0
+// Sign-change scan between two sets of root values (ops/rootfind.py
+// root_finding): any crossing, any exact zero in g1, and the strongest
+// crossing's index (first on ties).
+__device__ __forceinline__ void root_scan(const double* g0, const double* g1, bool* found,
+                                          bool* zero, int* imax) {
+  bool f = false, z = false;
+  int im = 0;
+  double best = 0.0;
+#pragma unroll
+  for (int r = 0; r < NROOT; ++r) {
+    const bool crossed = g0[r] * g1[r] < 0.0;
+    const double frac = crossed ? fabs(g1[r] / (g1[r] - g0[r])) : 0.0;
+    f = f || crossed;
+    z = z || g1[r] == 0.0;
+    if (r == 0) {
+      best = frac;
+    } else {
+      if (frac > best) im = r;
+      best = nan_max(frac, best);
+    }
+  }
+  *found = f;
+  *zero = z;
+  *imax = im;
+}
+
+__device__ __forceinline__ double pick(const double* g, int idx) {
+  double v = g[0];
+#pragma unroll
+  for (int r = 1; r < NROOT; ++r)
+    if (idx == r) v = g[r];
+  return v;
+}
+#endif
+
 template <int N, int NP, int MAXT>
 __global__ void __launch_bounds__(MAXT)
 fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t_eval,
-                 double* __restrict__ ys, int* __restrict__ info, const Config c) {
+                 double* __restrict__ ys, double* __restrict__ gs, int* __restrict__ info,
+                 double* __restrict__ root_t_out, const Config c) {
   constexpr int NPX = NP > 0 ? NP : 1;
   __shared__ double red[32];
   __shared__ double ru[ND][ND];
+#if MODEL_NROOT > 0
+  __shared__ double bc;
+#endif
 
   // threads past the tile (blockDim is a multiple of 32) replicate the
   // tile's last member, so they never change a tile-wide max
@@ -185,6 +288,16 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
     double y0[N], dy0[N], y1[N], f1[N];
     diffsol_model::model_init<double>(t, p, y0);
     diffsol_model::model_rhs<double>(t, y0, p, dy0);
+#if MODEL_HAS_MASS
+    {
+      // dy0 = f/m on the differential rows and 0 on the algebraic ones: the
+      // host probe saw consistent initial conditions
+      double m0[N];
+      diffsol_model::model_mass<double>(t, p, m0);
+#pragma unroll
+      for (int s = 0; s < N; ++s) dy0[s] = m0[s] != 0.0 ? dy0[s] / m0[s] : 0.0;
+    }
+#endif
     const double d0 = sqrt(block_max(wrms_local<N>(y0, y0, c), red));
     const double d1 = sqrt(block_max(wrms_local<N>(dy0, y0, c), red));
     const double h0 = (d0 < 1e-5 || d1 < 1e-5) ? 1e-6 : 0.01 * (d0 / d1);
@@ -207,6 +320,23 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
       D[1][s] = h * dy0[s];
     }
   }
+  // the quadrature's difference matrix: g(t0) = 0, gD[1] = h out(t0, y0)
+  double gD[ND][NQX];
+  if constexpr (NQ > 0) {
+    double dg0[NQX];
+    eval_out<N>(t, D[0], p, dg0);
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int s = 0; s < NQ; ++s) gD[i][s] = i == 1 ? h * dg0[s] : 0.0;
+  }
+  // the root function at the current point, and the last root
+  double rootg[NRX];
+  int n_roots = 0, root_idx = -1;
+  double root_t = NAN;
+#if MODEL_NROOT > 0
+  diffsol_model::model_root<double>(t, D[0], p, rootg);
+#endif
 
   // ---- the step loop; every branch below is uniform across the block
   {
@@ -245,6 +375,11 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
         psi[s] = b * alpha_k;
       }
 
+      double md[N];
+#if MODEL_HAS_MASS
+      diffsol_model::model_mass<double>(t_pred, p, md);
+#endif
+
       // ---- stale-Jacobian policy (pallas_stepper.py:1094-1174)
       double eta0;
       if (c.jac_reuse) {
@@ -252,18 +387,18 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
         const bool refresh = k == 0 || conv_fail > 0 || ssrj >= c.update_rhs_jac_after;
         const bool refactor = refresh || rel > c.thresh_update_jac || ssj >= c.update_jac_after;
         if (refresh) jacobian<N, NP>(t_pred, y_pred, p, J);
-        if (refactor) lu_factor<N>(J, cval, LU, perm, rdiag);
+        if (refactor) lu_factor<N>(J, cval, md, LU, perm, rdiag);
         if (refactor) c_last = cval;
         ssj = refactor ? 0 : ssj + 1;
         ssrj = refresh ? 0 : ssrj + 1;
         eta0 = refactor ? c.eta_reset_jac : (h_changed == 1 ? c.eta_reset_step : eta_mem);
       } else {
         jacobian<N, NP>(t_pred, y_pred, p, J);
-        lu_factor<N>(J, cval, LU, perm, rdiag);
+        lu_factor<N>(J, cval, md, LU, perm, rdiag);
         eta0 = c.eta_reset_jac;
       }
 
-      // ---- Newton on (x - y_pred + psi) - c f(x) (pallas_stepper.py:1176-1265)
+      // ---- Newton on M (x - y_pred + psi) - c f(x) (pallas_stepper.py:1176-1265)
       double ypp[N], x[N];
 #pragma unroll
       for (int s = 0; s < N; ++s) {
@@ -276,7 +411,8 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
         double fx[N], res[N], delta[N];
         diffsol_model::model_rhs<double>(t_pred, x, p, fx);
 #pragma unroll
-        for (int s = 0; s < N; ++s) res[s] = (x[s] + ypp[s]) - cval * fx[s];
+        for (int s = 0; s < N; ++s)
+          res[s] = (HAS_MASS ? md[s] * (x[s] + ypp[s]) : (x[s] + ypp[s])) - cval * fx[s];
         lu_solve<N>(LU, perm, rdiag, res, delta);
 #pragma unroll
         for (int s = 0; s < N; ++s) x[s] = x[s] - delta[s];
@@ -301,8 +437,33 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
 #pragma unroll
       for (int s = 0; s < N; ++s) d[s] = x[s] - y_pred[s];
 
+      // ---- quadrature delta d_g = c dg - psi_g (pallas_stepper.py:1268-1279)
+      double g_delta[NQX];
+      if constexpr (NQ > 0) {
+        double dg[NQX];
+        eval_out<N>(t_pred, y_pred, p, dg);
+#pragma unroll
+        for (int s = 0; s < NQ; ++s) {
+          double b = c.gamma[1] * gD[1][s];
+#pragma unroll
+          for (int i = 2; i <= MAX_ORDER; ++i)
+            if (i <= order) b += c.gamma[i] * gD[i][s];
+          g_delta[s] = cval * dg[s] - b * alpha_k;
+        }
+      }
+
       // ---- error test and step-size control (pallas_stepper.py:1281-1319)
-      const double err = block_max(wrms_local<N>(d, y_pred, c), red) * c.ec2[order - 1];
+      double err = block_max(wrms_local<N>(d, y_pred, c), red) * c.ec2[order - 1];
+      if constexpr (OUT_IN_ERR) {
+        // the quadrature joins the max with the NEXT error constant
+        double acc = 0.0;
+#pragma unroll
+        for (int s = 0; s < NQ; ++s) {
+          const double q = g_delta[s] / (fabs(gD[0][s]) * c.out_rtol + c.out_atol[s]);
+          acc += q * q;
+        }
+        err = nan_max(err, block_max(acc / NQX, red) * c.ec2[order]);
+      }
       const bool accepted = solve_ok && err <= 1.0;
       const double safety = 0.9 * (2.0 * mnewt + 1.0) / (2.0 * mnewt + niter);
       const bool second = !solve_ok && conv_fail == 1;
@@ -329,6 +490,26 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
           if (i == order + 1) v = d[s];
           if (i == order + 2) v = d[s] - dold;
           Dacc[i][s] = v;
+        }
+      }
+
+      double gDacc[ND][NQX];
+      if constexpr (NQ > 0) {
+#pragma unroll
+        for (int s = 0; s < NQ; ++s) {
+          double dold = 0.0;
+#pragma unroll
+          for (int i = 0; i < ND; ++i)
+            if (i == order + 1) dold = gD[i][s];
+          double acc = 0.0;
+#pragma unroll
+          for (int i = ND - 1; i >= 0; --i) {
+            if (i <= order) acc += gD[i][s];
+            double v = i <= order ? acc + g_delta[s] : gD[i][s];
+            if (i == order + 1) v = g_delta[s];
+            if (i == order + 2) v = g_delta[s] - dold;
+            gDacc[i][s] = v;
+          }
         }
       }
 
@@ -373,9 +554,117 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
         new_order = new_order < 1 ? 1 : (new_order > MAX_ORDER ? MAX_ORDER : new_order);
       }
 
+      // ---- root check on the accepted interpolant (pallas_stepper.py:1436-1743)
+      bool do_root = false, incons = false;
+      double t_r = t_pred;
+      int ridx = -1;
+      double g1[NRX], y_plus[N], dy_plus[N], g_root[NQX], dg_plus[NQX];
+#if MODEL_NROOT > 0
+      if (accepted) {  // uniform
+        diffsol_model::model_root<double>(t_pred, Dacc[0], p, g1);
+        bool found_l, zero_l;
+        int imax_l;
+        root_scan(rootg, g1, &found_l, &zero_l, &imax_l);
+        const bool f_any = block_max(found_l ? 1.0 : 0.0, red) > 0.0;
+        const bool f_all = !(block_max(found_l ? 0.0 : 1.0, red) > 0.0);
+        const bool z_any = block_max(zero_l ? 1.0 : 0.0, red) > 0.0;
+        const bool z_all = !(block_max(zero_l ? 0.0 : 1.0, red) > 0.0);
+        const double im_hi = block_max(found_l ? (double)imax_l : -INFINITY, red);
+        const double im_lo = -block_max(found_l ? -(double)imax_l : -INFINITY, red);
+        incons = (f_any && !f_all) || (f_all && im_hi != im_lo) || (z_any && !z_all && !f_any);
+        const bool do_cross = f_all && im_hi == im_lo;
+        const bool do_zero = !f_any && z_all;
+        do_root = (do_cross || do_zero) && !incons;
+        if (do_root) {  // uniform
+          // member 0's root values, the same in every thread
+          double g0s[NROOT], g1s[NROOT];
+#pragma unroll
+          for (int r = 0; r < NROOT; ++r) {
+            g0s[r] = bcast0(rootg[r], &bc);
+            g1s[r] = bcast0(g1[r], &bc);
+          }
+          if (do_cross) {
+            // modified secant (root.rs:60-165); every quantity below is
+            // the tile's, so the loop is uniform
+            int im = (int)bcast0((double)imax_l, &bc);
+            const double tol = 100.0 * DBL_EPSILON * (fabs(t_pred) + fabs(t_pred - t));
+            double t0_ = t, t1_ = t_pred, alpha = 1.0, res_t = t_pred;
+            bool sc0 = false, sc1 = true, done = false;
+            int res_i = im, it = 0;
+            while (!done && fabs(t1_ - t0_) > tol && it < c.max_secant_iters) {
+              const double g1v = pick(g1s, im), g0v = pick(g0s, im);
+              const double dt_br = t1_ - t0_;
+              double t_mid = t1_ - dt_br * (g1v / (g1v - alpha * g0v));
+              // keep t_mid off the bracket's ends
+              const double fracint = fabs(dt_br) / tol;
+              const double fracsub = fracint > 5.0 ? 0.1 : 0.5 / fracint;
+              if (fabs(t_mid - t0_) < 0.5 * tol) t_mid = t0_ + fracsub * dt_br;
+              if (fabs(t1_ - t_mid) < 0.5 * tol) t_mid = t1_ - fracsub * dt_br;
+              double ymid[N], gm[NROOT], gmid[NROOT];
+              interp<N>(Dacc, t_pred, h, order, t_mid, ymid);
+              diffsol_model::model_root<double>(t_mid, ymid, p, gm);
+#pragma unroll
+              for (int r = 0; r < NROOT; ++r) gmid[r] = bcast0(gm[r], &bc);
+              bool lower, rootfnd;
+              int im2;
+              root_scan(g0s, gmid, &lower, &rootfnd, &im2);
+              if (lower) {
+                t1_ = t_mid;
+                im = im2;
+#pragma unroll
+                for (int r = 0; r < NROOT; ++r) g1s[r] = gmid[r];
+              } else if (rootfnd) {
+                res_t = t_mid;
+                res_i = im;
+                done = true;
+              } else {
+                t0_ = t_mid;
+#pragma unroll
+                for (int r = 0; r < NROOT; ++r) g0s[r] = gmid[r];
+              }
+              if (it % 2 == 0) sc0 = lower; else sc1 = lower;
+              if (it >= 2) alpha = sc0 != sc1 ? 1.0 : (sc0 ? 0.5 * alpha : 2.0 * alpha);
+              ++it;
+            }
+            t_r = done ? res_t : t1_;
+            ridx = done ? res_i : im;
+          } else {
+            // a zero at the step's end: the smallest |g1| of member 0
+            int zi = 0;
+            double zb = fabs(g1s[0]);
+#pragma unroll
+            for (int r = 1; r < NROOT; ++r) {
+              const double mag = fabs(g1s[r]);
+              if (mag < zb) zi = r;
+              zb = nan_min(mag, zb);
+            }
+            ridx = zi;
+          }
+          // pin back to the root, reset, and the pieces of the restart at
+          // order 1 (pallas_stepper.py:1684-1706)
+          double y_root[N];
+          interp<N>(Dacc, t_pred, h, order, t_r, y_root);
+#if MODEL_HAS_RESET
+          diffsol_model::model_reset<double>(t_r, y_root, p, y_plus);
+#else
+#pragma unroll
+          for (int s = 0; s < N; ++s) y_plus[s] = y_root[s];
+#endif
+          diffsol_model::model_rhs<double>(t_r, y_plus, p, dy_plus);
+          diffsol_model::model_root<double>(t_r, y_plus, p, g1);
+          if constexpr (NQ > 0) {
+            interp<NQX>(gDacc, t_pred, h, order, t_r, g_root);
+            eval_out<N>(t_r, y_plus, p, dg_plus);
+          }
+        }
+      }
+#endif
+      // a root ends the step at the root time
+      const double t_wr = do_root ? t_r : t_pred;
+
       // ---- dense output inside the accepted step (pallas_stepper.py:1749-1828)
       if (accepted) {
-        while (nxt < c.neval && t_eval[nxt] <= t_pred) {
+        while (nxt < c.neval && t_eval[nxt] <= t_wr) {
           const double te = t_eval[nxt];
           double yv[N];
 #pragma unroll
@@ -395,6 +684,15 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
             for (int s = 0; s < N; ++s)
               ys[((size_t)nxt * N + s) * c.nbatch + m] = yv[s];
           }
+          if constexpr (NQ > 0) {
+            double gv[NQX];
+            interp<NQX>(gDacc, t_pred, h, order, te, gv);
+            if (writer) {
+#pragma unroll
+              for (int s = 0; s < NQ; ++s)
+                gs[((size_t)nxt * NQ + s) * c.nbatch + m] = gv[s];
+            }
+          }
           ++nxt;
         }
       }
@@ -408,6 +706,12 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
         for (int i = 0; i < ND; ++i)
 #pragma unroll
           for (int s = 0; s < N; ++s) D[i][s] = Dacc[i][s];
+        if constexpr (NQ > 0) {
+#pragma unroll
+          for (int i = 0; i < ND; ++i)
+#pragma unroll
+            for (int s = 0; s < NQ; ++s) gD[i][s] = gDacc[i][s];
+        }
       }
       if (do_ru) {  // uniform
         compute_ru(ru_order, ru_factor, c.U, ru);
@@ -425,6 +729,22 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
         for (int i = 0; i < ND; ++i)
 #pragma unroll
           for (int s = 0; s < N; ++s) D[i][s] = Dn[i][s];
+        if constexpr (NQ > 0) {
+          double gDn[ND][NQX];
+#pragma unroll
+          for (int j = 0; j < ND; ++j)
+#pragma unroll
+            for (int s = 0; s < NQ; ++s) {
+              double acc = ru[0][j] * gD[0][s];
+#pragma unroll
+              for (int i = 1; i < ND; ++i) acc += ru[i][j] * gD[i][s];
+              gDn[j][s] = acc;
+            }
+#pragma unroll
+          for (int i = 0; i < ND; ++i)
+#pragma unroll
+            for (int s = 0; s < NQ; ++s) gD[i][s] = gDn[i][s];
+        }
       }
       const double h_out = h * (do_ru ? ru_factor : 1.0);
 
@@ -435,6 +755,12 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
       if (!solve_ok && newton_fails > c.max_newton_fails) status_n = FAIL_NEWTON;
       if (do_rescale && fabs(h_out) < c.min_timestep) status_n = FAIL_STEP_TOO_SMALL;
       if (k + 1 >= c.max_steps && nxt < c.neval && status_n == OK) status_n = FAIL_MAX_STEPS;
+      if constexpr (NROOT > 0) {
+        // a crossing the members disagree on is a hard error; a root
+        // without a reset operator stops the tile
+        if (incons) status_n = FAIL_ROOT_INCONS;
+        if (!HAS_RESET && do_root && status_n == OK) status_n = ROOT_STOP;
+      }
       k += 1;
       steps += accepted ? 1 : 0;
       if (accepted) {
@@ -444,6 +770,35 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
       }
       h = h_out;
       prev_err = accepted ? err : NAN;
+      if constexpr (NROOT > 0) {
+        if (accepted) {
+#pragma unroll
+          for (int r = 0; r < NROOT; ++r) rootg[r] = g1[r];
+        }
+        if (do_root) {
+          // restart the difference matrices at order 1 from the post-reset
+          // state (pallas_stepper.py:1835-1870, :1916-1937)
+#pragma unroll
+          for (int i = 0; i < ND; ++i)
+#pragma unroll
+            for (int s = 0; s < N; ++s)
+              D[i][s] = i == 0 ? y_plus[s] : (i == 1 ? h_out * dy_plus[s] : 0.0);
+          if constexpr (NQ > 0) {
+#pragma unroll
+            for (int i = 0; i < ND; ++i)
+#pragma unroll
+              for (int s = 0; s < NQ; ++s)
+                gD[i][s] = i == 0 ? g_root[s] : (i == 1 ? h_out * dg_plus[s] : 0.0);
+          }
+          t = t_r;
+          order = 1;
+          n_equal = 0;
+          prev_err = NAN;
+          n_roots += 1;
+          root_t = t_r;
+          root_idx = ridx;
+        }
+      }
       conv_fail = accepted ? 0 : (solve_ok ? conv_fail : 1);
       h_changed = accepted ? 0 : (do_rescale ? 1 : h_changed);
       if (c.jac_reuse) eta_mem = eta_run;
@@ -452,34 +807,40 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
 
     if (status == OK && nxt < c.neval) status = FAIL_MAX_STEPS;
     if (threadIdx.x == 0) {
-      int* row = info + (size_t)blockIdx.x * 4;
+      int* row = info + (size_t)blockIdx.x * 6;
       row[0] = status;
       row[1] = steps;
       row[2] = k;
       row[3] = nxt;
+      row[4] = n_roots;
+      row[5] = root_idx;
+      if constexpr (NROOT > 0) root_t_out[blockIdx.x] = root_t;
     }
   }
 }
 
 }  // namespace diffsol_fused
 
-// The C entry points, bound with ctypes.  params, t_eval, ys and info are
-// device pointers; cfg is a host Config.  Launches on `stream` and returns
+// The C entry points, bound with ctypes.  params, t_eval, ys, gs (null
+// without quadrature), info and root_t (null without roots) are device
+// pointers; cfg is a host Config.  Launches on `stream` and returns
 // cudaGetLastError() (0 = launched).
 extern "C" int fused_bdf_config_size() { return (int)sizeof(diffsol_fused::Config); }
 
 extern "C" int fused_bdf_launch(const double* params, const double* t_eval, double* ys,
-                                int* info, const diffsol_fused::Config* cfg,
-                                void* stream) {
+                                double* gs, int* info, double* root_t,
+                                const diffsol_fused::Config* cfg, void* stream) {
   using namespace diffsol_fused;
   const Config& c = *cfg;
   if (c.tile < 1 || c.tile > MAX_TILE || c.ntiles < 1) return (int)cudaErrorInvalidValue;
   const int threads = ((c.tile + 31) / 32) * 32;
   if (threads <= SMALL_TILE)
     fused_bdf_kernel<MODEL_N, MODEL_NP, SMALL_TILE>
-        <<<c.ntiles, threads, 0, (cudaStream_t)stream>>>(params, t_eval, ys, info, c);
+        <<<c.ntiles, threads, 0, (cudaStream_t)stream>>>(params, t_eval, ys, gs, info,
+                                                         root_t, c);
   else
     fused_bdf_kernel<MODEL_N, MODEL_NP, MAX_TILE>
-        <<<c.ntiles, threads, 0, (cudaStream_t)stream>>>(params, t_eval, ys, info, c);
+        <<<c.ntiles, threads, 0, (cudaStream_t)stream>>>(params, t_eval, ys, gs, info,
+                                                         root_t, c);
   return (int)cudaGetLastError();
 }

@@ -24,6 +24,7 @@ there.  Without a card the default raises rather than run on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import math
 import weakref
 
 import torch
@@ -54,15 +55,26 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
         b_mass = vmap(eqn.mass, in_dims=(None, 0))
         if eqn.mass_diag_fn is not None:
             b_mass_diag = vmap(eqn.mass_diag_fn, in_dims=(None, 0))
+    def over_members(f):
+        return None if f is None else vmap(f, in_dims=(None, 0, 0))
+
     new_eqn = OdeEquations(
-        rhs=vmap(eqn.rhs, in_dims=(None, 0, 0)),
+        rhs=over_members(eqn.rhs),
         # an init that ignores p comes back from vmap as a stride-0
         # expansion; the state must own its memory (jvp seeds it)
         init=lambda t, pb: vmap(eqn.init, in_dims=(None, 0))(t, pb).contiguous(),
         mass=b_mass,
         mass_diag_fn=b_mass_diag,
+        # (B, nroots), (B, nout), (B, n): every member must agree on a
+        # root's sign pattern, and the event fires at ONE shared time,
+        # member 0's polished crossing (ops/rootfind.check_root)
+        root=over_members(eqn.root),
+        out=over_members(eqn.out),
+        reset=over_members(eqn.reset),
         rhs_jac=b_jac,
         nstates=eqn.nstates,
+        nout=eqn.nout,
+        nroots=eqn.nroots,
         nparams=eqn.nparams,
     )
     params_b = problem.params.expand(nbatch, -1).clone()
@@ -105,28 +117,56 @@ def _fused_solve_cached(problem, t_eval, nbatch, max_steps, tile):
     return made
 
 
-def _fused_solution(fsolve, tier, params_batch, t_eval) -> Solution:
+def _fused_solution(fsolve, tier, params_batch, t_eval, problem) -> Solution:
     """Run a fused solve and wrap it as a :class:`Solution`; the worst tile
-    status is the batch's (shared fate, as in lockstep)."""
+    status is the batch's (shared fate, as in lockstep).  A solve with
+    roots or quadrature returns a dict, and the semantics are
+    ``drivers.solve_dense``'s: a reset-and-continue solve ends
+    TSTOP_REACHED with no root reported, a root without a reset ends
+    ROOT_FOUND at member 0's polished crossing, and a crossing that a
+    tile's members, or the tiles among themselves, disagree on is
+    ROOT_BATCH_INCONSISTENT."""
     from .ops import fused_stepper as fs
 
-    ys, status, steps = fsolve(params_batch)
+    raw = fsolve(params_batch)
+    gs = root_t = root_idx = None
+    if isinstance(raw, dict):
+        ys, status, steps = raw["ys"], raw["status"], raw["steps"]
+        gs, root_t, root_idx = raw.get("gs"), raw.get("root_t"), raw.get("root_idx")
+    else:
+        ys, status, steps = raw
     worst = int(status.min())
     stop = {
         fs.FAIL_STEP_TOO_SMALL: errors.STEP_SIZE_TOO_SMALL,
         fs.FAIL_MAX_STEPS: errors.MAX_STEPS_REACHED,
         fs.FAIL_NEWTON: errors.TOO_MANY_NONLINEAR_SOLVER_FAILURES,
         fs.FAIL_ERRTEST: errors.TOO_MANY_ERROR_TEST_FAILURES,
+        fs.FAIL_ROOT_INCONS: errors.ROOT_BATCH_INCONSISTENT,
         # no-pivot LU growth surfaces as the lockstep band tier's failure
         # does, through the Newton ladder (JAX ensemble.py:369-374)
         fs.FAIL_LU_GROWTH: errors.TOO_MANY_NONLINEAR_SOLVER_FAILURES,
     }.get(worst, errors.TSTOP_REACHED)
+    sol_root_t, sol_root_idx = math.nan, -1
+    if root_t is not None and problem.eqn.reset is None:
+        # stop-at-root: every tile must stop at a root, or none may (the
+        # lockstep batch crosses together)
+        stopped = status == fs.ROOT_STOP
+        if worst >= 0 and bool(stopped.any()):
+            if bool(stopped.all()):
+                stop = errors.ROOT_FOUND
+                sol_root_t, sol_root_idx = float(root_t[0]), int(root_idx[0])
+            else:
+                stop = errors.ROOT_BATCH_INCONSISTENT
     te = torch.as_tensor(t_eval, dtype=F64).reshape(-1).to(ys.device)
     if not params_batch.is_cuda:
         tier += "_reference"
+    # n_points is len(t_eval) whatever happened: the points past a root
+    # stop are zeros, as solve_dense's
     return Solution(
         ts=te, ys=ys.movedim(-1, 1), stop_reason=stop,
         n_points=int(te.numel()), state=None, tile_steps=steps, tier=tier,
+        gs=None if gs is None else gs.movedim(-1, 1),
+        root_t=sol_root_t, root_idx=sol_root_idx,
     )
 
 
@@ -166,7 +206,7 @@ def solve_dense_ensemble(
             if mode == "fused":
                 raise
         else:
-            return _fused_solution(fsolve, tier, params_batch, t_eval)
+            return _fused_solution(fsolve, tier, params_batch, t_eval, problem)
         mode = "lockstep"
 
     problem = problem.to(dev)
@@ -186,6 +226,8 @@ def solve_dense_ensemble(
         return Solution(
             ts=sols[0].ts,
             ys=torch.stack([s.ys for s in sols], dim=1),
+            gs=(None if sols[0].gs is None
+                else torch.stack([s.gs for s in sols], dim=1)),
             stop_reason=torch.tensor([s.stop_reason for s in sols]),
             n_points=sols[0].n_points,
             state=[s.state for s in sols],

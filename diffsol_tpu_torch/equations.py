@@ -36,10 +36,15 @@ class OdeEquations:
     init: Callable  # y0(t, p) -> (n,)
     mass: Optional[Callable] = None  # M(t, p) -> (n, n); None => identity
     mass_diag_fn: Optional[Callable] = None  # (t, p) -> (n,) diagonal
+    root: Optional[Callable] = None  # g(t, y, p) -> (nroots,)
+    out: Optional[Callable] = None  # g(t, y, p) -> (nout,)
+    reset: Optional[Callable] = None  # R(t, y, p) -> (n,)
     # (t, y, p) -> the linear-solver tier's Jacobian: dense (n, n) by
     # default (jacfwd), the (nb, n) band under the banded tier
     rhs_jac: Optional[Callable] = None
     nstates: int = 0
+    nout: int = 0
+    nroots: int = 0
     nparams: int = 0
 
     def jac(self, t, y, p):
@@ -66,13 +71,24 @@ class OdeEquations:
 
 
 def make_equations(rhs, init, params, t0=0.0, *, mass=None, mass_diag=None,
-                   rhs_jac=None) -> OdeEquations:
+                   rhs_jac=None, root=None, out=None, reset=None) -> OdeEquations:
     """Build an :class:`OdeEquations`, inferring ``nstates`` from one
-    evaluation of ``init`` at (t0, params)."""
+    evaluation of ``init`` at (t0, params), and ``nroots`` and ``nout``
+    from one evaluation of ``root`` and ``out`` on that state."""
     params = torch.as_tensor(params, dtype=F64)
-    y0 = init(torch.as_tensor(t0, dtype=F64, device=params.device), params)
+    t0 = torch.as_tensor(t0, dtype=F64, device=params.device)
+    y0 = init(t0, params)
     nstates = int(y0.shape[-1]) if y0.ndim else 1
+
+    def size(fn):
+        if fn is None:
+            return 0
+        v = fn(t0, y0, params)
+        return int(v.shape[-1]) if v.ndim else 1
+
     return OdeEquations(
         rhs=rhs, init=init, mass=mass, mass_diag_fn=mass_diag,
-        rhs_jac=rhs_jac, nstates=nstates, nparams=int(params.numel()),
+        root=root, out=out, reset=reset,
+        rhs_jac=rhs_jac, nstates=nstates, nout=size(out), nroots=size(root),
+        nparams=int(params.numel()),
     )

@@ -1,7 +1,8 @@
 """Carry problems and results across from the JAX package.
 
 ``problem_from_jax`` copies every numeric field of a ``diffsol_tpu``
-``OdeProblem`` (params, t0, h0, rtol, atol and all solver options) into
+``OdeProblem`` (params, t0, h0, rtol, atol, the output tolerances, the
+quadrature flag, all solver options and the consistent-IC options) into
 this package's problem as float64 tensors, and a banded linear-solver
 tier as ``make_banded_solver(ml, mu)`` from the spec's ``meta``.  The user's callables are
 passed in torch, since a jnp body cannot be converted.
@@ -19,19 +20,21 @@ import dataclasses
 import numpy as np
 import torch
 
-from .problem import OdeBuilder, OdeProblem, OdeSolverOptions
+from .problem import (InitialConditionOptions, OdeBuilder, OdeProblem,
+                      OdeSolverOptions)
 
 F64 = torch.float64
 
 
-def problem_from_jax(jax_problem, rhs, init, mass=None) -> OdeProblem:
+def problem_from_jax(jax_problem, rhs, init, mass=None, root=None, reset=None,
+                     out=None) -> OdeProblem:
     """This package's problem with the numbers of ``jax_problem`` and the
-    torch callables ``rhs(t, y, p)``, ``init(t, p)`` and optional
-    ``mass(t, p)``."""
-    opts = jax_problem.options
-    options = OdeSolverOptions(**{
-        f.name: getattr(opts, f.name) for f in dataclasses.fields(OdeSolverOptions)
-    })
+    torch callables ``rhs(t, y, p)``, ``init(t, p)`` and the optional
+    ``mass(t, p)``, ``root``, ``reset`` and ``out`` ``(t, y, p)``."""
+    def copied(cls, src):
+        return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})
+
+    options = copied(OdeSolverOptions, jax_problem.options)
     b = (
         OdeBuilder()
         .rhs(rhs)
@@ -42,9 +45,16 @@ def problem_from_jax(jax_problem, rhs, init, mass=None) -> OdeProblem:
         .rtol(float(np.asarray(jax_problem.rtol)))
         .atol(np.asarray(jax_problem.atol, np.float64).reshape(-1))
         .options(options)
+        .ic_options(copied(InitialConditionOptions, jax_problem.ic_options))
+        .integrate_out(bool(jax_problem.integrate_out))
     )
-    if mass is not None:
-        b = b.mass(mass)
+    for name, fn in (("mass", mass), ("root", root), ("reset", reset), ("out", out)):
+        if fn is not None:
+            b = getattr(b, name)(fn)
+    if jax_problem.out_rtol is not None:
+        b = b.out_rtol(float(np.asarray(jax_problem.out_rtol)))
+    if jax_problem.out_atol is not None:
+        b = b.out_atol(np.asarray(jax_problem.out_atol, np.float64).reshape(-1))
     spec = jax_problem.linear_solver
     if spec.name.startswith("banded"):
         from .ops.banded import make_banded_solver
@@ -54,8 +64,9 @@ def problem_from_jax(jax_problem, rhs, init, mass=None) -> OdeProblem:
 
 
 def solution_to_numpy(sol) -> dict:
-    """``ts``, ``ys``, ``stop_reason``, ``n_points``, ``tile_steps`` and
-    ``tier`` of a solution, as numpy arrays (``tier`` as is)."""
+    """``ts``, ``ys``, ``gs``, ``stop_reason``, ``n_points``, ``root_t``,
+    ``root_idx``, ``tile_steps`` and ``tier`` of a solution, as numpy
+    arrays (``tier`` as is, ``gs`` and ``tile_steps`` None when unset)."""
 
     def arr(v):
         if v is None:
@@ -67,5 +78,6 @@ def solution_to_numpy(sol) -> dict:
     return dict(
         ts=arr(sol.ts), ys=arr(sol.ys), stop_reason=arr(sol.stop_reason),
         n_points=int(sol.n_points), tile_steps=arr(sol.tile_steps),
-        tier=sol.tier,
+        tier=sol.tier, gs=arr(sol.gs), root_t=arr(sol.root_t),
+        root_idx=arr(sol.root_idx),
     )

@@ -1,5 +1,7 @@
-"""Robertson chemical kinetics, ODE form (counterpart of
-``diffsol_tpu.models.robertson``; reference test_models/robertson_ode.rs).
+"""Robertson chemical kinetics, DAE and ODE forms (counterpart of
+``diffsol_tpu.models.robertson``; reference test_models/robertson.rs, the
+semi-explicit DAE with the conservation constraint x + y + z = 1 and mass
+diag(1, 1, 0), and test_models/robertson_ode.rs).
 
 p = [k1, k2, k3] = [0.04, 1e4, 3e7], init [1, 0, 0], reference tolerances
 rtol=1e-4, atol=[1e-8, 1e-6, 1e-6].  ``SOLN`` holds the CVODE/IDA reference
@@ -40,6 +42,21 @@ SOLN = np.array(
 T_EVAL_4E10 = [4.0 * 10.0**k for k in range(-1, 11)]
 
 
+def rhs_dae(t, y, p):
+    return torch.stack(
+        [
+            -p[0] * y[0] + p[1] * y[1] * y[2],
+            p[0] * y[0] - p[1] * y[1] * y[2] - p[2] * y[1] * y[1],
+            y[0] + y[1] + y[2] - 1.0,
+        ]
+    )
+
+
+def mass(t, p):
+    return torch.diag(torch.tensor([1.0, 1.0, 0.0], dtype=torch.float64,
+                                   device=p.device))
+
+
 def rhs_ode(t, y, p):
     return torch.stack(
         [
@@ -52,6 +69,19 @@ def rhs_ode(t, y, p):
 
 def init(t, p):
     return torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=p.device)
+
+
+def problem_dae(rtol=1e-4, atol=(1e-8, 1e-6, 1e-6), p=P_DEFAULT) -> OdeProblem:
+    return (
+        OdeBuilder()
+        .rhs(rhs_dae)
+        .init(init)
+        .mass(mass)
+        .p(list(p))
+        .rtol(rtol)
+        .atol(list(atol))
+        .build()
+    )
 
 
 def problem_ode(rtol=1e-4, atol=(1e-8, 1e-6, 1e-6), p=P_DEFAULT) -> OdeProblem:

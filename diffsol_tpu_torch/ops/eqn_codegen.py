@@ -2,7 +2,9 @@
 plays for the Pallas kernels).
 
 The fused kernel evaluates the user's per-member ``rhs(t, y, p)`` and
-``init(t, p)`` inside CUDA, but users write plain torch.  So each callable
+``init(t, p)`` (and, where the problem has them, the mass diagonal
+``(t, p)`` and ``root``, ``reset`` and ``out`` ``(t, y, p)``) inside CUDA,
+but users write plain torch.  So each callable
 is traced ONCE on float64 tensors with ``make_fx`` into an aten graph and
 lowered into a tiny scalar IR: with n <= 8 states every array unrolls into
 scalar operations.  Python float literals and tensor constants are lifted
@@ -15,9 +17,13 @@ dfinterp.py:344); n seeded evaluations give the Jacobian's columns.  The
 same IR has a plain torch evaluator (value and dual), so the CPU tests
 check the IR against the callable and against ``torch.func.jacfwd``.
 
-Scope: + - * /, neg, pow by an integer, exp, log, sqrt, sin, cos, tanh,
-indexing, slicing, stack/cat and shape plumbing.  Anything else, and any
-data-dependent Python control flow, raises :class:`UnsupportedForKernel`.
+Scope (the primitive set of dfinterp.py:21-29): + - * /, neg, pow (by an
+integer, by any constant, or by a traced exponent), exp, expm1, log,
+log1p, sqrt, rsqrt, sin, cos, tan, sinh, cosh, tanh, sigmoid, comparisons
+and their and/or/not feeding ``where``, indexing, slicing, stack/cat,
+``diag`` of a vector with ``diagonal`` (a mass written as a matrix) and
+shape plumbing.  Anything else, and any data-dependent Python control
+flow, raises :class:`UnsupportedForKernel`.
 """
 
 from __future__ import annotations
@@ -30,8 +36,14 @@ import numpy as np
 import torch
 
 F64 = torch.float64
-_UNARY = ("neg", "exp", "log", "sqrt", "sin", "cos", "tanh")
+_UNARY = ("neg", "exp", "expm1", "log", "log1p", "sqrt", "rsqrt", "sin", "cos",
+          "tan", "sinh", "cosh", "tanh", "sigmoid")
 _BINARY = ("add", "sub", "mul", "div")
+# comparisons and logic give boolean nodes, which only ``where`` consumes
+_COMPARE = ("lt", "le", "gt", "ge", "eq", "ne")
+_LOGIC = {"logical_and": "and", "bitwise_and": "and", "logical_or": "or",
+          "bitwise_or": "or", "logical_not": "not", "bitwise_not": "not"}
+_BOOL_OPS = _COMPARE + ("and", "or", "not")
 
 
 class UnsupportedForKernel(Exception):
@@ -43,9 +55,12 @@ class UnsupportedForKernel(Exception):
 class ScalarIR:
     """Straight-line scalar program.  ``nodes[k]`` is ``(op, *args)``:
     ``("t",)``, ``("y", i)``, ``("p", i)``, ``("c", value)``, a unary op
-    ``(name, a)``, a binary op ``(name, a, b)`` or ``("powi", a, k)`` with
-    ``k >= 1``; ``a``/``b`` index earlier nodes.  ``outputs`` index the
-    nodes of the result vector."""
+    ``(name, a)``, a binary op ``(name, a, b)``, ``("powi", a, k)`` with an
+    integer ``k >= 1``, ``("powc", a, k)`` with any constant ``k``,
+    ``("pow", a, b)``, a boolean node (a comparison ``(name, a, b)``,
+    ``("and", a, b)``, ``("or", a, b)``, ``("not", a)``) or
+    ``("where", m, a, b)`` with a boolean ``m``; ``a``/``b`` index earlier
+    nodes.  ``outputs`` index the nodes of the result vector."""
 
     nodes: tuple
     outputs: tuple
@@ -57,6 +72,14 @@ class ModelIR:
     init: Optional[ScalarIR]  # None: the kernel gets y0 from the host
     nstates: int
     nparams: int
+    # the mass diagonal: a program of (t, p), or the constant values when
+    # it depends on neither (then the algebraic rows are static); both None
+    # for the identity
+    mass: Optional[ScalarIR] = None
+    mass_const: Optional[tuple] = None
+    root: Optional[ScalarIR] = None
+    reset: Optional[ScalarIR] = None
+    out: Optional[ScalarIR] = None
 
 
 class _Builder:
@@ -125,7 +148,9 @@ def trace_ir(fn: Callable, arg_kinds, arg_sizes) -> ScalarIR:
     def val(a):
         if hasattr(a, "op"):  # an fx node
             return env[a]
-        if isinstance(a, (bool, int, float)):
+        if isinstance(a, bool):
+            raise UnsupportedForKernel("a Python bool in traced equations")
+        if isinstance(a, (int, float)):
             return _obj((), lambda idx: b.const(a))
         raise UnsupportedForKernel(f"argument {a!r} in traced equations")
 
@@ -164,14 +189,24 @@ def trace_ir(fn: Callable, arg_kinds, arg_sizes) -> ScalarIR:
         elif base == "pow" and not hasattr(args[1], "op"):
             k = float(args[1])
             if not k.is_integer():
-                raise UnsupportedForKernel(f"pow by non-integer {k}")
-            k = int(k)
-            if k >= 0:
-                res = _map1(lambda u: powi(u, k), val(args[0]))
+                res = _map1(lambda u: b.add(("powc", u, k)), val(args[0]))
+            elif k >= 0:
+                res = _map1(lambda u: powi(u, int(k)), val(args[0]))
             else:
                 one = b.const(1.0)
-                res = _map1(lambda u: b.add(("div", one, powi(u, -k))),
+                res = _map1(lambda u: b.add(("div", one, powi(u, -int(k)))),
                             val(args[0]))
+        elif base == "pow":  # a traced exponent (and any base)
+            res = binary("pow", args[0], args[1])
+        elif base in _COMPARE:
+            res = binary(base, args[0], args[1])
+        elif base in _LOGIC and len(args) == 2:
+            res = binary(_LOGIC[base], args[0], args[1])
+        elif base in _LOGIC:
+            res = _map1(lambda u: b.add(("not", u)), val(args[0]))
+        elif base == "where" and len(args) == 3:
+            m, x, y = np.broadcast_arrays(val(args[0]), val(args[1]), val(args[2]))
+            res = _obj(m.shape, lambda idx: b.add(("where", m[idx], x[idx], y[idx])))
         elif base == "select":
             a = val(args[0])
             res = a[(slice(None),) * int(args[1]) + (int(args[2]),)]
@@ -203,6 +238,14 @@ def trace_ir(fn: Callable, arg_kinds, arg_sizes) -> ScalarIR:
             shape = tuple(int(s) if s != -1 else a.shape[i - (len(args[1]) - a.ndim)]
                           for i, s in enumerate(args[1]))
             res = np.broadcast_to(a, shape)
+        elif base == "diag_embed" and len(args) == 1 and val(args[0]).ndim == 1:
+            a = val(args[0])
+            zero = b.const(0.0)
+            res = _obj((a.shape[0],) * 2,
+                       lambda idx: a[idx[0]] if idx[0] == idx[1] else zero)
+        elif base == "diagonal" and val(args[0]).ndim == 2 and (
+                len(args) < 2 or int(args[1]) == 0):
+            res = np.diagonal(val(args[0]))
         elif base in ("permute",):
             res = np.transpose(val(args[0]), tuple(int(d) for d in args[1]))
         elif base in ("t", "transpose"):
@@ -234,27 +277,70 @@ def trace_ir(fn: Callable, arg_kinds, arg_sizes) -> ScalarIR:
 
     out = out_nodes[0] if isinstance(out_nodes, (tuple, list)) else out_nodes
     outs = val(out).reshape(-1)
-    return ScalarIR(nodes=tuple(b.nodes), outputs=tuple(int(o) for o in outs))
+    ir = ScalarIR(nodes=tuple(b.nodes), outputs=tuple(int(o) for o in outs))
+    _check_types(ir, getattr(fn, "__name__", fn))
+    return ir
+
+
+def _check_types(ir: ScalarIR, name) -> None:
+    """Booleans feed only logic and the mask of ``where``; results and
+    every arithmetic operand are real."""
+    is_bool = [node[0] in _BOOL_OPS for node in ir.nodes]
+    for node in ir.nodes:
+        op, args = node[0], node[1:]
+        if op in ("t", "y", "p", "c"):
+            continue
+        if op in ("powi", "powc"):
+            args = args[:1]
+        if op in ("and", "or", "not"):
+            want = [True] * len(args)
+        elif op == "where":
+            want = [True, False, False]
+        else:
+            want = [False] * len(args)
+        if [is_bool[a] for a in args] != want:
+            raise UnsupportedForKernel(
+                f"{name!r} mixes boolean and real values in {op!r}")
+    if any(is_bool[o] for o in ir.outputs):
+        raise UnsupportedForKernel(f"{name!r} returns a boolean")
 
 
 def trace_model(rhs: Callable, init: Optional[Callable], nstates: int,
-                nparams: int) -> ModelIR:
+                nparams: int, *, mass_diag: Optional[Callable] = None,
+                mass_const=None, root: Optional[Callable] = None,
+                reset: Optional[Callable] = None,
+                out: Optional[Callable] = None) -> ModelIR:
     """Trace a problem's member ``rhs(t, y, p)`` and, unless ``init`` is
     None (the banded kernel takes its initial state from the host),
-    ``init(t, p)``."""
-    rhs_ir = trace_ir(rhs, ("t", "y", "p"), (None, nstates, nparams))
+    ``init(t, p)``; beside them whichever of ``mass_diag(t, p)`` (not
+    traced when the caller found it constant and passes ``mass_const``),
+    ``root``, ``reset`` and ``out`` ``(t, y, p)`` the problem has."""
+    def typ(fn):
+        return None if fn is None else trace_ir(
+            fn, ("t", "y", "p"), (None, nstates, nparams))
+
+    rhs_ir = typ(rhs)
     init_ir = None if init is None else trace_ir(init, ("t", "p"), (None, nparams))
-    for name, ir in (("rhs", rhs_ir), ("init", init_ir)):
+    mass_ir = None
+    if mass_const is not None:
+        mass_const = tuple(float(v) for v in mass_const)
+    elif mass_diag is not None:
+        mass_ir = trace_ir(mass_diag, ("t", "p"), (None, nparams))
+    reset_ir = typ(reset)
+    for name, ir in (("rhs", rhs_ir), ("init", init_ir), ("mass", mass_ir),
+                     ("reset", reset_ir)):
         if ir is not None and len(ir.outputs) != nstates:
             raise UnsupportedForKernel(
                 f"{name} returns {len(ir.outputs)} values for {nstates} states"
             )
-    return ModelIR(rhs=rhs_ir, init=init_ir, nstates=nstates, nparams=nparams)
+    return ModelIR(rhs=rhs_ir, init=init_ir, nstates=nstates, nparams=nparams,
+                   mass=mass_ir, mass_const=mass_const, root=typ(root),
+                   reset=reset_ir, out=typ(out))
 
 
 def op_count(ir: ScalarIR) -> int:
-    """Floating-point operations of one evaluation of ``ir`` (a power by k
-    counts k-1 multiplies, each unary function one)."""
+    """Floating-point operations of one evaluation of ``ir`` (a power by
+    an integer k counts k-1 multiplies, every other node one)."""
     return sum(node[2] - 1 if node[0] == "powi" else 1
                for node in ir.nodes if node[0] not in ("t", "y", "p", "c"))
 
@@ -295,6 +381,28 @@ def _eval(ir: ScalarIR, t, y, p, ty=None):
                     v, dv = v * vals[a], v * tans[a] + dv * vals[a]
                 else:
                     v = v * vals[a]
+        elif op == "powc":
+            a, k = node[1], node[2]
+            v = torch.pow(vals[a], k)
+            dv = k * torch.pow(vals[a], k - 1.0) * tans[a] if dual else None
+        elif op == "pow":
+            a, c = node[1], node[2]
+            va, vb = vals[a], vals[c]
+            v = torch.pow(va, vb)
+            dv = (v * (tans[c] * torch.log(va) + vb * tans[a] / va)
+                  if dual else None)
+        elif op in _COMPARE:
+            v = getattr(torch, op)(vals[node[1]], vals[node[2]])
+        elif op == "and":
+            v = vals[node[1]] & vals[node[2]]
+        elif op == "or":
+            v = vals[node[1]] | vals[node[2]]
+        elif op == "not":
+            v = ~vals[node[1]]
+        elif op == "where":
+            m, a, c = node[1], node[2], node[3]
+            v = torch.where(vals[m], vals[a], vals[c])
+            dv = torch.where(vals[m], tans[a], tans[c]) if dual else None
         elif op in _BINARY:
             a, c = node[1], node[2]
             va, vb = vals[a], vals[c]
@@ -320,9 +428,30 @@ def _eval(ir: ScalarIR, t, y, p, ty=None):
             elif op == "exp":
                 v = torch.exp(x)
                 dv = v * dx if dual else None
+            elif op == "expm1":
+                v = torch.expm1(x)
+                dv = (v + 1.0) * dx if dual else None
             elif op == "log":
                 v = torch.log(x)
                 dv = dx / x if dual else None
+            elif op == "log1p":
+                v = torch.log1p(x)
+                dv = dx / (x + 1.0) if dual else None
+            elif op == "rsqrt":
+                v = torch.rsqrt(x)
+                dv = -(v * dx) / (x * 2.0) if dual else None
+            elif op == "tan":
+                v = torch.tan(x)
+                dv = (1.0 + v * v) * dx if dual else None
+            elif op == "sinh":
+                v = torch.sinh(x)
+                dv = torch.cosh(x) * dx if dual else None
+            elif op == "cosh":
+                v = torch.cosh(x)
+                dv = torch.sinh(x) * dx if dual else None
+            elif op == "sigmoid":
+                v = torch.sigmoid(x)
+                dv = v * (1.0 - v) * dx if dual else None
             elif op == "sqrt":
                 v = torch.sqrt(x)
                 dv = dx / (v * 2.0) if dual else None
@@ -351,6 +480,8 @@ def eval_rhs(ir: ScalarIR, t, y, p):
 
 
 def eval_init(ir: ScalarIR, t, p):
+    """Value of a traced ``(t, p)`` program (``init`` or the mass
+    diagonal)."""
     return _eval(ir, torch.as_tensor(t, dtype=F64, device=p.device), None, p)[0]
 
 
@@ -391,6 +522,18 @@ def _emit_body(ir: ScalarIR) -> list:
             e = f"T({_c_double(node[1])})"
         elif op == "powi":
             e = " * ".join([f"v{node[1]}"] * node[2])
+        elif op == "powc":
+            e = f"dsol_powc(v{node[1]}, {_c_double(node[2])})"
+        elif op == "pow":
+            e = f"dsol_pow(v{node[1]}, v{node[2]})"
+        elif op in _COMPARE:
+            e = f"dsol_{op}(v{node[1]}, v{node[2]})"
+        elif op in ("and", "or"):
+            e = f"v{node[1]} {'&&' if op == 'and' else '||'} v{node[2]}"
+        elif op == "not":
+            e = f"!v{node[1]}"
+        elif op == "where":
+            e = f"dsol_where(v{node[1]}, v{node[2]}, v{node[3]})"
         elif op in _BINARY:
             sym = {"add": "+", "sub": "-", "mul": "*", "div": "/"}[op]
             e = f"v{node[1]} {sym} v{node[2]}"
@@ -398,16 +541,35 @@ def _emit_body(ir: ScalarIR) -> list:
             e = f"-v{node[1]}"
         else:
             e = f"dsol_{op}(v{node[1]})"
-        lines.append(f"  const T v{k} = {e};")
+        lines.append(f"  const {'bool' if op in _BOOL_OPS else 'T'} v{k} = {e};")
     for i, o in enumerate(ir.outputs):
         lines.append(f"  out[{i}] = v{o};")
     return lines
 
 
-def emit_cuda_header(model: ModelIR, name: str = "model") -> str:
-    """The generated model header: ``MODEL_N``, ``MODEL_NP`` and the
-    templated ``model_rhs`` (and, if traced, ``model_init``) device
-    functions.
+def _emit_tyo(fn_name: str, ir: ScalarIR) -> list:
+    """A ``(t, y, p) -> out`` device function, generic in its accessors."""
+    return [
+        "template <typename T, typename Y, typename O>",
+        f"__device__ __forceinline__ void {fn_name}(const T& t, Y y, "
+        "const T* p, O out) {",
+        "  (void)t; (void)y; (void)p;",
+        *_emit_body(ir),
+        "}",
+    ]
+
+
+def emit_cuda_header(model: ModelIR, name: str = "model", nquad: int = 0,
+                     out_in_err: bool = False) -> str:
+    """The generated model header: ``MODEL_N``, ``MODEL_NP``, the
+    compile-time switches of the small-n kernel and the templated device
+    functions ``model_rhs`` and, where the model has them, ``model_init``,
+    ``model_mass`` (the mass diagonal), ``model_root``, ``model_reset`` and
+    ``model_out``.  ``nquad`` is the number of quadrature rows of the solve
+    (0: nothing is integrated; without ``model_out`` the state itself is)
+    and ``out_in_err`` whether they join the error test.  A problem with
+    none of these gets the switches at 0, and the kernel instantiates as it
+    does for a plain ODE.
 
     ``model_rhs<T>(t, y, p, out)`` reads ``y[i]`` and assigns ``out[i]``
     through whatever types it is given: plain arrays in the small-n
@@ -416,20 +578,40 @@ def emit_cuda_header(model: ModelIR, name: str = "model") -> str:
     global scratch with the members fastest (csrc/fused_band_bdf.cuh), so
     the unrolled body reads and writes that layout directly, with no
     per-thread copy of the state."""
+    has_mass = model.mass is not None or model.mass_const is not None
     lines = [
         f"// Generated from the traced equations of {name!r}; do not edit.",
         "#pragma once",
         '#include "dual.cuh"',
         f"#define MODEL_N {model.nstates}",
         f"#define MODEL_NP {model.nparams}",
+        f"#define MODEL_HAS_MASS {int(has_mass)}",
+        f"#define MODEL_NROOT {len(model.root.outputs) if model.root else 0}",
+        f"#define MODEL_HAS_RESET {int(model.reset is not None)}",
+        f"#define MODEL_NQUAD {int(nquad)}",
+        f"#define MODEL_HAS_OUT {int(model.out is not None)}",
+        f"#define MODEL_OUT_IN_ERR {int(bool(out_in_err))}",
         "namespace diffsol_model {",
-        "template <typename T, typename Y, typename O>",
-        "__device__ __forceinline__ void model_rhs(const T& t, Y y, "
-        "const T* p, O out) {",
-        "  (void)t; (void)y; (void)p;",
-        *_emit_body(model.rhs),
-        "}",
+        *_emit_tyo("model_rhs", model.rhs),
     ]
+    for fn_name, ir in (("model_root", model.root), ("model_reset", model.reset),
+                        ("model_out", model.out)):
+        if ir is not None:
+            lines += _emit_tyo(fn_name, ir)
+    if has_mass:
+        # a constant diagonal is literal assignments, which fold into the
+        # kernel (and make its algebraic-row tests static)
+        body = (_emit_body(model.mass) if model.mass is not None else
+                [f"  out[{i}] = T({_c_double(v)});"
+                 for i, v in enumerate(model.mass_const)])
+        lines += [
+            "template <typename T>",
+            "__device__ __forceinline__ void model_mass(const T& t, const T* p, "
+            "T* out) {",
+            "  (void)t; (void)p;",
+            *body,
+            "}",
+        ]
     if model.init is not None:
         lines += [
             "template <typename T>",

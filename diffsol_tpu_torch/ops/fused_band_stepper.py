@@ -172,7 +172,7 @@ def fused_band_bdf_reference(cfg: BandConfig, rhs, init, params_b: torch.Tensor)
         tm = t_tile.repeat_interleave(tile)
         return jac_m(tm, y.reshape(Mb, n), P).reshape(T, tile, nb, n)
 
-    def factor(J, c):
+    def factor(J, c, t_pred):
         # A = M - cJ on the band, column-leading (n+mu, nb, Mb)
         m_band = torch.zeros(nb, n, dtype=F64, device=dev)
         m_band[mu] = 1.0 if md is None else md

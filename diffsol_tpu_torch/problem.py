@@ -44,6 +44,18 @@ class OdeSolverOptions:
 
 
 @dataclass(frozen=True)
+class InitialConditionOptions:
+    """Consistent-IC Newton options (reference problem.rs:15-43)."""
+
+    use_linesearch: bool = True
+    max_linesearch_iterations: int = 10
+    max_newton_iterations: int = 10
+    max_linear_solver_setups: int = 4
+    step_reduction_factor: float = 0.5
+    armijo_constant: float = 1e-4
+
+
+@dataclass(frozen=True)
 class SolverConfig:
     """Per-solver step-size clamps (reference config.rs:22-146).
 
@@ -86,7 +98,8 @@ class OdeProblem:
 
     ``params`` is (nparams,) for one instance and (B, nparams) for a
     lockstep ensemble (``lockstep_nbatch = B``), whose state is member-major
-    (B, n).  ``atol`` is (n,) and broadcasts over members.
+    (B, n).  ``atol`` is (n,) and broadcasts over members; so does
+    ``out_atol`` (nout,), the quadrature's tolerance.
     """
 
     eqn: OdeEquations
@@ -95,12 +108,24 @@ class OdeProblem:
     h0: torch.Tensor
     rtol: torch.Tensor
     atol: torch.Tensor
+    out_rtol: Optional[torch.Tensor] = None
+    out_atol: Optional[torch.Tensor] = None
+    integrate_out: bool = False
     lockstep_nbatch: int = 1
     options: OdeSolverOptions = field(default_factory=OdeSolverOptions)
+    ic_options: InitialConditionOptions = field(
+        default_factory=InitialConditionOptions)
     linear_solver: LinearSolverSpec = DENSE
+
+    def output_in_error_control(self) -> bool:
+        return (self.integrate_out and self.eqn.out is not None
+                and self.out_rtol is not None and self.out_atol is not None)
 
     def to(self, device) -> "OdeProblem":
         """The same problem with its tensors on ``device``."""
+        def moved(v):
+            return None if v is None else v.to(device)
+
         return dataclasses.replace(
             self,
             params=self.params.to(device),
@@ -108,6 +133,8 @@ class OdeProblem:
             h0=self.h0.to(device),
             rtol=self.rtol.to(device),
             atol=self.atol.to(device),
+            out_rtol=moved(self.out_rtol),
+            out_atol=moved(self.out_atol),
         )
 
 
@@ -142,6 +169,13 @@ class OdeBuilder:
         self._rhs = None
         self._init = None
         self._mass = None
+        self._root = None
+        self._out = None
+        self._reset = None
+        self._out_rtol = None
+        self._out_atol = None
+        self._integrate_out = False
+        self._ic_options = InitialConditionOptions()
         self._p = torch.zeros(0, dtype=F64)
         self._t0 = 0.0
         self._h0 = 0.0  # 0 => heuristic
@@ -161,6 +195,22 @@ class OdeBuilder:
 
     def mass(self, m: Callable):
         self._mass = m
+        return self
+
+    def root(self, g: Callable):
+        """Event function g(t, y, p) -> (nroots,): a sign change of any
+        component stops the solve at the root, or applies ``reset``."""
+        self._root = g
+        return self
+
+    def out(self, g: Callable):
+        """Output function g(t, y, p) -> (nout,)."""
+        self._out = g
+        return self
+
+    def reset(self, r: Callable):
+        """Reset operator R(t, y, p) -> (n,), applied at a root."""
+        self._reset = r
         return self
 
     # settings ----------------------------------------------------------
@@ -187,31 +237,40 @@ class OdeBuilder:
         self._atol = atol
         return self
 
+    def out_rtol(self, v):
+        self._out_rtol = v
+        return self
+
+    def out_atol(self, v):
+        self._out_atol = v
+        return self
+
+    def turn_off_output_error_control(self):
+        """Exclude the quadrature output from the error test."""
+        self._out_rtol = None
+        self._out_atol = None
+        return self
+
+    def integrate_out(self, flag: bool = True):
+        """Integrate the output (the state itself without ``out``) along
+        the solve, which returns it as ``Solution.gs``."""
+        self._integrate_out = bool(flag)
+        return self
+
     def options(self, opts: OdeSolverOptions):
         self._options = opts
+        return self
+
+    def ic_options(self, opts: InitialConditionOptions):
+        self._ic_options = opts
         return self
 
     # outside this port's slice -------------------------------------------
     def rhs_implicit(self, f, jac):
         _later("rhs_implicit", "queue 1 item 2")
 
-    def root(self, g):
-        _later("root events", "queue 1 item 5")
-
-    def reset(self, r):
-        _later("reset operators", "queue 1 item 5")
-
-    def out(self, g):
-        _later("outputs and quadrature", "queue 1 item 5")
-
-    def integrate_out(self, flag: bool = True):
-        _later("quadrature", "queue 1 item 5")
-
-    def out_rtol(self, v):
-        _later("output error control", "queue 1 item 5")
-
-    def out_atol(self, v):
-        _later("output error control", "queue 1 item 5")
+    def reset_n(self, r):
+        _later("index-aware reset_n", "queue 1 item 10")
 
     def sens_rtol(self, v):
         _later("forward sensitivities", "queue 1 item 16")
@@ -227,9 +286,6 @@ class OdeBuilder:
 
     def param_scales(self, v):
         _later("adjoint tolerances", "queue 1 item 17")
-
-    def ic_options(self, opts):
-        _later("consistent initial conditions", "queue 1 item 4")
 
     def linear_solver(self, spec: LinearSolverSpec):
         """The Newton linear-solver tier: ``DENSE`` (the default) or
@@ -287,12 +343,15 @@ class OdeBuilder:
         eqn = make_equations(
             self._rhs, self._init, params, self._t0,
             mass=self._mass, mass_diag=mass_diag, rhs_jac=rhs_jac,
+            root=self._root, out=self._out, reset=self._reset,
         )
-        atol = (self._atol.detach().to(F64).cpu()
-                if isinstance(self._atol, torch.Tensor)
-                else torch.tensor(np.asarray(self._atol, np.float64))).reshape(-1)
-        if atol.numel() == 1:
-            atol = atol.expand(eqn.nstates).clone()
+
+        def vec(v, nv):
+            v = (v.detach().to(F64).cpu() if isinstance(v, torch.Tensor)
+                 else torch.tensor(np.asarray(v, np.float64))).reshape(-1)
+            return v.expand(nv).clone() if v.numel() == 1 else v
+
+        atol = vec(self._atol, eqn.nstates)
         return OdeProblem(
             eqn=eqn,
             params=params.clone(),
@@ -300,6 +359,12 @@ class OdeBuilder:
             h0=torch.tensor(self._h0, dtype=F64),
             rtol=torch.tensor(self._rtol, dtype=F64),
             atol=atol,
+            out_rtol=(None if self._out_rtol is None
+                      else torch.tensor(float(self._out_rtol), dtype=F64)),
+            out_atol=(None if self._out_atol is None
+                      else vec(self._out_atol, eqn.nout)),
+            integrate_out=self._integrate_out,
             options=self._options,
+            ic_options=self._ic_options,
             linear_solver=self._linear_solver,
         )

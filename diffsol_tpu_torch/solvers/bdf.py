@@ -18,8 +18,11 @@ NDF coefficients (Shampine & Reichelt): kappa = [0, -0.1850, -1/9,
 -0.0823, -0.0415, 0] (bdf.rs:253-260).  As in the JAX package, the
 accepted state ``y`` is the corrected solution D[0].
 
-Not ported yet: sensitivities, quadrature, roots and resets, and
-consistent initial conditions for a singular mass.
+Quadrature of an output advances a second difference matrix gD beside D
+(op/bdf.rs:45-57), and a root function is checked on the accepted step's
+interpolant (bdf.rs:1566-1579).  A singular diagonal mass starts from
+consistent initial conditions (:mod:`.consistent_ic`).  Not ported yet:
+sensitivities and a dense (non-diagonal) mass.
 """
 
 from __future__ import annotations
@@ -36,9 +39,11 @@ from .. import errors
 from ..norms import squared_norm, squared_norm_and_worst
 from ..ops.controller import pi_controller_raw
 from ..ops.newton import ETA_RESET_JACOBIAN, ETA_RESET_TIMESTEP, newton_solve
+from ..ops.rootfind import check_root
 from ..problem import OdeProblem, SolverConfig
+from .consistent_ic import algebraic_mask, make_consistent
 from .rk_common import Stats
-from .state import initial_step_size
+from .state import initial_state, initial_step_size
 
 MAX_ORDER = 5
 ND = MAX_ORDER + 3  # rows of the difference matrix D
@@ -77,6 +82,12 @@ def apply_ru(ru: np.ndarray, D: torch.Tensor) -> torch.Tensor:
     """D'[j] = sum_i ru[i, j] * D[i]."""
     ru_t = torch.as_tensor(ru, dtype=D.dtype, device=D.device)
     return torch.tensordot(ru_t, D, dims=([0], [0]))
+
+
+def rescale_all(D, gD, order: int, factor: float):
+    """Both difference matrices under a step-size change by ``factor``."""
+    ru = compute_ru(order, factor)
+    return apply_ru(ru, D), apply_ru(ru, gD)
 
 
 def predict_from_diff(D, order: int):
@@ -121,11 +132,28 @@ def interp_from_diff(t: float, D, t1: float, h: float, order: int):
     return y
 
 
+def interp_deriv_from_diff(t: float, D, t1: float, h: float, order: int):
+    """d/dt of the interpolation polynomial (bdf.rs:792-810)."""
+    dy = torch.zeros_like(D[0])
+    pi, d_pi = 1.0, 0.0
+    for i in range(order):
+        denom = h * (1.0 + i)
+        w = (t - (t1 - h * i)) / denom
+        d_pi = d_pi * w + pi / denom
+        pi = pi * w
+        dy = dy + d_pi * D[i + 1]
+    return dy
+
+
 @dataclass
 class BdfState:
     """Restartable BDF snapshot (reference BdfState, bdf_state.rs).
-    ``D`` is the (ND, *y.shape) difference matrix; scalar control is held
-    as Python numbers."""
+    ``D`` is the (ND, *y.shape) difference matrix and ``gD`` the
+    quadrature's (ND, *g.shape), with ``g`` of size 0 when nothing is
+    integrated; ``root_g`` holds the root function at the current point.
+    Scalar control is held as Python numbers.  ``state_modified`` tells the
+    next step to restart the difference matrices at order 1 from (y, dy)
+    (after a pin-back to a root or a reset)."""
 
     y: torch.Tensor
     dy: torch.Tensor
@@ -145,6 +173,12 @@ class BdfState:
     tstop: float
     status: int
     stats: Stats = field(default_factory=Stats)
+    g: Optional[torch.Tensor] = None
+    gD: Optional[torch.Tensor] = None
+    root_g: Optional[torch.Tensor] = None
+    root_t: float = math.nan
+    root_idx: int = -1
+    state_modified: bool = False
 
 
 class BdfSolver:
@@ -155,18 +189,14 @@ class BdfSolver:
         self.problem = problem
         self.config = config or SolverConfig.from_options(problem.options, "bdf")
         eqn = problem.eqn
-        if eqn.mass is not None:
-            if eqn.mass_diag_fn is None:
-                raise NotImplementedError(
-                    "non-diagonal mass is not ported yet (ROADMAP.md queue 1 "
-                    "item 4)"
-                )
-            md = eqn.mass_diag_fn(problem.t0, problem.params)
-            if bool((md == 0.0).any()):
-                raise NotImplementedError(
-                    "singular mass needs consistent initial conditions, not "
-                    "ported yet (ROADMAP.md queue 1 item 4)"
-                )
+        if eqn.mass is not None and eqn.mass_diag_fn is None:
+            raise NotImplementedError(
+                "non-diagonal mass is not ported yet (ROADMAP.md queue 1 "
+                "item 4)"
+            )
+        # the partition of algebraic states (zero mass diagonal)
+        self._alg_mask = algebraic_mask(problem)
+        self._nb = problem.lockstep_nbatch
         self._jvp_probes = getattr(eqn.rhs_jac, "jvp_probes", eqn.nstates)
 
     def _t(self, t: float) -> torch.Tensor:
@@ -203,12 +233,20 @@ class BdfSolver:
         p = self.problem
         params = p.params if params is None else params
         t0 = float(p.t0)
-        y = p.eqn.init(p.t0, params)
-        dy = p.eqn.rhs(p.t0, y, params)
+        y, dy, g, dg = initial_state(p, params)
+        ic_status = errors.INTERNAL_TIMESTEP
+        if self._alg_mask is not None:
+            y, dy, ic_status = make_consistent(p, params, y, dy, self._alg_mask)
         h = initial_step_size(p, params, y, dy, 1)
         D = y.new_zeros((ND,) + tuple(y.shape))
         D[0] = y
         D[1] = h * dy
+        gD = g.new_zeros((ND,) + tuple(g.shape))
+        if p.integrate_out:
+            gD[0] = g
+            gD[1] = h * dg
+        root_g = (p.eqn.root(p.t0, y, params) if p.eqn.root is not None
+                  else y.new_zeros(0))
         c0 = h * float(_ALPHA[1])
         st = dict(stats=Stats(), jac=None, factors=None, ssj=0, ssrj=0,
                   c_last=c0, eta=ETA_RESET_JACOBIAN)
@@ -218,9 +256,25 @@ class BdfSolver:
             jac=st["jac"], factors=st["factors"], eta=ETA_RESET_JACOBIAN,
             prev_error_norm=math.nan, steps_since_jac=0,
             steps_since_rhs_jac=0, c_last=c0, newton_fails_total=0,
-            tstop=math.nan, status=errors.INTERNAL_TIMESTEP,
-            stats=st["stats"],
+            tstop=math.nan, status=ic_status,
+            stats=st["stats"], g=g, gD=gD, root_g=root_g,
         )
+
+    def _out(self, t: float, y, params):
+        """The quadrature's integrand: ``out``, or the state itself."""
+        p = self.problem
+        return y if p.eqn.out is None else p.eqn.out(self._t(t), y, params)
+
+    def reinit_after_reset(self, state: BdfState, params) -> BdfState:
+        """Refresh dy (and re-solve the DAE's consistency) after a reset
+        (reference state.rs apply_reset_with_mass)."""
+        p = self.problem
+        dy = p.eqn.rhs(self._t(state.t), state.y, params)
+        if self._alg_mask is None:
+            return dataclasses.replace(state, dy=dy)
+        y, dy, status = make_consistent(p, params, state.y, dy, self._alg_mask,
+                                        t=state.t)
+        return dataclasses.replace(state, y=y, dy=dy, status=status)
 
     def set_stop_time(self, state: BdfState, tstop: float) -> BdfState:
         """Set tstop, shrinking h (and rescaling D) if the next step would
@@ -235,9 +289,10 @@ class BdfSolver:
         )
         if overshoot:
             factor = (tstop - state.t) / state.h
+            D, gD = rescale_all(state.D, state.gD, state.order, factor)
             state = dataclasses.replace(
-                state, D=apply_ru(compute_ru(state.order, factor), state.D),
-                h=state.h * factor, n_equal_steps=0, eta=ETA_RESET_TIMESTEP,
+                state, D=D, gD=gD, h=state.h * factor, n_equal_steps=0,
+                eta=ETA_RESET_TIMESTEP,
             )
         if tstop < state.t - troundoff:
             state = dataclasses.replace(
@@ -255,6 +310,9 @@ class BdfSolver:
         max_newton = cfg.maximum_newton_iterations
         ki, kp = opts.pi_control_integral, opts.pi_control_proportional
         atol, rtol = p.atol, p.rtol
+        integrate_out = p.integrate_out
+        out_in_err = p.output_in_error_control()
+        tstop = state.tstop
 
         st = dict(
             stats=dataclasses.replace(state.stats), jac=state.jac,
@@ -263,14 +321,48 @@ class BdfSolver:
             c_last=state.c_last,
         )
         D = state.D
+        gD = state.gD
         h = state.h
+        n_equal0 = state.n_equal_steps
+        prev_err0 = state.prev_error_norm
+        if state.state_modified:
+            # restart the difference matrices at order 1 from (y, dy)
+            # (bdf.rs:1291-1319); at order 1 the tstop clamp is h itself
+            tr0 = 100.0 * _EPS * (abs(state.t) + abs(state.h))
+            overshoot0 = not math.isnan(tstop) and abs(state.t - tstop) > tr0 and (
+                state.t + state.h > tstop + tr0 if state.h > 0.0
+                else state.t + state.h < tstop - tr0)
+            if overshoot0:
+                h = tstop - state.t
+            D = torch.zeros_like(state.D)
+            D[0] = state.y
+            D[1] = h * state.dy
+            if integrate_out:
+                gD = torch.zeros_like(state.gD)
+                gD[0] = state.g
+                gD[1] = h * self._out(state.t, state.y, params)
+            order, n_equal0, prev_err0 = 1, 0, math.nan
+            c1 = state.h * float(_ALPHA[1])
+            rel1 = abs(c1 / st["c_last"] - 1.0)
+            self._jac_slim(
+                st, state.t, state.y, params, c1,
+                st["ssrj"] >= opts.update_rhs_jacobian_after_steps,
+                st["ssj"] >= opts.update_jacobian_after_steps
+                or rel1 > opts.threshold_to_update_jacobian,
+                "lu_from_checkpoint")
+            if overshoot0:
+                st["eta"] = ETA_RESET_TIMESTEP
+        # root(t, y) at the current point, whatever happened to the state
+        root_g0 = (p.eqn.root(self._t(state.t), state.y, params)
+                   if p.eqn.root is not None else state.root_g)
+        g_delta = None
         y_pred = predict_from_diff(D, order)
         psi = psi_from_diff(D, order)
         d = torch.zeros_like(state.y)
         conv_fail = False
         err = math.inf
         safety = 1.0
-        prev_err = state.prev_error_norm
+        prev_err = prev_err0
         newton_fails = state.newton_fails_total
         err_fails_step = 0
         accepted = False
@@ -295,8 +387,18 @@ class BdfSolver:
             d = res.x - y_pred
             solve_ok = res.converged
 
+            # quadrature delta (op/bdf.rs:45-57: d_g = c*dg - psi_g)
+            if integrate_out:
+                g_delta = (cval * self._out(state.t + h, y_pred, params)
+                           - psi_from_diff(gD, order))
+
             sq_d, wm_new = squared_norm_and_worst(d, state.y, atol, rtol)
             err_a = float(sq_d) * float(_ERROR_CONST2[order - 1])
+            if out_in_err:
+                # the quadrature joins the test with the NEXT error constant
+                err_a = max(err_a, float(squared_norm(
+                    g_delta, state.g, p.out_atol, p.out_rtol))
+                    * float(_ERROR_CONST2[order]))
             accepted_a = solve_ok and err_a <= 1.0
             stats = st["stats"]
             if solve_ok:
@@ -331,7 +433,7 @@ class BdfSolver:
                            not accepted_a, cause)
 
             if do_rescale:
-                D = apply_ru(compute_ru(order, factor), D)
+                D, gD = rescale_all(D, gD, order, factor)
                 y_pred = predict_from_diff(D, order)
                 psi = psi_from_diff(D, order)
 
@@ -362,11 +464,15 @@ class BdfSolver:
         y_new = D_new[0]
         t_new = state.t + h
         dy_new = D_new[1] / h
+        g_new, gD_new = state.g, gD
+        if integrate_out:
+            g_new = predict_from_diff(gD, order) + g_delta
+            gD_new = update_diff(gD, g_delta, order)
         stats = st["stats"]
         stats.steps += 1
         st["ssj"] += 1
         st["ssrj"] += 1
-        n_equal = 1 if h_changed else state.n_equal_steps + 1
+        n_equal = 1 if h_changed else n_equal0 + 1
 
         # ---- order selection (bdf.rs:1489-1562)
         new_order, sel_factor, do_change = order, 1.0, False
@@ -393,7 +499,7 @@ class BdfSolver:
         order_new = new_order if do_change else order
         h_new = h * (sel_factor if do_change else 1.0)
         if do_change:
-            D_new = apply_ru(compute_ru(new_order, sel_factor), D_new)
+            D_new, gD_new = rescale_all(D_new, gD_new, new_order, sel_factor)
             st["eta"] = ETA_RESET_TIMESTEP
         c2 = h_new * float(_ALPHA[order_new])
         rel2 = abs(c2 / st["c_last"] - 1.0)
@@ -409,8 +515,21 @@ class BdfSolver:
                 if do_change and abs(h_new) < cfg.minimum_timestep
                 else errors.INTERNAL_TIMESTEP)
 
+        # ---- root check (bdf.rs:1566-1579) on the accepted interpolant
+        root_t, root_idx, root_g_new = math.nan, -1, root_g0
+        if p.eqn.root is not None:
+            res_root = check_root(
+                lambda tt, yy: p.eqn.root(self._t(tt), yy, params),
+                lambda tt: interp_from_diff(tt, D_new, t_new, h_new, order_new),
+                root_g0, state.t, y_new, t_new, nbatch=self._nb)
+            if res_root.found and stop == errors.INTERNAL_TIMESTEP:
+                stop = errors.ROOT_FOUND
+                root_t, root_idx = res_root.t_root, res_root.root_idx
+            if res_root.inconsistent:
+                stop = errors.ROOT_BATCH_INCONSISTENT
+            root_g_new = res_root.g0_next
+
         # ---- tstop (bdf.rs:694-731), in-step form
-        tstop = state.tstop
         eta = st["eta"]
         if not math.isnan(tstop):
             tr1 = 100.0 * _EPS * (abs(t_new) + abs(h_new))
@@ -421,7 +540,7 @@ class BdfSolver:
             )
             if overshoot:
                 ts_factor = (tstop - t_new) / h_new
-                D_new = apply_ru(compute_ru(order_new, ts_factor), D_new)
+                D_new, gD_new = rescale_all(D_new, gD_new, order_new, ts_factor)
                 h_new = h_new * ts_factor
                 n_equal_new = 0
                 eta = ETA_RESET_TIMESTEP
@@ -434,9 +553,16 @@ class BdfSolver:
             eta=eta, prev_error_norm=err, steps_since_jac=st["ssj"],
             steps_since_rhs_jac=st["ssrj"], c_last=st["c_last"],
             newton_fails_total=newton_fails, tstop=tstop, status=stop,
-            stats=stats,
+            stats=stats, g=g_new, gD=gD_new, root_g=root_g_new,
+            root_t=root_t, root_idx=root_idx, state_modified=False,
         )
 
     # ------------------------------------------------------------------
     def interpolate(self, state: BdfState, t: float):
         return interp_from_diff(t, state.D, state.t, state.h, state.order)
+
+    def interpolate_dy(self, state: BdfState, t: float):
+        return interp_deriv_from_diff(t, state.D, state.t, state.h, state.order)
+
+    def interpolate_out(self, state: BdfState, t: float):
+        return interp_from_diff(t, state.gD, state.t, state.h, state.order)

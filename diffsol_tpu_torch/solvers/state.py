@@ -1,9 +1,26 @@
-"""Initial step size (counterpart of ``diffsol_tpu.solvers.state``;
-reference state.rs:801-867 `set_step_size`)."""
+"""Initial state and step size (counterpart of
+``diffsol_tpu.solvers.state``; reference state.rs:801-867 `set_step_size`,
+:1086-1124 `new_without_initialise`)."""
 
 from __future__ import annotations
 
+import torch
+
 from ..norms import norm as wrms_norm
+
+
+def initial_state(problem, params):
+    """(y0, dy0, g0, dg0) at t0; the quadrature pieces have size 0 when
+    nothing is integrated, and integrate the state itself without an
+    ``out`` function (state.rs:1098-1104)."""
+    t0 = problem.t0
+    y = problem.eqn.init(t0, params)
+    dy = problem.eqn.rhs(t0, y, params)
+    if problem.integrate_out:
+        dg = y if problem.eqn.out is None else problem.eqn.out(t0, y, params)
+        return y, dy, torch.zeros_like(dg), dg
+    empty = y.new_zeros(0)
+    return y, dy, empty, empty
 
 
 def initial_step_size(problem, params, y0, dy0, solver_order: int) -> float:

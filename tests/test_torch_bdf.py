@@ -61,8 +61,9 @@ def test_bdf_robertson_matches_cvode_table(port_solution):
 
 def test_bdf_diagonal_mass_and_failures():
     """A constant diagonal mass takes the elementwise path (M y' = f with
-    M = diag(2, 2) halves the decay rate), and a singular mass is refused
-    until consistent initial conditions are ported."""
+    M = diag(2, 2) halves the decay rate), a singular one starts from
+    consistent initial conditions (y1 = y0 here), and what the port still
+    lacks raises with its ROADMAP item."""
     f64 = torch.float64
     problem = (
         dtt.OdeBuilder()
@@ -79,17 +80,32 @@ def test_bdf_diagonal_mass_and_failures():
     assert sol.stop_reason == dtt.errors.TSTOP_REACHED
     np.testing.assert_allclose(sol.ys[:, 0].numpy(), np.exp(-0.5 * np.array([0.5, 1.0])),
                                rtol=1e-6)
+    # a singular diagonal mass starts from consistent initial conditions
     singular = (
         dtt.OdeBuilder()
         .rhs(lambda t, y, p: torch.stack([-y[0], y[0] - y[1]]))
         .init(lambda t, p: torch.ones(2, dtype=f64))
         .mass(lambda t, p: torch.diag(torch.tensor([1.0, 0.0], dtype=f64)))
+        .rtol(1e-8)
+        .atol(1e-10)
+        .build()
+    )
+    sol = dtt.solve_dense(dtt.BdfSolver(singular), [0.5, 1.0], device="cpu")
+    assert sol.stop_reason == dtt.errors.TSTOP_REACHED
+    np.testing.assert_allclose(sol.ys.numpy(), np.exp(-np.array([0.5, 1.0]))[:, None]
+                               * np.ones(2), rtol=1e-6)
+    # what is still outside the port names its ROADMAP item
+    dense_mass = (
+        dtt.OdeBuilder()
+        .rhs(lambda t, y, p: -y)
+        .init(lambda t, p: torch.ones(2, dtype=f64))
+        .mass(lambda t, p: torch.tensor([[1.0, 0.5], [0.0, 1.0]], dtype=f64))
         .build()
     )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dtt.BdfSolver(singular)
+        dtt.BdfSolver(dense_mass)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dtt.OdeBuilder().root(lambda t, y, p: y)
+        dtt.OdeBuilder().reset_n(lambda t, y, p, n: y)
 
 
 def test_solve_dense_runs_on_the_card_unless_asked_for_the_cpu():

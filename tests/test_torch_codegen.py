@@ -108,12 +108,12 @@ def _unsupported(name):
                 return y
             return -y
         return f
-    if name == "fractional_pow":
-        return lambda t, y, p: y ** 1.5
+    if name == "bool_result":
+        return lambda t, y, p: (y > 0.5).to(torch.float64)
     raise ValueError(name)
 
 
-@pytest.mark.parametrize("name", ["erf", "branch", "fractional_pow"])
+@pytest.mark.parametrize("name", ["erf", "branch", "bool_result"])
 def test_out_of_scope_ops_raise(name):
     with pytest.raises(cg.UnsupportedForKernel):
         cg.trace_ir(_unsupported(name), ("t", "y", "p"), (None, 3, 3))
@@ -124,11 +124,11 @@ def test_out_of_scope_problems_raise_and_auto_falls_back():
         dtt.OdeBuilder()
         .rhs(lambda t, y, p: -p[0] * y)
         .init(lambda t, p: torch.ones(2, dtype=F64))
-        .mass(lambda t, p: torch.diag(torch.tensor([1.0, 2.0], dtype=F64)))
+        .mass(lambda t, p: torch.tensor([[1.0, 0.5], [0.0, 2.0]], dtype=F64))
         .p([0.5])
         .build()
     )
-    with pytest.raises(cg.UnsupportedForKernel, match="mass"):
+    with pytest.raises(cg.UnsupportedForKernel, match="non-diagonal mass"):
         make_fused_bdf_solve(mass_problem, [1.0], 4)
     big = (
         dtt.OdeBuilder()
@@ -203,3 +203,137 @@ def test_tile_above_the_block_limit_raises():
         make_fused_bdf_solve(robertson.problem_ode(), [1.0], 2048, tile=fs.MAX_TILE + 1)
     assert make_fused_bdf_solve(robertson.problem_ode(), [1.0], 2048,
                                 tile=fs.MAX_TILE).tile == fs.MAX_TILE
+
+
+# ---------------------------------------------------------------------------
+# the rest of the primitive scope (dfinterp.py:21-29), the further device
+# functions, and the transcendental rhs against the JAX kernel
+# ---------------------------------------------------------------------------
+
+_PRIMITIVES = {
+    "expm1": lambda t, y, p: torch.expm1(y) * p[0],
+    "log1p": lambda t, y, p: torch.log1p(y * y),
+    "rsqrt": lambda t, y, p: torch.rsqrt(y + p[1]),
+    "tan": lambda t, y, p: torch.tan(0.5 * y),
+    "sinh": lambda t, y, p: torch.sinh(y) - t,
+    "cosh": lambda t, y, p: torch.cosh(y),
+    "sigmoid": lambda t, y, p: torch.sigmoid(p[0] * y),
+    "pow_constant": lambda t, y, p: y ** 1.5 + y ** -0.5,
+    "pow_traced": lambda t, y, p: y ** p[0] + p[1] ** y,
+    "pow_scalar_base": lambda t, y, p: 2.0 ** y,
+    "where_compare": lambda t, y, p: torch.where(y < 0.9, y * y, torch.exp(y)),
+    "where_logic": lambda t, y, p: torch.where(
+        ((y >= 0.7) & (y <= 1.1)) | ~(p[0] > y), p[0] * y, -y),
+    "where_scalar_branch": lambda t, y, p: torch.where(y != y[0], 1.0, y),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PRIMITIVES))
+def test_further_primitives_match_torch_and_jacfwd(name):
+    """Each primitive added to the tracer: the IR's value against the
+    callable and its dual-number Jacobian against torch.func.jacfwd, and a
+    device function of that name for both scalar types in dual.cuh."""
+    fn = _PRIMITIVES[name]
+    ir = cg.trace_ir(fn, ("t", "y", "p"), (None, 3, 3))
+    rng = np.random.default_rng(11)
+    y = torch.tensor(rng.uniform(0.5, 1.5, (5, 3)))
+    p = torch.tensor(rng.uniform(0.5, 1.5, (5, 3)))
+    t = torch.tensor(0.3, dtype=F64)
+    ref = torch.stack([fn(t, y[i], p[i]) for i in range(5)])
+    torch.testing.assert_close(cg.eval_rhs(ir, t, y, p), ref, rtol=TOL, atol=TOL)
+    jac = torch.stack([torch.func.jacfwd(fn, argnums=1)(t, y[i], p[i]) for i in range(5)])
+    torch.testing.assert_close(cg.jacobian(ir, t, y, p), jac, rtol=1e-13, atol=1e-13)
+    src = cg.emit_cuda_header(cg.ModelIR(rhs=ir, init=None, nstates=3, nparams=3))
+    dual = (Path(fs.__file__).resolve().parent.parent / "csrc" / "dual.cuh").read_text()
+    used = set(re.findall(r"\b(dsol_\w+)\(", src))
+    assert used, src
+    for device_fn in used:
+        assert len(re.findall(rf"\b{device_fn}\(", dual)) >= 2, device_fn
+    assert cg.op_count(ir) > 0
+
+
+def test_boolean_values_stay_inside_where():
+    with pytest.raises(cg.UnsupportedForKernel, match="boolean"):
+        cg.trace_ir(lambda t, y, p: (y > 0.5) * y, ("t", "y", "p"), (None, 3, 3))
+
+
+def test_header_holds_the_further_device_functions():
+    """mass, root, reset and out are traced beside rhs and init and
+    emitted generic in their accessors, with the kernel's compile-time
+    switches; a plain ODE gets every switch at 0."""
+    from diffsol_tpu_torch.models import fused_cases as fc
+
+    plain = cg.emit_cuda_header(cg.trace_model(robertson.rhs_ode, robertson.init, 3, 3))
+    for macro in ("HAS_MASS", "NROOT", "HAS_RESET", "NQUAD", "HAS_OUT", "OUT_IN_ERR"):
+        assert f"#define MODEL_{macro} 0" in plain
+    assert "model_root" not in plain and "model_mass" not in plain
+
+    ball = fc.bouncing_ball_problem().eqn
+    model = cg.trace_model(ball.rhs, ball.init, 2, 2, root=ball.root, reset=ball.reset,
+                           out=fc.square_out)
+    src = cg.emit_cuda_header(model, "ball", nquad=1, out_in_err=True)
+    for line in ("#define MODEL_NROOT 1", "#define MODEL_HAS_RESET 1",
+                 "#define MODEL_NQUAD 1", "#define MODEL_HAS_OUT 1",
+                 "#define MODEL_OUT_IN_ERR 1", "#define MODEL_HAS_MASS 0"):
+        assert line in src
+    for fn_name in ("model_rhs", "model_root", "model_reset", "model_out"):
+        assert re.search(rf"template <typename T, typename Y, typename O>\n"
+                         rf"__device__ __forceinline__ void {fn_name}\(", src)
+    y = torch.tensor([[2.0, -3.0]], dtype=F64)
+    p = torch.tensor([[9.81, 0.8]], dtype=F64)
+    torch.testing.assert_close(cg.eval_rhs(model.reset, 0.0, y, p),
+                               torch.tensor([[1e-9, 2.4]], dtype=F64))
+    torch.testing.assert_close(cg.eval_rhs(model.root, 0.0, y, p),
+                               torch.tensor([[2.0]], dtype=F64))
+
+    # a replayed mass is a (t, p) program, a constant one literal assignments
+    def mass_diag(t, p):
+        return torch.diagonal(torch.diag(torch.stack([1.0 + t, p[0], 0.0 * t])))
+
+    replayed = cg.trace_model(robertson.rhs_dae, robertson.init, 3, 3, mass_diag=mass_diag)
+    torch.testing.assert_close(
+        cg.eval_init(replayed.mass, 2.0, torch.tensor([[5.0, 0.0, 0.0]], dtype=F64)),
+        torch.tensor([[3.0, 5.0, 0.0]], dtype=F64))
+    assert "model_mass" in cg.emit_cuda_header(replayed)
+    const = cg.trace_model(robertson.rhs_dae, robertson.init, 3, 3, mass_diag=mass_diag,
+                           mass_const=(1.0, 1.0, 0.0))
+    assert const.mass is None
+    assert "out[2] = T(0.0);" in cg.emit_cuda_header(const)
+    with pytest.raises(cg.UnsupportedForKernel, match="reset returns 1 values"):
+        cg.trace_model(ball.rhs, ball.init, 2, 2, reset=ball.root)
+
+
+def test_transcendental_rhs_matches_pallas_interpret():
+    """tests/test_pallas_stepper.py:372 through both packages' fused tiers
+    (B = 4 in one tile).  The JAX kernel, with float32 heuristics, takes
+    69 accepted steps where the float64 port takes 72 (ROADMAP.md queue 3
+    logs it), so ys agree at the solver's tolerance, 1e-5 relative, the
+    bound that also holds the first state to its closed form."""
+    import jax.numpy as jnp
+
+    import diffsol_tpu as dt
+    from diffsol_tpu.ensemble import solve_dense_ensemble as jax_ensemble
+    from diffsol_tpu_torch.models import fused_cases as fc
+
+    def jrhs(t, y, p):
+        return jnp.stack([
+            -p[0] * jnp.exp(y[0]),
+            -p[1] * jnp.sin(y[1]) + p[0] * jnp.tanh(y[2]),
+            -p[0] * y[2] * jnp.log1p(y[0] * y[0]),
+        ])
+
+    jp = (dt.OdeBuilder().rhs(jrhs).init(lambda t, p: jnp.array([0.5, 1.0, 0.8]))
+          .p([1.0, 1.0]).rtol(1e-6).atol(1e-9).build())
+    a = np.linspace(0.5, 1.5, 4)
+    params = np.stack([a, np.ones(4)], axis=1)
+    te = fc.TRANSCENDENTAL_T_EVAL
+    ref = jax_ensemble(dt.BdfSolver, jp, te, jnp.asarray(params), mode="fused",
+                       interpret=True)
+    sol = dtt.solve_dense_ensemble(dtt.BdfSolver, fc.transcendental_problem(), te, params,
+                                   mode="fused", tile=4, device="cpu")
+    assert sol.tier == "fused_small_reference" and ref.tier == "fused_small"
+    assert sol.stop_reason == int(ref.stop_reason) == dtt.errors.TSTOP_REACHED
+    assert abs(int(sol.tile_steps[0]) - int(ref.tile_steps[0])) <= 4
+    np.testing.assert_allclose(sol.ys.numpy(), np.asarray(ref.ys), rtol=1e-5, atol=1e-8)
+    exact = fc.transcendental_y0(np.asarray(te)[:, None], a[None, :])
+    np.testing.assert_allclose(sol.ys[:, :, 0].numpy(), exact, rtol=1e-5, atol=1e-7)

@@ -114,6 +114,190 @@ def test_lockstep_and_auto_modes_on_cuda():
 
 
 # ---------------------------------------------------------------------------
+# the rest of K1: diagonal mass, roots and resets, quadrature, transcendentals
+# ---------------------------------------------------------------------------
+
+def _close(name, got, ref):
+    torch.testing.assert_close(got, ref, rtol=YS_RTOL, atol=YS_ATOL,
+                               msg=lambda m: f"{name}: {m}")
+
+
+def _same_solve(solve, params):
+    """Kernel and plain version on the same CUDA params: equal statuses,
+    steps, root counts and indices; ys and gs to rtol=1e-9 and the root
+    time to 1e-12 relative.  Returns the kernel's result as a dict."""
+    before = fs.launch_fused_bdf.launches
+    got = solve(params)
+    torch.cuda.synchronize()
+    assert fs.launch_fused_bdf.launches == before + 1
+    ref = solve.reference(params)
+    if not isinstance(got, dict):
+        got = dict(zip(("ys", "status", "steps"), got))
+        ref = dict(zip(("ys", "status", "steps"), ref))
+    assert got.keys() == ref.keys()
+    for key in ("status", "steps", "n_points", "n_roots", "root_idx"):
+        if key in got:
+            assert got[key].tolist() == ref[key].tolist(), key
+    for key in ("ys", "gs"):
+        if key in got:
+            _close(key, got[key], ref[key])
+    if "root_t" in got:
+        torch.testing.assert_close(got["root_t"], ref["root_t"], rtol=1e-12, atol=0.0,
+                                   equal_nan=True)
+    return got
+
+
+def _variant(name, nbatch):
+    """(problem, t_eval, params (nbatch, np) numpy) of a K1 variant; every
+    member of a root problem has the same parameters, since a tile's
+    members must cross together."""
+    from diffsol_tpu_torch.models import fused_cases as fc
+
+    lin = np.linspace(-1.0, 1.0, nbatch)
+    if name == "dae":
+        return trob.problem_dae(), trob.T_EVAL_4E10, _params(nbatch)
+    if name == "root_stop":
+        return fc.root_stop_problem(), fc.ROOT_STOP_T_EVAL, np.ones((nbatch, 1))
+    if name == "root_reset":
+        return (fc.bouncing_ball_problem(), fc.BALL_T_EVAL,
+                np.tile(fc.BALL_P, (nbatch, 1)))
+    if name == "quad":
+        return (fc.quadrature_problem(), fc.QUAD_T_EVAL,
+                np.stack([0.1 * (1.0 + 0.05 * lin), np.ones(nbatch)], 1))
+    if name == "quad_err":
+        return (fc.quadrature_err_problem(), fc.QUAD_ERR_T_EVAL,
+                0.5 * (1.0 + 0.05 * lin)[:, None])
+    if name == "transcendental":
+        return (fc.transcendental_problem(), fc.TRANSCENDENTAL_T_EVAL,
+                np.stack([1.0 + 0.5 * lin, np.ones(nbatch)], 1))
+    raise ValueError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dae", "root_stop", "root_reset", "quad", "quad_err",
+                                  "transcendental"])
+def test_fused_kernel_variants_match_plain_version_cuda(name):
+    """Each further build of K1 against its plain version: 300 members in
+    two tiles of 128 and a ragged one of 44."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    problem, t_eval, params = _variant(name, 300)
+    solve = fs.make_fused_bdf_solve(problem, t_eval, 300, tile=128)
+    assert solve.ntiles == 3
+    got = _same_solve(solve, torch.tensor(params, device="cuda"))
+    want = fs.ROOT_STOP if name == "root_stop" else fs.OK
+    assert got["status"].tolist() == [want] * 3
+    if name == "dae":
+        torch.testing.assert_close(got["ys"].sum(1), torch.ones_like(got["ys"][:, 0]),
+                                   rtol=0.0, atol=1e-6)
+    if name == "root_stop":
+        assert got["root_idx"].tolist() == [0] * 3
+        torch.testing.assert_close(got["root_t"], torch.full_like(got["root_t"], np.log(2.0)),
+                                   rtol=1e-5, atol=0.0)
+        assert bool((got["ys"][2:] == 0.0).all())  # zeros past the root
+    if name == "root_reset":
+        assert got["n_roots"].tolist() == [1] * 3
+
+
+def _chain8_dae(t, y, p):
+    """The 8-state chain with its last row algebraic: 0 = y7 - y6^2."""
+    rows = [-p[0] * y[0] + p[1] * y[7] * y[1]]
+    for i in range(1, 7):
+        rows.append(p[0] * y[i - 1] - (1.0 + i) * y[i] - p[1] * y[i] * y[i + 1])
+    rows.append(y[7] - y[6] * y[6])
+    return torch.stack(rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mass", ["constant", "time_dependent"])
+def test_fused_kernel_n8_mass_matches_plain_version_cuda(mass):
+    """K1 at its largest size with a diagonal mass: a constant one with an
+    algebraic row (folded into the kernel), and one that grows with t
+    (replayed at every step), with quadrature of the state beside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f64 = torch.float64
+    b = dtt.OdeBuilder().p([50.0, 1e3]).rtol(1e-6).atol(1e-9)
+    ones = lambda t, p: torch.ones(8, dtype=f64, device=p.device)  # noqa: E731
+    if mass == "constant":
+        md = torch.tensor([1.0] * 7 + [0.0], dtype=f64)
+        b = b.rhs(_chain8_dae).init(ones).mass(lambda t, p: torch.diag(md.to(p.device)))
+    else:
+        b = (b.rhs(_chain8).init(ones).integrate_out()
+             .mass(lambda t, p: torch.diag(torch.stack([1.0 + 0.5 * t + 0.0 * p[0]] * 8))))
+    solve = fs.make_fused_bdf_solve(b.build(), [0.1, 1.0, 10.0], 300, tile=128)
+    assert (solve.cfg.mass_const is not None) == (mass == "constant")
+    rng = np.random.default_rng(8)
+    params = torch.tensor(np.stack([rng.uniform(40, 60, 300), np.full(300, 1e3)], 1),
+                          device="cuda")
+    got = _same_solve(solve, params)
+    assert got["status"].tolist() == [fs.OK] * 3
+
+
+@pytest.mark.cuda
+def test_fused_kernel_root_inconsistent_fails_loudly_cuda():
+    """Members of one tile that cross at different times end the tile, and
+    the solve, in ROOT_BATCH_INCONSISTENT; tiles that each agree within
+    themselves but stop at different times do too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import fused_cases as fc
+
+    problem = fc.root_stop_problem()
+    rates = np.repeat([0.5, 1.0, 2.0, 4.0], 64)[:, None]
+    sol = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, [1.0, 3.0], rates,
+                                   mode="fused", tile=128)
+    assert sol.stop_reason == dtt.errors.ROOT_BATCH_INCONSISTENT
+    assert not bool(torch.isfinite(sol.ys).any())
+    # tile 0 never reaches 0.5 before t = 1, tile 1 stops at ln 2 / 2
+    rates = np.repeat([0.1, 2.0], 128)[:, None]
+    sol = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, [0.5, 1.0], rates,
+                                   mode="fused", tile=128)
+    assert sol.stop_reason == dtt.errors.ROOT_BATCH_INCONSISTENT
+
+
+@pytest.mark.cuda
+def test_kernel_config_size_matches_cuda():
+    """sizeof(Config) of the built library equals the ctypes mirror's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ctypes
+
+    from diffsol_tpu_torch import _build
+
+    solve = fs.make_fused_bdf_solve(trob.problem_dae(), [1.0], 4)
+    lib = _build.load_fused_bdf(solve.header)
+    assert lib.fused_bdf_config_size() == ctypes.sizeof(fs.CConfig)
+
+
+@pytest.mark.cuda
+def test_solve_and_solve_dense_with_a_root_on_the_card_by_default():
+    """``solve_dense`` and ``solve`` with a root function run on the card without
+    ``device`` and agree with the CPU: the same stop, root time and ys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.drivers import solve
+    from diffsol_tpu_torch.models import exponential_decay as ted
+
+    problem = ted.problem_with_root()
+    gpu = dtt.solve_dense(dtt.BdfSolver(problem), [1.0, 10.0])
+    cpu = dtt.solve_dense(dtt.BdfSolver(problem), [1.0, 10.0], device="cpu")
+    assert gpu.ys.is_cuda and not problem.params.is_cuda
+    assert gpu.stop_reason == cpu.stop_reason == dtt.errors.ROOT_FOUND
+    assert gpu.root_idx == cpu.root_idx == 0
+    np.testing.assert_allclose(gpu.root_t, -np.log(0.6) / 0.1, rtol=1e-5)
+    np.testing.assert_allclose(gpu.root_t, cpu.root_t, rtol=1e-9)
+    torch.testing.assert_close(gpu.ys.cpu(), cpu.ys, rtol=1e-6, atol=1e-14)
+    reset = ted.problem_with_reset()
+    g2 = solve(dtt.BdfSolver(reset), 10.0)
+    c2 = solve(dtt.BdfSolver(reset), 10.0, device="cpu")
+    assert g2.ys.is_cuda and g2.stop_reason == c2.stop_reason == dtt.errors.TSTOP_REACHED
+    assert abs(g2.n_points - c2.n_points) <= STEP_SLACK
+    np.testing.assert_allclose(float(g2.ys[g2.n_points - 1, 0]),
+                               float(c2.ys[c2.n_points - 1, 0]), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # the banded tier: band LU (K3, K4) and the fused band stepper (K2)
 # ---------------------------------------------------------------------------
 
