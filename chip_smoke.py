@@ -11,8 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (Robertson ODE and DAE, the root-stop, bouncing-ball, two quadrature
    and transcendental models of models/fused_cases.py), the band LU
    (csrc/band_lu.cuh) and the fused band BDF kernel
-   (csrc/fused_band_bdf.cuh plus the heat1d rhs header); print each fused
-   BDF build's time and ptxas's register and spill counts;
+   (csrc/fused_band_bdf.cuh) once for each of the heat1d, heat2d and
+   foodweb rhs headers, and the fused BDF kernel's mixed-precision build;
+   print each fused BDF build's time and ptxas's register and spill counts;
 3. the fused BDF kernel against its plain PyTorch version on the card: 256
    Robertson members with k1 spread +-10%, t_eval 0.4 ... 4e10, the same
    tile;
@@ -55,8 +56,40 @@ Phases, in order; any failure raises and the script exits non-zero:
     members that cross at different times must end the solve in
     ROOT_BATCH_INCONSISTENT.
 
+13. the 2-D method-of-lines DAEs through the banded tier at full width,
+    B=1,024 identical members (as the reference's rows broadcast them):
+    heat2d mgrid=20 (n=400, ml=mu=20, 41 colored probes a Jacobian; rtol =
+    atol = 1e-5, t_eval [0.01, 0.03, 0.1]) and foodweb nx=10 (n=200,
+    ml=mu=20; t_eval [1e-3, 1e-2, 1e-1], max_steps 3000), whose
+    inconsistent ``init`` goes through the banded consistent-IC solve.
+    Each: mode="fused" (one launch of the fused band kernel, its counter
+    set to 0 just before and read just after) and mode="lockstep" (the
+    band LU kernels counted), held to TSTOP_REACHED, to each other within
+    1e-6 + 5e-4 |ref|, and member 0 to a single solve_dense of the dense
+    (banded=False) problem on the card; heat2d's boundary rows stay 0
+    within 1e-9; foodweb's corner values meet IDA's (foodweb.SOLN, rtol
+    2e-3) and its consistent initial state's algebraic residual has fallen
+    by more than a thousand.  The kernel against its plain version at
+    B=256: heat2d by the rule of phase 9 (equal steps, 1e-12 + 1e-9 |ref|);
+    foodweb, whose step sequence follows the last bit of its rhs
+    (tests/test_torch_mol2d.py shows it on the plain version alone),
+    within 10 error weights and a fifth of the steps, with what was
+    measured printed;
+14. the band LU kernels at the 2-D models' width, nb=41: heat2d's
+    iteration matrix M - cJ (n=400, B=1,024, c=1e-3) against their plain
+    versions by phase 7's rule, with torch.linalg.lu_factor / lu_solve on
+    the dense (1024, 400, 400) expansion timed as the library call;
+15. the fused BDF kernel with precision="mixed" (float32 Jacobian, LU and
+    Newton solve): Robertson ODE, B=10,000 identical nominal members,
+    t=4e10, one launch; against
+    its own plain version (whose float32 operations run in another order:
+    the steps of both are printed, and ys are held to 5 error weights) and
+    against the float64 kernel on the same members as tests/test_pallas_stepper.py:451
+    (< 5 weights over all points, < 0.1 up to t = 4e4).
+
 The line before the last is a JSON record of the kernels: the fused BDF
-kernel once for each variant, the band LU's two and the fused band kernel
+kernel once for each variant, the band LU's two and the fused band kernel,
+each also at the 2-D models' width
 (launches on their path, error against the plain version, times, the
 card's least time for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -104,7 +137,27 @@ MODES_RTOL, MODES_ATOL = 5e-4, 1e-6
 # the card's peaks (NVIDIA H100 SXM data sheet): f64 without tensor cores
 # and HBM bandwidth
 PEAK_F64 = 34e12
+PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+
+# the 2-D method-of-lines DAEs (bench.py:681-705): name -> grid, t_eval,
+# max_steps; B_BAND identical members
+MOL2D = {
+    "heat2d": (20, [0.01, 0.03, 0.1], 100_000),
+    "foodweb": (10, [1e-3, 1e-2, 1e-1], 3000),
+}
+# one fused call slower than this is timed at B_BAND_CHECK instead
+MOL2D_SLOW_S = 20.0
+# member 0 against a single dense solve_dense, two solves at rtol 1e-5
+# (tests/test_banded.py:78), and foodweb's corners against IDA's
+# (tests/test_models.py:55-75)
+DENSE_RTOL, DENSE_ATOL = 5e-4, 1e-6
+SOLN_CORNER_RTOL = 2e-3
+# foodweb's kernel against its plain version, and the mixed-precision
+# kernel against its plain version and against the float64 path, in units
+# of the error test's weight atol + rtol |y|
+FOODWEB_WEIGHTS = 10.0
+MIXED_WEIGHTS, MIXED_EARLY_WEIGHTS = 5.0, 0.1
 
 
 def card() -> str:
@@ -705,6 +758,328 @@ def band_phases(dev, card_line, heat_problem, soln, check_solve):
     }]
 
 
+def mol2d_problem(name, banded=True):
+    from diffsol_tpu_torch.models import foodweb, heat2d
+
+    grid = MOL2D[name][0]
+    return (heat2d.make(grid, banded=banded) if name == "heat2d"
+            else foodweb.make(grid, banded=banded))
+
+
+def mol2d_phases(dev, card_line, check_solves):
+    """Phase 13; returns the two fused 2-D paths (name, callable, kernel)
+    and the fused band kernel's records on them, with the band LU launches
+    of heat2d's lockstep run for phase 14."""
+    from diffsol_tpu_torch import BdfSolver, errors, solve_dense, solve_dense_ensemble
+    from diffsol_tpu_torch.models import foodweb
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+    from diffsol_tpu_torch.ops.eqn_codegen import op_count
+
+    paths, records, lu_launches = [], [], None
+    for name, (grid, te, max_steps) in MOL2D.items():
+        problem = mol2d_problem(name)
+        n = problem.eqn.nstates
+        ml, mu = problem.linear_solver.meta
+        params = np.ones((B_BAND, 1))
+
+        def path(problem=problem, te=te, max_steps=max_steps, params=params):
+            return solve_dense_ensemble(BdfSolver, problem, te, params, mode="fused",
+                                        max_steps=max_steps)
+
+        # ---- the fused path: one launch of the fused band kernel
+        fb.launch_fused_band_bdf.launches = 0
+        t0 = time.perf_counter()
+        sol = path()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        k2 = fb.launch_fused_band_bdf.launches
+        if sol.tier != "fused_band" or k2 != 1:
+            raise AssertionError(f"{name} fused: tier {sol.tier!r}, {k2} kernel launches")
+        if sol.stop_reason != errors.TSTOP_REACHED:
+            raise AssertionError(f"{name} fused: stop_reason {sol.stop_reason}")
+        if (tuple(sol.ys.shape) != (len(te), B_BAND, n)
+                or not bool(torch.isfinite(sol.ys).all())):
+            raise AssertionError(f"{name} fused: ys shape {tuple(sol.ys.shape)} or "
+                                 "non-finite values")
+        steps = sol.tile_steps.cpu().numpy()
+        print(f"[13] {name} fused path: B={B_BAND}, n={n}, ml=mu={ml}, tier {sol.tier}, "
+              f"{k2} kernel launch, TSTOP_REACHED, accepted steps per tile "
+              f"{steps.tolist()}, first call {first_s:.2f} s (host clock)", flush=True)
+
+        # ---- the lockstep path: the band LU kernels on every Newton matrix
+        band_lu.launch_band_lu_factor.launches = 0
+        band_lu.launch_band_lu_solve.launches = 0
+        t0 = time.perf_counter()
+        lock = solve_dense_ensemble(BdfSolver, problem, te, params, mode="lockstep",
+                                    max_steps=max_steps)
+        torch.cuda.synchronize()
+        lock_s = time.perf_counter() - t0
+        k3 = band_lu.launch_band_lu_factor.launches
+        k4 = band_lu.launch_band_lu_solve.launches
+        if lock.tier != "lockstep" or lock.stop_reason != errors.TSTOP_REACHED:
+            raise AssertionError(f"{name} lockstep: tier {lock.tier!r}, stop_reason "
+                                 f"{lock.stop_reason}")
+        if k3 < 1 or k4 < 1:
+            raise AssertionError(f"{name} lockstep launched K3 {k3} and K4 {k4} times")
+        if name == "heat2d":
+            lu_launches = (k3, k4)
+        diff = (sol.ys - lock.ys).abs()
+        if bool((diff > MODES_ATOL + MODES_RTOL * lock.ys.abs()).any()):
+            raise AssertionError(f"{name}: fused and lockstep disagree, max abs "
+                                 f"{float(diff.max())}")
+        st = lock.state.stats
+        print(f"[13] {name} lockstep path: B={B_BAND}, {st.steps} steps, "
+              f"{st.newton_iterations} Newton iterations, band LU launches factor {k3} "
+              f"solve {k4}, TSTOP_REACHED, {lock_s:.2f} s (host clock, one run); fused vs "
+              f"lockstep max abs {float(diff.max()):.3e} (largest value "
+              f"{float(lock.ys.abs().max()):.4g})", flush=True)
+
+        # ---- member 0 against a single dense solve on the card
+        dense = solve_dense(BdfSolver(mol2d_problem(name, banded=False)), te,
+                            max_steps=20_000)
+        if dense.stop_reason != errors.TSTOP_REACHED or not dense.ys.is_cuda:
+            raise AssertionError(f"{name} dense: stop_reason {dense.stop_reason}")
+        scale = max(1.0, float(dense.ys.abs().max()))
+        d0 = (sol.ys[:, 0] - dense.ys).abs()
+        if bool((d0 > DENSE_ATOL * scale + DENSE_RTOL * dense.ys.abs()).any()):
+            raise AssertionError(f"{name}: member 0 off the dense solve by "
+                                 f"{float(d0.max())}")
+        line = f"member 0 vs dense solve_dense max abs {float(d0.max()):.3e}"
+        md = torch.tensor(check_solves[name].cfg.mass_diag, device=dev)
+        if name == "heat2d":
+            edge = float(sol.ys[:, :, md == 0.0].abs().max())
+            if not edge <= 1e-9:
+                raise AssertionError(f"heat2d: boundary rows up to {edge}")
+            line += f"; boundary rows within {edge:.1e} of 0"
+        else:
+            rows = [int(np.argmin(np.abs(foodweb.SOLN[:, 0] - t))) for t in te]
+            corners = foodweb.corner_values(sol.ys[:, 0].cpu().numpy(), grid)
+            np.testing.assert_allclose(corners, foodweb.SOLN[rows, 1:],
+                                       rtol=SOLN_CORNER_RTOL)
+            rel = float(np.abs(corners / foodweb.SOLN[rows, 1:] - 1.0).max())
+            # the consistent initial state the fused tier starts from
+            cfg = fb.make_fused_band_bdf_solve(problem, te, 2).cfg
+            one = torch.ones(2, 1, dtype=torch.float64, device=dev)
+            y0c = fb.initial_state(cfg, problem, one)[0][0, 0]
+            t0_ = torch.tensor(0.0, dtype=torch.float64, device=dev)
+            raw = problem.eqn.init(t0_, one[0])
+            g_raw = float(problem.eqn.rhs(t0_, raw, one[0])[md == 0.0].abs().max())
+            g_ic = float(problem.eqn.rhs(t0_, y0c, one[0])[md == 0.0].abs().max())
+            if not (cfg.needs_ic_solve and g_ic < 1e-3 * g_raw):
+                raise AssertionError(f"foodweb: algebraic residual {g_raw} -> {g_ic}")
+            line += (f"; corners vs IDA (SOLN) max rel {rel:.2e}; consistent-IC solve took "
+                     f"the algebraic residual from {g_raw:.3e} to {g_ic:.3e}")
+        print(f"[13] {name}: {line}", flush=True)
+
+        # ---- the kernel against its plain version at B=256
+        check = check_solves[name]
+        p_check = torch.ones(B_BAND_CHECK, 1, dtype=torch.float64, device=dev)
+        ys_k, st_k, steps_k = check(p_check)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys_p, st_p, steps_p = check.reference(p_check)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if int(st_k.min()) != fs.OK or int(st_p.min()) != fs.OK:
+            raise AssertionError(f"{name} status kernel {st_k.tolist()} plain "
+                                 f"{st_p.tolist()}")
+        if name == "heat2d":
+            abs_c, share = check_close(f"{name} B=256", ys_k, ys_p, steps_k, steps_p)
+            gate = f"{share:.3e} of the bound (atol {YS_ATOL:g}, rtol {YS_RTOL:g})"
+        else:
+            weight = float(problem.rtol) * ys_p.abs() + problem.atol.to(dev)[None, :, None]
+            abs_c = float((ys_k - ys_p).abs().max())
+            scaled = float(((ys_k - ys_p).abs() / weight).max())
+            apart = int((steps_k - steps_p).abs().max())
+            if not (scaled < FOODWEB_WEIGHTS and apart <= 0.2 * int(steps_p.max())):
+                raise AssertionError(f"foodweb: kernel {scaled} error weights and {apart} "
+                                     "steps from its plain version")
+            gate = (f"{scaled:.3f} error weights (bound {FOODWEB_WEIGHTS:g}; max rel "
+                    f"{float(((ys_k - ys_p).abs() / ys_p.abs()).max()):.3e}), not the "
+                    f"1e-9 rule: its steps follow the last bit of the rhs")
+        print(f"[13] {name}: fused band kernel vs plain, B={B_BAND_CHECK} "
+              f"tile={check.tile}: max abs diff {abs_c:.3e}, {gate}; steps per tile kernel "
+              f"{steps_k.tolist()} plain {steps_p.tolist()}; plain version {plain_ms:.0f} ms "
+              f"(one run, host clock, B={B_BAND_CHECK})", flush=True)
+
+        # ---- times and the least time for the accepted steps' work
+        timed_b, timed = B_BAND, path
+        if first_s > MOL2D_SLOW_S:
+            timed_b = B_BAND_CHECK
+            small = np.ones((timed_b, 1))
+
+            def timed(problem=problem, te=te, max_steps=max_steps, small=small):
+                return solve_dense_ensemble(BdfSolver, problem, te, small, mode="fused",
+                                            max_steps=max_steps)
+            print(f"[13] {name}: one fused call at B={B_BAND} took {first_s:.1f} s "
+                  f"(> {MOL2D_SLOW_S:g} s), so it is timed at B={timed_b}", flush=True)
+        kernel_ms = time_ms(timed, 3)
+        rhs_ops = op_count(check.model.rhs)
+        ops = timed_b * float(np.mean(steps)) * bdf_step_ops(
+            n, rhs_ops, (2 * ml + 2 * mu + 1) * n)
+        nbytes = 8 * (timed_b + 2 * n * timed_b + len(steps) + len(te) * n * timed_b + 2 * n)
+        bound_ms, bound_by = bound(nbytes, ops)
+        print(f"[13] {name} fused path at B={timed_b}: {kernel_ms:.1f} ms median of 3; "
+              f"least time {bound_ms:.4f} ms by {bound_by} ({rhs_ops} f64 operations an "
+              f"rhs, {ops / 1e9:.3f} GFLOP, a lower bound); card {card_line}", flush=True)
+        paths.append((f"{name} fused path (B={timed_b})", timed, "fused_band_bdf_kernel"))
+        records.append({
+            "name": f"fused_band_bdf:{name}", "route": "cuda",
+            "source": "diffsol_tpu_torch/csrc/fused_band_bdf.cuh",
+            "replaces": "diffsol_tpu/ops/pallas_stepper_band.py:290",
+            "launches": k2, "max_abs_err": abs_c, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
+    return paths, records, lu_launches
+
+
+def band_lu_wide_phase(dev, card_line, lu_launches):
+    """Phase 14: the band LU kernels at nb = 41 on heat2d's iteration
+    matrix; returns their records, with the launches of heat2d's lockstep
+    run."""
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.ops.banded import band_to_dense
+
+    problem = mol2d_problem("heat2d")
+    n, B = problem.eqn.nstates, B_BAND
+    ml, mu = problem.linear_solver.meta
+    nb = ml + mu + 1
+    t0 = torch.tensor(0.0, dtype=torch.float64, device=dev)
+    one = torch.ones(1, dtype=torch.float64, device=dev)
+    y0 = problem.eqn.init(t0, one)
+    jac = problem.eqn.jac(t0, y0, one)  # (nb, n), the same for every member
+    mass = problem.eqn.mass_repr(t0, one)
+    band1 = problem.linear_solver.assemble(mass, jac, 1e-3)
+    band = band1.expand(B, -1, -1).contiguous()
+    b = torch.tensor(np.random.default_rng(SEED).standard_normal((B, n)), device=dev)
+    F = band_lu.band_lu_factor(band, ml, mu)
+    x = band_lu.band_lu_solve(F, b, ml, mu)
+    F_p = band_lu.band_lu_factor_reference(band, ml, mu)
+    x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
+    torch.cuda.synchronize()
+    ef = check_lu("heat2d nb=41 factor", F, F_p)
+    ex = check_lu("heat2d nb=41 solve", x, x_p)
+    k3_ms = time_ms(lambda: band_lu.band_lu_factor(band, ml, mu), 10)
+    k4_ms = time_ms(lambda: band_lu.band_lu_solve(F, b, ml, mu), 10)
+    k3_plain = time_ms(lambda: band_lu.band_lu_factor_reference(band, ml, mu), 1)
+    k4_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F, b, ml, mu), 1)
+    dense = band_to_dense(band1, ml, mu).expand(B, -1, -1).contiguous()
+    lu, piv = torch.linalg.lu_factor(dense)
+    x_lib = torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)).squeeze(-1)
+    lib_err = float((x_lib - x).abs().max() / x.abs().max())
+    lib_f_ms = time_ms(lambda: torch.linalg.lu_factor(dense), 3)
+    lib_s_ms = time_ms(lambda: torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)), 3)
+    # bytes: the band in and the factors out (factor); the factors and b in
+    # and x out (solve); operations: 2 ml mu a column (factor), 2 (ml + mu)
+    # + 1 a row (solve)
+    f_bound = bound(8 * B * (nb * n + (n + mu) * nb), B * n * 2 * ml * mu)
+    s_bound = bound(8 * B * ((n + mu) * nb + 2 * n), B * n * (2 * ml + 2 * mu + 1))
+    print(f"[14] band LU kernels vs plain on heat2d's M - cJ (B={B}, n={n}, ml=mu={ml}, "
+          f"nb={nb}): factors max abs diff {ef:.3e}, x max abs diff {ex:.3e} (bound "
+          f"{LU_RTOL:g} relative); median of 10: factor {k3_ms:.3f} ms (least "
+          f"{f_bound[0]:.4f} ms by {f_bound[1]}), solve {k4_ms:.3f} ms (least "
+          f"{s_bound[0]:.4f} ms by {s_bound[1]}); plain {k3_plain:.0f} / {k4_plain:.0f} ms "
+          f"(one run); torch.linalg.lu_factor / lu_solve on the dense (B, n, n) expansion "
+          f"{lib_f_ms:.2f} / {lib_s_ms:.2f} ms (x within {lib_err:.1e} relative of the "
+          f"kernel's); card {card_line}", flush=True)
+    common = {"route": "cuda", "source": "diffsol_tpu_torch/csrc/band_lu.cuh"}
+    return [
+        dict(name="band_lu_factor:nb41", replaces="diffsol_tpu/ops/pallas_banded.py:51",
+             launches=lu_launches[0], max_abs_err=ef, ms=k3_ms, plain_ms=k3_plain,
+             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=lib_f_ms, **common),
+        dict(name="band_lu_solve:nb41", replaces="diffsol_tpu/ops/pallas_banded.py:72",
+             launches=lu_launches[1], max_abs_err=ex, ms=k4_ms, plain_ms=k4_plain,
+             bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=lib_s_ms, **common),
+    ]
+
+
+def mixed_phase(dev, card_line, problem, shared):
+    """Phase 15: the fused BDF kernel's mixed-precision build on the small-n
+    main path's members; returns its path and record."""
+    from diffsol_tpu_torch import BdfSolver, errors, solve_dense_ensemble
+    from diffsol_tpu_torch.models import robertson
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+    from diffsol_tpu_torch.ops.eqn_codegen import op_count
+
+    te = robertson.T_EVAL_4E10
+    # identical nominal members, as tests/test_pallas_stepper.py:451 and as
+    # the reference's rows broadcast them: in the last decade to t = 4e10
+    # float32 cannot resolve 1 - cJ (c |J| ~ 1e14), Newton fails often, and a
+    # tile of spread members runs into the kernel's limit of 50 failures
+    p_main = torch.tensor(np.tile(np.array(robertson.P_DEFAULT), (B_MAIN, 1)), device=dev)
+
+    def path():
+        return solve_dense_ensemble(BdfSolver, problem, te, p_main, mode="fused",
+                                    precision="mixed")
+
+    fs.launch_fused_bdf.launches = 0
+    sol = path()
+    torch.cuda.synchronize()
+    launches = fs.launch_fused_bdf.launches
+    if sol.tier != "fused_small_mixed" or launches != 1:
+        raise AssertionError(f"mixed: tier {sol.tier!r}, {launches} kernel launches")
+    if sol.stop_reason != errors.TSTOP_REACHED or not bool(torch.isfinite(sol.ys).all()):
+        raise AssertionError(f"mixed: stop_reason {sol.stop_reason} or non-finite values")
+    ode = solve_dense_ensemble(BdfSolver, problem, te, p_main, mode="fused").ys
+    weight = torch.tensor([1e-8, 1e-6, 1e-6], device=dev) + 1e-4 * ode.abs()
+    early = sum(t <= 4e4 for t in te)
+    vs_df = float(((sol.ys - ode).abs() / weight).max())
+    vs_df_early = float(((sol.ys[:early] - ode[:early]).abs() / weight[:early]).max())
+    if not (vs_df < MIXED_WEIGHTS and vs_df_early < MIXED_EARLY_WEIGHTS):
+        raise AssertionError(f"mixed: {vs_df} error weights from the float64 path "
+                             f"({vs_df_early} up to t = 4e4)")
+    main_solve = fs.make_fused_bdf_solve(problem, te, B_MAIN, precision="mixed")
+    t0 = time.perf_counter()
+    ys_p, st_p, steps_p = main_solve.reference(p_main)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if int(st_p.min()) != fs.OK:
+        raise AssertionError(f"mixed plain version: status {st_p.tolist()}")
+    diff = (sol.ys.movedim(1, -1) - ys_p).abs()
+    vs_plain = float((diff / weight.movedim(1, -1)).max())
+    if not vs_plain < MIXED_WEIGHTS:
+        raise AssertionError(f"mixed: kernel {vs_plain} error weights from its plain "
+                             "version")
+    steps = sol.tile_steps.cpu().numpy()
+    steps_pl = steps_p.cpu().numpy()
+    kernel_ms = time_ms(path, 5)
+    # the least time: the linear solve's 2 n^2 operations a step run in
+    # float32, the rest of the step in float64
+    n = 3
+    member_steps = B_MAIN * float(np.mean(steps))
+    ops64 = member_steps * bdf_step_ops(n, op_count(main_solve.model.rhs), 0)
+    ops32 = member_steps * 2 * n * n
+    nbytes = 8 * (p_main.numel() + sol.ys.numel() + len(te))
+    bound_ms, bound_by = bound(nbytes, ops64 + ops32 * PEAK_F64 / PEAK_F32)
+    print(f"[15] fused BDF kernel, precision=\"mixed\": B={B_MAIN}, tier {sol.tier}, "
+          f"{launches} kernel launch, TSTOP_REACHED; vs the float64 path {vs_df:.3f} error "
+          f"weights over all points (bound {MIXED_WEIGHTS:g}), {vs_df_early:.2e} up to "
+          f"t = 4e4 (bound {MIXED_EARLY_WEIGHTS:g}); vs its plain version {vs_plain:.3f} "
+          f"weights, max abs {float(diff.max()):.3e}, steps per tile kernel min "
+          f"{steps.min()} median {int(np.median(steps))} max {steps.max()}, plain min "
+          f"{steps_pl.min()} median {int(np.median(steps_pl))} max {steps_pl.max()}, equal "
+          f"in {int((steps == steps_pl).sum())} of {len(steps)} tiles (the float32 LU and "
+          f"probes run in another order in the two)", flush=True)
+    spread = solve_dense_ensemble(BdfSolver, problem, te, shared["p_main"], mode="fused",
+                                  precision="mixed")
+    ok_tiles = int(torch.isfinite(spread.ys[-1, :, 0]).sum())
+    print(f"[15] the same with phase 4's spread members (k1 +-10%): stop_reason "
+          f"{spread.stop_reason}, {ok_tiles} of {B_MAIN} members finite at t = 4e10 (a tile "
+          f"that runs into the 50-failure Newton limit fails loudly, as in the plain "
+          f"version)", flush=True)
+    print(f"[15] mixed path: {kernel_ms:.3f} ms median of 5; plain PyTorch version "
+          f"{plain_ms:.1f} ms (one run, host clock); least time {bound_ms:.4f} ms by "
+          f"{bound_by} (a lower bound: the solve's operations at the float32 peak, the "
+          f"rest at the float64 one); card {card_line}",
+          flush=True)
+    return (("small-n mixed-precision path (B=10,000)", path, "fused_bdf_kernel"),
+            k1_record("mixed", launches=launches, max_abs_err=float(diff.max()),
+                      ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by))
+
+
 def profile_paths(paths, card_line):
     """Phase 11: trace one call of each path (after a warm-up) with
     torch.profiler; print its wall time, the device time by kernel and the
@@ -766,18 +1141,28 @@ def main() -> int:
                     for name, v in variants.items()}
     heat_problem, soln = heat1d.make(HEAT_MGRID, rtol=1e-6, atol=1e-8, banded=True)
     band_check = fb.make_fused_band_bdf_solve(heat_problem, HEAT_T_EVAL, B_BAND_CHECK)
+    mol2d_checks = {
+        name: fb.make_fused_band_bdf_solve(mol2d_problem(name), te, B_BAND_CHECK,
+                                           max_steps=max_steps)
+        for name, (_, te, max_steps) in MOL2D.items()}
+    mixed_check = fs.make_fused_bdf_solve(problem, robertson.T_EVAL_4E10, B_CHECK,
+                                          precision="mixed")
     t0 = time.perf_counter()
-    k1_solves = {"ode": check_solve, **check_solves}
-    with ThreadPoolExecutor(max_workers=len(k1_solves) + 2) as ex:  # one nvcc each
-        builds = [ex.submit(_build.load_band_lu),
-                  ex.submit(_build.load_fused_band_bdf, band_check.header, 1, 1)]
+    k1_solves = {"ode": check_solve, **check_solves, "mixed": mixed_check}
+    band_solves = {"heat1d": band_check, **mol2d_checks}
+    with ThreadPoolExecutor(max_workers=len(k1_solves) + len(band_solves) + 1) as ex:
+        # one nvcc each, all started together; the widest first
+        builds = [ex.submit(_build.load_fused_band_bdf, sv.header, sv.cfg.ml, sv.cfg.mu)
+                  for sv in reversed(band_solves.values())]
+        builds.append(ex.submit(_build.load_band_lu))
         k1_libs = {name: ex.submit(_build.load_fused_bdf, sv.header)
                    for name, sv in k1_solves.items()}
         for b in builds + list(k1_libs.values()):
             b.result()
     build_s = time.perf_counter() - t0
     print(f"[2] kernel libraries ready in {build_s:.1f} s (parallel nvcc, "
-          f"{len(k1_solves)} fused BDF model headers)", flush=True)
+          f"{len(k1_solves)} fused BDF and {len(band_solves)} fused band BDF model "
+          f"headers)", flush=True)
     for name, fut in k1_libs.items():
         lib_name = fut.result()._name.rsplit("/", 1)[-1]
         print(f"[2] fused BDF variant {name}:", flush=True)
@@ -793,8 +1178,13 @@ def main() -> int:
                                                check_solves, shared)
     print_builds(6, [b for b in _build.BUILDS if b["name"] != "fused_bdf"])
     band_paths, band_records = band_phases(dev, card_line, heat_problem, soln, band_check)
-    profile_paths([small_path, dae_path] + band_paths, card_line)
-    record = [small_record] + variant_records + band_records
+    mol2d_paths, mol2d_records, lu_launches = mol2d_phases(dev, card_line, mol2d_checks)
+    wide_lu_records = band_lu_wide_phase(dev, card_line, lu_launches)
+    mixed_path, mixed_record = mixed_phase(dev, card_line, problem, shared)
+    profile_paths([small_path, dae_path] + band_paths + mol2d_paths + [mixed_path],
+                  card_line)
+    record = ([small_record] + variant_records + [mixed_record] + band_records
+              + mol2d_records + wide_lu_records)
 
     print(f"card: {card_line}")
     print(json.dumps({"kernels": record}))

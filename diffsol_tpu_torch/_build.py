@@ -17,7 +17,10 @@ The libraries:
 * ``fused_band_bdf`` (K2): ``fused_band_bdf.cuh`` with a model header and
   the band widths.
 
-The loaders may run in several threads at once, one ``nvcc`` each.
+* ``coloring``: ``coloring.cpp``, host code built with ``g++`` (the greedy
+  colorer of :mod:`.ops.coloring`).
+
+The loaders may run in several threads at once, one compiler each.
 """
 
 from __future__ import annotations
@@ -154,3 +157,41 @@ def load_fused_band_bdf(model_header: str, ml: int, mu: int) -> ctypes.CDLL:
     entry = (f"#define BAND_ML {int(ml)}\n#define BAND_MU {int(mu)}\n"
              '#include "model.cuh"\n#include "fused_band_bdf.cuh"\n')
     return _load("fused_band_bdf", entry, model_header)
+
+
+def load_coloring() -> ctypes.CDLL:
+    """The native greedy colorer (host C++, ``g++``); raises if it does not
+    build."""
+    lib = _loaded.get("coloring")
+    if lib is not None:
+        return lib
+    src = CSRC / "coloring.cpp"
+    flags = ("-O2", "-shared", "-fPIC")
+    key = hashlib.sha256((" ".join(flags) + "\0" + src.read_text()).encode()).hexdigest()[:20]
+    out = BUILD_DIR / f"coloring_{key}.so"
+    if not out.exists():
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found: the native colorer cannot be built")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(prefix=f"coloring_{key}_", dir=BUILD_DIR))
+        try:
+            t0 = time.perf_counter()
+            proc = subprocess.run([gxx, *flags, "-o", str(tmp / out.name), str(src)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"g++ failed for coloring ({proc.returncode}):\n{proc.stdout}\n"
+                    f"{proc.stderr}")
+            os.replace(tmp / out.name, out)
+            BUILDS.append(dict(name="coloring", library=out.name,
+                               seconds=time.perf_counter() - t0, ptxas=[]))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    lib = ctypes.CDLL(str(out))
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.diffsol_greedy_color.restype = ctypes.c_int64
+    lib.diffsol_greedy_color.argtypes = [i64p, i64p, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_int64, i64p]
+    _loaded["coloring"] = lib
+    return lib

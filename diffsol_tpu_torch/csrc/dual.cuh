@@ -124,8 +124,9 @@ __device__ __forceinline__ Dual<S> dsol_sigmoid(const Dual<S>& x) {
   const S sg = S(1) / (S(1) + exp(-x.v));
   return Dual<S>(sg, sg * (S(1) - sg) * x.d);
 }
-template <typename S>
-__device__ __forceinline__ Dual<S> dsol_powc(const Dual<S>& x, S k) {
+template <typename S, typename K>
+__device__ __forceinline__ Dual<S> dsol_powc(const Dual<S>& x, K kc) {
+  const S k = S(kc);  // the exponent is emitted as a double literal
   return Dual<S>(pow(x.v, k), k * pow(x.v, k - S(1)) * x.d);
 }
 template <typename S>

@@ -22,9 +22,12 @@
 // allocates, laid out with the members of a block fastest: row r of thread
 // tid is scratch[(block * PER + r) * blockDim + tid], and a warp's loads
 // and stores of one row are coalesced.  At B = 1024 the scratch is ~20 MB,
-// inside the H100's 50 MB L2.  The generated rhs (eqn_codegen) reads and
-// writes that layout directly through the strided accessors below, so no
-// per-thread copy of the state is made.
+// inside the H100's 50 MB L2.  At the 2-D models' width (heat2d n = 400,
+// ML = MU = 20: a J band and a factored band of 41 diagonals) a member
+// takes 310 KB and B = 1024 members 318 MB, so every walk goes to device
+// memory; all offsets into the scratch are size_t.  The generated rhs
+// (eqn_codegen) reads and writes that layout directly through the strided
+// accessors below, so no per-thread copy of the state is made.
 //
 // What bounds it on the H100: the serial per-step chain.  Each step walks
 // a member's n-vectors several times (predict, rhs, residual, the band

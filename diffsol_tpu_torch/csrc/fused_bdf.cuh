@@ -49,7 +49,14 @@
 //
 // Everything is double: the state, D, J, the LU and every heuristic (the
 // Pallas kernel keeps its heuristics in f32 and its state in double-float
-// pairs because Mosaic has no f64).
+// pairs because Mosaic has no f64).  With MODEL_MIXED (the Pallas kernel's
+// precision="mixed", pallas_stepper.py:463-471) the Newton MATRIX path is
+// float: the Jacobian probes instantiate the model with Dual<float>, J, the
+// LU and its reciprocal diagonal are float, and each Newton residual is
+// rounded to float for the triangular solves and the correction widened
+// back; the state, D, the residual, time and every norm stay double.  An
+// inexact Newton matrix costs convergence rate, not accuracy.  Without the
+// switch the matrix type is double and the kernel is the all-double one.
 //
 // The translation unit that includes this header first includes the model
 // header generated by eqn_codegen, which defines MODEL_N, MODEL_NP, the
@@ -80,6 +87,22 @@ constexpr bool OUT_IN_ERR = MODEL_OUT_IN_ERR != 0;
 // array extents that stay legal when a feature is off
 constexpr int NRX = NROOT > 0 ? NROOT : 1;
 constexpr int NQX = NQ > 0 ? NQ : 1;
+// the scalar type of the Newton matrix path: J, LU and the linear solve
+#ifndef MODEL_MIXED
+#define MODEL_MIXED 0
+#endif
+constexpr bool MIXED = MODEL_MIXED != 0;
+#if MODEL_MIXED
+typedef float MT;
+#else
+typedef double MT;
+#endif
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ double mt_abs(double x) { return fabs(x); }
+__device__ __forceinline__ float mt_abs(float x) { return fabsf(x); }
 
 // Every number of the solve.  The host fills it as the ctypes.Structure
 // fused_stepper.py::CConfig, which mirrors this layout field for field
@@ -110,19 +133,20 @@ __device__ __forceinline__ double wrms_local(const double* x, const double* y,
   return acc / N;
 }
 
-// J[r][c] = df_r/dy_c from N dual probes (pallas_stepper.py:755-775)
-template <int N, int NP>
-__device__ void jacobian(double t, const double* y, const double* p, double (*J)[N]) {
+// J[r][c] = df_r/dy_c from N dual probes in the scalar type S
+// (pallas_stepper.py:755-775; jac_cols32 for float)
+template <int N, int NP, typename S>
+__device__ void jacobian(double t, const double* y, const double* p, S (*J)[N]) {
   constexpr int NPX = NP > 0 ? NP : 1;
-  const Dual<double> td(t, 0.0);
-  Dual<double> pd[NPX], yd[N], out[N];
+  const Dual<S> td((S)t, (S)0.0);
+  Dual<S> pd[NPX], yd[N], out[N];
 #pragma unroll
-  for (int j = 0; j < NP; ++j) pd[j] = Dual<double>(p[j], 0.0);
+  for (int j = 0; j < NP; ++j) pd[j] = Dual<S>((S)p[j], (S)0.0);
 #pragma unroll
   for (int c = 0; c < N; ++c) {
 #pragma unroll
-    for (int r = 0; r < N; ++r) yd[r] = Dual<double>(y[r], r == c ? 1.0 : 0.0);
-    diffsol_model::model_rhs<Dual<double> >(td, yd, pd, out);
+    for (int r = 0; r < N; ++r) yd[r] = Dual<S>((S)y[r], r == c ? (S)1.0 : (S)0.0);
+    diffsol_model::model_rhs<Dual<S> >(td, yd, pd, out);
 #pragma unroll
     for (int r = 0; r < N; ++r) J[r][c] = out[r].d;
   }
@@ -132,27 +156,26 @@ __device__ void jacobian(double t, const double* y, const double* p, double (*J)
 // (_lu_factor_df, pallas_stepper.py:144-194, with real row swaps): the row
 // of largest |A[r][k]| (first on ties) becomes the pivot row;
 // rdiag[k] = 1/U[k][k].
-template <int N>
-__device__ void lu_factor(double (*J)[N], double c, const double* md, double (*A)[N],
-                          int* perm, double* rdiag) {
+template <int N, typename S>
+__device__ void lu_factor(S (*J)[N], S c, const S* md, S (*A)[N], int* perm, S* rdiag) {
 #pragma unroll
   for (int r = 0; r < N; ++r) {
     perm[r] = r;
 #pragma unroll
     for (int q = 0; q < N; ++q)
-      A[r][q] = (r == q ? (HAS_MASS ? md[r] : 1.0) : 0.0) - c * J[r][q];
+      A[r][q] = (r == q ? (HAS_MASS ? md[r] : (S)1.0) : (S)0.0) - c * J[r][q];
   }
   for (int k = 0; k < N - 1; ++k) {
     int pk = k;
-    double bm = fabs(A[k][k]);
+    S bm = mt_abs(A[k][k]);
     for (int r = k + 1; r < N; ++r) {
-      const double mag = fabs(A[r][k]);
+      const S mag = mt_abs(A[r][k]);
       if (mag > bm) pk = r;
       bm = nan_max(mag, bm);
     }
     if (pk != k) {
       for (int q = 0; q < N; ++q) {
-        const double tmp = A[k][q];
+        const S tmp = A[k][q];
         A[k][q] = A[pk][q];
         A[pk][q] = tmp;
       }
@@ -160,32 +183,65 @@ __device__ void lu_factor(double (*J)[N], double c, const double* md, double (*A
       perm[k] = perm[pk];
       perm[pk] = tp;
     }
-    const double inv = 1.0 / A[k][k];
+    const S inv = (S)1.0 / A[k][k];
     rdiag[k] = inv;
     for (int r = k + 1; r < N; ++r) {
-      const double l = A[r][k] * inv;
+      const S l = A[r][k] * inv;
       A[r][k] = l;
       for (int q = k + 1; q < N; ++q) A[r][q] -= l * A[k][q];
     }
   }
-  rdiag[N - 1] = 1.0 / A[N - 1][N - 1];
+  rdiag[N - 1] = (S)1.0 / A[N - 1][N - 1];
 }
 
 // solve with lu_factor's output (_lu_solve_df, pallas_stepper.py:197-216)
-template <int N>
-__device__ void lu_solve(double (*A)[N], const int* perm, const double* rdiag,
-                         const double* b, double* out) {
-  double xs[N];
+template <int N, typename S>
+__device__ void lu_solve(S (*A)[N], const int* perm, const S* rdiag, const S* b, S* out) {
+  S xs[N];
   for (int r = 0; r < N; ++r) xs[r] = b[perm[r]];
   for (int r = 1; r < N; ++r) {
-    double acc = xs[r];
+    S acc = xs[r];
     for (int j = 0; j < r; ++j) acc -= A[r][j] * xs[j];
     xs[r] = acc;
   }
   for (int r = N - 1; r >= 0; --r) {
-    double acc = xs[r];
+    S acc = xs[r];
     for (int j = r + 1; j < N; ++j) acc -= A[r][j] * out[j];
     out[r] = acc * rdiag[r];
+  }
+}
+
+// The Newton matrix in the build's matrix type MT: factor M - cJ, and solve
+// with the residual rounded to MT and the correction widened back
+// (_lu_factor_f32 / _lu_solve_f32 under precision="mixed",
+// pallas_stepper.py:1046-1086, :1201-1210).
+template <int N>
+__device__ __forceinline__ void factor_newton(MT (*J)[N], double c, const double* md,
+                                              MT (*A)[N], int* perm, MT* rdiag) {
+  if constexpr (MIXED) {
+    float mdf[N];
+    if constexpr (HAS_MASS) {
+#pragma unroll
+      for (int s = 0; s < N; ++s) mdf[s] = (float)md[s];
+    }
+    lu_factor<N, float>(J, (float)c, mdf, A, perm, rdiag);
+  } else {
+    lu_factor<N, double>(J, c, md, A, perm, rdiag);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void solve_newton(MT (*A)[N], const int* perm, const MT* rdiag,
+                                             const double* b, double* out) {
+  if constexpr (MIXED) {
+    float bf[N], of[N];
+#pragma unroll
+    for (int s = 0; s < N; ++s) bf[s] = (float)b[s];
+    lu_solve<N, float>(A, perm, rdiag, bf, of);
+#pragma unroll
+    for (int s = 0; s < N; ++s) out[s] = (double)of[s];
+  } else {
+    lu_solve<N, double>(A, perm, rdiag, b, out);
   }
 }
 
@@ -344,14 +400,14 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
     int conv_fail = 0, newton_fails = 0, err_fails = 0, h_changed = 0;
     double prev_err = NAN, c_last = 0.0, eta_mem = c.eta_reset_jac;
     int ssj = 0, ssrj = 0;
-    double J[N][N], LU[N][N], rdiag[N];
+    MT J[N][N], LU[N][N], rdiag[N];
     int perm[N];
 #pragma unroll
     for (int r = 0; r < N; ++r) {
       perm[r] = r;
-      rdiag[r] = 0.0;
+      rdiag[r] = (MT)0.0;
 #pragma unroll
-      for (int q = 0; q < N; ++q) J[r][q] = LU[r][q] = 0.0;
+      for (int q = 0; q < N; ++q) J[r][q] = LU[r][q] = (MT)0.0;
     }
     const double mnewt = (double)c.max_newton_iter;
 
@@ -386,15 +442,15 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
         const double rel = fabs(cval / (c_last == 0.0 ? cval : c_last) - 1.0);
         const bool refresh = k == 0 || conv_fail > 0 || ssrj >= c.update_rhs_jac_after;
         const bool refactor = refresh || rel > c.thresh_update_jac || ssj >= c.update_jac_after;
-        if (refresh) jacobian<N, NP>(t_pred, y_pred, p, J);
-        if (refactor) lu_factor<N>(J, cval, md, LU, perm, rdiag);
+        if (refresh) jacobian<N, NP, MT>(t_pred, y_pred, p, J);
+        if (refactor) factor_newton<N>(J, cval, md, LU, perm, rdiag);
         if (refactor) c_last = cval;
         ssj = refactor ? 0 : ssj + 1;
         ssrj = refresh ? 0 : ssrj + 1;
         eta0 = refactor ? c.eta_reset_jac : (h_changed == 1 ? c.eta_reset_step : eta_mem);
       } else {
-        jacobian<N, NP>(t_pred, y_pred, p, J);
-        lu_factor<N>(J, cval, md, LU, perm, rdiag);
+        jacobian<N, NP, MT>(t_pred, y_pred, p, J);
+        factor_newton<N>(J, cval, md, LU, perm, rdiag);
         eta0 = c.eta_reset_jac;
       }
 
@@ -413,7 +469,7 @@ fused_bdf_kernel(const double* __restrict__ params, const double* __restrict__ t
 #pragma unroll
         for (int s = 0; s < N; ++s)
           res[s] = (HAS_MASS ? md[s] * (x[s] + ypp[s]) : (x[s] + ypp[s])) - cval * fx[s];
-        lu_solve<N>(LU, perm, rdiag, res, delta);
+        solve_newton<N>(LU, perm, rdiag, res, delta);
 #pragma unroll
         for (int s = 0; s < N; ++s) x[s] = x[s] - delta[s];
         const double nrm = sqrt(block_max(wrms_local<N>(delta, y_pred, c), red));

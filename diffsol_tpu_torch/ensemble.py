@@ -88,16 +88,21 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
 _fused_cache: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
-def _make_fused_solve(problem, t_eval, nbatch, max_steps, tile):
+def _make_fused_solve(problem, t_eval, nbatch, max_steps, tile, precision="df"):
     """The small-n kernel first, then the banded one (JAX
     ensemble.py:239-272); returns ``(solve, tier)``."""
     from .ops.fused_band_stepper import make_fused_band_bdf_solve
     from .ops.fused_stepper import make_fused_bdf_solve
 
     try:
+        tier = "fused_small" if precision == "df" else f"fused_small_{precision}"
         return make_fused_bdf_solve(problem, t_eval, nbatch, tile=tile,
-                                    max_steps=max_steps), "fused_small"
+                                    max_steps=max_steps, precision=precision), tier
     except UnsupportedForKernel as e_small:
+        if precision != "df":
+            raise UnsupportedForKernel(
+                f"precision={precision!r} is a small-n-tier option and the "
+                f"small-n tier rejected this problem: {e_small}") from None
         try:
             return make_fused_band_bdf_solve(problem, t_eval, nbatch, tile=tile,
                                              max_steps=max_steps), "fused_band"
@@ -106,13 +111,13 @@ def _make_fused_solve(problem, t_eval, nbatch, max_steps, tile):
                 f"small-n tier: {e_small}; banded tier: {e_band}") from None
 
 
-def _fused_solve_cached(problem, t_eval, nbatch, max_steps, tile):
+def _fused_solve_cached(problem, t_eval, nbatch, max_steps, tile, precision="df"):
     te_key = tuple(float(v) for v in torch.as_tensor(t_eval).reshape(-1))
-    key = (te_key, nbatch, max_steps, tile)
+    key = (te_key, nbatch, max_steps, tile, precision)
     hit = _fused_cache.get(problem)
     if hit is not None and hit[0] == key:
         return hit[1]
-    made = _make_fused_solve(problem, t_eval, nbatch, max_steps, tile)
+    made = _make_fused_solve(problem, t_eval, nbatch, max_steps, tile, precision)
     _fused_cache[problem] = (key, made)
     return made
 
@@ -179,6 +184,7 @@ def solve_dense_ensemble(
     max_steps: int = 100_000,
     tile=None,
     device=None,
+    precision: str = "df",
 ) -> Solution:
     """Solve an ensemble over ``params_batch`` (B, nparams) float64.
 
@@ -188,7 +194,13 @@ def solve_dense_ensemble(
     it is part of the result, since each tile takes its own step sequence.
     ``device`` is where the solve runs: None means ``"cuda"``, and raises
     without a card; pass ``device="cpu"`` for the CPU.
+    ``precision`` is the fused small-n tier's: ``"df"`` (all float64),
+    ``"mixed"`` (the Newton matrix path in float32; trajectories agree with
+    ``"df"`` at the error test's tolerance) or ``"fast"`` (runs the ``"df"``
+    build); see :func:`.ops.fused_stepper.make_fused_bdf_solve`.
     """
+    if precision not in ("df", "mixed", "fast"):
+        raise ValueError(f"precision must be 'df', 'mixed' or 'fast': {precision!r}")
     dev = resolve_device(device, "solve_dense_ensemble")
     if isinstance(params_batch, torch.Tensor):
         if params_batch.dtype != F64:
@@ -201,7 +213,7 @@ def solve_dense_ensemble(
     if mode in ("fused", "auto"):
         try:
             fsolve, tier = _fused_solve_cached(problem, t_eval, nbatch,
-                                               max_steps, tile)
+                                               max_steps, tile, precision)
         except UnsupportedForKernel:
             if mode == "fused":
                 raise

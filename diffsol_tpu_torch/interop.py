@@ -4,8 +4,13 @@
 ``OdeProblem`` (params, t0, h0, rtol, atol, the output tolerances, the
 quadrature flag, all solver options and the consistent-IC options) into
 this package's problem as float64 tensors, and a banded linear-solver
-tier as ``make_banded_solver(ml, mu)`` from the spec's ``meta``.  The user's callables are
-passed in torch, since a jnp body cannot be converted.
+tier as ``make_banded_solver(ml, mu)`` from the spec's ``meta``; a JAX
+problem built with ``use_coloring`` whose Jacobian stayed dense and
+colored gets ``use_coloring`` here too.  The user's callables are passed
+in torch, since a jnp body cannot be converted; for the 2-D models,
+``model="heat2d"`` or ``"foodweb"`` builds them from this package's model
+with the JAX problem's own arrays (the mass diagonal, hence the interior
+mask, and the initial state) as their constants.
 ``solution_to_numpy`` turns a :class:`~.drivers.Solution` into numpy
 arrays in the JAX package's layouts, so tests compare like with like.
 
@@ -26,11 +31,42 @@ from .problem import (InitialConditionOptions, OdeBuilder, OdeProblem,
 F64 = torch.float64
 
 
-def problem_from_jax(jax_problem, rhs, init, mass=None, root=None, reset=None,
-                     out=None) -> OdeProblem:
+def _model_callables(model: str, jax_problem) -> dict:
+    """The torch callables of a 2-D model, with the JAX problem's mass
+    diagonal and initial state (read through numpy) as constants."""
+    eqn = jax_problem.eqn
+    n = int(eqn.nstates)
+    mass_diag = np.asarray(eqn.mass_diag_fn(jax_problem.t0, jax_problem.params), np.float64)
+    u0 = np.asarray(eqn.init(jax_problem.t0, jax_problem.params), np.float64)
+    if model == "heat2d":
+        from .models import heat2d
+
+        mgrid = int(round(n ** 0.5))
+        if mgrid * mgrid != n:
+            raise ValueError(f"{n} states are no square grid")
+        return heat2d.callables(mgrid, mass_diag=mass_diag, u0=u0)
+    if model == "foodweb":
+        from .models import foodweb
+
+        nx = int(round((n // 2) ** 0.5))
+        if 2 * nx * nx != n:
+            raise ValueError(f"{n} states are no two-species square grid")
+        return foodweb.callables(nx, mass_diag=mass_diag, u0=u0)
+    raise ValueError(f"unknown model {model!r}")
+
+
+def problem_from_jax(jax_problem, rhs=None, init=None, mass=None, root=None,
+                     reset=None, out=None, model=None) -> OdeProblem:
     """This package's problem with the numbers of ``jax_problem`` and the
     torch callables ``rhs(t, y, p)``, ``init(t, p)`` and the optional
-    ``mass(t, p)``, ``root``, ``reset`` and ``out`` ``(t, y, p)``."""
+    ``mass(t, p)``, ``root``, ``reset`` and ``out`` ``(t, y, p)``; or, with
+    ``model="heat2d"`` / ``"foodweb"``, the callables of that model built
+    on the JAX problem's arrays."""
+    if model is not None:
+        fns = _model_callables(model, jax_problem)
+        rhs, init, mass = fns["rhs"], fns["init"], fns["mass"]
+        out = fns.get("out") if jax_problem.eqn.out is not None else None
+
     def copied(cls, src):
         return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})
 
@@ -60,6 +96,8 @@ def problem_from_jax(jax_problem, rhs, init, mass=None, root=None, reset=None,
         from .ops.banded import make_banded_solver
 
         b = b.linear_solver(make_banded_solver(*spec.meta[:2]))
+    elif spec.name == "dense" and hasattr(jax_problem.eqn.rhs_jac, "jvp_probes"):
+        b = b.use_coloring()  # the JAX OdeBuilder kept a colored dense Jacobian
     return b.build()
 
 

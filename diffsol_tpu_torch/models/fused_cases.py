@@ -128,3 +128,21 @@ def transcendental_problem() -> OdeProblem:
 def transcendental_y0(t, a, y00=0.5):
     """Closed form of the first state."""
     return -np.log(np.exp(-y00) + a * np.asarray(t, np.float64))
+
+
+def pallas_cpu_tile_product(s, v):
+    """``ops.fused_stepper._tile_mul`` as the Pallas kernel computes it in
+    interpret mode on the CPU.  There XLA copies the float32 product
+    ``s.hi * v.hi`` of a (1, 1) tile scalar and a lane vector into the
+    fusions that consume it and contracts it with the following add into an
+    FMA, so the ``quick_two_sum`` that closes ``df32.mul`` sees the exact
+    product where it expects the rounded one, and the product's float32
+    rounding error enters the result twice: the double-float product is
+    off by up to 2^-25 relative.  On smooth problems that noise hides the
+    small high-order differences the order selection reads, and the kernel
+    climbs in order later and takes fewer steps.  Tests patch this over
+    ``_tile_mul`` to reproduce that kernel's step counts."""
+    s = s.reshape(s.shape + (1,) * (v.ndim - 1))
+    s32, v32 = s.to(torch.float32), v.to(torch.float32)
+    twice = s32.to(torch.float64) * v32.to(torch.float64) - (s32 * v32).to(torch.float64)
+    return s * v + twice

@@ -65,7 +65,10 @@ def make_banded_jac(rhs, ml: int, mu: int):
     """Banded Jacobian df/dy from ml+mu+1 cyclically colored JVP probes:
     a callable (t, y, p) -> (ml+mu+1, n) band (the role of the
     reference's JacobianColoring, jacobian/mod.rs:218-260, for a band).
-    It composes with ``torch.func.vmap`` over members."""
+    It composes with ``torch.func.vmap`` over members; and where ``rhs``
+    itself acts on a member-major batch y (..., n), member by member, the
+    seeds are broadcast over the members and the band is (..., ml+mu+1, n)
+    (the consistent-IC residual of a lockstep batch)."""
     nc = ml + mu + 1
 
     def jac(t, y, p):
@@ -73,14 +76,15 @@ def make_banded_jac(rhs, ml: int, mu: int):
         cols = torch.arange(n, device=y.device) % nc
         probes = torch.stack([
             torch.func.jvp(lambda yy: rhs(t, yy, p), (y,),
-                           ((cols == c).to(y.dtype),))[1]
+                           ((cols == c).to(y.dtype).expand_as(y).contiguous(),))[1]
             for c in range(nc)
-        ])  # (nc, n): J @ seed_c
+        ], dim=-2)  # (..., nc, n): J @ seed_c
         # band[d, j] = (J e_{j mod nc})[j + d - mu]
         i_c, valid = _band_index(n, ml, mu)
         color = np.broadcast_to(np.arange(n)[None, :] % nc, i_c.shape).copy()
         dev = y.device
-        band = probes[torch.as_tensor(color, device=dev), torch.as_tensor(i_c, device=dev)]
+        band = probes[..., torch.as_tensor(color, device=dev),
+                      torch.as_tensor(i_c, device=dev)]
         return torch.where(torch.as_tensor(valid, device=y.device), band, 0.0)
 
     jac.jvp_probes = nc  # Stats.jac_mul_evals accounting

@@ -20,10 +20,16 @@ check the IR against the callable and against ``torch.func.jacfwd``.
 Scope (the primitive set of dfinterp.py:21-29): + - * /, neg, pow (by an
 integer, by any constant, or by a traced exponent), exp, expm1, log,
 log1p, sqrt, rsqrt, sin, cos, tan, sinh, cosh, tanh, sigmoid, comparisons
-and their and/or/not feeding ``where``, indexing, slicing, stack/cat,
-``diag`` of a vector with ``diagonal`` (a mass written as a matrix) and
-shape plumbing.  Anything else, and any data-dependent Python control
-flow, raises :class:`UnsupportedForKernel`.
+and their and/or/not feeding ``where`` (whose mask may also be a constant
+boolean tensor), indexing, slicing, stack/cat, ``diag`` of a vector with
+``diagonal`` (a mass written as a matrix) and shape plumbing.  For the
+2-D method-of-lines models (what ``ops/dfinterp_vec.py`` adds for the
+banded Pallas kernel: rev, pad, dot_general, concatenate) also ``roll``,
+``flip``, ``index``/``index_select``/``gather`` by constant integer
+tensors, zero and reflection padding, ``sum`` over given dimensions and
+``mm``/``bmm``/``mv``/``dot`` (what ``matmul`` and ``einsum`` become) as
+unrolled sums of products.  Anything else, and any data-dependent Python
+control flow, raises :class:`UnsupportedForKernel`.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ _BINARY = ("add", "sub", "mul", "div")
 _COMPARE = ("lt", "le", "gt", "ge", "eq", "ne")
 _LOGIC = {"logical_and": "and", "bitwise_and": "and", "logical_or": "or",
           "bitwise_or": "or", "logical_not": "not", "bitwise_not": "not"}
-_BOOL_OPS = _COMPARE + ("and", "or", "not")
+_BOOL_OPS = _COMPARE + ("and", "or", "not", "cb")
+_LEAVES = ("t", "y", "p", "c", "cb")
 
 
 class UnsupportedForKernel(Exception):
@@ -54,7 +61,8 @@ class UnsupportedForKernel(Exception):
 @dataclass(frozen=True)
 class ScalarIR:
     """Straight-line scalar program.  ``nodes[k]`` is ``(op, *args)``:
-    ``("t",)``, ``("y", i)``, ``("p", i)``, ``("c", value)``, a unary op
+    ``("t",)``, ``("y", i)``, ``("p", i)``, ``("c", value)``, ``("cb", flag)``
+    (a boolean constant), a unary op
     ``(name, a)``, a binary op ``(name, a, b)``, ``("powi", a, k)`` with an
     integer ``k >= 1``, ``("powc", a, k)`` with any constant ``k``,
     ``("pow", a, b)``, a boolean node (a comparison ``(name, a, b)``,
@@ -162,13 +170,44 @@ def trace_ir(fn: Callable, arg_kinds, arg_sizes) -> ScalarIR:
             return b.const(1.0)
         return b.add(("powi", x, k))
 
+    def index_of(a):
+        """A constant integer tensor used as an index."""
+        arr = val(a)
+        if arr.dtype != np.int64:
+            raise UnsupportedForKernel("indexing by a traced value")
+        return arr
+
+    def fold_sum(a, axes):
+        """Sum over ``axes``, left to right, as unrolled adds."""
+        for ax in sorted((d % a.ndim for d in axes), reverse=True):
+            parts = [np.take(a, i, axis=ax) for i in range(a.shape[ax])]
+            acc = parts[0] if parts else _obj(
+                a.shape[:ax] + a.shape[ax + 1:], lambda idx: b.const(0.0))
+            for part in parts[1:]:
+                acc = _map2(lambda u, v: b.add(("add", u, v)), acc, part)
+            a = acc
+        return a
+
+    def contract(x, y):
+        """(..., m, k) @ (..., k, n) as unrolled sums of products."""
+        prod = _map2(lambda u, v: b.add(("mul", u, v)),
+                     x[..., :, :, None], y[..., None, :, :])
+        return fold_sum(prod, [prod.ndim - 2])
+
     out_nodes = None
     for node in gm.graph.nodes:
         if node.op == "placeholder":
             continue
         if node.op == "get_attr":
-            const = getattr(gm, node.target).detach().to(F64).cpu().numpy()
-            env[node] = _obj(const.shape, lambda idx, c=const: b.const(c[idx]))
+            const = getattr(gm, node.target).detach().cpu()
+            if const.dtype == torch.bool:  # a mask of ``where``
+                cb = const.numpy()
+                env[node] = _obj(cb.shape, lambda idx, c=cb: b.add(("cb", bool(c[idx]))))
+            elif not const.dtype.is_floating_point:  # indices: kept as numbers
+                env[node] = const.numpy().astype(np.int64)
+            else:
+                cf = const.to(F64).numpy()
+                env[node] = _obj(cf.shape, lambda idx, c=cf: b.const(c[idx]))
             continue
         if node.op == "output":
             out_nodes = node.args[0]
@@ -206,7 +245,13 @@ def trace_ir(fn: Callable, arg_kinds, arg_sizes) -> ScalarIR:
             res = _map1(lambda u: b.add(("not", u)), val(args[0]))
         elif base == "where" and len(args) == 3:
             m, x, y = np.broadcast_arrays(val(args[0]), val(args[1]), val(args[2]))
-            res = _obj(m.shape, lambda idx: b.add(("where", m[idx], x[idx], y[idx])))
+            def select(idx):
+                mask = b.nodes[m[idx]]
+                if mask[0] == "cb":  # a constant mask picks its branch now
+                    return x[idx] if mask[1] else y[idx]
+                return b.add(("where", m[idx], x[idx], y[idx]))
+
+            res = _obj(m.shape, select)
         elif base == "select":
             a = val(args[0])
             res = a[(slice(None),) * int(args[1]) + (int(args[2]),)]
@@ -219,6 +264,59 @@ def trace_ir(fn: Callable, arg_kinds, arg_sizes) -> ScalarIR:
             sl = [slice(None)] * a.ndim
             sl[dim] = slice(int(start), min(int(end), a.shape[dim]), int(step))
             res = a[tuple(sl)]
+        elif base == "roll":
+            dims = tuple(int(d) for d in (args[2] if len(args) > 2 else ()))
+            shifts = tuple(int(k) for k in args[1])
+            a = val(args[0])
+            res = (np.roll(a, shifts, axis=dims) if dims
+                   else np.roll(a.reshape(-1), shifts[0]).reshape(a.shape))
+        elif base == "flip":
+            res = np.flip(val(args[0]), axis=tuple(int(d) for d in args[1]))
+        elif base == "index":
+            res = val(args[0])[tuple(slice(None) if i is None else index_of(i)
+                                     for i in args[1])]
+        elif base == "index_select":
+            res = np.take(val(args[0]), index_of(args[2]), axis=int(args[1]))
+        elif base == "gather":
+            res = np.take_along_axis(val(args[0]), index_of(args[2]), axis=int(args[1]))
+        elif base in ("constant_pad_nd", "reflection_pad1d", "reflection_pad2d"):
+            a = val(args[0])
+            pads = [int(k) for k in args[1]]
+            if min(pads) < 0:
+                raise UnsupportedForKernel(f"{name} with negative padding")
+            fill = b.const(float(args[2]) if len(args) > 2 else 0.0)
+            for k in range(len(pads) // 2):  # pairs run from the last axis back
+                ax = a.ndim - 1 - k
+                lo, hi = pads[2 * k], pads[2 * k + 1]
+                if base == "constant_pad_nd":
+                    def block(width):
+                        return _obj(a.shape[:ax] + (width,) + a.shape[ax + 1:],
+                                    lambda idx: fill)
+                    a = np.concatenate([block(lo), a, block(hi)], axis=ax)
+                else:
+                    src = np.pad(np.arange(a.shape[ax]), (lo, hi), mode="reflect")
+                    a = np.take(a, src, axis=ax)
+            res = a
+        elif base == "sum":
+            a = val(args[0])
+            if kw.get("dtype") not in (None, torch.float64):
+                raise UnsupportedForKernel(f"{name} to {kw.get('dtype')}")
+            axes = list(range(a.ndim)) if len(args) < 2 else [int(d) for d in args[1]]
+            res = fold_sum(a, axes)
+            if len(args) > 2 and args[2]:  # keepdim
+                for ax in sorted(d % a.ndim for d in axes):
+                    res = np.expand_dims(res, ax)
+        elif base in ("mm", "bmm"):
+            res = contract(val(args[0]), val(args[1]))
+        elif base == "mv":
+            res = contract(val(args[0]), val(args[1])[:, None])[..., 0]
+        elif base == "dot":
+            res = contract(val(args[0])[None, :], val(args[1])[:, None])[0, 0]
+        elif base == "eye":
+            rows = int(args[0])
+            cols = int(args[1]) if len(args) > 1 else rows
+            one, zero = b.const(1.0), b.const(0.0)
+            res = _obj((rows, cols), lambda idx: one if idx[0] == idx[1] else zero)
         elif base == "stack":
             res = np.stack([val(x) for x in args[0]],
                            axis=int(args[1]) if len(args) > 1 else 0)
@@ -288,7 +386,7 @@ def _check_types(ir: ScalarIR, name) -> None:
     is_bool = [node[0] in _BOOL_OPS for node in ir.nodes]
     for node in ir.nodes:
         op, args = node[0], node[1:]
-        if op in ("t", "y", "p", "c"):
+        if op in _LEAVES:
             continue
         if op in ("powi", "powc"):
             args = args[:1]
@@ -342,7 +440,7 @@ def op_count(ir: ScalarIR) -> int:
     """Floating-point operations of one evaluation of ``ir`` (a power by
     an integer k counts k-1 multiplies, every other node one)."""
     return sum(node[2] - 1 if node[0] == "powi" else 1
-               for node in ir.nodes if node[0] not in ("t", "y", "p", "c"))
+               for node in ir.nodes if node[0] not in _LEAVES)
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +471,8 @@ def _eval(ir: ScalarIR, t, y, p, ty=None):
         elif op == "c":
             v = zero + node[1]
             dv = zero
+        elif op == "cb":
+            v = torch.full(shape, node[1], dtype=torch.bool, device=dev)
         elif op == "powi":
             a, k = node[1], node[2]
             v, dv = vals[a], tans[a] if dual else None
@@ -520,6 +620,8 @@ def _emit_body(ir: ScalarIR) -> list:
             e = f"{op}[{node[1]}]"
         elif op == "c":
             e = f"T({_c_double(node[1])})"
+        elif op == "cb":
+            e = "true" if node[1] else "false"
         elif op == "powi":
             e = " * ".join([f"v{node[1]}"] * node[2])
         elif op == "powc":
@@ -560,16 +662,17 @@ def _emit_tyo(fn_name: str, ir: ScalarIR) -> list:
 
 
 def emit_cuda_header(model: ModelIR, name: str = "model", nquad: int = 0,
-                     out_in_err: bool = False) -> str:
+                     out_in_err: bool = False, mixed: bool = False) -> str:
     """The generated model header: ``MODEL_N``, ``MODEL_NP``, the
     compile-time switches of the small-n kernel and the templated device
     functions ``model_rhs`` and, where the model has them, ``model_init``,
     ``model_mass`` (the mass diagonal), ``model_root``, ``model_reset`` and
     ``model_out``.  ``nquad`` is the number of quadrature rows of the solve
-    (0: nothing is integrated; without ``model_out`` the state itself is)
-    and ``out_in_err`` whether they join the error test.  A problem with
-    none of these gets the switches at 0, and the kernel instantiates as it
-    does for a plain ODE.
+    (0: nothing is integrated; without ``model_out`` the state itself is),
+    ``out_in_err`` whether they join the error test, and ``mixed`` whether
+    the small-n kernel keeps its Newton matrix path in float
+    (``precision="mixed"``).  A problem with none of these gets the
+    switches at 0, and the kernel instantiates as it does for a plain ODE.
 
     ``model_rhs<T>(t, y, p, out)`` reads ``y[i]`` and assigns ``out[i]``
     through whatever types it is given: plain arrays in the small-n
@@ -591,6 +694,7 @@ def emit_cuda_header(model: ModelIR, name: str = "model", nquad: int = 0,
         f"#define MODEL_NQUAD {int(nquad)}",
         f"#define MODEL_HAS_OUT {int(model.out is not None)}",
         f"#define MODEL_OUT_IN_ERR {int(bool(out_in_err))}",
+        f"#define MODEL_MIXED {int(bool(mixed))}",
         "namespace diffsol_model {",
         *_emit_tyo("model_rhs", model.rhs),
     ]

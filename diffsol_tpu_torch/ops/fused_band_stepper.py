@@ -30,9 +30,11 @@ Two implementations of the same algorithm with the same tile partition:
 
 A CUDA tensor always goes to the kernel: nothing falls back to the plain
 version or to the CPU.  Everything is float64.  Scope: identity or
-constant-diagonal mass with consistent initial conditions (an
-inconsistent one needs the consistent-IC solve, not ported yet), no
-roots, resets or quadrature, and a banded problem or explicit ``ml, mu``.
+constant-diagonal mass (initial conditions that the algebraic rows do not
+satisfy, the foodweb class, go through the consistent-IC solve of
+:mod:`..solvers.consistent_ic` on the host side before the launch), no
+roots, resets or quadrature (an ``out`` function that is not integrated is
+ignored, as the JAX kernel ignores it), and a banded-routed problem.
 """
 
 from __future__ import annotations
@@ -88,6 +90,9 @@ class BandConfig(FusedConfig):
     ml: int = 1
     mu: int = 1
     mass_diag: Optional[tuple] = None  # constant diagonal mass, None = identity
+    # the algebraic rows do not hold at ``init``: solve for consistent
+    # initial conditions before stepping
+    needs_ic_solve: bool = False
 
     @property
     def nb(self) -> int:
@@ -110,22 +115,36 @@ def default_tile(n: int, nb: int, mu: int, npad: int, neval: int) -> int:
 # the host-side initial state, shared by the kernel and its plain version
 # ---------------------------------------------------------------------------
 
-def initial_state(cfg: BandConfig, rhs, init, P: torch.Tensor):
+def initial_state(cfg: BandConfig, problem, P: torch.Tensor):
     """y0 (T, tile, n), D1 = h_tile y0' (T, tile, n) and h_tile (T,) in
     float64 for the padded params ``P`` (pallas_stepper_band.py:956-1010):
     each member's starting step by the reference's heuristic
-    (solvers/state.py), the tile taking the smallest."""
+    (solvers/state.py), the tile taking the smallest.  With
+    ``cfg.needs_ic_solve`` the members first go, as one lockstep batch,
+    through ``make_consistent`` under the problem's banded solver (the
+    band LU kernels on the card); if it fails y0 is NaN, so the solve fails
+    loudly."""
     T, tile, n = cfg.ntiles, cfg.tile, cfg.n
     dev = P.device
+    rhs, init = problem.eqn.rhs, problem.eqn.init
     vmap = torch.func.vmap
     t0 = torch.tensor(cfg.t0, dtype=F64, device=dev)
-    y0 = vmap(init, in_dims=(None, 0))(t0, P)
+    y0 = vmap(init, in_dims=(None, 0))(t0, P).contiguous()
     rhs_m = vmap(rhs, in_dims=(0, 0, 0))
     tm = t0.expand(P.shape[0])
     f0 = rhs_m(tm, y0, P)
     if cfg.mass_diag is not None:
         md = torch.tensor(cfg.mass_diag, dtype=F64, device=dev)
         dy0 = torch.where(md == 0.0, 0.0, f0 / torch.where(md == 0.0, 1.0, md))
+        if cfg.needs_ic_solve:
+            from ..ensemble import make_lockstep_problem
+            from ..solvers.consistent_ic import make_consistent
+
+            lp = make_lockstep_problem(problem.to(dev), P.shape[0])
+            y0, dy0, ic_status = make_consistent(lp, P, y0, dy0, md == 0.0)
+            if ic_status < 0:
+                y0 = torch.full_like(y0, torch.nan)
+            f0 = rhs_m(tm, y0, P)
     else:
         dy0 = f0
     atol = torch.tensor(cfg.atol, dtype=F64, device=dev)
@@ -148,12 +167,13 @@ def initial_state(cfg: BandConfig, rhs, init, P: torch.Tensor):
 # the plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def fused_band_bdf_reference(cfg: BandConfig, rhs, init, params_b: torch.Tensor):
+def fused_band_bdf_reference(cfg: BandConfig, problem, params_b: torch.Tensor):
     """The plain PyTorch version of the fused band kernel: the same
     algorithm on the same tile partition, eager float64, on the device of
     ``params_b``.  Returns ``(ys (neval, n, B), info (ntiles, 4))`` with
     info = status, accepted steps, attempts, next eval index per tile."""
     dev = params_b.device
+    rhs = problem.eqn.rhs
     T, tile, n, ml, mu, nb = cfg.ntiles, cfg.tile, cfg.n, cfg.ml, cfg.mu, cfg.nb
     Mb = T * tile
     P = _pad_params(cfg, params_b)
@@ -198,7 +218,7 @@ def fused_band_bdf_reference(cfg: BandConfig, rhs, init, params_b: torch.Tensor)
             tmp = md * tmp
         return tmp - _bcast(cval, x) * f(t_pred, x)
 
-    y0, D1, h = initial_state(cfg, rhs, init, P)
+    y0, D1, h = initial_state(cfg, problem, P)
     return tiled_bdf(cfg, atol, y0, D1, h, f, jac, factor, lsolve, residual,
                      max_lu_growth=MAX_LU_GROWTH)
 
@@ -319,12 +339,13 @@ launch_fused_band_bdf.launches = 0
 
 
 def _mass_diag(problem, eqn):
-    """The constant mass diagonal (None for identity), probed at t0, t0+1
-    and perturbed params as pallas_stepper_band.py:169-199 does; raises
-    out of scope, and for initial conditions that the algebraic rows do
-    not satisfy (they need the consistent-IC solve, not ported yet)."""
+    """``(diagonal, needs_ic_solve)``: the constant mass diagonal (None for
+    identity), probed at t0, t0+1 and perturbed params as
+    pallas_stepper_band.py:169-199 does (raises out of scope), and whether
+    the algebraic rows fail at ``init``, so that the host-side initial
+    state must run the consistent-IC solve."""
     if eqn.mass is None:
-        return None
+        return None, False
     if eqn.mass_diag_fn is None:
         raise UnsupportedForKernel("non-diagonal mass is not in the banded kernel tier")
     t0, p0 = problem.t0, problem.params
@@ -338,11 +359,8 @@ def _mass_diag(problem, eqn):
     f0 = eqn.rhs(t0, eqn.init(t0, p0), p0)
     alg = md0 == 0.0
     scale = 1.0 + float(f0.abs().max()) if f0.numel() else 1.0
-    if bool((f0[alg].abs() > 1e-6 * scale).any()):
-        raise UnsupportedForKernel(
-            "inconsistent initial conditions need the consistent-IC solve, "
-            "not ported yet (ROADMAP.md queue 1 item 4)")
-    return tuple(float(v) for v in md0)
+    needs_ic_solve = bool((f0[alg].abs() > 1e-6 * scale).any())
+    return tuple(float(v) for v in md0), needs_ic_solve
 
 
 def make_fused_band_bdf_solve(problem, t_eval, nbatch: int, tile=None,
@@ -357,6 +375,12 @@ def make_fused_band_bdf_solve(problem, t_eval, nbatch: int, tile=None,
     Raises :class:`UnsupportedForKernel` out of scope.
     """
     eqn = problem.eqn
+    if eqn.root is not None or eqn.reset is not None:
+        raise UnsupportedForKernel("root and reset events are not in the banded "
+                                   "kernel tier")
+    if problem.integrate_out:
+        raise UnsupportedForKernel("quadrature output is not in the banded kernel "
+                                   "tier")
     if problem.lockstep_nbatch != 1:
         raise UnsupportedForKernel("pass the single-member problem")
     spec = problem.linear_solver
@@ -365,7 +389,7 @@ def make_fused_band_bdf_solve(problem, t_eval, nbatch: int, tile=None,
     ml, mu = int(spec.meta[0]), int(spec.meta[1])
     if tile is not None and int(tile) > MAX_TILE:
         raise ValueError(f"tile {int(tile)} > {MAX_TILE}, the band kernel's block limit")
-    mass_diag = _mass_diag(problem, eqn)
+    mass_diag, needs_ic_solve = _mass_diag(problem, eqn)
     n, nparams = eqn.nstates, eqn.nparams
     # the rhs only: init and the first step are computed outside the kernel
     model = trace_model(eqn.rhs, None, n, nparams)
@@ -396,6 +420,7 @@ def make_fused_band_bdf_solve(problem, t_eval, nbatch: int, tile=None,
         update_rhs_jacobian_after_steps=int(opts.update_rhs_jacobian_after_steps),
         threshold_to_update_jacobian=float(opts.threshold_to_update_jacobian),
         jac_reuse=True, ml=ml, mu=mu, mass_diag=mass_diag,
+        needs_ic_solve=needs_ic_solve,
     )
 
     def _check(params_b):
@@ -408,15 +433,14 @@ def make_fused_band_bdf_solve(problem, t_eval, nbatch: int, tile=None,
 
     def reference(params_b):
         params_b = _check(params_b)
-        return _finish(cfg, *fused_band_bdf_reference(cfg, eqn.rhs, eqn.init, params_b))
+        return _finish(cfg, *fused_band_bdf_reference(cfg, problem, params_b))
 
     consts_on = {}  # device -> t_eval, atol and mass-diagonal tensors there
 
     def solve(params_b):
         params_b = _check(params_b)
         if not params_b.is_cuda:
-            return _finish(cfg, *fused_band_bdf_reference(cfg, eqn.rhs, eqn.init,
-                                                          params_b))
+            return _finish(cfg, *fused_band_bdf_reference(cfg, problem, params_b))
         dev = params_b.device
         if dev not in consts_on:
             consts_on[dev] = dict(
@@ -425,13 +449,15 @@ def make_fused_band_bdf_solve(problem, t_eval, nbatch: int, tile=None,
                 mass_diag=(None if mass_diag is None
                            else torch.tensor(mass_diag, dtype=F64, device=dev)))
         params_b = params_b.contiguous()
-        y0, D1, h_t = initial_state(cfg, eqn.rhs, eqn.init, _pad_params(cfg, params_b))
+        y0, D1, h_t = initial_state(cfg, problem, _pad_params(cfg, params_b))
         init = torch.cat([y0.reshape(cfg.pad_b, n).t(), D1.reshape(cfg.pad_b, n).t()])
         return _finish(cfg, *launch_fused_band_bdf(
             cfg, header, params_b, init.contiguous(), h_t.contiguous(), consts_on[dev]))
 
     solve.reference = reference
     solve.header = header
+    solve.cfg = cfg
+    solve.model = model
     solve.tile = tile
     solve.ntiles = ntiles
     return solve

@@ -27,7 +27,16 @@ and nothing falls back to the plain version or to the CPU.
 
 Every quantity is float64, heuristics included: the H100 has native f64,
 whereas the Pallas kernel keeps its WRMS norms, rates and controller in
-f32 and its state in double-float pairs.
+f32 and its state in double-float pairs.  ``precision="mixed"``
+(pallas_stepper.py:463-471) demotes the Newton MATRIX path alone to
+float32: the Jacobian probes, the LU factorization and the linear solve,
+with the residual rounded to float32 going in and the correction widened
+coming out; state, difference matrix, residual, time and the error test
+stay float64.  An inexact Newton matrix costs convergence rate, not
+accuracy: the trajectories stay inside the step controller's tolerance.
+``precision="fast"`` is accepted and runs the float64 build: the Pallas
+kernel's sloppy double-float operations have no counterpart in native
+float64.
 
 Scope, n <= 8 throughout: identity mass or a diagonal one (a semi-explicit
 DAE whose initial conditions are consistent: the tier has no
@@ -35,7 +44,7 @@ consistent-IC Newton, so a host probe refuses the others), root events
 that stop the solve or reset and continue (not together with a mass),
 quadrature of an output with or without error control, and every
 equation the codegen can trace.  Out of scope, and left to the lockstep
-path: dense mass, index-aware resets, and ``precision="mixed"``.
+path: dense mass and index-aware resets.
 
 Roots keep the reference's batch semantics per tile: every member of a
 tile must cross the same root component in the same step, the crossing
@@ -140,6 +149,8 @@ class FusedConfig:
     out_in_err: bool = False
     out_rtol: float = 0.0
     out_atol: tuple = ()
+    # precision="mixed": Jacobian, LU and the Newton linear solve in float32
+    mixed: bool = False
 
     @property
     def extended(self) -> bool:
@@ -209,6 +220,15 @@ def _wrms_sq(x, y, rtol, atol):
 def _bcast(v, like):
     """(T,) per-tile values -> broadcastable against (T, tile, n)."""
     return v.reshape(v.shape + (1,) * (like.ndim - 1))
+
+
+def _tile_mul(s, v):
+    """A per-tile scalar ``s`` (T,) times the members' vectors ``v``
+    (T, tile, n).  The three products of the step that the Pallas kernel
+    forms as double-float ``scalar * lane vector`` go through here (h y0',
+    psi alpha and c f(x)), so a test can swap in the rounding that kernel
+    shows in interpret mode on the CPU (ROADMAP.md queue 3)."""
+    return _bcast(s, v) * v
 
 
 def _compute_ru(order, factor):
@@ -288,6 +308,8 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor, *,
     rhs_m = vmap(rhs, in_dims=(0, 0, 0))
     jac_m = vmap(torch.func.jacfwd(rhs, argnums=1), in_dims=(0, 0, 0))
     init_m = vmap(init, in_dims=(0, 0))
+    # the Newton matrix path's type (precision="mixed": float32)
+    mt = torch.float32 if cfg.mixed else F64
 
     def f(t_tile, y):  # per-tile t (T,), y (T, tile, n)
         tm = t_tile.repeat_interleave(tile)
@@ -295,7 +317,8 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor, *,
 
     def jac(t_tile, y):
         tm = t_tile.repeat_interleave(tile)
-        return jac_m(tm, y.reshape(Mb, n), P).reshape(T, tile, n, n)
+        return jac_m(tm.to(mt), y.reshape(Mb, n).to(mt), P.to(mt)).to(mt).reshape(
+            T, tile, n, n)
 
     def wrms_sq(x, y):
         return _wrms_sq(x, y, cfg.rtol, atol)
@@ -322,19 +345,19 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor, *,
             return mass_m(t_tile.repeat_interleave(tile), P).reshape(T, tile, n)
 
     def factor(J, c, t_pred):
-        m = (torch.diag_embed(mass(t_pred)) if cfg.has_mass
-             else torch.eye(n, dtype=F64, device=dev))
-        return torch.linalg.lu_factor_ex(m - c[:, None, None, None] * J)[:2], None
+        m = (torch.diag_embed(mass(t_pred).to(mt)) if cfg.has_mass
+             else torch.eye(n, dtype=mt, device=dev))
+        return torch.linalg.lu_factor_ex(m - c.to(mt)[:, None, None, None] * J)[:2], None
 
     def lsolve(factors, b):
         lu, piv = factors
-        return torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)).squeeze(-1)
+        return torch.linalg.lu_solve(lu, piv, b.to(mt).unsqueeze(-1)).squeeze(-1).to(F64)
 
     def residual(x, t_pred, y_pred, psi, cval):
         tmp = x + (psi - y_pred)
         if cfg.has_mass:
             tmp = mass(t_pred) * tmp
-        return tmp - _bcast(cval, x) * f(t_pred, x)
+        return tmp - _tile_mul(cval, f(t_pred, x))
 
     # ---- initial state and step size (pallas_stepper.py:837-907)
     t = torch.full((T,), cfg.t0, dtype=F64, device=dev)
@@ -362,7 +385,7 @@ def fused_bdf_reference(cfg: FusedConfig, rhs, init, params_b: torch.Tensor, *,
     h1 = torch.where(max_d < 1e-15, torch.clamp(h0 * 1e-3, min=1e-6),
                      (0.01 / max_d) ** 0.5)
     h = torch.minimum(100.0 * h0, h1)
-    return tiled_bdf(cfg, atol, y0, _bcast(h, dy0) * dy0, h, f, jac, factor,
+    return tiled_bdf(cfg, atol, y0, _tile_mul(h, dy0), h, f, jac, factor,
                      lsolve, residual, out=out_l, root=root_l, reset=reset_l)
 
 
@@ -453,7 +476,7 @@ def tiled_bdf(cfg, atol, y0, D1, h, f, jac, factor, lsolve, residual,
             y_pred = y_pred + torch.where(le, D[:, i], 0.0)
             if i >= 2:
                 psi_raw = psi_raw + torch.where(le, gamma[i] * D[:, i], 0.0)
-        psi = psi_raw * _bcast(alpha_k, psi_raw)
+        psi = _tile_mul(alpha_k, psi_raw)
 
         # ---- stale-Jacobian policy (pallas_stepper.py:1094-1174)
         if cfg.jac_reuse:
@@ -954,7 +977,8 @@ def _probe_mass(problem, eqn):
 
 
 def make_fused_bdf_solve(problem, t_eval, nbatch: int, tile=None,
-                         max_steps: int = 100_000, jac_reuse: bool = True):
+                         max_steps: int = 100_000, jac_reuse: bool = True,
+                         precision: str = "df"):
     """Build ``solve(params_b (B, np) f64) -> (ys (neval, n, B) f64,
     status (ntiles,) int32, steps (ntiles,) int32)`` running the whole
     adaptive BDF solve per member tile (tiled-lockstep semantics).  For a
@@ -963,11 +987,20 @@ def make_fused_bdf_solve(problem, t_eval, nbatch: int, tile=None,
     apply, ``gs`` (neval, nquad, B), ``n_roots``, ``root_idx`` and
     ``root_t`` per tile.
 
+    ``precision``: ``"df"`` (the default) is all float64; ``"mixed"`` keeps
+    the Newton matrix path (Jacobian probes, LU, linear solve) in float32;
+    ``"fast"`` is accepted for the JAX package's callers and runs the
+    ``"df"`` build, since sloppy double-float operations have no
+    counterpart in native float64.
+
     CUDA tensors launch the kernel, CPU tensors run the plain version;
     ``solve.reference(params_b)`` runs the plain version on any device.
     Raises :class:`UnsupportedForKernel` out of scope, so callers can fall
     back to the lockstep path.
     """
+    if precision not in ("df", "mixed", "fast"):
+        raise ValueError(f"precision must be 'df', 'mixed' or 'fast': {precision!r}")
+    mixed = precision == "mixed"
     eqn = problem.eqn
     has_mass = eqn.mass is not None
     if has_mass and eqn.mass_diag_fn is None:
@@ -998,7 +1031,7 @@ def make_fused_bdf_solve(problem, t_eval, nbatch: int, tile=None,
         root=eqn.root, reset=eqn.reset if has_reset else None,
         out=eqn.out if has_out else None)
     header = emit_cuda_header(model, getattr(eqn.rhs, "__qualname__", "rhs"),
-                              nquad=nquad, out_in_err=out_in_err)
+                              nquad=nquad, out_in_err=out_in_err, mixed=mixed)
 
     te = np.asarray(torch.as_tensor(t_eval, dtype=F64).cpu(), np.float64).reshape(-1)
     if te.size == 0 or np.any(np.diff(te) < 0.0):
@@ -1030,6 +1063,7 @@ def make_fused_bdf_solve(problem, t_eval, nbatch: int, tile=None,
         nquad=nquad, has_out=has_out, out_in_err=out_in_err,
         out_rtol=float(problem.out_rtol) if out_in_err else 0.0,
         out_atol=vec(problem.out_atol, nquad) if out_in_err else (),
+        mixed=mixed,
     )
 
     def _check(params_b):

@@ -183,6 +183,7 @@ class OdeBuilder:
         self._atol = 1e-6
         self._options = OdeSolverOptions()
         self._linear_solver = DENSE
+        self._use_coloring = False
 
     # equations ---------------------------------------------------------
     def rhs(self, f: Callable):
@@ -290,6 +291,8 @@ class OdeBuilder:
     def linear_solver(self, spec: LinearSolverSpec):
         """The Newton linear-solver tier: ``DENSE`` (the default) or
         ``ops.banded.make_banded_solver(ml, mu)``."""
+        if spec == "krylov":
+            _later("the matrix-free Krylov tier", "queue 1 item 14")
         if not isinstance(spec, LinearSolverSpec):
             raise TypeError(
                 "linear_solver takes ops.linsol.DENSE or "
@@ -298,7 +301,12 @@ class OdeBuilder:
         return self
 
     def use_coloring(self, flag: bool = True):
-        _later("sparsity coloring", "queue 1 item 11")
+        """Compress the Jacobian: detect its sparsity at the initial state,
+        and route a narrow band to the banded tier or else evaluate the
+        dense Jacobian from one JVP probe per color of the native greedy
+        coloring (reference builder.rs use_coloring)."""
+        self._use_coloring = bool(flag)
+        return self
 
     def build_from_diffsl(self, source: str):
         _later("DiffSL", "queue 1 item 10")
@@ -307,7 +315,7 @@ class OdeBuilder:
         _later("DiffSL", "queue 1 item 10")
 
     def dtype(self, d):
-        _later("solve precisions other than float64", "queue 2 K1 (f)")
+        _later("a float32 solve (OdeBuilder.dtype)", "queue 1 item 18")
 
     # build --------------------------------------------------------------
     def build(self) -> OdeProblem:
@@ -333,13 +341,16 @@ class OdeBuilder:
                     return torch.diagonal(mass_f(t, p), dim1=-2, dim2=-1)
 
         rhs_jac = None
-        if self._linear_solver.name.startswith("banded"):
+        linear_solver = self._linear_solver
+        if linear_solver.name.startswith("banded"):
             # the tier's representation is the band (builder.rs
             # use_coloring's role for a banded pattern)
             from .ops.banded import make_banded_jac
 
-            ml, mu = self._linear_solver.meta[:2]
+            ml, mu = linear_solver.meta[:2]
             rhs_jac = make_banded_jac(self._rhs, ml, mu)
+        elif self._use_coloring:
+            rhs_jac, linear_solver = self._colored_tier(params, linear_solver)
         eqn = make_equations(
             self._rhs, self._init, params, self._t0,
             mass=self._mass, mass_diag=mass_diag, rhs_jac=rhs_jac,
@@ -366,5 +377,39 @@ class OdeBuilder:
             integrate_out=self._integrate_out,
             options=self._options,
             ic_options=self._ic_options,
-            linear_solver=self._linear_solver,
+            linear_solver=linear_solver,
         )
+
+    def _colored_tier(self, params, linear_solver):
+        """``use_coloring``'s routing, in the JAX OdeBuilder's order
+        (problem.py:473-546): independent dense blocks (not ported), a
+        narrow band to the banded tier, else the colored dense Jacobian
+        under the solver given.  Returns ``(rhs_jac, linear_solver)``."""
+        from .ops.banded import make_banded_jac, make_banded_solver
+        from .ops.coloring import (decomposes_into_blocks, detect_sparsity,
+                                   greedy_color, make_colored_jac)
+
+        t0 = torch.tensor(self._t0, dtype=F64)
+        y0 = self._init(t0, params)
+        n = int(y0.shape[-1])
+        rows, cols = detect_sparsity(self._rhs, t0, y0, params, n)
+        ml = int(np.max(rows - cols)) if len(rows) else 0
+        mu = int(np.max(cols - rows)) if len(rows) else 0
+        blk_rows, blk_cols = rows, cols
+        if self._mass is not None:
+            # the iteration matrix is M - c J: the band must cover M too
+            mi, mj = np.nonzero(self._mass(t0, params).detach().cpu().numpy())
+            if len(mi):
+                ml = max(ml, int(np.max(mi - mj)))
+                mu = max(mu, int(np.max(mj - mi)))
+            blk_rows = np.concatenate([rows, mi])
+            blk_cols = np.concatenate([cols, mj])
+        if n >= 8 and decomposes_into_blocks(blk_rows, blk_cols, n):
+            _later("the block-diagonal tier that use_coloring routes independent "
+                   "blocks to", "queue 1 item 13")
+        if n >= 8 and ml + mu + 1 <= max(n // 2, 1):
+            return make_banded_jac(self._rhs, ml, mu), make_banded_solver(ml, mu)
+        # (the JAX OdeBuilder's matrix-free Krylov route for n >= 256 is taken
+        # on a TPU only, where a dense f64 LU cannot compile; queue 1 item 14)
+        colors, ncolors = greedy_color(rows, cols, n, n)
+        return make_colored_jac(self._rhs, rows, cols, colors, ncolors, n), linear_solver

@@ -13,7 +13,9 @@ c = 1e-4, steptol = eps^(2/3)), refactorizing the Jacobian up to
 ``max_linear_solver_setups`` times.  The JAX version is nested
 ``lax.while_loop``s; this one is an eager loop with Python scalar control.
 The state is member-major, (n,) or (B, n), and the packed Jacobian comes
-from n forward-mode probes broadcast over the members.
+from n forward-mode probes broadcast over the members, or, under the
+banded tier, as the band from ml+mu+1 cyclically colored probes, factored
+through the problem's banded solver (the band LU kernels on the card).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from .. import errors
 from ..norms import norm as wrms_norm
-from ..ops.linsol import DENSE
+from ..ops.banded import make_banded_jac
 from ..ops.newton import CONTINUE, CONVERGED, DIVERGED, ETA_RESET_JACOBIAN
 
 _EPS = float(torch.finfo(torch.float64).eps)
@@ -65,16 +67,19 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
     returns ``(y, dy, status)`` with status INTERNAL_TIMESTEP or
     INITIAL_CONDITION_DID_NOT_CONVERGE (and then the inputs unchanged)."""
     p = problem
-    if p.linear_solver.name != "dense":
+    spec = p.linear_solver
+    banded = spec.name.startswith("banded")
+    if not banded and spec.name != "dense":
         raise NotImplementedError(
-            "consistent initial conditions under the banded tier are not "
-            "ported yet (ROADMAP.md queue 1 item 11)")
+            f"consistent initial conditions under the {spec.name} tier are not "
+            "ported yet (ROADMAP.md queue 1 items 13 and 14)")
     t0 = p.t0 if t is None else p.t0.new_tensor(float(t))
     ic = p.ic_options
     tol = float(p.options.nonlinear_solver_tolerance)
     steptol = _EPS ** (2.0 / 3.0)
     tau, armijo_c = ic.step_reduction_factor, ic.armijo_constant
     max_newton = ic.max_newton_iterations
+    is_alg = is_alg.to(y.device)  # the solver's mask may predate the move to the card
     y_fixed = y
     zero = torch.zeros_like(y)
 
@@ -104,12 +109,19 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
         converged = (eta_new * nrm < tol) and not diverged
         return (DIVERGED if diverged else CONVERGED if converged else CONTINUE), eta_new
 
+    if banded:
+        # the packed residual inherits the rhs band (plus the in-band mass
+        # diagonal): ml+mu+1 probes whatever the size or the batch
+        band_jac = make_banded_jac(lambda t_, x, p_: residual(x), *spec.meta[:2])
+
     def newton_with_linesearch(x, eta):
-        """One Newton campaign with a frozen factorization."""
-        factors = DENSE.factor(_blockwise_jacfwd(residual, x))
+        """One Newton campaign with a frozen factorization, in the
+        problem's linear-solver tier."""
+        factors = spec.factor(band_jac(None, x, None) if banded
+                              else _blockwise_jacfwd(residual, x))
 
         def lin(v):
-            return DENSE.solve(factors, v)
+            return spec.solve(factors, v)
 
         delta = lin(residual(x))
         nrm = nrm_of(delta)

@@ -177,16 +177,31 @@ def test_scope_rejections():
     tp, _ = theat.make(mgrid=7, banded=True)
     with pytest.raises(ValueError, match="block limit"):
         fb.make_fused_band_bdf_solve(tp, [1.0], 512, tile=fb.MAX_TILE + 1)
-    # an algebraic row that init does not satisfy needs the consistent-IC
-    # solve, which is not ported
+    # an algebraic row that init does not satisfy is no rejection any more:
+    # the host-side initial state runs the consistent-IC solve
+    # (pallas_stepper_band.py:190-199, :968-984), which moves y[0] to 1
     n = 6
     md = torch.tensor([0.0] + [1.0] * (n - 1), dtype=F64)
     bad = (dtt.OdeBuilder().rhs(lambda t, y, p: y - 1.0)
            .init(lambda t, p: torch.zeros(n, dtype=F64))
            .mass(lambda t, p: torch.diag(md)).p([1.0])
            .linear_solver(make_banded_solver(1, 1)).build())
-    with pytest.raises(cg.UnsupportedForKernel, match="consistent"):
-        fb.make_fused_band_bdf_solve(bad, [1.0], 2)
+    solve = fb.make_fused_band_bdf_solve(bad, [1.0], 2)
+    assert solve.cfg.needs_ic_solve
+    ys, status, _ = solve(torch.ones(2, 1, dtype=F64))
+    assert status.tolist() == [0]
+    np.testing.assert_allclose(ys[0, 0].numpy(), 1.0, atol=1e-9)
+    np.testing.assert_allclose(ys[0, 1:].numpy(), 1.0 - np.e, rtol=1e-4)
+    # roots and quadrature are outside the banded kernel (:120-123)
+    rooted = (dtt.OdeBuilder().rhs(tp.eqn.rhs).init(tp.eqn.init).p([1.0])
+              .root(lambda t, y, p: y[:1] - 0.5)
+              .linear_solver(make_banded_solver(1, 1)).build())
+    with pytest.raises(cg.UnsupportedForKernel, match="root"):
+        fb.make_fused_band_bdf_solve(rooted, [1.0], 2)
+    quad = (dtt.OdeBuilder().rhs(tp.eqn.rhs).init(tp.eqn.init).p([1.0]).integrate_out()
+            .linear_solver(make_banded_solver(1, 1)).build())
+    with pytest.raises(cg.UnsupportedForKernel, match="quadrature"):
+        fb.make_fused_band_bdf_solve(quad, [1.0], 2)
     # a mass that changes with t is outside the tier
     timed = (dtt.OdeBuilder().rhs(lambda t, y, p: -y)
              .init(lambda t, p: torch.ones(n, dtype=F64))

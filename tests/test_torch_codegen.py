@@ -252,6 +252,95 @@ def test_further_primitives_match_torch_and_jacfwd(name):
     assert cg.op_count(ir) > 0
 
 
+_MASK = torch.tensor([True, False, True, True, False, True])
+_PERM = torch.tensor([2, 0, 5, 1, 1, 3])
+_MAT = torch.tensor(np.random.default_rng(3).uniform(-1.0, 1.0, (6, 6)))
+_COEF = torch.tensor([[-1.0, -0.5e-6], [1.0e4, -1.0]], dtype=F64)
+
+# the operations the 2-D method-of-lines models trace to (what
+# ops/dfinterp_vec.py adds for the banded Pallas kernel), on 6 states
+_ARRAY_OPS = {
+    "roll": lambda t, y, p: (torch.roll(y.reshape(2, 3), 1, 0)
+                             + torch.roll(y.reshape(2, 3), -1, 1) * p[0]).reshape(-1),
+    "roll_flat": lambda t, y, p: torch.roll(y, 2) - y,
+    "flip": lambda t, y, p: torch.flip(y.reshape(3, 2), [0, 1]).reshape(-1) * y,
+    "index": lambda t, y, p: y[_PERM] * y,
+    "index_2d": lambda t, y, p: (y.reshape(2, 3)[:, torch.tensor([2, 0, 1])]).reshape(-1) + y,
+    "index_select": lambda t, y, p: torch.index_select(y.reshape(3, 2), 0,
+                                                       torch.tensor([1, 1, 0])).reshape(-1),
+    "gather": lambda t, y, p: torch.gather(y, 0, _PERM) * p[1],
+    "constant_pad": lambda t, y, p: torch.nn.functional.pad(y, (1, 2), value=0.5)[1:7] + (
+        torch.nn.functional.pad(y.reshape(2, 3), (1, 1, 0, 1))[1:, :3].sum(0)[[0, 1, 2, 0, 1, 2]]),
+    "reflect_pad_1d": lambda t, y, p: torch.nn.functional.pad(
+        y[None, None], (2, 1), mode="reflect")[0, 0, 1:7] * y,
+    "reflect_pad_2d": lambda t, y, p: (lambda up: (
+        up[:-2, 1:-1] + up[2:, 1:-1] + up[1:-1, :-2] + up[1:-1, 2:]).reshape(-1))(
+            torch.nn.functional.pad(y.reshape(1, 2, 3), (1, 1, 1, 1),
+                                    mode="reflect")[0]) - 4.0 * y,
+    "sum_dims": lambda t, y, p: y.reshape(2, 3).sum(0)[[0, 1, 2, 0, 1, 2]] + y.reshape(2, 3).sum(
+        1, keepdim=True).expand(2, 3).reshape(-1) + torch.sum(y * y),
+    "mm": lambda t, y, p: (_MAT[:2, :2] @ y.reshape(2, 3)).reshape(-1),
+    "mv_dot": lambda t, y, p: _MAT @ y + torch.dot(y, y) * p[0],
+    "einsum": lambda t, y, p: torch.einsum(
+        "ij,xyj->xyi", _COEF, y.reshape(1, 3, 2)).reshape(-1) * y,
+    "bmm": lambda t, y, p: torch.bmm(y.reshape(2, 1, 3), y.reshape(2, 3, 1)).reshape(
+        2, 1).expand(2, 3).reshape(-1) + y,
+    "bool_mask_where": lambda t, y, p: torch.where(_MASK, y * y * p[0], y),
+    "bool_mask_logic": lambda t, y, p: torch.where(_MASK & (y > 0.9), torch.exp(y), -y),
+    "eye": lambda t, y, p: (torch.eye(6, dtype=F64) * 2.0) @ y,
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ARRAY_OPS))
+def test_array_operations_match_torch_and_jacfwd(name):
+    """Each array operation unrolls to index plumbing plus adds and
+    multiplies: the IR's value against the callable (1e-14; sums fold left
+    to right, so 1e-13 where torch reduces in another order) and its
+    dual-number Jacobian against torch.func.jacfwd, on inputs from a numpy
+    seed; the emitted CUDA body assigns every output."""
+    fn = _ARRAY_OPS[name]
+    ir = cg.trace_ir(fn, ("t", "y", "p"), (None, 6, 2))
+    rng = np.random.default_rng(13)
+    y = torch.tensor(rng.uniform(0.5, 1.5, (4, 6)))
+    p = torch.tensor(rng.uniform(0.5, 1.5, (4, 2)))
+    t = torch.tensor(0.3, dtype=F64)
+    ref = torch.stack([fn(t, y[i], p[i]) for i in range(4)])
+    assert len(ir.outputs) == ref.shape[1]
+    torch.testing.assert_close(cg.eval_rhs(ir, t, y, p), ref, rtol=1e-13, atol=1e-13)
+    jac = torch.stack([torch.func.jacfwd(fn, argnums=1)(t, y[i], p[i]) for i in range(4)])
+    torch.testing.assert_close(cg.jacobian(ir, t, y, p), jac, rtol=1e-13, atol=1e-13)
+    src = cg.emit_cuda_header(cg.ModelIR(rhs=ir, init=None, nstates=6, nparams=2))
+    assert all(f"out[{i}] = " in src for i in range(ref.shape[1]))
+    assert cg.op_count(ir) >= 0
+
+
+def test_boolean_constants_are_boolean_nodes():
+    """A constant mask is lifted as boolean constants, not doubles: where
+    it alone selects, the branch is taken at trace time; combined with a
+    traced comparison it is a ``cb`` node, emitted as a C++ literal; and a
+    boolean constant is still no arithmetic operand."""
+    alone = cg.trace_ir(_ARRAY_OPS["bool_mask_where"], ("t", "y", "p"), (None, 6, 2))
+    assert not any(n[0] == "where" for n in alone.nodes)
+    logic = cg.trace_ir(_ARRAY_OPS["bool_mask_logic"], ("t", "y", "p"), (None, 6, 2))
+    assert {n for n in logic.nodes if n[0] == "cb"} == {("cb", True), ("cb", False)}
+    src = cg.emit_cuda_header(cg.ModelIR(rhs=logic, init=None, nstates=6, nparams=2))
+    assert re.search(r"const bool v\d+ = true;", src)
+    assert re.search(r"const bool v\d+ = false;", src)
+    with pytest.raises(cg.UnsupportedForKernel, match="boolean"):
+        cg.trace_ir(lambda t, y, p: _MASK * y, ("t", "y", "p"), (None, 6, 2))
+
+
+def test_array_operations_outside_the_scope_raise():
+    with pytest.raises(cg.UnsupportedForKernel, match="traced value|int64"):
+        cg.trace_ir(lambda t, y, p: torch.gather(y, 0, (y > 2.0).long()),
+                    ("t", "y", "p"), (None, 6, 2))
+    with pytest.raises(cg.UnsupportedForKernel, match="scope|trace"):
+        cg.trace_ir(lambda t, y, p: torch.cumsum(y, 0), ("t", "y", "p"), (None, 6, 2))
+    with pytest.raises(cg.UnsupportedForKernel, match="negative"):
+        cg.trace_ir(lambda t, y, p: torch.nn.functional.pad(y, (-1, 1)),
+                    ("t", "y", "p"), (None, 6, 2))
+
+
 def test_boolean_values_stay_inside_where():
     with pytest.raises(cg.UnsupportedForKernel, match="boolean"):
         cg.trace_ir(lambda t, y, p: (y > 0.5) * y, ("t", "y", "p"), (None, 3, 3))
@@ -303,7 +392,7 @@ def test_header_holds_the_further_device_functions():
         cg.trace_model(ball.rhs, ball.init, 2, 2, reset=ball.root)
 
 
-def test_transcendental_rhs_matches_pallas_interpret():
+def test_transcendental_rhs_matches_pallas_interpret(monkeypatch):
     """tests/test_pallas_stepper.py:372 through both packages' fused tiers
     (B = 4 in one tile).  The JAX kernel, with float32 heuristics, takes
     69 accepted steps where the float64 port takes 72 (ROADMAP.md queue 3
@@ -337,3 +426,11 @@ def test_transcendental_rhs_matches_pallas_interpret():
     np.testing.assert_allclose(sol.ys.numpy(), np.asarray(ref.ys), rtol=1e-5, atol=1e-8)
     exact = fc.transcendental_y0(np.asarray(te)[:, None], a[None, :])
     np.testing.assert_allclose(sol.ys[:, :, 0].numpy(), exact, rtol=1e-5, atol=1e-7)
+    # with the rounding the Pallas kernel shows in interpret mode on the CPU
+    # (fused_cases.pallas_cpu_tile_product) the port comes within one step
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+
+    monkeypatch.setattr(fs, "_tile_mul", fc.pallas_cpu_tile_product)
+    emulated = dtt.solve_dense_ensemble(dtt.BdfSolver, fc.transcendental_problem(), te,
+                                        params, mode="fused", tile=4, device="cpu")
+    assert abs(int(emulated.tile_steps[0]) - int(ref.tile_steps[0])) <= 1

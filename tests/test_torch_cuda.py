@@ -518,3 +518,175 @@ def test_fused_band_kernel_other_paths_cuda(case):
         assert not bool(torch.isfinite(ys).any())
     else:
         torch.testing.assert_close(ys, ys_p, rtol=YS_RTOL, atol=YS_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the 2-D method-of-lines DAEs, wide bands, and precision="mixed"
+# ---------------------------------------------------------------------------
+
+def _mol2d(name):
+    from diffsol_tpu_torch.models import foodweb, heat2d
+
+    if name == "heat2d":  # n = 64, ml = mu = 8
+        return heat2d.make(8), [0.01, 0.03, 0.1], 100_000
+    return foodweb.make(4), [1e-3, 1e-2, 1e-1], 3000  # n = 32, ml = mu = 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat2d", "foodweb"])
+def test_fused_band_kernel_mol2d_matches_plain_version_cuda(name):
+    """K2 against its plain version on heat2d mgrid = 8 and foodweb nx = 4
+    (whose inconsistent ``init`` goes through the banded consistent-IC
+    solve, K3/K4, before the launch), B = 160 in two tiles of 80: heat2d
+    with equal steps in every tile and ys to rtol = 1e-9, foodweb within 10
+    error weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+
+    problem, t_eval, max_steps = _mol2d(name)
+    solve = fb.make_fused_band_bdf_solve(problem, t_eval, 160, tile=80,
+                                         max_steps=max_steps)
+    assert solve.ntiles == 2
+    assert solve.cfg.needs_ic_solve == (name == "foodweb")
+    params = torch.ones(160, 1, dtype=torch.float64, device="cuda")
+    before, k3 = fb.launch_fused_band_bdf.launches, band_lu.launch_band_lu_factor.launches
+    ys, status, steps = solve(params)
+    torch.cuda.synchronize()
+    assert fb.launch_fused_band_bdf.launches == before + 1
+    assert (band_lu.launch_band_lu_factor.launches > k3) == (name == "foodweb")
+    ys_p, status_p, steps_p = solve.reference(params)
+    assert status.tolist() == status_p.tolist() == [fs.OK] * 2
+    print(name, "steps kernel", steps.tolist(), "plain", steps_p.tolist(), "max rel",
+          float(((ys - ys_p).abs() / ys_p.abs().clamp(min=1e-300)).max()))
+    if name == "heat2d":
+        assert torch.equal(steps, steps_p)
+        torch.testing.assert_close(ys, ys_p, rtol=YS_RTOL, atol=YS_ATOL)
+    else:
+        # foodweb's step sequence follows the last bit of its rhs (the CPU
+        # test test_foodweb_steps_are_sensitive_to_roundoff_and_heat2d_is_not
+        # shows it on the plain version alone): two orders of the same
+        # float64 operations part by ~1e-5, so the gate is 10 error weights
+        # and nearly equal steps
+        w = 1e-5 * ys_p.abs() + 1e-5
+        assert float(((ys - ys_p).abs() / w).max()) < 10.0
+        assert int((steps - steps_p).abs().max()) <= 0.2 * int(steps_p.max())
+    # against the lockstep path (K3/K4) at the solver's tolerance
+    lock = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval, params[:4].cpu().numpy(),
+                                    mode="lockstep", max_steps=max_steps)
+    assert lock.stop_reason == dtt.errors.TSTOP_REACHED
+    torch.testing.assert_close(ys[:, :, :4].movedim(-1, 1), lock.ys, rtol=5e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_band_lu_kernels_nb41_match_plain_version_cuda():
+    """K3 and K4 at the 2-D models' width, ml = mu = 20 (nb = 41), n = 200,
+    B = 256, against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.ops.banded import band_to_dense
+
+    ml = mu = 20
+    band = _random_dominant_band(256, 200, ml, mu)
+    b = torch.tensor(np.random.default_rng(2).standard_normal((256, 200)), device="cuda")
+    F = band_lu.band_lu_factor(band, ml, mu)
+    x = band_lu.band_lu_solve(F, b, ml, mu)
+    F_p = band_lu.band_lu_factor_reference(band, ml, mu)
+    x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
+    torch.testing.assert_close(F, F_p, rtol=LU_RTOL, atol=LU_RTOL * float(F_p.abs().max()))
+    torch.testing.assert_close(x, x_p, rtol=LU_RTOL, atol=LU_RTOL * float(x_p.abs().max()))
+    for m in (0, 255):
+        a = band_to_dense(band[m], ml, mu)
+        torch.testing.assert_close(a @ x[m], b[m], rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_mixed_precision_cuda():
+    """K1 with ``precision="mixed"`` (float32 Jacobian, LU and Newton solve)
+    on Robertson to t = 4e10, B = 300: against its plain version, whose
+    float32 operations run in another order (LAPACK's LU, no FMA
+    contraction), so the two are held to the error test's weights and to
+    nearly equal steps; and against the float64 build as
+    tests/test_pallas_stepper.py:451 holds the Pallas kernel (< 5 weights
+    overall, < 0.1 up to t = 4e4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    problem = trob.problem_ode()
+    nbatch = 300
+    # identical nominal members, as the JAX test's: in the last decade to
+    # t = 4e10 float32 cannot resolve 1 - cJ (c |J| ~ 1e14), Newton fails
+    # often, and a tile of spread members runs into the kernel's limit of 50
+    # failures (FAIL_NEWTON, in the plain version too)
+    params = torch.tensor(np.tile(np.array(trob.P_DEFAULT), (nbatch, 1)), device="cuda")
+    te = trob.T_EVAL_4E10
+    mixed = fs.make_fused_bdf_solve(problem, te, nbatch, precision="mixed")
+    assert mixed.cfg.mixed and "#define MODEL_MIXED 1" in mixed.header
+    before = fs.launch_fused_bdf.launches
+    ys, status, steps = mixed(params)
+    torch.cuda.synchronize()
+    assert fs.launch_fused_bdf.launches == before + 1
+    ys_p, status_p, steps_p = mixed.reference(params)
+    assert status.tolist() == status_p.tolist() == [fs.OK] * mixed.ntiles
+    print("mixed steps kernel", steps.tolist(), "plain", steps_p.tolist())
+    ys_d, status_d, steps_d = fs.make_fused_bdf_solve(problem, te, nbatch)(params)
+    assert status_d.tolist() == [fs.OK] * mixed.ntiles
+    atol = torch.tensor([1e-8, 1e-6, 1e-6], device="cuda")[None, :, None]
+    w = atol + 1e-4 * ys_d.abs()
+    vs_plain = float(((ys - ys_p).abs() / w).max())
+    vs_df = float(((ys - ys_d).abs() / w).max())
+    n_early = sum(t <= 4e4 for t in te)
+    early = float(((ys[:n_early] - ys_d[:n_early]).abs() / w[:n_early]).max())
+    print(f"mixed vs plain {vs_plain:.3e} weights, vs df {vs_df:.3e}, early {early:.3e}; "
+          f"df steps {steps_d.tolist()}")
+    assert vs_plain < 5.0 and vs_df < 5.0 and early < 0.1
+    assert int((steps - steps_p).abs().max()) <= max(10, int(0.1 * steps_p.max()))
+    with pytest.raises(ValueError, match="precision"):
+        fs.make_fused_bdf_solve(problem, te, nbatch, precision="f16")
+    # spread members: every tile ends OK or fails loudly on the Newton limit
+    _, status_s, steps_s = mixed(torch.tensor(_params(nbatch), device="cuda"))
+    print("mixed, k1 spread +-10%: status", status_s.tolist(), "steps", steps_s.tolist())
+    assert set(status_s.tolist()) <= {fs.OK, fs.FAIL_NEWTON}
+
+
+@pytest.mark.cuda
+def test_foodweb_solve_dense_on_the_card_by_default():
+    """``solve_dense(BdfSolver(foodweb))`` with no device argument runs on
+    the card: the consistent-IC solve and every Newton matrix go through
+    K3/K4, and the corner values meet IDA's (tests/test_models.py:55)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import foodweb
+    from diffsol_tpu_torch.ops import band_lu
+
+    nx = 10
+    solver = dtt.BdfSolver(foodweb.make(nx))
+    k3 = band_lu.launch_band_lu_factor.launches
+    sol = dtt.solve_dense(solver, foodweb.SOLN[1:4, 0], max_steps=20_000)
+    assert sol.ys.is_cuda and sol.stop_reason == dtt.errors.TSTOP_REACHED
+    assert band_lu.launch_band_lu_factor.launches > k3
+    corners = foodweb.corner_values(sol.ys.cpu().numpy(), nx)
+    np.testing.assert_allclose(corners, foodweb.SOLN[1:4, 1:], rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_n8_mixed_precision_cuda():
+    """The mixed build at the kernel's largest size, n = 8 (its ptxas line
+    prints beside the float64 build's): both end TSTOP and agree within 5
+    error weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    problem = (dtt.OdeBuilder().rhs(_chain8)
+               .init(lambda t, p: torch.ones(8, dtype=torch.float64, device=p.device))
+               .p([50.0, 1e3]).rtol(1e-6).atol(1e-9).build())
+    rng = np.random.default_rng(8)
+    params = torch.tensor(np.stack([50.0 * (1.0 + 0.2 * rng.uniform(-1, 1, 300)),
+                                    np.full(300, 1e3)], axis=1), device="cuda")
+    te = [0.1, 1.0, 10.0]
+    ys_d, status_d, _ = fs.make_fused_bdf_solve(problem, te, 300, tile=128)(params)
+    ys_m, status_m, _ = fs.make_fused_bdf_solve(problem, te, 300, tile=128,
+                                                precision="mixed")(params)
+    assert status_d.tolist() == status_m.tolist() == [fs.OK] * 3
+    w = 1e-9 + 1e-6 * ys_d.abs()
+    assert float(((ys_m - ys_d).abs() / w).max()) < 5.0

@@ -288,3 +288,18 @@ def test_lockstep_root_matches_jax(jax_eager):
     bad = dtt.solve_dense_ensemble(dtt.BdfSolver, ted.problem_with_root(), T_EAGER,
                                    params, mode="lockstep", device="cpu")
     assert bad.stop_reason == dtt.errors.ROOT_BATCH_INCONSISTENT
+
+
+def test_bounce_steps_with_the_pallas_cpu_product_rounding(jax_fused, monkeypatch):
+    """With the rounding the Pallas kernel shows in interpret mode on the
+    CPU (fused_cases.pallas_cpu_tile_product) on the plain version's
+    tile-scalar products, the bouncing ball comes within one accepted step
+    of the JAX kernel (78 against 77; 79 without it)."""
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+
+    monkeypatch.setattr(fs, "_tile_mul", fc.pallas_cpu_tile_product)
+    sol = _port_fused("bounce")
+    ref = jax_fused["bounce"]
+    assert sol.stop_reason == ref["stop"] == dtt.errors.TSTOP_REACHED
+    assert abs(int(sol.tile_steps[0]) - int(ref["steps"][0])) <= 1
+    np.testing.assert_allclose(sol.ys.numpy(), ref["ys"], rtol=2e-4, atol=1e-6)

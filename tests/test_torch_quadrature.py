@@ -204,3 +204,54 @@ def test_lockstep_quadrature_matches_the_members():
     ind = dtt.solve_dense_ensemble(dtt.BdfSolver, fc.quadrature_problem(), fc.QUAD_T_EVAL,
                                    P_QUAD, mode="independent", device="cpu")
     np.testing.assert_allclose(ind.gs.numpy(), sol.gs.numpy(), rtol=1e-4)
+
+
+def test_pallas_interpret_steps_are_its_cpu_product_rounding(jax_runs, monkeypatch):
+    """The 45 accepted steps the Pallas kernel takes in interpret mode on
+    this decay, against the port's 50, come from one effect of XLA's CPU
+    backend on ``df32.mul`` (fused_cases.pallas_cpu_tile_product): with
+    that rounding put on the plain version's three tile-scalar products,
+    the port takes the JAX kernel's 45 steps exactly, and without it 50."""
+    problem = fc.quadrature_problem()
+    plain = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, fc.QUAD_T_EVAL, P_QUAD,
+                                     mode="fused", tile=B, device="cpu")
+    monkeypatch.setattr(fs, "_tile_mul", fc.pallas_cpu_tile_product)
+    emulated = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, fc.QUAD_T_EVAL, P_QUAD,
+                                        mode="fused", tile=B, device="cpu")
+    ref = jax_runs["f_quad"]
+    assert int(plain.tile_steps[0]) == 50
+    assert emulated.tile_steps.tolist() == ref["steps"].tolist() == [45]
+    np.testing.assert_allclose(emulated.gs.numpy(), ref["gs"], rtol=FUSED_RTOL,
+                               atol=FUSED_ATOL)
+
+
+def test_df32_product_of_a_tile_scalar_is_off_under_jit_on_cpu():
+    """The cause, in the JAX package alone: compiled for the CPU,
+    ``df32.mul`` of a (1, 1) scalar and a (1, 4) vector returns the exact
+    product plus the float32 rounding error of ``hi * hi`` once more
+    (eagerly, and with both operands (1, 4), it is exact to ~1e-15)."""
+    import jax
+
+    from diffsol_tpu.ops import df32
+
+    h = np.float32(0.0003097602748312056)  # the kernel's first step size here
+    a = -0.095
+    hi = np.float32(a)
+    lo = np.float32(a - np.float64(hi))
+    y = df32.DF(jnp.full((1, 4), hi), jnp.full((1, 4), lo))
+
+    def product(shape, jit):
+        x = df32.DF(jnp.full(shape, h), jnp.zeros(shape, jnp.float32))
+        r = (jax.jit(df32.mul) if jit else df32.mul)(x, y)
+        return float(np.float64(r.hi[0, 0]) + np.float64(r.lo[0, 0]))
+
+    exact = float(np.float64(h)) * (float(np.float64(hi)) + float(np.float64(lo)))
+    twice = float(np.float64(h)) * float(np.float64(hi)) - float(np.float64(h * hi))
+    assert abs(product((1, 1), False) / exact - 1.0) < 1e-14
+    assert abs(product((1, 4), True) / exact - 1.0) < 1e-14
+    off = product((1, 1), True)
+    assert abs(off / exact - 1.0) > 1e-8
+    assert abs(off - (exact + twice)) < 1e-14 * abs(exact)
+    port = fc.pallas_cpu_tile_product(torch.tensor([float(h)], dtype=torch.float64),
+                                      torch.full((1, 1, 1), a, dtype=torch.float64))
+    assert abs(float(port) - off) < 1e-14 * abs(exact)
