@@ -23,12 +23,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    reference's CVODE table (robertson.SOLN);
 5. times of that path and of the plain version at the same shapes (CUDA
    events), with the card's name and power limit;
-6. the band libraries' build times and ptxas lines;
+6. the band libraries' build times and ptxas lines, and the band LU
+   kernels' dynamic shared memory a block at the three models' shapes;
 7. the band LU kernels (factor, solve) against their plain versions on the
    heat1d iteration matrix M - cJ (n=128, B=1024, c=1e-3) and on a random
-   diagonally dominant band (ml=3, mu=2, numpy seed 0); times of both, of
-   the plain versions and of torch.linalg.lu_factor / lu_solve on the
-   dense (1024, 128, 128) expansion;
+   diagonally dominant band (ml=3, mu=2, numpy seed 0), each wrapper
+   counting one launch a call; times of both, of the plain versions and of
+   torch.linalg.lu_factor / lu_solve on the dense (1024, 128, 128)
+   expansion;
 8. the banded lockstep path: heat1d n=128 (mgrid=127, rtol 1e-6, atol
    1e-8), tridiagonal, B=1024 diffusivities linspace(0.5, 2.0), t_eval
    [0.001, 0.01, 0.05, 0.1, 0.2], mode="lockstep", with the band LU launch
@@ -37,9 +39,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. the banded fused main path at B=1024: one kernel launch, the same
     checks, agreement with phase 8, its time (median of 5) and the plain
     version's at the same shapes;
-11. one traced call of each of the paths (torch.profiler): the device
-    time by kernel and the device's busy share of the call (the
-    profiler's own overhead is in the call's time);
+11. one traced call of each of the paths (torch.profiler), heat2d's
+    lockstep path among them: the device time by kernel, the band LU
+    kernels' (K3, K4) where the path runs them, and the device's busy
+    share of the call (the profiler's own overhead is in the call's time);
 12. (run after phase 5) the rest of the fused BDF kernel, one variant at a
     time: the Robertson DAE (mass diag(1, 1, 0)), the root that stops the
     solve, the bouncing ball's reset, quadrature of the state, quadrature
@@ -64,7 +67,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     inconsistent ``init`` goes through the banded consistent-IC solve.
     Each: mode="fused" (one launch of the fused band kernel, its counter
     set to 0 just before and read just after) and mode="lockstep" (the
-    band LU kernels counted), held to TSTOP_REACHED, to each other within
+    band LU kernels counted; timed as the median of 3 calls after the
+    first, host clock), held to TSTOP_REACHED, to each other within
     1e-6 + 5e-4 |ref|, and member 0 to a single solve_dense of the dense
     (banded=False) problem on the card; heat2d's boundary rows stay 0
     within 1e-9; foodweb's corner values meet IDA's (foodweb.SOLN, rtol
@@ -75,10 +79,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     (tests/test_torch_mol2d.py shows it on the plain version alone),
     within 10 error weights and a fifth of the steps, with what was
     measured printed;
-14. the band LU kernels at the 2-D models' width, nb=41: heat2d's
-    iteration matrix M - cJ (n=400, B=1,024, c=1e-3) against their plain
-    versions by phase 7's rule, with torch.linalg.lu_factor / lu_solve on
-    the dense (1024, 400, 400) expansion timed as the library call;
+14. the band LU kernels at the 2-D models' width, nb=41: the iteration
+    matrices M - cJ (B=1,024, c=1e-3) of heat2d (n=400) and foodweb
+    (n=200) against their plain versions by phase 7's rule, with
+    torch.linalg.lu_factor / lu_solve on the dense (1024, n, n) expansion
+    timed as the library call, and the launches of each model's lockstep
+    run of phase 13;
 15. the fused BDF kernel with precision="mixed" (float32 Jacobian, LU and
     Newton solve): Robertson ODE, B=10,000 identical nominal members,
     t=4e10, one launch; against
@@ -89,7 +95,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
-each also at the 2-D models' width
+each also at the 2-D models' width (the band LU's at heat2d's and at
+foodweb's shape)
 (launches on their path, error against the plain version, times, the
 card's least time for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -578,6 +585,21 @@ def variant_phases(dev, rng, card_line, variants, check_solves, shared):
     return dae_path, records
 
 
+def lu_once(band, b, ml, mu):
+    """One K3 and one K4 call; fails unless each wrapper counted exactly
+    one launch."""
+    from diffsol_tpu_torch.ops import band_lu
+
+    f0, s0 = band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches
+    F = band_lu.band_lu_factor(band, ml, mu)
+    x = band_lu.band_lu_solve(F, b, ml, mu)
+    df = band_lu.launch_band_lu_factor.launches - f0
+    ds = band_lu.launch_band_lu_solve.launches - s0
+    if (df, ds) != (1, 1):
+        raise AssertionError(f"band LU wrappers counted {df} and {ds} launches for one call each")
+    return F, x
+
+
 def band_lu_phase(dev, heat_problem, card_line):
     """Phase 7; returns the band_lu_factor and band_lu_solve records
     (launches filled in by phase 8)."""
@@ -600,8 +622,7 @@ def band_lu_phase(dev, heat_problem, card_line):
     errs = {"factor": 0.0, "solve": 0.0}
     for name, band, ml, mu in (("heat1d", heat_band, 1, 1),
                                ("random", rnd_band, ml_r, mu_r)):
-        F = band_lu.band_lu_factor(band, ml, mu)
-        x = band_lu.band_lu_solve(F, b, ml, mu)
+        F, x = lu_once(band, b, ml, mu)
         F_p = band_lu.band_lu_factor_reference(band, ml, mu)
         x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
         torch.cuda.synchronize()
@@ -611,7 +632,7 @@ def band_lu_phase(dev, heat_problem, card_line):
             errs = {"factor": ef, "solve": ex}
         print(f"[7] band LU kernels vs plain, {name} (B={B}, n={n}, ml={ml}, mu={mu}): "
               f"factors max abs diff {ef:.3e}, x max abs diff {ex:.3e} "
-              f"(bound {LU_RTOL:g} relative)", flush=True)
+              f"(bound {LU_RTOL:g} relative); one launch each", flush=True)
 
     F = band_lu.band_lu_factor(heat_band, 1, 1)
     k3_ms = time_ms(lambda: band_lu.band_lu_factor(heat_band, 1, 1), 20)
@@ -630,11 +651,13 @@ def band_lu_phase(dev, heat_problem, card_line):
     lib_f_ms = time_ms(lambda: torch.linalg.lu_factor(dense), 5)
     lib_s_ms = time_ms(lambda: torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)), 5)
     # bytes: the band read once and the factors written once (factor); the
-    # factors and b read once and x written once (solve); the f64 work of
-    # the column sweeps is far smaller
-    nb = 3
-    f_bytes = 8 * B * (nb * n + (n + 1) * nb)
-    s_bytes = 8 * B * ((n + 1) * nb + 2 * n)
+    # factor elements the two sweeps use (the ml multipliers of columns
+    # 0 .. n-2, the mu+1 rows of U), b read once and x written once
+    # (solve); the f64 work of the column sweeps is far smaller
+    ml = mu = 1
+    nb = ml + mu + 1
+    f_bytes = 8 * B * (nb * n + (n + mu) * nb)
+    s_bytes = 8 * B * ((n - 1) * ml + n * (mu + 1) + 2 * n)
     f_bound = bound(f_bytes, B * n * (1 + 1 + 2))
     s_bound = bound(s_bytes, B * (2 * (n - 1) + 3 * n))
     print(f"[7] band LU at B={B}, n={n}, ml=mu=1 (median of 20): factor {k3_ms:.4f} ms "
@@ -767,9 +790,10 @@ def mol2d_problem(name, banded=True):
 
 
 def mol2d_phases(dev, card_line, check_solves):
-    """Phase 13; returns the two fused 2-D paths (name, callable, kernel)
-    and the fused band kernel's records on them, with the band LU launches
-    of heat2d's lockstep run for phase 14."""
+    """Phase 13; returns the 2-D paths to profile (name, callable, kernel:
+    both fused ones and heat2d's lockstep one), the fused band kernel's
+    records on them, and the band LU launches of each lockstep run (name
+    -> (K3, K4)) for phase 14."""
     from diffsol_tpu_torch import BdfSolver, errors, solve_dense, solve_dense_ensemble
     from diffsol_tpu_torch.models import foodweb
     from diffsol_tpu_torch.ops import band_lu
@@ -777,7 +801,7 @@ def mol2d_phases(dev, card_line, check_solves):
     from diffsol_tpu_torch.ops import fused_stepper as fs
     from diffsol_tpu_torch.ops.eqn_codegen import op_count
 
-    paths, records, lu_launches = [], [], None
+    paths, records, lu_launches = [], [], {}
     for name, (grid, te, max_steps) in MOL2D.items():
         problem = mol2d_problem(name)
         n = problem.eqn.nstates
@@ -809,11 +833,14 @@ def mol2d_phases(dev, card_line, check_solves):
               f"{steps.tolist()}, first call {first_s:.2f} s (host clock)", flush=True)
 
         # ---- the lockstep path: the band LU kernels on every Newton matrix
+        def lock_path(problem=problem, te=te, max_steps=max_steps, params=params):
+            return solve_dense_ensemble(BdfSolver, problem, te, params, mode="lockstep",
+                                        max_steps=max_steps)
+
         band_lu.launch_band_lu_factor.launches = 0
         band_lu.launch_band_lu_solve.launches = 0
         t0 = time.perf_counter()
-        lock = solve_dense_ensemble(BdfSolver, problem, te, params, mode="lockstep",
-                                    max_steps=max_steps)
+        lock = lock_path()
         torch.cuda.synchronize()
         lock_s = time.perf_counter() - t0
         k3 = band_lu.launch_band_lu_factor.launches
@@ -823,18 +850,28 @@ def mol2d_phases(dev, card_line, check_solves):
                                  f"{lock.stop_reason}")
         if k3 < 1 or k4 < 1:
             raise AssertionError(f"{name} lockstep launched K3 {k3} and K4 {k4} times")
-        if name == "heat2d":
-            lu_launches = (k3, k4)
+        lu_launches[name] = (k3, k4)
         diff = (sol.ys - lock.ys).abs()
         if bool((diff > MODES_ATOL + MODES_RTOL * lock.ys.abs()).any()):
             raise AssertionError(f"{name}: fused and lockstep disagree, max abs "
                                  f"{float(diff.max())}")
         st = lock.state.stats
+        lock_runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            lock_path()
+            torch.cuda.synchronize()
+            lock_runs.append(time.perf_counter() - t0)
         print(f"[13] {name} lockstep path: B={B_BAND}, {st.steps} steps, "
               f"{st.newton_iterations} Newton iterations, band LU launches factor {k3} "
-              f"solve {k4}, TSTOP_REACHED, {lock_s:.2f} s (host clock, one run); fused vs "
-              f"lockstep max abs {float(diff.max()):.3e} (largest value "
-              f"{float(lock.ys.abs().max()):.4g})", flush=True)
+              f"solve {k4}, TSTOP_REACHED, {float(np.median(lock_runs)):.3f} s median of 3 "
+              f"after the first ({', '.join(f'{t:.3f}' for t in lock_runs)}; first call "
+              f"{lock_s:.3f} s; host clock); fused vs lockstep max abs "
+              f"{float(diff.max()):.3e} (largest value {float(lock.ys.abs().max()):.4g}); "
+              f"card {card_line}", flush=True)
+        if name == "heat2d":
+            paths.append((f"{name} lockstep path (B={B_BAND})", lock_path,
+                          "band_lu_factor_kernel"))
 
         # ---- member 0 against a single dense solve on the card
         dense = solve_dense(BdfSolver(mol2d_problem(name, banded=False)), te,
@@ -936,63 +973,69 @@ def mol2d_phases(dev, card_line, check_solves):
 
 
 def band_lu_wide_phase(dev, card_line, lu_launches):
-    """Phase 14: the band LU kernels at nb = 41 on heat2d's iteration
-    matrix; returns their records, with the launches of heat2d's lockstep
-    run."""
+    """Phase 14: the band LU kernels at nb = 41 on the iteration matrices of
+    heat2d (n = 400) and foodweb (n = 200); returns their records, with the
+    launches of each model's lockstep run."""
     from diffsol_tpu_torch.ops import band_lu
     from diffsol_tpu_torch.ops.banded import band_to_dense
 
-    problem = mol2d_problem("heat2d")
-    n, B = problem.eqn.nstates, B_BAND
-    ml, mu = problem.linear_solver.meta
-    nb = ml + mu + 1
-    t0 = torch.tensor(0.0, dtype=torch.float64, device=dev)
-    one = torch.ones(1, dtype=torch.float64, device=dev)
-    y0 = problem.eqn.init(t0, one)
-    jac = problem.eqn.jac(t0, y0, one)  # (nb, n), the same for every member
-    mass = problem.eqn.mass_repr(t0, one)
-    band1 = problem.linear_solver.assemble(mass, jac, 1e-3)
-    band = band1.expand(B, -1, -1).contiguous()
-    b = torch.tensor(np.random.default_rng(SEED).standard_normal((B, n)), device=dev)
-    F = band_lu.band_lu_factor(band, ml, mu)
-    x = band_lu.band_lu_solve(F, b, ml, mu)
-    F_p = band_lu.band_lu_factor_reference(band, ml, mu)
-    x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
-    torch.cuda.synchronize()
-    ef = check_lu("heat2d nb=41 factor", F, F_p)
-    ex = check_lu("heat2d nb=41 solve", x, x_p)
-    k3_ms = time_ms(lambda: band_lu.band_lu_factor(band, ml, mu), 10)
-    k4_ms = time_ms(lambda: band_lu.band_lu_solve(F, b, ml, mu), 10)
-    k3_plain = time_ms(lambda: band_lu.band_lu_factor_reference(band, ml, mu), 1)
-    k4_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F, b, ml, mu), 1)
-    dense = band_to_dense(band1, ml, mu).expand(B, -1, -1).contiguous()
-    lu, piv = torch.linalg.lu_factor(dense)
-    x_lib = torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)).squeeze(-1)
-    lib_err = float((x_lib - x).abs().max() / x.abs().max())
-    lib_f_ms = time_ms(lambda: torch.linalg.lu_factor(dense), 3)
-    lib_s_ms = time_ms(lambda: torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)), 3)
-    # bytes: the band in and the factors out (factor); the factors and b in
-    # and x out (solve); operations: 2 ml mu a column (factor), 2 (ml + mu)
-    # + 1 a row (solve)
-    f_bound = bound(8 * B * (nb * n + (n + mu) * nb), B * n * 2 * ml * mu)
-    s_bound = bound(8 * B * ((n + mu) * nb + 2 * n), B * n * (2 * ml + 2 * mu + 1))
-    print(f"[14] band LU kernels vs plain on heat2d's M - cJ (B={B}, n={n}, ml=mu={ml}, "
-          f"nb={nb}): factors max abs diff {ef:.3e}, x max abs diff {ex:.3e} (bound "
-          f"{LU_RTOL:g} relative); median of 10: factor {k3_ms:.3f} ms (least "
-          f"{f_bound[0]:.4f} ms by {f_bound[1]}), solve {k4_ms:.3f} ms (least "
-          f"{s_bound[0]:.4f} ms by {s_bound[1]}); plain {k3_plain:.0f} / {k4_plain:.0f} ms "
-          f"(one run); torch.linalg.lu_factor / lu_solve on the dense (B, n, n) expansion "
-          f"{lib_f_ms:.2f} / {lib_s_ms:.2f} ms (x within {lib_err:.1e} relative of the "
-          f"kernel's); card {card_line}", flush=True)
+    records = []
     common = {"route": "cuda", "source": "diffsol_tpu_torch/csrc/band_lu.cuh"}
-    return [
-        dict(name="band_lu_factor:nb41", replaces="diffsol_tpu/ops/pallas_banded.py:51",
-             launches=lu_launches[0], max_abs_err=ef, ms=k3_ms, plain_ms=k3_plain,
-             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=lib_f_ms, **common),
-        dict(name="band_lu_solve:nb41", replaces="diffsol_tpu/ops/pallas_banded.py:72",
-             launches=lu_launches[1], max_abs_err=ex, ms=k4_ms, plain_ms=k4_plain,
-             bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=lib_s_ms, **common),
-    ]
+    for name, tag in (("heat2d", "nb41"), ("foodweb", "foodweb")):
+        problem = mol2d_problem(name)
+        n, B = problem.eqn.nstates, B_BAND
+        ml, mu = problem.linear_solver.meta
+        nb = ml + mu + 1
+        t0 = torch.tensor(0.0, dtype=torch.float64, device=dev)
+        one = torch.ones(1, dtype=torch.float64, device=dev)
+        y0 = problem.eqn.init(t0, one)
+        jac = problem.eqn.jac(t0, y0, one)  # (nb, n), the same for every member
+        mass = problem.eqn.mass_repr(t0, one)
+        band1 = problem.linear_solver.assemble(mass, jac, 1e-3)
+        band = band1.expand(B, -1, -1).contiguous()
+        b = torch.tensor(np.random.default_rng(SEED).standard_normal((B, n)), device=dev)
+        F, x = lu_once(band, b, ml, mu)
+        F_p = band_lu.band_lu_factor_reference(band, ml, mu)
+        x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
+        torch.cuda.synchronize()
+        ef = check_lu(f"{name} nb={nb} factor", F, F_p)
+        ex = check_lu(f"{name} nb={nb} solve", x, x_p)
+        k3_ms = time_ms(lambda: band_lu.band_lu_factor(band, ml, mu), 10)
+        k4_ms = time_ms(lambda: band_lu.band_lu_solve(F, b, ml, mu), 10)
+        k3_plain = time_ms(lambda: band_lu.band_lu_factor_reference(band, ml, mu), 1)
+        k4_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F, b, ml, mu), 1)
+        dense = band_to_dense(band1, ml, mu).expand(B, -1, -1).contiguous()
+        lu, piv = torch.linalg.lu_factor(dense)
+        x_lib = torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)).squeeze(-1)
+        lib_err = float((x_lib - x).abs().max() / x.abs().max())
+        lib_f_ms = time_ms(lambda: torch.linalg.lu_factor(dense), 3)
+        lib_s_ms = time_ms(lambda: torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)), 3)
+        # bytes: the band in and the factors out (factor); the factor
+        # elements the sweeps use (the ml multipliers of columns 0 .. n-2, the
+        # mu+1 rows of U), b in and x out (solve); operations: 2 ml mu a
+        # column (factor), 2 (ml + mu) + 1 a row (solve)
+        f_bound = bound(8 * B * (nb * n + (n + mu) * nb), B * n * 2 * ml * mu)
+        s_bound = bound(8 * B * ((n - 1) * ml + n * (mu + 1) + 2 * n),
+                        B * n * (2 * ml + 2 * mu + 1))
+        print(f"[14] band LU kernels vs plain on {name}'s M - cJ (B={B}, n={n}, "
+              f"ml=mu={ml}, nb={nb}): factors max abs diff {ef:.3e}, x max abs diff "
+              f"{ex:.3e} (bound {LU_RTOL:g} relative), one launch each; median of 10: "
+              f"factor {k3_ms:.4f} ms (least {f_bound[0]:.4f} ms by {f_bound[1]}), solve "
+              f"{k4_ms:.4f} ms (least {s_bound[0]:.4f} ms by {s_bound[1]}); plain "
+              f"{k3_plain:.0f} / {k4_plain:.0f} ms (one run); torch.linalg.lu_factor / "
+              f"lu_solve on the dense (B, n, n) expansion {lib_f_ms:.3f} / {lib_s_ms:.3f} ms "
+              f"(x within {lib_err:.1e} relative of the kernel's); {name}'s lockstep run "
+              f"launched K3 {lu_launches[name][0]} and K4 {lu_launches[name][1]} times; card "
+              f"{card_line}", flush=True)
+        records += [
+            dict(name=f"band_lu_factor:{tag}", replaces="diffsol_tpu/ops/pallas_banded.py:51",
+                 launches=lu_launches[name][0], max_abs_err=ef, ms=k3_ms, plain_ms=k3_plain,
+                 bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=lib_f_ms, **common),
+            dict(name=f"band_lu_solve:{tag}", replaces="diffsol_tpu/ops/pallas_banded.py:72",
+                 launches=lu_launches[name][1], max_abs_err=ex, ms=k4_ms, plain_ms=k4_plain,
+                 bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=lib_s_ms, **common),
+        ]
+    return records
 
 
 def mixed_phase(dev, card_line, problem, shared):
@@ -1112,10 +1155,19 @@ def profile_paths(paths, card_line):
             continue
         busy_us = sum(k[0] for k in kernels)
         top = "; ".join(f"{key[:60]} {us / 1e3:.3f} ms x{cnt}" for us, cnt, key in kernels[:6])
+        # the band LU kernels' share, where the path runs them
+        lu = "".join(
+            f", {label} {sum(us for us, _, key in hits) / 1e3:.3f} ms x"
+            f"{sum(cnt for _, cnt, _ in hits)}"
+            for label, hits in (
+                (label, [k for k in kernels if kernel in k[2]])
+                for label, kernel in (("K3", "band_lu_factor_kernel"),
+                                      ("K4", "band_lu_solve_kernel")))
+            if hits)
         print(f"[11] {name}: call {wall_us / 1e3:.3f} ms (host clock, profiled), "
-              f"device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.1%} of the call, "
-              f"{sum(k[1] for k in kernels)} kernel launches; top: {top}; card {card_line}",
-              flush=True)
+              f"device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.1%} of the call"
+              f"{lu}, {sum(k[1] for k in kernels)} kernel launches; top: {top}; card "
+              f"{card_line}", flush=True)
 
 
 def main() -> int:
@@ -1177,6 +1229,12 @@ def main() -> int:
     dae_path, variant_records = variant_phases(dev, rng, card_line, variants,
                                                check_solves, shared)
     print_builds(6, [b for b in _build.BUILDS if b["name"] != "fused_bdf"])
+    lu_lib = _build.load_band_lu()
+    for label, n_, ml_, mu_ in (("heat1d", 128, 1, 1), ("heat2d", 400, 20, 20),
+                                ("foodweb", 200, 20, 20)):
+        print(f"[6] band LU dynamic shared memory a block at {label}'s shape (n={n_}, "
+              f"ml=mu={ml_}): factor {lu_lib.band_lu_shared_bytes(n_, ml_, mu_, 0)} B, solve "
+              f"{lu_lib.band_lu_shared_bytes(n_, ml_, mu_, 1)} B", flush=True)
     band_paths, band_records = band_phases(dev, card_line, heat_problem, soln, band_check)
     mol2d_paths, mol2d_records, lu_launches = mol2d_phases(dev, card_line, mol2d_checks)
     wide_lu_records = band_lu_wide_phase(dev, card_line, lu_launches)

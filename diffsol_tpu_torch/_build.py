@@ -57,8 +57,12 @@ _SIGNATURES = {
         "fused_bdf_config_size": ([], _I),
     },
     "band_lu": {
-        "band_lu_factor_launch": ([_P, _I, _I, _I, _I, _P], _I),
-        "band_lu_solve_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+        # band, F, n, ml, mu, B, stream
+        "band_lu_factor_launch": ([_P, _P, _I, _I, _I, _I, _P], _I),
+        # F, its members (1 or B), b, x, n, ml, mu, B, stream
+        "band_lu_solve_launch": ([_P, _I, _P, _P, _I, _I, _I, _I, _P], _I),
+        # n, ml, mu, solve (0: the factor) -> bytes a block
+        "band_lu_shared_bytes": ([_I, _I, _I, _I], _I),
     },
     "fused_band_bdf": {
         # params, init, h_tile, t_eval, atol, mass diag, ys, info, scratch,

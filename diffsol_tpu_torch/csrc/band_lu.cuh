@@ -9,26 +9,80 @@
 // them.  No pivoting: the iteration matrices M - cJ of parabolic
 // method-of-lines operators are diagonally dominant (the trade LAPACK's
 // dgtsv-style fast paths make; the fused band stepper guards it with an
-// element-growth test).
-//
-// One thread per member.  A member's band is strided by `s` doubles, the
-// number of members, so member m reads F[(k*nb + d)*s + m]: a warp's 32
-// members touch 32 neighbouring doubles of one column row, a coalesced
-// 256-byte access.  Everything is double (the Pallas kernels are f32
+// element-growth test).  Everything is double (the Pallas kernels are f32
 // because Mosaic has no f64; there the LU is a Newton preconditioner, here
 // an exact solver).
 //
-// What bounds it on the H100: each member's column loop is a serial chain
-// of n dependent steps (a divide, then ml*mu multiply-adds), so at the
-// main path's B = 1024, n = 128 (8 blocks of 128 threads) the kernel is
-// latency-bound: a few microseconds of bytes at 3.35 TB/s against a chain
-// of some n * (divide + FMA) latencies.  The design keeps the member axis
-// coalesced and leaves wider parallelism (more members per SM, a
-// cyclic-reduction split of the column chain) to later work.
+// Two parts:
 //
-// The __device__ functions serve this file's thin __global__ wrappers
-// (K3, K4) and the fused band stepper (fused_band_bdf.cuh), which includes
-// this header with DIFFSOL_BAND_LU_NO_ENTRY defined.
+// * band_factor / band_solve, one thread walking one member's band in
+//   device memory, strided by the member count (F[(k*nb + d)*s + m]).  The
+//   fused band stepper (fused_band_bdf.cuh) includes this header with
+//   DIFFSOL_BAND_LU_NO_ENTRY defined and runs them inside its step loop.
+//
+// * K3 and K4, band_lu_factor_kernel / band_lu_solve_kernel below: a warp
+//   a member, G = 4 members (warps) a block, so B = 1,024 members make 256
+//   blocks over all 132 SMs.
+//
+// What bounds K3/K4 on the H100.  At the 2-D models' width (n = 400,
+// ml = mu = 20, nb = 41, B = 1,024) the bytes: the band in and the factors
+// out once is 8 B (nb n + (n + mu) nb) B = 275 MB, 0.082 ms at 3.35 TB/s
+// (the solve reads the factor elements its sweeps use, (n-1) ml + n (mu+1)
+// a member, and b, and writes x: 0.042 ms); the f64 work,
+// 2 ml mu n B = 0.33 GFLOP, is 0.01 ms at 34 TFLOP/s.  At heat1d's nb = 3
+// the bytes take 2 us and the column chain sets the pace: n dependent
+// steps a member, each a reciprocal and a few shared-memory round trips.
+//
+// The design.
+//
+// * K3 keeps a member's active window on chip: at column k only columns
+//   k .. k+mu change, so W = mu + 2C columns of nb doubles (C = 16 columns
+//   a chunk at wide bands, 32 at narrow ones) live in shared memory: 17 KB
+//   a member at nb = 41, whatever n is.  The warp copies the next chunk's
+//   C columns from the member-major (B, nb, n) band (contiguous along the
+//   columns) with cp.async while it eliminates the current chunk, then
+//   slides the window by C columns; the block writes each finished chunk
+//   once into the member-fastest (n+mu, nb, B) layout, G = 4 members to a
+//   32-byte sector.  A column step is one __syncwarp: every lane takes the
+//   reciprocal of the pivot (no broadcast), then lane i updates
+//   sub-diagonal row i (32 / ml lanes share a row when ml < 32), e = e -
+//   l*u with l = a[i]*inv, four updates at a time with every load before
+//   the stores.  In the sliding window a lane's updates sit a constant
+//   stride apart (a ring addressed modulo its length spent more issue
+//   slots on addresses than on the arithmetic).  The scaled multipliers
+//   are written at the chunk's write-out from the unscaled column and the
+//   saved reciprocal: the same product, so each element sees the plain
+//   version's operations in its order (FMA contraction is the only
+//   difference).
+//
+// * K4 streams the factors through shared memory, each element once: the
+//   forward sweep reads the ml multiplier rows of columns 0 .. n-2, the back
+//   sweep the mu+1 rows of U from column n-1 down; a block copies chunks of
+//   C columns (~8 KB a member) with cp.async into two buffers, one ahead
+//   of use.  x (n doubles a member) sits in shared memory.  The forward
+//   sweep's ml updates of a step are split over the lanes, in the plain
+//   version's order.  The back sweep is COLUMN-oriented: once x[k] is
+//   final, lane dj does x[k-dj] -= U[k-dj][k] x[k], and x[k] is the sum
+//   times a reciprocal formed a chunk at a time off the chain.  That
+//   reverses the order of each row's sum against the plain version's row
+//   loop and puts an ulp between the product and its division; both are
+//   held to the same 1e-12 relative as the rest.  One factorization
+//   serving many right-hand sides is read with a member stride of 0.
+//
+// * Shapes past the shared memory at four members a block and the chunk
+//   above (a factor window over 58 KB a member, (mu + 32) nb > ~7,250 at
+//   nb > 8, so ml = mu > 45; x over ~7,000 doubles a member at heat1d's
+//   width) take the same loops with the window in device memory (the
+//   <false> instantiations): slower, not refused.  No model of the port
+//   runs there, so the plan does not search for a smaller on-chip layout.
+//
+// Measured on an H100 80GB HBM3 at 700.00 W (chip_smoke.py phases 7, 11
+// and 14; B = 1,024): at n = 400, nb = 41 a call of K3 takes 0.443 ms and
+// of K4 0.212 ms (device time 0.41 and 0.18 ms), against bounds of 0.082
+// and 0.042 ms and torch.linalg's dense lu_factor / lu_solve at 37.6 and
+// 2.8 ms; at heat1d's n = 128, nb = 3 0.097 and 0.101 ms (device 0.050
+// and 0.056 ms) against 0.0019 and 0.0016 ms.  The one-thread-a-member
+// kernels these replaced took 32.5 / 3.87 ms and 0.126 / 0.135 ms.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -92,50 +146,326 @@ __device__ __forceinline__ void band_solve(const double* F, double* x, size_t s,
 
 }  // namespace diffsol_band
 
+
 #ifndef DIFFSOL_BAND_LU_NO_ENTRY
+
+#include <cuda_pipeline.h>
+
+#include <type_traits>
 
 namespace diffsol_band {
 
-constexpr int THREADS = 128;
+constexpr int WARP = 32;
+constexpr int MEMBERS = 4;           // members a block, a warp each
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may take on sm_90
 
-// K3: F is (n+mu, nb, B) with columns 0..n-1 filled; factored in place.
-__global__ void __launch_bounds__(THREADS)
-band_lu_factor_kernel(double* __restrict__ F, int n, int ml, int mu, int B) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= B) return;
-  band_factor(F + m, (size_t)B, n, ml, mu);
+// How a launch lays out shared memory: MEMBERS members a block, C columns
+// a chunk, `stride` doubles a member (odd, so that the members' copies of
+// one element sit in different banks), the window on chip or in device
+// memory.
+struct Plan {
+  int C, stride;
+  bool on_chip;
+  size_t bytes() const { return (size_t)MEMBERS * stride * sizeof(double); }
+  bool fits() const { return bytes() <= SMEM_MAX; }
+};
+
+inline int odd(size_t v) { return (int)(v | 1); }
+inline int chunk_cols(int nb) { return nb <= 8 ? 32 : 16; }
+// K4 streams about 8 KB of factors a member a chunk: enough bytes in
+// flight per SM to cover the memory latency
+inline int solve_cols(int rows) { return rows <= 16 ? 64 : (rows < 1024 ? 1024 / rows : 1); }
+
+// K3: a window of mu + 2C columns of nb doubles and C reciprocals a member;
+// past the shared memory, the window is the factors' own columns in
+// device memory and only the reciprocals stay on chip.
+inline Plan factor_plan(int ml, int mu) {
+  const int nb = ml + mu + 1, C = chunk_cols(nb);
+  const Plan p{C, odd((size_t)(mu + 2 * C) * nb + C), true};
+  return p.fits() ? p : Plan{C, odd(C), false};
 }
 
-// K4: F (n+mu, nb, B) factored, b (n, B), x (n + max(ml, mu, 1), B) out.
-__global__ void __launch_bounds__(THREADS)
-band_lu_solve_kernel(const double* __restrict__ F, const double* __restrict__ b,
-                     double* __restrict__ x, int n, int ml, int mu, int B) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= B) return;
-  for (int r = 0; r < n; ++r) x[(size_t)r * B + m] = b[(size_t)r * B + m];
-  band_solve(F + m, x + m, (size_t)B, n, ml, mu);
+// K4: two buffers of C columns by max(ml, mu + 1) factor rows, C pivot
+// reciprocals and x, a member; past the shared memory, x stays in device
+// memory (the output).  Neither fits past max(ml, mu + 1) = 3,631.
+inline Plan solve_plan(int n, int ml, int mu) {
+  const int rows = ml > mu + 1 ? ml : mu + 1, C = solve_cols(rows);
+  const Plan p{C, odd((size_t)(2 * rows + 1) * C + n), true};
+  return p.fits() ? p : Plan{C, odd((size_t)(2 * rows + 1) * C), false};
+}
+
+// K3: band (B, nb, n) member-major, band[m][d][j] = A_m[j+d-mu][j] ->
+// F (n+mu, nb, B) factored, pad columns included.  Warp g of the block
+// factors member blockIdx.x * G + g.
+template <bool ON_CHIP>
+__global__ void __launch_bounds__(MEMBERS * WARP)
+band_lu_factor_kernel(const double* __restrict__ band, double* __restrict__ F, int n, int ml,
+                      int mu, int B, int C, int stride) {
+  // offsets: int within shared memory, size_t within F
+  using Off = typename std::conditional<ON_CHIP, int, size_t>::type;
+  extern __shared__ double smem[];
+  const int nb = ml + mu + 1, ncols = n + mu, W = mu + 2 * C;
+  constexpr int G = MEMBERS;
+  const int g = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int m0 = blockIdx.x * G, m = m0 + g;
+  const bool active = m < B;
+  double* const mine = smem + (size_t)g * stride;
+  double* const invs = ON_CHIP ? mine + (size_t)W * nb : mine;  // this chunk's reciprocals
+  // row d of column c: base[(c - wbase) * cs + d * es], where the window
+  // starts at column wbase (on chip) or is F itself (wbase = 0)
+  double* const base = ON_CHIP ? mine : F + m;
+  const Off es = ON_CHIP ? 1 : (Off)B, cs = (Off)nb * es;
+  const double* const src = band + (size_t)m * nb * n;
+  int wbase = 0;
+
+  // columns [a, b) of this member into the window; pad columns are unit
+  auto load = [&](int a, int b) {
+    for (int c = a + lane; c < b; c += WARP) {
+      double* dst = base + (Off)(c - wbase) * cs;
+      for (int d = 0; d < nb; ++d) {
+        if (c >= n) {
+          dst[d * es] = (d == mu) ? 1.0 : 0.0;
+        } else if constexpr (ON_CHIP) {
+          __pipeline_memcpy_async(dst + d, src + (size_t)d * n + c, sizeof(double));
+        } else {
+          dst[d * es] = src[(size_t)d * n + c];
+        }
+      }
+    }
+  };
+
+  // lane -> sub-diagonal row i (rows i, i+32, ... when ml > 32) and its
+  // updates dj = js+1, js+1+S, ...: S = 32 / ml lanes share a row.  The
+  // update of (row k+i, column k+dj) sits dj (nb - 1) rows after that of
+  // (k+i, k), so a lane's addresses step by a constant.
+  const int S = (ml > 0 && ml < WARP) ? WARP / ml : 1;
+  const int i0 = (ml > 0 && lane < S * ml) ? lane % ml + 1 : 0;  // 0: no row
+  const int js = ml > 0 ? lane / ml : 0;
+  const Off st = (Off)S * (nb - 1) * es;
+
+  if (active) load(0, min(mu + C, ncols));
+  __pipeline_commit();
+  for (int k0 = 0; k0 < n; k0 += C) {
+    const int k1 = min(k0 + C, n);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (ON_CHIP && k0 > 0) {
+      // slide the window by C columns, [C, 2C + mu) -> [0, C + mu), in
+      // passes of C columns so that no pass reads what it writes
+      if (active)
+        for (int p0 = 0; p0 < C + mu; p0 += C) {
+          const int cnt = min(C, C + mu - p0) * nb;
+          const double* from = mine + (p0 + C) * nb;
+          double* to = mine + p0 * nb;
+          for (int e = lane; e < cnt; e += WARP) to[e] = from[e];
+          __syncwarp();
+        }
+      wbase = k0;
+    }
+    // the next chunk's new columns, in flight while this one is eliminated
+    if (active) load(k1 + mu, min(k1 + C, n) + mu);
+    __pipeline_commit();
+    if (active) {
+      for (int k = k0; k < k1; ++k) {
+        __syncwarp();
+        double* const ck = base + (Off)(k - wbase) * cs;
+        const double inv = 1.0 / ck[mu * es];
+        if (lane == 0) invs[k - k0] = inv;
+        for (int i = i0; i >= 1 && i <= ml; i += WARP) {
+          const double l = ck[(mu + i) * es] * inv;
+          // u = U[k][k+dj] at up[0], e = A[k+i][k+dj] at up[i es]; four
+          // at a time, every load before the stores
+          double* up = ck + mu * es + (Off)(js + 1) * (nb - 1) * es;
+          const Off ie = (Off)i * es;
+          int dj = js + 1;
+          for (; dj + 3 * S <= mu; dj += 4 * S, up += 4 * st) {
+            double u[4], v[4];
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              u[t] = up[t * st];
+              v[t] = up[t * st + ie];
+            }
+#pragma unroll
+            for (int t = 0; t < 4; ++t) up[t * st + ie] = v[t] - l * u[t];
+          }
+          for (; dj <= mu; dj += S, up += st) up[ie] = up[ie] - l * up[0];
+        }
+      }
+    }
+    __syncthreads();
+    // columns k0 .. k1-1 are final (and, after the last chunk, the pads):
+    // write them once, each multiplier as the product l = a * inv the
+    // updates used
+    if constexpr (ON_CHIP) {
+      const int c1 = (k1 == n) ? ncols : k1;
+      const int gg = threadIdx.x % G, dd = threadIdx.x / G;  // dd < 32
+      const double* win = smem + (size_t)gg * stride;
+      const double* sc = win + (size_t)W * nb;
+      if (m0 + gg < B)
+        for (int c = k0; c < c1; ++c) {
+          const double* cc = win + (c - k0) * nb;
+          for (int d = dd; d < nb; d += WARP) {
+            double v = cc[d];
+            if (d > mu && c < k1) v *= sc[c - k0];
+            F[((size_t)c * nb + d) * B + m0 + gg] = v;
+          }
+        }
+    } else if (active) {
+      for (int e = lane; e < (k1 - k0) * ml; e += WARP) {
+        const int c = k0 + e / ml, d = mu + 1 + e % ml;
+        F[((size_t)c * nb + d) * B + m] *= invs[c - k0];
+      }
+    }
+  }
+}
+
+// K4: F (n+mu, nb, B) factored, or (n+mu, nb, 1) for every member when
+// fm = 0; b (B, n) -> x (B, n).  Warp g of the block solves member
+// blockIdx.x * G + g.
+template <bool ON_CHIP>
+__global__ void __launch_bounds__(MEMBERS * WARP)
+band_lu_solve_kernel(const double* __restrict__ F, int fm, const double* __restrict__ b,
+                     double* __restrict__ x, int n, int ml, int mu, int B, int C, int stride) {
+  extern __shared__ double smem[];
+  const int nb = ml + mu + 1;
+  const size_t fs = fm ? (size_t)B : 1;  // doubles between F's (column, row) pairs
+  constexpr int G = MEMBERS;
+  const int g = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int m0 = blockIdx.x * G, m = m0 + g;
+  const bool active = m < B;
+  const int rows = ml > mu + 1 ? ml : mu + 1, cap = C * rows;
+  double* const mine = smem + (size_t)g * stride;
+  double* const rinv = mine + 2 * cap;  // a back chunk's 1 / U[k][k]
+  double* const xs = ON_CHIP ? rinv + C : x + (size_t)m * n;
+  // the chunks: nf forward ones over columns 0 .. n-2 (the ml multiplier
+  // rows), then the backward ones over columns n-1 .. 0 (the mu+1 rows of U)
+  const int nf = (ml > 0 && n > 1) ? (n - 1 + C - 1) / C : 0;
+  const int nq = nf + (n + C - 1) / C;
+  auto span = [&](int q, int& c0, int& c1, int& d0, int& nr) {
+    if (q < nf) {
+      c0 = q * C;
+      c1 = min(c0 + C, n - 1);
+      d0 = mu + 1;
+      nr = ml;
+    } else {
+      c1 = n - (q - nf) * C;
+      c0 = max(c1 - C, 0);
+      d0 = 0;
+      nr = mu + 1;
+    }
+  };
+  // the block copies chunk q into buffer q & 1 of every member, G members
+  // to a sector
+  auto fetch = [&](int q) {
+    int c0, c1, d0, nr;
+    span(q, c0, c1, d0, nr);
+    const int gg = threadIdx.x % G, dd = threadIdx.x / G;  // dd < 32
+    if (m0 + gg < B) {
+      double* buf = smem + (size_t)gg * stride + (q & 1) * cap;
+      const double* f = F + (size_t)d0 * fs + (size_t)(m0 + gg) * fm;
+      for (int c = c0; c < c1; ++c)
+        for (int d = dd; d < nr; d += WARP)
+          __pipeline_memcpy_async(buf + (c - c0) * nr + d, f + ((size_t)c * nb + d) * fs,
+                                  sizeof(double));
+    }
+    __pipeline_commit();
+  };
+
+  if (active)
+    for (int r = lane; r < n; r += WARP) xs[r] = b[(size_t)m * n + r];
+  fetch(0);
+  double pending = 0.0;  // x[k+1] of the back sweep, stored one step late
+  for (int q = 0; q < nq; ++q) {
+    if (q + 1 < nq) {
+      fetch(q + 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    int c0, c1, d0, nr;
+    span(q, c0, c1, d0, nr);
+    const double* buf = mine + (q & 1) * cap;
+    if (active && q < nf) {
+      // forward: x[k+i] -= L[k+i][k] x[k], i = 1 .. ml split over the lanes
+      for (int k = c0; k < c1; ++k) {
+        __syncwarp();
+        const double xk = xs[k];
+        const double* lk = buf + (k - c0) * nr;  // lk[i-1] = F[k][mu+i]
+        for (int i = lane + 1; i <= ml && k + i < n; i += WARP)
+          xs[k + i] = xs[k + i] - lk[i - 1] * xk;
+      }
+    } else if (active) {
+      // back, column by column: x[k] = acc * (1 / U[k][k]), the reciprocals
+      // formed a chunk at a time off the chain (within an ulp of acc /
+      // U[k][k]); then x[k-dj] -= U[k-dj][k] x[k], dj = 1 .. mu split over
+      // the lanes.  No lane reads x[k+1] at step k, so lane 0 stores it then.
+      for (int c = c0 + lane; c < c1; c += WARP) rinv[c - c0] = 1.0 / buf[(c - c0) * nr + mu];
+      for (int k = c1 - 1; k >= c0; --k) {
+        __syncwarp();
+        const double* uk = buf + (k - c0) * nr;  // uk[d] = F[k][d]
+        const double xk = xs[k] * rinv[k - c0];
+        if (lane == 0 && k + 1 < n) xs[k + 1] = pending;
+        pending = xk;
+        for (int dj = lane + 1; dj <= mu && k - dj >= 0; dj += WARP)
+          xs[k - dj] = xs[k - dj] - uk[mu - dj] * xk;
+      }
+    }
+    __syncthreads();
+  }
+  if (active) {
+    if (lane == 0) xs[0] = pending;
+    if (ON_CHIP) {
+      __syncwarp();
+      for (int r = lane; r < n; r += WARP) x[(size_t)m * n + r] = xs[r];
+    }
+  }
+}
+
+template <typename Kernel>
+int allow_shared(Kernel kernel, const Plan& p) {
+  if (p.bytes() <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)p.bytes());
 }
 
 }  // namespace diffsol_band
 
 // The C entry points, bound with ctypes (ops/band_lu.py).  Pointers are
-// device pointers; each launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
-extern "C" int band_lu_factor_launch(double* F, int n, int ml, int mu, int B, void* stream) {
+// device pointers; each launches on `stream` and returns the CUDA error of
+// the shared-memory request or of the launch (0 = launched).
+extern "C" int band_lu_factor_launch(const double* band, double* F, int n, int ml, int mu,
+                                     int B, void* stream) {
   using namespace diffsol_band;
   if (n < 1 || ml < 0 || mu < 0 || B < 1) return (int)cudaErrorInvalidValue;
-  band_lu_factor_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
-      F, n, ml, mu, B);
+  const Plan p = factor_plan(ml, mu);
+  auto kernel = p.on_chip ? band_lu_factor_kernel<true> : band_lu_factor_kernel<false>;
+  if (const int rc = allow_shared(kernel, p)) return rc;
+  kernel<<<(B + MEMBERS - 1) / MEMBERS, MEMBERS * WARP, p.bytes(), (cudaStream_t)stream>>>(
+      band, F, n, ml, mu, B, p.C, p.stride);
   return (int)cudaGetLastError();
 }
 
-extern "C" int band_lu_solve_launch(const double* F, const double* b, double* x, int n,
-                                    int ml, int mu, int B, void* stream) {
+// f_members: 1 (one factorization for every right-hand side) or B
+extern "C" int band_lu_solve_launch(const double* F, int f_members, const double* b, double* x,
+                                    int n, int ml, int mu, int B, void* stream) {
   using namespace diffsol_band;
-  if (n < 1 || ml < 0 || mu < 0 || B < 1) return (int)cudaErrorInvalidValue;
-  band_lu_solve_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
-      F, b, x, n, ml, mu, B);
+  if (n < 1 || ml < 0 || mu < 0 || B < 1 || (f_members != 1 && f_members != B))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = solve_plan(n, ml, mu);
+  if (!p.fits()) return (int)cudaErrorInvalidValue;
+  auto kernel = p.on_chip ? band_lu_solve_kernel<true> : band_lu_solve_kernel<false>;
+  if (const int rc = allow_shared(kernel, p)) return rc;
+  kernel<<<(B + MEMBERS - 1) / MEMBERS, MEMBERS * WARP, p.bytes(), (cudaStream_t)stream>>>(
+      F, f_members == B ? 1 : 0, b, x, n, ml, mu, B, p.C, p.stride);
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory a block of the factor (solve = 0) or of the
+// solve (solve = 1) takes at these shapes, for the build report.
+extern "C" int band_lu_shared_bytes(int n, int ml, int mu, int solve) {
+  using namespace diffsol_band;
+  return (int)(solve ? solve_plan(n, ml, mu) : factor_plan(ml, mu)).bytes();
 }
 
 #endif  // DIFFSOL_BAND_LU_NO_ENTRY

@@ -4,16 +4,19 @@
 The factored band is column-leading ``(n + mu, nb, B)`` with the member
 index fastest: ``F[k, d, m] = A_m[k + d - mu, k]``, multipliers below band
 row ``mu`` (the main diagonal) and U in and above it, LAPACK gbtrf style,
-plus ``mu`` unit-diagonal pad columns.  On the card that layout makes each
-column step a coalesced warp access; the public functions take the port's
-member-major ``(B, nb, n)`` band (``band[m, d, j] = A_m[j + d - mu, j]``)
-and ``(B, n)`` right-hand sides, and transpose once at the boundary.
+plus ``mu`` unit-diagonal pad columns.  The public functions take the
+port's member-major ``(B, nb, n)`` band (``band[m, d, j] = A_m[j + d - mu,
+j]``) and ``(B, n)`` right-hand sides.
 
-Two implementations with the same operation order, both float64:
+Two implementations of the same algorithm, both float64:
 
-* the CUDA kernels of ``csrc/band_lu.cuh`` (one thread per member), built
-  with ``nvcc`` at first use and launched by :func:`launch_band_lu_factor`
-  and :func:`launch_band_lu_solve` for CUDA tensors;
+* the CUDA kernels of ``csrc/band_lu.cuh`` (a warp a member, the active
+  window in shared memory), built with ``nvcc`` at first use and launched
+  by :func:`launch_band_lu_factor` and :func:`launch_band_lu_solve` for
+  CUDA tensors.  The factor reads the member-major band and writes the
+  column-leading factors itself; the solve reads and writes ``(B, n)``
+  and takes one member's factors for every right-hand side with a member
+  stride of 0;
 * the plain PyTorch versions :func:`band_lu_factor_reference` and
   :func:`band_lu_solve_reference`, a Python loop over columns vectorized
   over members, for CPU tensors and as the kernels' yardstick on the card.
@@ -132,9 +135,10 @@ def launch_band_lu_factor(band: torch.Tensor, ml: int, mu: int) -> torch.Tensor:
     lib = load_band_lu()
     dev = band3.device
     with torch.cuda.device(dev):
+        band3 = band3.contiguous()
         F = torch.empty((n + mu, nb, B), dtype=F64, device=dev)
-        F[:n].copy_(band3.permute(2, 1, 0))
-        rc = lib.band_lu_factor_launch(F.data_ptr(), n, ml, mu, B, _stream(dev))
+        rc = lib.band_lu_factor_launch(band3.data_ptr(), F.data_ptr(), n, ml, mu, B,
+                                       _stream(dev))
         launch_band_lu_factor.launches += 1
     if rc != 0:
         raise RuntimeError(f"band_lu_factor kernel launch failed: CUDA error {rc}")
@@ -146,9 +150,9 @@ launch_band_lu_factor.launches = 0
 
 def launch_band_lu_solve(F: torch.Tensor, b: torch.Tensor, ml: int,
                          mu: int) -> torch.Tensor:
-    """K4 on ``torch.cuda.current_stream()``: factored (n+mu, nb, B) and
-    b (B, n), float64 on one CUDA device -> x (B, n).  Raises on a build or
-    launch error."""
+    """K4 on ``torch.cuda.current_stream()``: factored (n+mu, nb, B), or
+    (n+mu, nb, 1) for every right-hand side, and b (B, n), float64 on one
+    CUDA device -> x (B, n).  Raises on a build or launch error."""
     from .._build import load_band_lu
 
     nb = ml + mu + 1
@@ -159,20 +163,22 @@ def launch_band_lu_solve(F: torch.Tensor, b: torch.Tensor, ml: int,
     if F.ndim != 3 or F.shape[1] != nb or not F.is_contiguous():
         raise ValueError(f"factors must be contiguous (n+mu, {nb}, B), got "
                          f"{tuple(F.shape)}")
-    n, B = F.shape[0] - mu, F.shape[2]
-    if tuple(b.shape) != (B, n):
-        raise ValueError(f"b must be ({B}, {n}), got {tuple(b.shape)}")
+    n, fb = F.shape[0] - mu, F.shape[2]
+    if b.ndim != 2 or b.shape[1] != n or fb not in (1, b.shape[0]):
+        raise ValueError(f"b must be ({fb}, {n}), or (B, {n}) for one factorization, got "
+                         f"{tuple(b.shape)}")
+    B = b.shape[0]
     lib = load_band_lu()
     dev = F.device
     with torch.cuda.device(dev):
-        bt = b.t().contiguous()
-        x = torch.empty((n + npadx(ml, mu), B), dtype=F64, device=dev)
-        rc = lib.band_lu_solve_launch(F.data_ptr(), bt.data_ptr(), x.data_ptr(),
+        b = b.contiguous()
+        x = torch.empty((B, n), dtype=F64, device=dev)
+        rc = lib.band_lu_solve_launch(F.data_ptr(), fb, b.data_ptr(), x.data_ptr(),
                                       n, ml, mu, B, _stream(dev))
         launch_band_lu_solve.launches += 1
     if rc != 0:
         raise RuntimeError(f"band_lu_solve kernel launch failed: CUDA error {rc}")
-    return x[:n].t()
+    return x
 
 
 launch_band_lu_solve.launches = 0
@@ -196,10 +202,10 @@ def band_lu_solve(F: torch.Tensor, b: torch.Tensor, ml: int, mu: int) -> torch.T
     factorization of one member (B = 1) serves every right-hand side
     (pallas_banded.py:156-157)."""
     b2 = b if b.ndim == 2 else b.unsqueeze(0)
-    if F.shape[2] == 1 and b2.shape[0] > 1:
-        F = F.expand(-1, -1, b2.shape[0]).contiguous()
     if F.is_cuda:
         x = launch_band_lu_solve(F, b2, ml, mu)
     else:
+        if F.shape[2] == 1 and b2.shape[0] > 1:
+            F = F.expand(-1, -1, b2.shape[0])
         x = band_lu_solve_reference(F, b2, ml, mu)
     return x if b.ndim == 2 else x[0]

@@ -91,11 +91,12 @@ def _dominant(rng, n, ml, mu):
 
 
 @pytest.mark.parametrize("ml,mu,n", [(1, 1, 12), (3, 2, 20), (0, 3, 9), (3, 0, 9),
-                                     (4, 4, 33)])
+                                     (4, 4, 33), (20, 20, 64)])
 def test_plain_band_lu_matches_jax_xla(ml, mu, n):
     """The plain factor and solve against JAX ``_band_lu_factor`` /
     ``_band_lu_solve`` (both float64, the same operation order) for one
-    member and for three, at test_banded.py:110's shapes."""
+    member and for three, at test_banded.py:110's shapes and at the 2-D
+    models' width (nb = 41)."""
     rng = np.random.default_rng(7)
     a = _dominant(rng, n, ml, mu)
     b = rng.standard_normal(n)

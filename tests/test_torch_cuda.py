@@ -301,8 +301,9 @@ def test_solve_and_solve_dense_with_a_root_on_the_card_by_default():
 # the banded tier: band LU (K3, K4) and the fused band stepper (K2)
 # ---------------------------------------------------------------------------
 
-# band LU kernel vs plain version: both float64 with the same operation
-# order, so they part only by FMA contraction, about one rounding per
+# band LU kernel vs plain version: both float64, the same operations on
+# each element (the back substitution sums each row in the reverse order),
+# so they part by FMA contraction and that order, about one rounding per
 # column step of a diagonally dominant band
 LU_RTOL = 1e-12
 
@@ -330,21 +331,24 @@ def _random_dominant_band(nbatch, n, ml, mu, seed=0, device="cuda"):
     return torch.tensor(band, device=device)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["heat1d", "random_ml3_mu2"])
-def test_band_lu_kernels_match_plain_version_cuda(case):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _band_matvec(band, x, ml, mu):
+    """A x for a (B, nb, n) member-major band and x (B, n)."""
+    n = x.shape[-1]
+    y = torch.zeros_like(x)
+    for d in range(ml + mu + 1):
+        lo, hi = max(0, mu - d), min(n, n + mu - d)  # 0 <= j + d - mu < n
+        if lo < hi:
+            y[:, lo + d - mu: hi + d - mu] += band[:, d, lo:hi] * x[:, lo:hi]
+    return y
+
+
+def _check_band_lu(band, b, ml, mu, residual_tol):
+    """K3 and K4 against their plain versions: one launch a call, factors
+    and x within LU_RTOL, and A x = b member by member within residual_tol.
+    A (1, nb, n) band with a (B, n) b is one factorization for every
+    right-hand side."""
     from diffsol_tpu_torch.ops import band_lu
 
-    if case == "heat1d":
-        ml = mu = 1
-        band = _heat1d_iteration_band(1024)
-    else:
-        ml, mu = 3, 2
-        band = _random_dominant_band(1024, 128, ml, mu)
-    rng = np.random.default_rng(1)
-    b = torch.tensor(rng.standard_normal((1024, 128)), device="cuda")
     f0, s0 = band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches
     F = band_lu.band_lu_factor(band, ml, mu)
     x = band_lu.band_lu_solve(F, b, ml, mu)
@@ -352,15 +356,40 @@ def test_band_lu_kernels_match_plain_version_cuda(case):
     assert band_lu.launch_band_lu_factor.launches == f0 + 1
     assert band_lu.launch_band_lu_solve.launches == s0 + 1
     F_p = band_lu.band_lu_factor_reference(band, ml, mu)
-    x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
+    x_p = band_lu.band_lu_solve_reference(F_p.expand(-1, -1, b.shape[0]), b, ml, mu)
+    assert F.shape == F_p.shape and x.shape == b.shape
     torch.testing.assert_close(F, F_p, rtol=LU_RTOL, atol=LU_RTOL * float(F_p.abs().max()))
     torch.testing.assert_close(x, x_p, rtol=LU_RTOL, atol=LU_RTOL * float(x_p.abs().max()))
-    # and the solution solves the system: A x = b, member by member
-    from diffsol_tpu_torch.ops.banded import band_to_dense
+    ax = _band_matvec(band.expand(b.shape[0], -1, -1), x, ml, mu)
+    torch.testing.assert_close(ax, b, rtol=residual_tol, atol=residual_tol)
 
-    for m in (0, 511, 1023):
-        a = band_to_dense(band[m], ml, mu)
-        torch.testing.assert_close(a @ x[m], b[m], rtol=1e-10, atol=1e-10)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,ml,mu,n,nbatch,residual_tol", [
+    pytest.param("heat1d", 1, 1, 128, 1024, 1e-10, id="heat1d"),
+    pytest.param("random", 3, 2, 128, 1024, 1e-10, id="random_ml3_mu2"),
+    pytest.param("random", 1, 1, 128, 1, 1e-10, id="random_ml1_mu1_B1"),
+    pytest.param("random", 0, 3, 128, 1024, 1e-10, id="random_ml0_mu3"),
+    pytest.param("random", 3, 0, 128, 1024, 1e-10, id="random_ml3_mu0"),
+    pytest.param("random", 20, 5, 400, 1, 1e-10, id="random_ml20_mu5_B1"),
+    pytest.param("random", 20, 5, 200, 1000, 1e-10, id="random_ml20_mu5_B1000"),
+    # past the shared memory at four members a block: the factor's window
+    # (ml = mu > 45), and x over ~7,000 doubles a member, in device memory
+    pytest.param("random", 60, 60, 300, 5, 1e-9, id="window_in_device_memory_ml60"),
+    pytest.param("random", 130, 130, 300, 3, 1e-9, id="window_in_device_memory"),
+    pytest.param("random", 1, 1, 10_000, 5, 1e-9, id="x_in_device_memory_n10k"),
+    pytest.param("random", 1, 1, 30_000, 5, 1e-9, id="x_in_device_memory"),
+])
+def test_band_lu_kernels_match_plain_version_cuda(case, ml, mu, n, nbatch, residual_tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if case == "heat1d":
+        band = _heat1d_iteration_band(nbatch, n)
+    else:
+        band = _random_dominant_band(nbatch, n, ml, mu)
+    rng = np.random.default_rng(1)
+    b = torch.tensor(rng.standard_normal((nbatch, n)), device="cuda")
+    _check_band_lu(band, b, ml, mu, residual_tol)
 
 
 @pytest.mark.cuda
@@ -580,26 +609,24 @@ def test_fused_band_kernel_mol2d_matches_plain_version_cuda(name):
 
 
 @pytest.mark.cuda
-def test_band_lu_kernels_nb41_match_plain_version_cuda():
-    """K3 and K4 at the 2-D models' width, ml = mu = 20 (nb = 41), n = 200,
-    B = 256, against their plain versions."""
+@pytest.mark.parametrize("n,nbatch,nrhs", [
+    pytest.param(200, 256, 256, id="n200_B256"),
+    pytest.param(400, 1000, 1000, id="n400_B1000"),
+    pytest.param(12, 5, 5, id="n12_B5"),  # n smaller than the band
+    pytest.param(400, 1, 1, id="n400_B1"),
+    pytest.param(400, 1, 256, id="one_factorization_256_rhs"),
+])
+def test_band_lu_kernels_nb41_match_plain_version_cuda(n, nbatch, nrhs):
+    """K3 and K4 at the 2-D models' width, ml = mu = 20 (nb = 41), against
+    their plain versions: member groups that do not fill a block, a band
+    wider than the matrix, and one factorization for many right-hand
+    sides."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from diffsol_tpu_torch.ops import band_lu
-    from diffsol_tpu_torch.ops.banded import band_to_dense
-
     ml = mu = 20
-    band = _random_dominant_band(256, 200, ml, mu)
-    b = torch.tensor(np.random.default_rng(2).standard_normal((256, 200)), device="cuda")
-    F = band_lu.band_lu_factor(band, ml, mu)
-    x = band_lu.band_lu_solve(F, b, ml, mu)
-    F_p = band_lu.band_lu_factor_reference(band, ml, mu)
-    x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
-    torch.testing.assert_close(F, F_p, rtol=LU_RTOL, atol=LU_RTOL * float(F_p.abs().max()))
-    torch.testing.assert_close(x, x_p, rtol=LU_RTOL, atol=LU_RTOL * float(x_p.abs().max()))
-    for m in (0, 255):
-        a = band_to_dense(band[m], ml, mu)
-        torch.testing.assert_close(a @ x[m], b[m], rtol=1e-9, atol=1e-9)
+    band = _random_dominant_band(nbatch, n, ml, mu)
+    b = torch.tensor(np.random.default_rng(2).standard_normal((nrhs, n)), device="cuda")
+    _check_band_lu(band, b, ml, mu, 1e-9)
 
 
 @pytest.mark.cuda
