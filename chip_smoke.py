@@ -23,8 +23,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    reference's CVODE table (robertson.SOLN);
 5. times of that path and of the plain version at the same shapes (CUDA
    events), with the card's name and power limit;
-6. the band libraries' build times and ptxas lines, and the band LU
-   kernels' dynamic shared memory a block at the three models' shapes;
+6. the band libraries' build times and ptxas lines, the band LU
+   kernels' dynamic shared memory a block at the three models' shapes, and
+   the fused band kernel's launch plan at each model's main path (grid,
+   cluster and block shape, shared memory a block, the clusters the card
+   holds at once, registers and local bytes a thread);
 7. the band LU kernels (factor, solve) against their plain versions on the
    heat1d iteration matrix M - cJ (n=128, B=1024, c=1e-3) and on a random
    diagonally dominant band (ml=3, mu=2, numpy seed 0), each wrapper
@@ -41,8 +44,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     version's at the same shapes;
 11. one traced call of each of the paths (torch.profiler), heat2d's
     lockstep path among them: the device time by kernel, the band LU
-    kernels' (K3, K4) where the path runs them, and the device's busy
-    share of the call (the profiler's own overhead is in the call's time);
+    kernels' (K3, K4) and the fused band kernel's (K2) where the path
+    runs them, and the device's busy share of the call (the profiler's own
+    overhead is in the call's time);
 12. (run after phase 5) the rest of the fused BDF kernel, one variant at a
     time: the Robertson DAE (mass diag(1, 1, 0)), the root that stops the
     solve, the bouncing ball's reset, quadrature of the state, quadrature
@@ -271,6 +275,35 @@ def check_heat(name, sol, soln, d, n):
     if not np.all(np.diff(mid) < 0):
         raise AssertionError(f"{name}: midpoint decay not monotone in d")
     return err
+
+
+def print_band_plan(label, check_solve):
+    """Phase 6: the fused band kernel's launch plan at the main path's B
+    and what the card makes of it: grid, cluster and block shape, shared
+    memory a block, the clusters the card holds at once, and the build's
+    registers and local (spill and stack) bytes a thread."""
+    import ctypes
+    import dataclasses
+
+    from diffsol_tpu_torch import _build
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+
+    cfg = check_solve.cfg
+    ntiles = -(-B_BAND // cfg.tile)
+    cfg = dataclasses.replace(cfg, nbatch=B_BAND, ntiles=ntiles)
+    plan = fb.band_plan(cfg.n, cfg.ml, cfg.mu, cfg.tile, ntiles)
+    lib = _build.load_fused_band_bdf(check_solve.header, cfg.ml, cfg.mu)
+    out = (ctypes.c_int * 5)()
+    rc = lib.fused_band_bdf_report(ctypes.addressof(fb._c_config(cfg)), out)
+    if rc != 0:
+        raise AssertionError(f"fused band kernel report for {label}: CUDA error {rc}")
+    print(f"[6] fused band kernel at {label}'s shape (n={cfg.n}, ml={cfg.ml}, mu={cfg.mu}), "
+          f"B={B_BAND}: {ntiles} tiles of {cfg.tile} in a grid of {plan.grid} blocks, "
+          f"clusters of {plan.cluster} blocks of {plan.members} warps (a warp a member, "
+          f"{plan.threads} threads), factor chunk {plan.fchunk} columns, solve chunk "
+          f"{plan.schunk}; shared memory {out[3]} B dynamic + {out[4]} B static a block; "
+          f"the card holds {out[0]} such clusters at once ({min(out[0], ntiles) * plan.cluster} "
+          f"blocks); {out[1]} registers and {out[2]} local bytes a thread", flush=True)
 
 
 def k1_record(variant, **numbers):
@@ -1155,13 +1188,14 @@ def profile_paths(paths, card_line):
             continue
         busy_us = sum(k[0] for k in kernels)
         top = "; ".join(f"{key[:60]} {us / 1e3:.3f} ms x{cnt}" for us, cnt, key in kernels[:6])
-        # the band LU kernels' share, where the path runs them
+        # the band kernels' share, where the path runs them
         lu = "".join(
             f", {label} {sum(us for us, _, key in hits) / 1e3:.3f} ms x"
             f"{sum(cnt for _, cnt, _ in hits)}"
             for label, hits in (
                 (label, [k for k in kernels if kernel in k[2]])
-                for label, kernel in (("K3", "band_lu_factor_kernel"),
+                for label, kernel in (("K2", "fused_band_bdf_kernel"),
+                                      ("K3", "band_lu_factor_kernel"),
                                       ("K4", "band_lu_solve_kernel")))
             if hits)
         print(f"[11] {name}: call {wall_us / 1e3:.3f} ms (host clock, profiled), "
@@ -1235,6 +1269,8 @@ def main() -> int:
         print(f"[6] band LU dynamic shared memory a block at {label}'s shape (n={n_}, "
               f"ml=mu={ml_}): factor {lu_lib.band_lu_shared_bytes(n_, ml_, mu_, 0)} B, solve "
               f"{lu_lib.band_lu_shared_bytes(n_, ml_, mu_, 1)} B", flush=True)
+    for label, sv in band_solves.items():
+        print_band_plan(label, sv)
     band_paths, band_records = band_phases(dev, card_line, heat_problem, soln, band_check)
     mol2d_paths, mol2d_records, lu_launches = mol2d_phases(dev, card_line, mol2d_checks)
     wide_lu_records = band_lu_wide_phase(dev, card_line, lu_launches)

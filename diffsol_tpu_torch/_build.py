@@ -69,6 +69,11 @@ _SIGNATURES = {
         # &config, stream
         "fused_band_bdf_launch": ([_P] * 11, _I),
         "fused_band_bdf_config_size": ([], _I),
+        # factor chunk, solve chunk -> shared doubles a member
+        "fused_band_bdf_member_doubles": ([_I, _I], _I),
+        # &config, int out[5] -> clusters held at once, registers, local,
+        # dynamic and static shared bytes
+        "fused_band_bdf_report": ([_P, _P], _I),
     },
 }
 

@@ -15,10 +15,13 @@
 //
 // Two parts:
 //
-// * band_factor / band_solve, one thread walking one member's band in
-//   device memory, strided by the member count (F[(k*nb + d)*s + m]).  The
-//   fused band stepper (fused_band_bdf.cuh) includes this header with
-//   DIFFSOL_BAND_LU_NO_ENTRY defined and runs them inside its step loop.
+// * warp_band_factor / warp_band_solve, K3's and K4's column loops for ONE
+//   member a warp whose band and factors lie member-major in device memory
+//   (column c's nb entries contiguous), with the shapes fixed at compile
+//   time and the factor's window on chip (or, for a band too wide for it,
+//   in device memory).  The fused band stepper (fused_band_bdf.cuh) includes this header
+//   with DIFFSOL_BAND_LU_NO_ENTRY defined and runs them inside its step
+//   loop, each warp of a block on its own member.
 //
 // * K3 and K4, band_lu_factor_kernel / band_lu_solve_kernel below: a warp
 //   a member, G = 4 members (warps) a block, so B = 1,024 members make 256
@@ -88,60 +91,261 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cuda_pipeline.h>
+
 #include "bdf_common.cuh"
 
 namespace diffsol_band {
 
-// Factor one member's band in place.  F holds columns 0..n-1 of the band
-// (column-leading, stride s); the mu pad columns n..n+mu-1 are written
-// here.  Returns the largest |Schur-update element| this member produced
-// (NaN if any was NaN), for the caller's element-growth test.
-__device__ __forceinline__ double band_factor(double* F, size_t s, int n, int ml, int mu) {
-  const int nb = ml + mu + 1;
-  for (int k = n; k < n + mu; ++k)
-    for (int d = 0; d < nb; ++d) F[((size_t)k * nb + d) * s] = (d == mu) ? 1.0 : 0.0;
-  double gmax = 0.0;
-  for (int k = 0; k < n; ++k) {
-    double* col = F + (size_t)k * nb * s;
-    const double inv = 1.0 / col[(size_t)mu * s];
-    for (int i = 1; i <= ml; ++i) col[(size_t)(mu + i) * s] = col[(size_t)(mu + i) * s] * inv;
-    for (int dj = 1; dj <= mu; ++dj) {
-      double* cj = F + (size_t)(k + dj) * nb * s;
-      const double u = cj[(size_t)(mu - dj) * s];
-      for (int i = 1; i <= ml; ++i) {
-        const double e = cj[(size_t)(mu + i - dj) * s] - col[(size_t)(mu + i) * s] * u;
-        cj[(size_t)(mu + i - dj) * s] = e;
-        gmax = diffsol_fused::nan_max(gmax, fabs(e));
+constexpr int WARP = 32;
+
+// K3's column loop for one member: factor A = M - cval J, where J (N, NB)
+// holds the member's Jacobian band column-leading in device memory
+// (J[j NB + d] = df_{j+d-MU}/dy_j) and M is the identity or the diagonal
+// mdiag, into F (N + MU, NB), the same layout with the MU unit pad columns.
+// ON_CHIP: a window of MU + 2C columns and C reciprocals (factor_doubles(C)
+// doubles at `win`, shared memory) slides along the band as K3's does: the
+// next chunk's columns of J arrive by cp.async while the current chunk is
+// eliminated, each column is assembled (M - cJ) once it has arrived, and
+// each finished chunk is written once.  Otherwise (a band whose window does
+// not fit) the same loop runs in place in F.  Every element sees the plain
+// version's operations in its order (ops/band_lu.py factor_columns).  Each
+// lane returns the largest |A| and the largest |Schur update| of the
+// elements it touched, NaN-propagating; the caller reduces them.
+template <int ML, int MU>
+__host__ __device__ constexpr int factor_doubles(int C) {
+  return (MU + 2 * C) * (ML + MU + 1) + C;
+}
+
+template <int N, int ML, int MU, bool ON_CHIP>
+__device__ __forceinline__ void warp_band_factor(const double* __restrict__ J,
+                                                 const double* __restrict__ mdiag, double cval,
+                                                 double* __restrict__ F, double* win, int C,
+                                                 int lane, double& amax_out, double& gmax_out) {
+  using diffsol_fused::nan_max;
+  constexpr int NB = ML + MU + 1, NCOLS = N + MU;
+  double amax = 0.0, gmax = 0.0;
+
+  // lane -> sub-diagonal row i and its updates dj = js+1, js+1+S, ...: S =
+  // 32 / ML lanes share a row (K3).  The update of (row k+i, column k+dj)
+  // sits dj (NB - 1) doubles after that of (k+i, k).
+  constexpr int MLX = ML > 0 ? ML : 1;
+  constexpr int S = (ML > 0 && ML < WARP) ? WARP / ML : 1;
+  const int i0 = (ML > 0 && lane < S * ML) ? lane % MLX + 1 : 0;  // 0: no row
+  const int js = lane / MLX;
+  constexpr int st = S * (NB - 1);
+  // the column step at column ck with pivot reciprocal inv: e = e - l u,
+  // l = a inv, four at a time with every load before the stores
+  auto eliminate = [&](double* const ck, const double inv) {
+    for (int i = i0; i >= 1 && i <= ML; i += WARP) {
+      const double l = ck[MU + i] * inv;
+      // u = U[k][k+dj] at up[0], e = A[k+i][k+dj] at up[i]
+      double* up = ck + MU + (js + 1) * (NB - 1);
+      int dj = js + 1;
+      for (; dj + 3 * S <= MU; dj += 4 * S, up += 4 * st) {
+        double u[4], v[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          u[t] = up[t * st];
+          v[t] = up[t * st + i];
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const double e = v[t] - l * u[t];
+          up[t * st + i] = e;
+          gmax = nan_max(gmax, fabs(e));
+        }
+      }
+      for (; dj <= MU; dj += S, up += st) {
+        const double e = up[i] - l * up[0];
+        up[i] = e;
+        gmax = nan_max(gmax, fabs(e));
+      }
+    }
+  };
+
+  if constexpr (!ON_CHIP) {
+    for (int e = lane; e < N * NB; e += WARP) {
+      const int d = e % NB;
+      const double v = (d == MU ? (mdiag != nullptr ? mdiag[e / NB] : 1.0) : 0.0) - cval * J[e];
+      F[e] = v;
+      amax = nan_max(amax, fabs(v));
+    }
+    for (int e = lane; e < MU * NB; e += WARP) F[(size_t)N * NB + e] = e % NB == MU ? 1.0 : 0.0;
+    for (int k = 0; k < N; ++k) {
+      __syncwarp();
+      double* const ck = F + (size_t)k * NB;
+      const double inv = 1.0 / ck[MU];
+      eliminate(ck, inv);
+      __syncwarp();
+      // the multipliers, as the product l = a * inv the updates used
+      if (js == 0)
+        for (int i = i0; i >= 1 && i <= ML; i += WARP) ck[MU + i] = ck[MU + i] * inv;
+    }
+    __syncwarp();
+  } else {
+    const int W = MU + 2 * C;
+    double* const invs = win + W * NB;  // this chunk's pivot reciprocals
+    int wbase = 0, done = 0;  // the window's first column; columns < done are assembled
+    // columns [a, b) of J into the window, pad columns unit
+    auto load = [&](int a, int b) {
+      for (int e = lane; e < (b - a) * NB; e += WARP) {
+        const int c = a + e / NB, d = e % NB;
+        double* dst = win + (c - wbase) * NB + d;
+        if (c >= N)
+          *dst = d == MU ? 1.0 : 0.0;
+        else
+          __pipeline_memcpy_async(dst, J + (size_t)c * NB + d, sizeof(double));
+      }
+      __pipeline_commit();
+    };
+
+    load(0, min(MU + C, NCOLS));
+    for (int k0 = 0; k0 < N; k0 += C) {
+      const int k1 = min(k0 + C, N);
+      __pipeline_wait_prior(0);
+      __syncwarp();
+      if (k0 > 0) {
+        // slide by C columns, [C, 2C + MU) -> [0, C + MU), in passes of C
+        // columns so that no pass reads what it writes
+        for (int p0 = 0; p0 < C + MU; p0 += C) {
+          const int cnt = min(C, C + MU - p0) * NB;
+          const double* from = win + (p0 + C) * NB;
+          double* to = win + p0 * NB;
+          for (int e = lane; e < cnt; e += WARP) to[e] = from[e];
+          __syncwarp();
+        }
+        wbase = k0;
+      }
+      // A = M - cJ on the columns that arrived (assemble_and_factor :391)
+      const int upto = min(k1 + MU, N);
+      for (int e = lane; e < (upto - done) * NB; e += WARP) {
+        const int c = done + e / NB, d = e % NB;
+        double* const a = win + (c - wbase) * NB + d;
+        const double v = (d == MU ? (mdiag != nullptr ? mdiag[c] : 1.0) : 0.0) - cval * *a;
+        *a = v;
+        amax = nan_max(amax, fabs(v));
+      }
+      done = upto;
+      __syncwarp();
+      // the next chunk's new columns, in flight while this one is eliminated
+      load(k1 + MU, min(k1 + C, N) + MU);
+      for (int k = k0; k < k1; ++k) {
+        __syncwarp();
+        double* const ck = win + (k - wbase) * NB;
+        const double inv = 1.0 / ck[MU];
+        if (lane == 0) invs[k - k0] = inv;
+        eliminate(ck, inv);
+      }
+      __syncwarp();
+      // columns k0 .. k1-1 are final (and, after the last chunk, the pads):
+      // write them once, each multiplier as the product l = a * inv the
+      // updates used
+      const int c1 = k1 == N ? NCOLS : k1;
+      for (int e = lane; e < (c1 - k0) * NB; e += WARP) {
+        const int c = k0 + e / NB, d = e % NB;
+        double v = win[(c - wbase) * NB + d];
+        if (d > MU && c < k1) v *= invs[c - k0];
+        F[(size_t)c * NB + d] = v;
       }
     }
   }
-  return gmax;
+  amax_out = amax;
+  gmax_out = gmax;
 }
 
-// Solve A x = b with band_factor's output.  x holds b in rows 0..n-1 and
-// has n + max(ml, mu, 1) rows (stride s); the pad rows are set here.
-__device__ __forceinline__ void band_solve(const double* F, double* x, size_t s, int n,
-                                           int ml, int mu) {
-  const int nb = ml + mu + 1;
-  const int npadx = n + (ml > mu ? (ml > 1 ? ml : 1) : (mu > 1 ? mu : 1));
-  for (int r = n; r < npadx; ++r) x[(size_t)r * s] = 0.0;
-  if (ml > 0) {
-    for (int k = 0; k < n - 1; ++k) {
-      const double* col = F + (size_t)k * nb * s;
-      const double bk = x[(size_t)k * s];
-      for (int i = 1; i <= ml; ++i)
-        x[(size_t)(k + i) * s] = x[(size_t)(k + i) * s] - col[(size_t)(mu + i) * s] * bk;
+// K4's sweeps for one member: solve A x = b in place of xs (shared memory,
+// holding b in its N doubles) with warp_band_factor's factors F in device
+// memory.  Behind xs lie C pivot reciprocals and two buffers of C columns
+// by max(ML, MU + 1) factor rows (solve_doubles(C) doubles in all), which
+// cp.async fills a chunk ahead of use: the forward sweep's multipliers over
+// columns 0 .. N-2, then the back sweep's rows of U from column N-1 down.
+// The back sweep is column-oriented, as K4's (x[k] is the sum times a
+// reciprocal formed a chunk at a time off the chain, within an ulp of the
+// plain version's row loop).
+template <int N, int ML, int MU>
+__host__ __device__ constexpr int solve_doubles(int C) {
+  return N + C + 2 * C * (ML > MU + 1 ? ML : MU + 1);
+}
+
+template <int N, int ML, int MU>
+__device__ __forceinline__ void warp_band_solve(const double* __restrict__ F, double* xs, int C,
+                                                int lane) {
+  constexpr int NB = ML + MU + 1, ROWS = ML > MU + 1 ? ML : MU + 1, MLX = ML > 0 ? ML : 1;
+  const int cap = C * ROWS;
+  double* const rinv = xs + N;  // a back chunk's 1 / U[k][k]
+  double* const bufs = rinv + C;
+  const int nf = (ML > 0 && N > 1) ? (N - 1 + C - 1) / C : 0;
+  const int nq = nf + (N + C - 1) / C;
+  // chunk q's columns [c0, c1): forward ones hold the ML multiplier rows,
+  // back ones the MU + 1 rows of U
+  auto span = [&](int q, int& c0, int& c1) {
+    if (q < nf) {
+      c0 = q * C;
+      c1 = min(c0 + C, N - 1);
+    } else {
+      c1 = N - (q - nf) * C;
+      c0 = max(c1 - C, 0);
     }
-    // the forward sweep writes past row n-1: re-zero the pad so the back
-    // sweep's out-of-range u*x terms vanish (pallas_stepper_band.py:481-485)
-    for (int r = n; r < npadx; ++r) x[(size_t)r * s] = 0.0;
+  };
+  auto fetch = [&](int q) {
+    int c0, c1;
+    span(q, c0, c1);
+    double* buf = bufs + (q & 1) * cap;
+    if (q < nf) {
+      for (int e = lane; e < (c1 - c0) * ML; e += WARP)
+        __pipeline_memcpy_async(buf + e, F + (size_t)(c0 + e / MLX) * NB + MU + 1 + e % MLX,
+                                sizeof(double));
+    } else {
+      for (int e = lane; e < (c1 - c0) * (MU + 1); e += WARP)
+        __pipeline_memcpy_async(buf + e, F + (size_t)(c0 + e / (MU + 1)) * NB + e % (MU + 1),
+                                sizeof(double));
+    }
+    __pipeline_commit();
+  };
+
+  fetch(0);
+  double pending = 0.0;  // x[k+1] of the back sweep, stored one step late
+  for (int q = 0; q < nq; ++q) {
+    if (q + 1 < nq) {
+      fetch(q + 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncwarp();
+    int c0, c1;
+    span(q, c0, c1);
+    const double* buf = bufs + (q & 1) * cap;
+    if (q < nf) {
+      // forward: x[k+i] -= L[k+i][k] x[k], i = 1 .. ML split over the lanes
+      for (int k = c0; k < c1; ++k) {
+        __syncwarp();
+        const double xk = xs[k];
+        const double* lk = buf + (k - c0) * ML;  // lk[i-1] = F[k][MU+i]
+        for (int i = lane + 1; i <= ML && k + i < N; i += WARP)
+          xs[k + i] = xs[k + i] - lk[i - 1] * xk;
+      }
+    } else {
+      // back, column by column: x[k] = acc * (1 / U[k][k]); then x[k-dj]
+      // -= U[k-dj][k] x[k], dj = 1 .. MU split over the lanes.  No lane
+      // reads x[k+1] at step k, so lane 0 stores it then.
+      for (int c = c0 + lane; c < c1; c += WARP)
+        rinv[c - c0] = 1.0 / buf[(c - c0) * (MU + 1) + MU];
+      for (int k = c1 - 1; k >= c0; --k) {
+        __syncwarp();
+        const double* uk = buf + (k - c0) * (MU + 1);  // uk[d] = F[k][d]
+        const double xk = xs[k] * rinv[k - c0];
+        if (lane == 0 && k + 1 < N) xs[k + 1] = pending;
+        pending = xk;
+        for (int dj = lane + 1; dj <= MU && k - dj >= 0; dj += WARP)
+          xs[k - dj] = xs[k - dj] - uk[MU - dj] * xk;
+      }
+    }
+    __syncwarp();
   }
-  for (int k = n - 1; k >= 0; --k) {
-    double acc = x[(size_t)k * s];
-    for (int dj = 1; dj <= mu; ++dj)
-      acc = acc - F[((size_t)(k + dj) * nb + mu - dj) * s] * x[(size_t)(k + dj) * s];
-    x[(size_t)k * s] = acc / F[((size_t)k * nb + mu) * s];
-  }
+  if (lane == 0) xs[0] = pending;
+  __syncwarp();
 }
 
 }  // namespace diffsol_band
@@ -149,13 +353,10 @@ __device__ __forceinline__ void band_solve(const double* F, double* x, size_t s,
 
 #ifndef DIFFSOL_BAND_LU_NO_ENTRY
 
-#include <cuda_pipeline.h>
-
 #include <type_traits>
 
 namespace diffsol_band {
 
-constexpr int WARP = 32;
 constexpr int MEMBERS = 4;           // members a block, a warp each
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may take on sm_90
 

@@ -45,7 +45,7 @@ def factor_columns(F: torch.Tensor, n: int, ml: int, mu: int,
     the pad columns are written here.  With ``growth``, returns each
     member's largest |Schur-update element| (M,), NaN-propagating, for
     the fused stepper's element-growth test (csrc/band_lu.cuh
-    band_factor)."""
+    warp_band_factor)."""
     F[n:] = 0.0
     F[n:, mu] = 1.0
     gmax = torch.zeros(F.shape[-1], dtype=F.dtype, device=F.device) if growth else None
@@ -66,7 +66,8 @@ def factor_columns(F: torch.Tensor, n: int, ml: int, mu: int,
 
 def solve_columns(F: torch.Tensor, x: torch.Tensor, n: int, ml: int, mu: int):
     """Solve in place: ``x`` (n + npadx, M) holds b in rows 0..n-1 and the
-    solution on return (csrc/band_lu.cuh band_solve)."""
+    solution on return (csrc/band_lu.cuh band_lu_solve_kernel and
+    warp_band_solve, whose back sweep runs column by column)."""
     x[n:] = 0.0
     if ml > 0:
         for k in range(n - 1):

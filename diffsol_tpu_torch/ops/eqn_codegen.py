@@ -610,9 +610,52 @@ def _c_double(v: float) -> str:
     return repr(float(v))  # shortest repr that round-trips exactly
 
 
-def _emit_body(ir: ScalarIR) -> list:
+def _node_inputs(node) -> tuple:
+    """The earlier nodes a node reads."""
+    op = node[0]
+    if op in _LEAVES:
+        return ()
+    if op in ("powi", "powc"):
+        return (node[1],)
+    return tuple(node[1:])
+
+
+def _output_order(ir: ScalarIR) -> list:
+    """``ir``'s nodes in the order of a depth-first walk from each output
+    in turn, each output (``("out", i)``) right after the nodes it needs
+    that are not yet emitted.  Nodes no output needs are left out."""
+    done = [False] * len(ir.nodes)
+    order = []
+    for i, o in enumerate(ir.outputs):
+        stack = [(o, False)]
+        while stack:
+            k, ready = stack.pop()
+            if done[k]:
+                continue
+            if ready:
+                done[k] = True
+                order.append(k)
+                continue
+            stack.append((k, True))
+            stack.extend((a, False) for a in reversed(_node_inputs(ir.nodes[k]))
+                         if not done[a])
+        order.append(("out", i))
+    return order
+
+
+def _emit_body(ir: ScalarIR, stream_outputs: bool = False) -> list:
+    """The body's C++ lines: every node in IR order and then the outputs,
+    or, with ``stream_outputs``, in :func:`_output_order` (each output
+    stored as soon as its operands are, so few values are live at once;
+    ``out`` must not alias ``y``)."""
     lines = []
-    for k, node in enumerate(ir.nodes):
+    seq = (_output_order(ir) if stream_outputs
+           else list(range(len(ir.nodes))) + [("out", i) for i in range(len(ir.outputs))])
+    for k in seq:
+        if isinstance(k, tuple):
+            lines.append(f"  out[{k[1]}] = v{ir.outputs[k[1]]};")
+            continue
+        node = ir.nodes[k]
         op = node[0]
         if op == "t":
             e = "t"
@@ -644,25 +687,24 @@ def _emit_body(ir: ScalarIR) -> list:
         else:
             e = f"dsol_{op}(v{node[1]})"
         lines.append(f"  const {'bool' if op in _BOOL_OPS else 'T'} v{k} = {e};")
-    for i, o in enumerate(ir.outputs):
-        lines.append(f"  out[{i}] = v{o};")
     return lines
 
 
-def _emit_tyo(fn_name: str, ir: ScalarIR) -> list:
+def _emit_tyo(fn_name: str, ir: ScalarIR, stream_outputs: bool = False) -> list:
     """A ``(t, y, p) -> out`` device function, generic in its accessors."""
     return [
         "template <typename T, typename Y, typename O>",
         f"__device__ __forceinline__ void {fn_name}(const T& t, Y y, "
         "const T* p, O out) {",
         "  (void)t; (void)y; (void)p;",
-        *_emit_body(ir),
+        *_emit_body(ir, stream_outputs),
         "}",
     ]
 
 
 def emit_cuda_header(model: ModelIR, name: str = "model", nquad: int = 0,
-                     out_in_err: bool = False, mixed: bool = False) -> str:
+                     out_in_err: bool = False, mixed: bool = False,
+                     stream_outputs: bool = False) -> str:
     """The generated model header: ``MODEL_N``, ``MODEL_NP``, the
     compile-time switches of the small-n kernel and the templated device
     functions ``model_rhs`` and, where the model has them, ``model_init``,
@@ -680,7 +722,10 @@ def emit_cuda_header(model: ModelIR, name: str = "model", nquad: int = 0,
     accessors in the banded kernel, which keeps a member's n-vectors in
     global scratch with the members fastest (csrc/fused_band_bdf.cuh), so
     the unrolled body reads and writes that layout directly, with no
-    per-thread copy of the state."""
+    per-thread copy of the state.  ``stream_outputs`` orders ``model_rhs``
+    output by output (:func:`_output_order`), for the banded kernel, whose
+    rhs of hundreds of states would otherwise hold every intermediate of
+    one operation over all states live at once."""
     has_mass = model.mass is not None or model.mass_const is not None
     lines = [
         f"// Generated from the traced equations of {name!r}; do not edit.",
@@ -696,7 +741,7 @@ def emit_cuda_header(model: ModelIR, name: str = "model", nquad: int = 0,
         f"#define MODEL_OUT_IN_ERR {int(bool(out_in_err))}",
         f"#define MODEL_MIXED {int(bool(mixed))}",
         "namespace diffsol_model {",
-        *_emit_tyo("model_rhs", model.rhs),
+        *_emit_tyo("model_rhs", model.rhs, stream_outputs),
     ]
     for fn_name, ir in (("model_root", model.root), ("model_reset", model.reset),
                         ("model_out", model.out)):

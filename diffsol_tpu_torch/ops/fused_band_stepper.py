@@ -19,11 +19,11 @@ order selection, dense output) with three changes from the JAX kernel:
 
 Two implementations of the same algorithm with the same tile partition:
 
-* the CUDA kernel ``csrc/fused_band_bdf.cuh`` (one thread block per tile,
-  one thread per member, every tile in one launch), built with ``nvcc``
-  for ``sm_90a`` at first use from the repository's sources plus the rhs
-  header that :mod:`.eqn_codegen` generates, launched by
-  :func:`launch_fused_band_bdf` for CUDA tensors;
+* the CUDA kernel ``csrc/fused_band_bdf.cuh`` (a warp per member, a
+  thread block cluster per tile, every tile in one launch, laid out by
+  :func:`band_plan`), built with ``nvcc`` for ``sm_90a`` at first use from
+  the repository's sources plus the rhs header that :mod:`.eqn_codegen`
+  generates, launched by :func:`launch_fused_band_bdf` for CUDA tensors;
 * the plain PyTorch version :func:`fused_band_bdf_reference`, the shared
   loop :func:`.fused_stepper.tiled_bdf` with the band pieces, for CPU
   tensors and as the kernel's yardstick on the card.
@@ -73,14 +73,22 @@ from .fused_stepper import (
 
 F64 = torch.float64
 
-# the largest tile, one thread block of the kernel, built under
-# __launch_bounds__(256) so a thread keeps up to 255 registers for the
-# unrolled rhs and its dual twin
+# the largest tile: one thread block cluster of the kernel, at most 16
+# blocks of 16 warps, a warp per member
 MAX_TILE = 256
 # element growth beyond this fails the tile (pallas_stepper_band.py:639)
 MAX_LU_GROWTH = 1e4
 # the JAX kernel's VMEM budget for its tile sizing rule (:201-222)
 _VMEM_BUDGET = 10 * 2**20
+
+
+WARP = 32
+MAX_MEMBERS = 16  # warps (members) a block: the kernel's __launch_bounds__(512)
+MAX_CLUSTER = 16  # blocks a cluster: the H100's limit (8 is the portable one)
+# dynamic shared memory a block may take: the sm_90 limit of 232,448 bytes
+# less the kernel's reserve for its static part (csrc/fused_band_bdf.cuh
+# SMEM_DYNAMIC)
+SMEM_DYNAMIC = 232448 - 1024
 
 
 @dataclass(frozen=True)
@@ -109,6 +117,104 @@ def default_tile(n: int, nb: int, mu: int, npad: int, neval: int) -> int:
                 + neval * n + 24 * n) * 8
     tile = max(128, min(4096, _VMEM_BUDGET // max(per_lane, 1)))
     return min(max(128, (tile // 128) * 128), MAX_TILE)
+
+
+@dataclass(frozen=True)
+class BandPlan:
+    """How the CUDA kernel lays out a solve (csrc/fused_band_bdf.cuh): a
+    warp per member, ``members`` members a block, ``cluster`` blocks (one
+    thread block cluster) a tile of ``slots = members * cluster >= tile``
+    slots, the ones past the tile replicating its last member; per member
+    ``stride`` doubles of shared memory, in turn the rhs's input and output
+    (2n), the band factor's window of mu + 2 ``fchunk`` columns (and
+    ``fchunk`` reciprocals; ``fchunk = 0``: a band too wide for it is
+    factored in device memory), or the solve's x, ``schunk`` reciprocals
+    and two chunks of ``schunk`` columns by max(ml, mu + 1) factor rows."""
+
+    members: int
+    cluster: int
+    fchunk: int
+    schunk: int
+    stride: int
+    ntiles: int
+
+    @property
+    def threads(self) -> int:
+        return WARP * self.members
+
+    @property
+    def grid(self) -> int:
+        return self.ntiles * self.cluster
+
+    @property
+    def slots(self) -> int:
+        return self.members * self.cluster
+
+    @property
+    def shared_bytes(self) -> int:
+        return 8 * self.members * self.stride
+
+
+def member_doubles(n: int, ml: int, mu: int, fchunk: int, schunk: int) -> int:
+    """Shared doubles a member takes at these chunk sizes (the kernel's
+    ``member_doubles``; ``fchunk = 0``: the factor's window lies in device
+    memory)."""
+    nb = ml + mu + 1
+    factor = (mu + 2 * fchunk) * nb + fchunk if fchunk > 0 else 0
+    solve = n + schunk + 2 * schunk * max(ml, mu + 1)
+    return max(2 * n, factor, solve)
+
+
+@functools.lru_cache(maxsize=256)
+def band_plan(n: int, ml: int, mu: int, tile: int, ntiles: int = 1) -> BandPlan:
+    """The kernel's launch plan for a tile of ``tile`` members.
+
+    A tile is one cluster of ``ceil(tile / 8)`` blocks, at most 16, each of
+    ``ceil(tile / cluster)`` warps (tile 128: 16 blocks of 8 members, so
+    B = 1,024 in 8 tiles spreads over 128 SMs).  The chunks start at the
+    band LU kernels' (the factor's 16 columns at wide bands, 32 at narrow
+    ones; the solve's ~8 KB of factor rows) and halve, the larger part
+    first, until a block fits half the shared memory (two blocks an SM,
+    which leaves the card room to place a 16-block cluster) with chunks of
+    at least 8 columns, else all of it with chunks of at least one; a band
+    whose window does not fit even then is factored in device memory.
+    Raises :class:`UnsupportedForKernel` when the rhs's 2n doubles or the
+    solve's x and one column of factor rows do not fit."""
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"tile {tile} outside 1 .. {MAX_TILE}")
+    cluster = min(MAX_CLUSTER, -(-tile // 8))
+    members = -(-tile // cluster)
+    nb, rows = ml + mu + 1, max(ml, mu + 1)
+    f0 = 32 if nb <= 8 else 16
+    s0 = 64 if rows <= 16 else max(1, 1024 // rows)
+    # half the shared memory if the chunks keep 8 columns, else all of it
+    for budget, least in ((SMEM_DYNAMIC // 2, 8), (SMEM_DYNAMIC, 1)):
+        fc, sc = f0, s0
+        while 8 * members * member_doubles(n, ml, mu, fc, sc) > budget:
+            factor = (mu + 2 * fc) * nb + fc
+            solve = n + sc + 2 * sc * rows
+            if factor >= solve and fc > least:
+                fc //= 2
+            elif sc > least:
+                sc //= 2
+            elif fc > least:
+                fc //= 2
+            else:
+                break
+        stride = member_doubles(n, ml, mu, fc, sc)
+        if 8 * members * stride <= budget:
+            return BandPlan(members, cluster, fc, sc, stride, ntiles)
+    # a band too wide for the factor's window: factor in device memory
+    sc = s0
+    while sc > 1 and 8 * members * member_doubles(n, ml, mu, 0, sc) > SMEM_DYNAMIC:
+        sc //= 2
+    stride = member_doubles(n, ml, mu, 0, sc)
+    if 8 * members * stride <= SMEM_DYNAMIC:
+        return BandPlan(members, cluster, 0, sc, stride, ntiles)
+    raise UnsupportedForKernel(
+        f"the band kernel keeps 2n = {2 * n} doubles and the band solve's x "
+        f"for each of {members} members a block on chip: more than "
+        f"{SMEM_DYNAMIC} bytes of shared memory")
 
 
 # ---------------------------------------------------------------------------
@@ -247,11 +353,14 @@ class CBandConfig(ctypes.Structure):
         ("max_err_fails", _I),
         ("update_jac_after", _I), ("update_rhs_jac_after", _I),
         ("neval", _I), ("nbatch", _I), ("tile", _I), ("ntiles", _I),
+        ("members", _I), ("cluster", _I), ("fchunk", _I), ("schunk", _I),
+        ("stride", _I),
     ]
 
 
 @functools.lru_cache(maxsize=64)
 def _c_config(cfg: BandConfig) -> CBandConfig:
+    plan = band_plan(cfg.n, cfg.ml, cfg.mu, cfg.tile, cfg.ntiles)
     return CBandConfig(
         t0=cfg.t0, rtol=cfg.rtol, nl_tol=cfg.nl_tol, ki=cfg.ki, kp=cfg.kp,
         min_timestep=cfg.min_timestep,
@@ -270,29 +379,34 @@ def _c_config(cfg: BandConfig) -> CBandConfig:
         update_jac_after=cfg.update_jacobian_after_steps,
         update_rhs_jac_after=cfg.update_rhs_jacobian_after_steps,
         neval=cfg.neval, nbatch=cfg.nbatch, tile=cfg.tile, ntiles=cfg.ntiles,
+        members=plan.members, cluster=plan.cluster, fchunk=plan.fchunk,
+        schunk=plan.schunk, stride=plan.stride,
     )
 
 
 def scratch_doubles(cfg: BandConfig) -> int:
-    """Doubles of global scratch a member thread uses in the kernel: D,
-    the J band, the factored band, the solve vector and four state
-    vectors (y_pred, psi, the Newton iterate, the rhs)."""
+    """Doubles of device-memory scratch a member slot of the kernel
+    takes, contiguous and in this order: D (ND, n), the J band (n, nb),
+    the factored band (n + mu, nb) and three state vectors (y_pred, psi,
+    the Newton iterate).  The rhs's output and the Newton correction live
+    in shared memory."""
     n = cfg.n
-    return ND * n + n * cfg.nb + (n + cfg.mu) * cfg.nb + n + npadx(cfg.ml, cfg.mu) + 4 * n
+    return ND * n + n * cfg.nb + (n + cfg.mu) * cfg.nb + 3 * n
 
 
 def launch_fused_band_bdf(cfg: BandConfig, rhs_header: str, params_b: torch.Tensor,
                           init: torch.Tensor, h_tile: torch.Tensor,
                           consts: dict):
     """Launch the fused band kernel on ``torch.cuda.current_stream()``,
-    every tile in one launch (one block per tile).
+    every tile in one launch (a cluster of blocks per tile, as
+    :func:`band_plan` lays it out).
 
     ``params_b`` is a contiguous (nbatch, nparams) float64 CUDA tensor;
-    ``init`` the (2n, ntiles*tile) rows y0 and h_tile y0' per padded
+    ``init`` the (ntiles*tile, 2n) rows [y0, h_tile y0'] of each padded
     member; ``h_tile`` (ntiles,); ``consts`` the t_eval, atol and mass
     diagonal tensors on the same device.  Returns ``(ys (neval, n, B),
     info (ntiles, 4))``.  Builds the kernel at first use; raises on a
-    build or launch error."""
+    build error and on a refused launch (plan, shared memory, cluster)."""
     from .._build import load_fused_band_bdf
 
     if not params_b.is_cuda:
@@ -304,7 +418,7 @@ def launch_fused_band_bdf(cfg: BandConfig, rhs_header: str, params_b: torch.Tens
             f"params must be contiguous {(cfg.nbatch, cfg.nparams)}, got "
             f"{tuple(params_b.shape)}")
     dev = params_b.device
-    for name, arr, shape in (("init", init, (2 * cfg.n, cfg.pad_b)),
+    for name, arr, shape in (("init", init, (cfg.pad_b, 2 * cfg.n)),
                              ("h_tile", h_tile, (cfg.ntiles,))):
         if (arr.device != dev or arr.dtype != F64 or tuple(arr.shape) != shape
                 or not arr.is_contiguous()):
@@ -313,12 +427,12 @@ def launch_fused_band_bdf(cfg: BandConfig, rhs_header: str, params_b: torch.Tens
     lib = load_fused_band_bdf(rhs_header, cfg.ml, cfg.mu)
     if lib.fused_band_bdf_config_size() != ctypes.sizeof(CBandConfig):
         raise RuntimeError("CBandConfig does not match the kernel's BandConfig layout")
-    threads = -(-cfg.tile // 32) * 32
+    plan = band_plan(cfg.n, cfg.ml, cfg.mu, cfg.tile, cfg.ntiles)
     md = consts["mass_diag"]
     with torch.cuda.device(dev):
         ys = torch.empty(cfg.neval, cfg.n, cfg.nbatch, dtype=F64, device=dev)
         info = torch.empty(cfg.ntiles, 4, dtype=torch.int32, device=dev)
-        scratch = torch.empty(cfg.ntiles * threads * scratch_doubles(cfg),
+        scratch = torch.empty(cfg.ntiles * plan.slots * scratch_doubles(cfg),
                               dtype=F64, device=dev)
         ccfg = _c_config(cfg)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -391,10 +505,6 @@ def make_fused_band_bdf_solve(problem, t_eval, nbatch: int, tile=None,
         raise ValueError(f"tile {int(tile)} > {MAX_TILE}, the band kernel's block limit")
     mass_diag, needs_ic_solve = _mass_diag(problem, eqn)
     n, nparams = eqn.nstates, eqn.nparams
-    # the rhs only: init and the first step are computed outside the kernel
-    model = trace_model(eqn.rhs, None, n, nparams)
-    header = emit_cuda_header(model, getattr(eqn.rhs, "__qualname__", "rhs"))
-
     te = np.asarray(torch.as_tensor(t_eval, dtype=F64).cpu(), np.float64).reshape(-1)
     if te.size == 0 or np.any(np.diff(te) < 0.0):
         raise ValueError("t_eval must be non-empty and ascending")
@@ -406,6 +516,13 @@ def make_fused_band_bdf_solve(problem, t_eval, nbatch: int, tile=None,
         tile = default_tile(n, nb, mu, npadx(ml, mu), te.size)
     tile = max(1, min(int(tile), nbatch))
     ntiles = -(-nbatch // tile)
+    plan = band_plan(n, ml, mu, tile, ntiles)  # raises if the kernel cannot hold it
+    # the rhs only: init and the first step are computed outside the kernel
+    model = trace_model(eqn.rhs, None, n, nparams)
+    # each output stored as soon as its operands are: the kernel's rhs
+    # reads shared memory and writes elsewhere, and few values stay live
+    header = emit_cuda_header(model, getattr(eqn.rhs, "__qualname__", "rhs"),
+                              stream_outputs=True)
     opts = problem.options
     cfg = BandConfig(
         n=n, nparams=nparams, t0=float(problem.t0), rtol=float(problem.rtol),
@@ -450,7 +567,7 @@ def make_fused_band_bdf_solve(problem, t_eval, nbatch: int, tile=None,
                            else torch.tensor(mass_diag, dtype=F64, device=dev)))
         params_b = params_b.contiguous()
         y0, D1, h_t = initial_state(cfg, problem, _pad_params(cfg, params_b))
-        init = torch.cat([y0.reshape(cfg.pad_b, n).t(), D1.reshape(cfg.pad_b, n).t()])
+        init = torch.cat([y0.reshape(cfg.pad_b, n), D1.reshape(cfg.pad_b, n)], dim=1)
         return _finish(cfg, *launch_fused_band_bdf(
             cfg, header, params_b, init.contiguous(), h_t.contiguous(), consts_on[dev]))
 
@@ -460,4 +577,5 @@ def make_fused_band_bdf_solve(problem, t_eval, nbatch: int, tile=None,
     solve.model = model
     solve.tile = tile
     solve.ntiles = ntiles
+    solve.plan = plan
     return solve

@@ -287,6 +287,37 @@ def test_rhs_header_for_the_band_kernel():
     assert cg.op_count(model.rhs) == 5 * 128
 
 
+def test_band_kernel_rhs_is_emitted_output_by_output():
+    """The band kernel's header stores each output of the rhs right after
+    the nodes it needs (few values live at once), every node defined
+    before it is read and every output stored once; the small-n kernel's
+    header keeps the IR order with the outputs last."""
+    tp, _ = theat.make(mgrid=15, banded=True)
+    solve = fb.make_fused_band_bdf_solve(tp, [0.1], 4)
+    body = solve.header[solve.header.index("model_rhs"):]
+    defined, stored, first_store, last_def = set(), [], None, 0
+    for k, line in enumerate(body.splitlines()):
+        m = re.match(r"  const T v(\d+) = (.*);$", line)
+        o = re.match(r"  out\[(\d+)\] = v(\d+);$", line)
+        if m:
+            assert set(re.findall(r"\bv(\d+)\b", m.group(2))) <= defined, line
+            defined.add(m.group(1))
+            last_def = k
+        elif o:
+            assert o.group(2) in defined, line
+            stored.append(int(o.group(1)))
+            first_store = k if first_store is None else first_store
+    assert sorted(stored) == list(range(16))
+    assert first_store < last_def  # outputs interleaved with the nodes
+    model = cg.trace_model(tp.eqn.rhs, None, 16, 1)
+    plain = cg.emit_cuda_header(model, "heat1d")
+    outs = [k for k, ln in enumerate(plain.splitlines()) if ln.startswith("  out[")]
+    defs = [k for k, ln in enumerate(plain.splitlines()) if ln.startswith("  const T v")]
+    assert min(outs) > max(defs)
+    streamed = cg.emit_cuda_header(model, "rhs", stream_outputs=True)
+    assert body == streamed[streamed.index("model_rhs"):]
+
+
 def test_band_config_mirrors_the_cuda_struct():
     """The wrapper's ctypes CBandConfig lists the kernel's BandConfig
     fields in the same order and with the same scalar types."""

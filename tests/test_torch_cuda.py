@@ -393,9 +393,16 @@ def test_band_lu_kernels_match_plain_version_cuda(case, ml, mu, n, nbatch, resid
 
 
 @pytest.mark.cuda
-def test_fused_band_kernel_matches_plain_version_cuda():
-    """K2 against its plain version on heat1d n=128, B=256 (two tiles of
-    128): equal steps in every tile and ys to rtol=1e-9."""
+@pytest.mark.parametrize("nbatch,tile,ntiles", [
+    pytest.param(256, None, 2, id="B256"),  # two tiles of 128: 16 blocks of 8
+    pytest.param(200, None, 2, id="ragged"),  # the last tile padded with copies
+    pytest.param(200, 100, 2, id="tile100"),  # 13 blocks of 8: four replica slots
+    pytest.param(10, 4, 3, id="tile4"),  # one block of 4 warps a tile, ragged
+])
+def test_fused_band_kernel_matches_plain_version_cuda(nbatch, tile, ntiles):
+    """K2 against its plain version on heat1d n=128 at tiles the launch
+    plan lays out differently: equal steps in every tile and ys to
+    rtol=1e-9."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from diffsol_tpu_torch.models import heat1d
@@ -403,17 +410,53 @@ def test_fused_band_kernel_matches_plain_version_cuda():
 
     problem, _ = heat1d.make(127, rtol=1e-6, atol=1e-8, banded=True)
     t_eval = [0.001, 0.01, 0.05, 0.1, 0.2]
-    solve = fb.make_fused_band_bdf_solve(problem, t_eval, 256)
-    assert solve.tile == 128 and solve.ntiles == 2
-    params = torch.linspace(0.5, 2.0, 256, dtype=torch.float64, device="cuda")[:, None]
+    solve = fb.make_fused_band_bdf_solve(problem, t_eval, nbatch, tile=tile)
+    assert solve.ntiles == ntiles and solve.tile == (tile or 128)
+    params = torch.linspace(0.5, 2.0, nbatch, dtype=torch.float64, device="cuda")[:, None]
     before = fb.launch_fused_band_bdf.launches
     ys, status, steps = solve(params)
     torch.cuda.synchronize()
     assert fb.launch_fused_band_bdf.launches == before + 1
     ys_p, status_p, steps_p = solve.reference(params)
-    assert status.tolist() == status_p.tolist() == [fs.OK] * 2
+    assert status.tolist() == status_p.tolist() == [fs.OK] * ntiles
     assert torch.equal(steps, steps_p)
     torch.testing.assert_close(ys, ys_p, rtol=YS_RTOL, atol=YS_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat1d", "heat2d", "wide_band"])
+def test_fused_band_plan_matches_the_kernel_cuda(name):
+    """The kernel's build takes the wrapper's launch plan: its own count of
+    shared doubles a member equals band_plan's, the card holds at least one
+    cluster of it at once, and a plan that passes the shared memory is
+    refused at launch with a raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ctypes
+
+    from diffsol_tpu_torch import _build
+    from diffsol_tpu_torch.models import heat1d, heat2d
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+
+    if name == "heat2d":
+        problem = heat2d.make(20)
+    elif name == "heat1d":
+        problem, _ = heat1d.make(127, banded=True)
+    else:
+        problem, _, _ = _band_case("wide_band")
+    solve = fb.make_fused_band_bdf_solve(problem, [0.1], 1024)
+    cfg, plan = solve.cfg, solve.plan
+    assert (plan.fchunk == 0) == (name == "wide_band")
+    lib = _build.load_fused_band_bdf(solve.header, cfg.ml, cfg.mu)
+    assert lib.fused_band_bdf_member_doubles(plan.fchunk, plan.schunk) == plan.stride
+    out = (ctypes.c_int * 5)()
+    assert lib.fused_band_bdf_report(ctypes.addressof(fb._c_config(cfg)), out) == 0
+    print(name, plan, "clusters held at once", out[0], "registers", out[1], "local bytes",
+          out[2], "shared bytes", out[3], "+", out[4])
+    assert out[0] >= 1 and out[3] == plan.shared_bytes
+    c = fb.CBandConfig.from_buffer_copy(fb._c_config(cfg))
+    c.stride = fb.SMEM_DYNAMIC // 8  # members x stride doubles past the block's limit
+    assert lib.fused_band_bdf_report(ctypes.addressof(c), out) != 0
 
 
 @pytest.mark.cuda
@@ -475,13 +518,21 @@ def test_solve_dense_runs_on_the_card_by_default():
 
 def _band_case(case):
     """(problem, t_eval, params) of the band kernel's other paths: a
-    constant diagonal mass with algebraic rows, the ml = mu = 2 build, and
-    a matrix the no-pivot LU cannot factor (test_pallas_band.py:137, :95,
-    :212)."""
+    constant diagonal mass with algebraic rows, the ml = mu = 2 build, a
+    matrix the no-pivot LU cannot factor (test_pallas_band.py:137, :95,
+    :212), and heat1d n = 100 through a band of ml = mu = 42 (85
+    diagonals), too wide for the factor's window on chip at tile 80."""
     from diffsol_tpu_torch.ops.banded import make_banded_solver
 
     f64 = torch.float64
     b = dtt.OdeBuilder().rtol(1e-6).atol(1e-8).p([1.0])
+    if case == "wide_band":
+        from diffsol_tpu_torch.models import heat1d
+
+        heat, _ = heat1d.make(99)
+        b = (b.rhs(heat.eqn.rhs).init(heat.eqn.init)
+             .linear_solver(make_banded_solver(42, 42)))
+        return b.build(), [0.01, 0.05], np.linspace(0.5, 2.0, 160)[:, None]
     if case == "dirichlet_dae":
         n, h = 13, 1.0 / 12
 
@@ -526,17 +577,19 @@ def _band_case(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["dirichlet_dae", "stencil5", "lu_growth"])
+@pytest.mark.parametrize("case", ["dirichlet_dae", "stencil5", "lu_growth", "wide_band"])
 def test_fused_band_kernel_other_paths_cuda(case):
     """K2 against its plain version where heat1d does not reach: the mass
-    diagonal in the residual and the matrix, a wider band build, and the
-    growth guard's typed failure (two tiles of 80 each)."""
+    diagonal in the residual and the matrix, a wider band build, the
+    growth guard's typed failure, and a band whose factor runs in device
+    memory (two tiles of 80 each: clusters of 10 blocks of 8)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from diffsol_tpu_torch.ops import fused_band_stepper as fb
 
     problem, t_eval, params = _band_case(case)
     solve = fb.make_fused_band_bdf_solve(problem, t_eval, 160, tile=80, max_steps=2000)
+    assert (solve.plan.fchunk == 0) == (case == "wide_band")
     p = torch.tensor(params, device="cuda")
     ys, status, steps = solve(p)
     ys_p, status_p, steps_p = solve.reference(p)
@@ -558,28 +611,32 @@ def _mol2d(name):
 
     if name == "heat2d":  # n = 64, ml = mu = 8
         return heat2d.make(8), [0.01, 0.03, 0.1], 100_000
+    if name == "heat2d_full":  # n = 400, ml = mu = 20: 41 diagonals
+        return heat2d.make(20), [0.01, 0.03, 0.1], 100_000
     return foodweb.make(4), [1e-3, 1e-2, 1e-1], 3000  # n = 32, ml = mu = 8
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["heat2d", "foodweb"])
+@pytest.mark.parametrize("name", ["heat2d", "foodweb", "heat2d_full"])
 def test_fused_band_kernel_mol2d_matches_plain_version_cuda(name):
     """K2 against its plain version on heat2d mgrid = 8 and foodweb nx = 4
     (whose inconsistent ``init`` goes through the banded consistent-IC
-    solve, K3/K4, before the launch), B = 160 in two tiles of 80: heat2d
-    with equal steps in every tile and ys to rtol = 1e-9, foodweb within 10
-    error weights."""
+    solve, K3/K4, before the launch), B = 160 in two tiles of 80, and on
+    heat2d at its full width (mgrid = 20: n = 400, nb = 41), B = 256 in two
+    tiles of 128: heat2d with equal steps in every tile and ys to rtol =
+    1e-9, foodweb within 10 error weights."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from diffsol_tpu_torch.ops import band_lu
     from diffsol_tpu_torch.ops import fused_band_stepper as fb
 
     problem, t_eval, max_steps = _mol2d(name)
-    solve = fb.make_fused_band_bdf_solve(problem, t_eval, 160, tile=80,
+    nbatch, tile = (256, None) if name == "heat2d_full" else (160, 80)
+    solve = fb.make_fused_band_bdf_solve(problem, t_eval, nbatch, tile=tile,
                                          max_steps=max_steps)
     assert solve.ntiles == 2
     assert solve.cfg.needs_ic_solve == (name == "foodweb")
-    params = torch.ones(160, 1, dtype=torch.float64, device="cuda")
+    params = torch.ones(nbatch, 1, dtype=torch.float64, device="cuda")
     before, k3 = fb.launch_fused_band_bdf.launches, band_lu.launch_band_lu_factor.launches
     ys, status, steps = solve(params)
     torch.cuda.synchronize()
@@ -589,9 +646,11 @@ def test_fused_band_kernel_mol2d_matches_plain_version_cuda(name):
     assert status.tolist() == status_p.tolist() == [fs.OK] * 2
     print(name, "steps kernel", steps.tolist(), "plain", steps_p.tolist(), "max rel",
           float(((ys - ys_p).abs() / ys_p.abs().clamp(min=1e-300)).max()))
-    if name == "heat2d":
+    if name != "foodweb":
         assert torch.equal(steps, steps_p)
         torch.testing.assert_close(ys, ys_p, rtol=YS_RTOL, atol=YS_ATOL)
+        if name == "heat2d_full":
+            assert steps.tolist() == [47, 47]
     else:
         # foodweb's step sequence follows the last bit of its rhs (the CPU
         # test test_foodweb_steps_are_sensitive_to_roundoff_and_heat2d_is_not

@@ -322,7 +322,7 @@ def test_foodweb_steps_are_sensitive_to_roundoff_and_heat2d_is_not():
 def test_wide_band_tile_and_scratch_follow_the_jax_rule():
     """At the 2-D models' full sizes the JAX tile rule gives 128
     (pallas_stepper_band.py:201-222), and a member's scratch in the CUDA
-    kernel is D, J, the factored band and the work vectors."""
+    kernel is D, J, the factored band and three state vectors."""
     for n, half, neval in ((400, 20, 3), (200, 20, 3)):
         nb = 2 * half + 1
         assert fb.default_tile(n, nb, half, 20, neval) == 128
@@ -333,4 +333,4 @@ def test_wide_band_tile_and_scratch_follow_the_jax_rule():
             nl_tol=0.2, ki=0.5, kp=0.0, update_jacobian_after_steps=20,
             update_rhs_jacobian_after_steps=50, threshold_to_update_jacobian=0.3,
             jac_reuse=True, ml=half, mu=half)
-        assert fb.scratch_doubles(cfg) == 8 * n + n * nb + (n + half) * nb + n + 20 + 4 * n
+        assert fb.scratch_doubles(cfg) == 8 * n + n * nb + (n + half) * nb + 3 * n
