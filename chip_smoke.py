@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (csrc/band_lu.cuh) and the fused band BDF kernel
    (csrc/fused_band_bdf.cuh) once for each of the heat1d, heat2d and
    foodweb rhs headers, and the fused BDF kernel's mixed-precision build;
-   print each fused BDF build's time and ptxas's register and spill counts;
+   print each fused BDF build's time and, for each of its two kernels (the
+   256- and the 1024-thread build), ptxas's registers, stack frame, spill
+   store and spill load bytes;
 3. the fused BDF kernel against its plain PyTorch version on the card: 256
    Robertson members with k1 spread +-10%, t_eval 0.4 ... 4e10, the same
    tile;
@@ -21,8 +23,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    robertson.problem_ode(), T_EVAL_4E10, params (10,000, 3), mode="fused")
    with the kernel's launch counter read around it, checked against the
    reference's CVODE table (robertson.SOLN);
-5. times of that path and of the plain version at the same shapes (CUDA
-   events), with the card's name and power limit;
+5. times of that path, of the kernel alone (CUDA events around the bare
+   launch; the difference is the call's host part) and of the plain
+   version at the same shapes (CUDA events), with the card's name and
+   power limit;
 6. the band libraries' build times and ptxas lines, the band LU
    kernels' dynamic shared memory a block at the three models' shapes, and
    the fused band kernel's launch plan at each model's main path (grid,
@@ -43,10 +47,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     checks, agreement with phase 8, its time (median of 5) and the plain
     version's at the same shapes;
 11. one traced call of each of the paths (torch.profiler), heat2d's
-    lockstep path among them: the device time by kernel, the band LU
-    kernels' (K3, K4) and the fused band kernel's (K2) where the path
-    runs them, and the device's busy share of the call (the profiler's own
-    overhead is in the call's time);
+    lockstep path among them: the device time by kernel, the fused small-n
+    kernel's (K1), the band LU kernels' (K3, K4) and the fused band
+    kernel's (K2) where the path runs them, and the device's busy share of
+    the call (the profiler's own overhead is in the call's time); for the
+    small-n paths (Robertson ODE, DAE, mixed) also unprofiled: the call and
+    K1 alone between CUDA events, K1's share of the call and the call's
+    host part;
 12. (run after phase 5) the rest of the fused BDF kernel, one variant at a
     time: the Robertson DAE (mass diag(1, 1, 0)), the root that stops the
     solve, the bouncing ball's reset, quadrature of the state, quadrature
@@ -256,6 +263,27 @@ def print_builds(tag, builds):
             print(f"[{tag}]   {ln}", flush=True)
 
 
+def ptxas_kernels(lines):
+    """(kernel, registers, stack frame, spill store and spill load bytes)
+    for each kernel in a build's ptxas lines ("Function properties for K",
+    then "S bytes stack frame, X bytes spill stores, Y bytes spill loads",
+    then "Used R registers, ...")."""
+    import re
+
+    out, name, frame = [], None, None
+    for ln in lines:
+        if "Function properties for" in ln:
+            name, frame = ln.rsplit(" ", 1)[-1], None
+        elif "stack frame" in ln and name is not None:
+            frame = [int(v) for v in re.findall(r"(\d+) bytes", ln)[:3]]
+        elif "Used" in ln and "registers" in ln and name is not None and frame:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            if "kernel" in name:
+                out.append((name, regs, *frame))
+            name = None
+    return out
+
+
 def check_heat(name, sol, soln, d, n):
     """TSTOP_REACHED, finite ys of the right shape, the member nearest
     d = 1.0 against the analytic series and the midpoint decay monotone in
@@ -379,8 +407,15 @@ def robertson_phases(dev, rng, card_line, problem, check_solve, shared):
     ys_k = sol.ys.movedim(1, -1)  # back to the kernel's (neval, n, B)
     abs5, share5 = check_close("B=10000", ys_k, ys_p, sol.tile_steps, steps_p)
     kernel_ms = time_ms(main_path, 5)
+    # the kernel alone: CUDA events around the bare launch, so the rest of
+    # the call is host work (and the few small kernels around the launch)
+    te_dev = torch.tensor(te, dtype=torch.float64, device=dev)
+    alone_ms = time_ms(lambda: fs.launch_fused_bdf(main_solve.cfg, main_solve.header,
+                                                   p_main, te_dev), 5)
     plain_ms = time_ms(lambda: main_solve.reference(p_main), 1)
-    print(f"[5] main path (fused kernel): {kernel_ms:.3f} ms median of 5; plain "
+    print(f"[5] main path (fused kernel): {kernel_ms:.3f} ms median of 5; the kernel "
+          f"alone {alone_ms:.3f} ms (median of 5, events around the launch), so "
+          f"{kernel_ms - alone_ms:.3f} ms of the call is host work; plain "
           f"PyTorch version: {plain_ms:.1f} ms (one run); kernel vs plain max abs "
           f"{abs5:.3e}, {share5:.3e} of the bound; card {card_line}", flush=True)
     # the least time: params in and ys out once, or the f64 work of the
@@ -393,7 +428,9 @@ def robertson_phases(dev, rng, card_line, problem, check_solve, shared):
     bound_ms, bound_by = bound(nbytes, ops)
     print(f"[5] least time for that work: {bound_ms:.4f} ms, bound by {bound_by} "
           f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP f64, a lower bound)", flush=True)
-    return ("small-n fused main path (B=10,000)", main_path, "fused_bdf_kernel"), k1_record(
+    return ("small-n fused main path (B=10,000)", main_path, "fused_bdf_kernel",
+            lambda: fs.launch_fused_bdf(main_solve.cfg, main_solve.header, p_main,
+                                        te_dev)), k1_record(
         "ode", launches=launches, max_abs_err=abs5, ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by)
 
@@ -602,8 +639,11 @@ def variant_phases(dev, rng, card_line, variants, check_solves, shared):
         records.append(k1_record(name, launches=launches, max_abs_err=abs_m, ms=kernel_ms,
                                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
         if name == "dae":
+            te_dev = torch.tensor(t_eval, dtype=torch.float64, device=dev)
             dae_path = ("Robertson DAE fused main path (B=10,000)", path,
-                        "fused_bdf_kernel")
+                        "fused_bdf_kernel",
+                        lambda s=main_solve, p=p_main, te=te_dev: fs.launch_fused_bdf(
+                            s.cfg, s.header, p, te))
 
     # ---- members that cross at different times fail the solve loudly
     problem, t_eval, _ = variants["root_stop"]
@@ -1150,7 +1190,9 @@ def mixed_phase(dev, card_line, problem, shared):
           f"{bound_by} (a lower bound: the solve's operations at the float32 peak, the "
           f"rest at the float64 one); card {card_line}",
           flush=True)
-    return (("small-n mixed-precision path (B=10,000)", path, "fused_bdf_kernel"),
+    te_dev = torch.tensor(te, dtype=torch.float64, device=dev)
+    return (("small-n mixed-precision path (B=10,000)", path, "fused_bdf_kernel",
+             lambda: fs.launch_fused_bdf(main_solve.cfg, main_solve.header, p_main, te_dev)),
             k1_record("mixed", launches=launches, max_abs_err=float(diff.max()),
                       ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                       bound_by=bound_by))
@@ -1160,16 +1202,26 @@ def profile_paths(paths, card_line):
     """Phase 11: trace one call of each path (after a warm-up) with
     torch.profiler; print its wall time, the device time by kernel and the
     busy share.  ``paths`` holds (name, callable, a part of the name of
-    the kernel the path must show); a trace that lacks that kernel (the
-    tracer at times drops the record of a kernel launched through ctypes)
-    is taken once more, and then reported as not measured."""
+    the kernel the path must show) and, for the small-n kernel's paths, a
+    fourth item: a callable that launches the kernel alone.  A trace that
+    lacks the kernel (the tracer at times drops the record of a kernel
+    launched through ctypes) is taken again, up to four times, and then
+    reported as not measured with what it did record.  Where the kernel
+    alone can be launched, the call and the kernel are also timed
+    unprofiled between CUDA events: the kernel's device time, its share of
+    the call and the call's host part."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for name, fn, must_show in paths:
+    for name, fn, must_show, *alone in paths:
         fn()
         torch.cuda.synchronize()
-        for _ in range(2):
+        if alone:
+            call_ms, k_ms = time_ms(fn, 5), time_ms(alone[0], 5)
+            print(f"[11] {name}: unprofiled, call {call_ms:.3f} ms and K1 alone {k_ms:.3f} "
+                  f"ms (CUDA events, medians of 5): the kernel {k_ms / call_ms:.1%} of the "
+                  f"call, host part {call_ms - k_ms:.3f} ms; card {card_line}", flush=True)
+        for _ in range(4):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 fn()
@@ -1183,24 +1235,29 @@ def profile_paths(paths, card_line):
             if any(must_show in key for _, _, key in kernels):
                 break
         else:
-            print(f"[11] {name}: the profiler recorded no {must_show} (not measured)",
-                  flush=True)
+            seen = "; ".join(f"{key[:60]} x{cnt}" for _, cnt, key in kernels[:4]) or "nothing"
+            print(f"[11] {name}: the profiler recorded no {must_show} in four traces (not "
+                  f"measured); it recorded {seen}", flush=True)
             continue
         busy_us = sum(k[0] for k in kernels)
         top = "; ".join(f"{key[:60]} {us / 1e3:.3f} ms x{cnt}" for us, cnt, key in kernels[:6])
-        # the band kernels' share, where the path runs them
-        lu = "".join(
+        # each kernel of the port's share, where the path runs it
+        ours = "".join(
             f", {label} {sum(us for us, _, key in hits) / 1e3:.3f} ms x"
             f"{sum(cnt for _, cnt, _ in hits)}"
             for label, hits in (
                 (label, [k for k in kernels if kernel in k[2]])
-                for label, kernel in (("K2", "fused_band_bdf_kernel"),
+                for label, kernel in (("K1", "fused_bdf_kernel"),
+                                      ("K2", "fused_band_bdf_kernel"),
                                       ("K3", "band_lu_factor_kernel"),
                                       ("K4", "band_lu_solve_kernel")))
             if hits)
+        k1_us = sum(us for us, _, key in kernels if "fused_bdf_kernel" in key)
+        host = (f", host part of the call (call minus K1) {(wall_us - k1_us) / 1e3:.3f} ms"
+                if k1_us else "")
         print(f"[11] {name}: call {wall_us / 1e3:.3f} ms (host clock, profiled), "
               f"device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.1%} of the call"
-              f"{lu}, {sum(k[1] for k in kernels)} kernel launches; top: {top}; card "
+              f"{ours}{host}, {sum(k[1] for k in kernels)} kernel launches; top: {top}; card "
               f"{card_line}", flush=True)
 
 
@@ -1251,8 +1308,16 @@ def main() -> int:
           f"headers)", flush=True)
     for name, fut in k1_libs.items():
         lib_name = fut.result()._name.rsplit("/", 1)[-1]
-        print(f"[2] fused BDF variant {name}:", flush=True)
-        print_builds(2, [b for b in _build.BUILDS if b["library"] == lib_name])
+        for b in _build.BUILDS:
+            if b["library"] != lib_name:
+                continue
+            print(f"[2] fused BDF variant {name}: built {lib_name} in {b['seconds']:.1f} s",
+                  flush=True)
+            for kname, regs, frame, st, ld in ptxas_kernels(b["ptxas"]):
+                threads = "1024" if "Li1024E" in kname else "256"
+                print(f"[2] fused BDF variant {name}, {threads}-thread build: {regs} "
+                      f"registers, {frame} B stack frame, {st} B spill stores, {ld} B "
+                      f"spill loads", flush=True)
     if not _build.BUILDS:
         print("[2] the libraries were already built under build/diffsol_tpu_torch/ "
               "(delete it to see ptxas's report)", flush=True)

@@ -27,6 +27,7 @@ import dataclasses
 import math
 import weakref
 
+import numpy as np
 import torch
 
 from . import errors
@@ -84,8 +85,17 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
 
 
 # the last fused solve built for each live problem, with its static
-# arguments; an entry goes when its problem does
+# arguments and its output times on each device; an entry goes when its
+# problem does
 _fused_cache: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _te_key(t_eval) -> tuple:
+    """The output times as a tuple of floats (a list or array without a
+    tensor round trip)."""
+    if isinstance(t_eval, torch.Tensor):
+        return tuple(t_eval.detach().reshape(-1).cpu().tolist())
+    return tuple(np.asarray(t_eval, dtype=np.float64).reshape(-1).tolist())
 
 
 def _make_fused_solve(problem, t_eval, nbatch, max_steps, tile, precision="df"):
@@ -112,17 +122,19 @@ def _make_fused_solve(problem, t_eval, nbatch, max_steps, tile, precision="df"):
 
 
 def _fused_solve_cached(problem, t_eval, nbatch, max_steps, tile, precision="df"):
-    te_key = tuple(float(v) for v in torch.as_tensor(t_eval).reshape(-1))
-    key = (te_key, nbatch, max_steps, tile, precision)
+    """``(solve, tier, ts_on)``: the fused solve of these static arguments,
+    built at first use, and a dict device -> the output times there, filled
+    by :func:`_fused_solution`."""
+    key = (_te_key(t_eval), nbatch, max_steps, tile, precision)
     hit = _fused_cache.get(problem)
     if hit is not None and hit[0] == key:
         return hit[1]
-    made = _make_fused_solve(problem, t_eval, nbatch, max_steps, tile, precision)
+    made = _make_fused_solve(problem, t_eval, nbatch, max_steps, tile, precision) + ({},)
     _fused_cache[problem] = (key, made)
     return made
 
 
-def _fused_solution(fsolve, tier, params_batch, t_eval, problem) -> Solution:
+def _fused_solution(fsolve, tier, ts_on, params_batch, t_eval, problem) -> Solution:
     """Run a fused solve and wrap it as a :class:`Solution`; the worst tile
     status is the batch's (shared fate, as in lockstep).  A solve with
     roots or quadrature returns a dict, and the semantics are
@@ -162,7 +174,12 @@ def _fused_solution(fsolve, tier, params_batch, t_eval, problem) -> Solution:
                 sol_root_t, sol_root_idx = float(root_t[0]), int(root_idx[0])
             else:
                 stop = errors.ROOT_BATCH_INCONSISTENT
-    te = torch.as_tensor(t_eval, dtype=F64).reshape(-1).to(ys.device)
+    # the output times, copied to the device once per solve and cloned on
+    # the device for each Solution
+    te = ts_on.get(ys.device)
+    if te is None:
+        te = ts_on[ys.device] = torch.as_tensor(t_eval, dtype=F64).reshape(-1).to(ys.device)
+    te = te.clone()
     if not params_batch.is_cuda:
         tier += "_reference"
     # n_points is len(t_eval) whatever happened: the points past a root
@@ -212,13 +229,13 @@ def solve_dense_ensemble(
 
     if mode in ("fused", "auto"):
         try:
-            fsolve, tier = _fused_solve_cached(problem, t_eval, nbatch,
-                                               max_steps, tile, precision)
+            fsolve, tier, ts_on = _fused_solve_cached(problem, t_eval, nbatch,
+                                                      max_steps, tile, precision)
         except UnsupportedForKernel:
             if mode == "fused":
                 raise
         else:
-            return _fused_solution(fsolve, tier, params_batch, t_eval, problem)
+            return _fused_solution(fsolve, tier, ts_on, params_batch, t_eval, problem)
         mode = "lockstep"
 
     problem = problem.to(dev)

@@ -39,6 +39,14 @@ def _params(nbatch):
     pytest.param(False, 256, None, id="False"),
     # tiles above 256 members run the kernel's 1024-thread build
     pytest.param(True, 600, 512, id="tile512"),
+    # a warp a block: the tile reductions combine one warp's slot with the
+    # empty ones, and order selection takes its three powers in one thread
+    pytest.param(True, 5, 1, id="tile1"),
+    # two warps a block, the last tile ragged (44 of 64 members)
+    pytest.param(True, 300, 64, id="tile64_ragged"),
+    # pad threads past the tile in every block (100 members, 128 threads),
+    # the last tile ragged
+    pytest.param(True, 250, 100, id="tile100_ragged"),
 ])
 def test_fused_kernel_matches_plain_version_cuda(jac_reuse, nbatch, tile):
     """The CUDA kernel against its plain version on the card: the same
@@ -70,19 +78,23 @@ def _chain8(t, y, p):
 
 
 @pytest.mark.cuda
-def test_fused_kernel_n8_matches_plain_version_cuda():
+@pytest.mark.parametrize("tile", [128, 256])
+def test_fused_kernel_n8_matches_plain_version_cuda(tile):
+    """K1 at its largest size, 300 members in tiles of 128 (three, the last
+    ragged) and of 256 (two: 256 threads, the build's widest block below
+    the 1024-thread one)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     problem = (dtt.OdeBuilder().rhs(_chain8)
                .init(lambda t, p: torch.ones(8, dtype=torch.float64, device=p.device))
                .p([50.0, 1e3]).rtol(1e-6).atol(1e-9).build())
-    solve = fs.make_fused_bdf_solve(problem, [0.1, 1.0, 10.0], 300, tile=128)
+    solve = fs.make_fused_bdf_solve(problem, [0.1, 1.0, 10.0], 300, tile=tile)
     rng = np.random.default_rng(8)
     params = torch.tensor(np.stack([rng.uniform(40, 60, 300), np.full(300, 1e3)], 1),
                           device="cuda")
     ys, status, steps = solve(params)
     ys_p, status_p, steps_p = solve.reference(params)
-    assert status.tolist() == status_p.tolist() == [fs.OK] * 3
+    assert status.tolist() == status_p.tolist() == [fs.OK] * solve.ntiles
     assert torch.equal(steps, steps_p)
     torch.testing.assert_close(ys, ys_p, rtol=YS_RTOL, atol=YS_ATOL)
 
@@ -759,8 +771,9 @@ def test_foodweb_solve_dense_on_the_card_by_default():
 @pytest.mark.cuda
 def test_fused_kernel_n8_mixed_precision_cuda():
     """The mixed build at the kernel's largest size, n = 8 (its ptxas line
-    prints beside the float64 build's): both end TSTOP and agree within 5
-    error weights."""
+    prints beside the float64 build's): it, the float64 build and its
+    plain version end TSTOP, and it agrees with both within 5 error
+    weights."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     problem = (dtt.OdeBuilder().rhs(_chain8)
@@ -771,8 +784,12 @@ def test_fused_kernel_n8_mixed_precision_cuda():
                                     np.full(300, 1e3)], axis=1), device="cuda")
     te = [0.1, 1.0, 10.0]
     ys_d, status_d, _ = fs.make_fused_bdf_solve(problem, te, 300, tile=128)(params)
-    ys_m, status_m, _ = fs.make_fused_bdf_solve(problem, te, 300, tile=128,
-                                                precision="mixed")(params)
-    assert status_d.tolist() == status_m.tolist() == [fs.OK] * 3
+    mixed = fs.make_fused_bdf_solve(problem, te, 300, tile=128, precision="mixed")
+    ys_m, status_m, _ = mixed(params)
+    ys_p, status_p, _ = mixed.reference(params)
+    assert status_d.tolist() == status_m.tolist() == status_p.tolist() == [fs.OK] * 3
     w = 1e-9 + 1e-6 * ys_d.abs()
     assert float(((ys_m - ys_d).abs() / w).max()) < 5.0
+    # and against its own plain version, whose float32 operations run in
+    # another order
+    assert float(((ys_m - ys_p).abs() / w).max()) < 5.0
