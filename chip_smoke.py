@@ -102,7 +102,36 @@ Phases, in order; any failure raises and the script exits non-zero:
     its own plain version (whose float32 operations run in another order:
     the steps of both are printed, and ys are held to 5 error weights) and
     against the float64 kernel on the same members as tests/test_pallas_stepper.py:451
-    (< 5 weights over all points, < 0.1 up to t = 4e4).
+    (< 5 weights over all points, < 0.1 up to t = 4e4);
+16. every method of ``solver``/``METHODS`` (bdf, tr_bdf2, esdirk34,
+    tsit45) on the five exact-solution cases of tests/test_parity_sweep.py
+    at rtol 1e-6, atol 1e-8 on the card (tsit45 takes no DAE), each within
+    200 rtol of its exact solution;
+17. RK lockstep ensembles of 1,024 members (mode="lockstep": the fused and
+    auto modes take the BDF kernel whatever the solver factory): the
+    Robertson ODE with k1 spread +-10 % (numpy seed 0, member 0 nominal)
+    through tr_bdf2 and esdirk34 to t = 4e6, member 0 against the CVODE
+    table and members 0, 511 and 1023 against their own single solves
+    (rtol 2e-3); the logistic equation with r spread +-10 % through
+    tsit45, every member within 200 rtol of its exact solution;
+18. the block-diagonal tier at the reference's width (bench.py:591-646):
+    robertson.problem_ode_groups(1000), n = 3,000 on blockdiag(3,1000),
+    one BdfSolver solve to t = 4e10, every group against the CVODE table
+    to t = 4e6, its batched LU factorizations and one profiled call of its
+    first 100 steps (kernel launches a step, the card's busy share); 100
+    groups x 100
+    lockstep members, one (10,000, 3, 3) LU stack, members 0 and 99
+    against their single solves; and 5 groups on the block tier against
+    the dense Jacobian (rtol 1e-6, atol 1e-10);
+19. a mass given as a matrix with a user Jacobian (rhs_implicit):
+    models/heat2d_mass.py, with its lumped and with its dense consistent
+    mass, through bdf and tr_bdf2 on the card against the same solve on
+    the CPU (1e-8 relative and 1e-14 absolute, steps within 2).
+Each of phases 16-19 prints its steps, Newton iterations and linear solver
+setups and its time (the median of 3 calls after a warm-up whose solution
+the gates read, between CUDA events) beside the card's name and power
+limit; these paths launch PyTorch's kernels only (their JAX counterparts
+reach no Pallas kernel).
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
@@ -1260,6 +1289,287 @@ def profile_paths(paths, card_line):
               f"{ours}{host}, {sum(k[1] for k in kernels)} kernel launches; top: {top}; card "
               f"{card_line}", flush=True)
 
+# ---------------------------------------------------------------------------
+# phases 16-19: the eager paths of the other methods, the block-diagonal tier
+# and a dense mass.  Their JAX counterparts reach no Pallas kernel, so these
+# paths launch PyTorch's own kernels only; each is timed and gated here.
+
+# the parity sweep's tolerances and bound (tests/test_parity_sweep.py)
+SWEEP_RTOL, SWEEP_ATOL = 1e-6, 1e-8
+SWEEP_CHECK = 200 * SWEEP_RTOL
+B_RK = 1024
+# lockstep members against their own single solves, as
+# tests/test_blockdiag.py:156-159
+MEMBER_RTOL, MEMBER_ATOL = 2e-3, 1e-10
+# the block tier against the dense Jacobian (tests/test_blockdiag.py:124-126)
+BLOCK_RTOL, BLOCK_ATOL = 1e-6, 1e-10
+# the card's solve against the CPU's of the same problem
+CARD_CPU_RTOL, CARD_CPU_ATOL, CARD_CPU_STEPS = 1e-8, 1e-14, 2
+
+
+def timed_solve(fn):
+    """``(solution, ms)``: ``fn``'s first call, whose solution the gates
+    read, is the warm-up; then the median of 3 calls between CUDA events
+    (an eager solve reads its status on the host, a sync, every step)."""
+    sol = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sol, float(np.median(times))
+
+
+def stats_line(sol) -> str:
+    st = sol.state.stats
+    return (f"{st.steps} steps, {st.newton_iterations} Newton iterations, "
+            f"{st.linear_solver_setups} linear solver setups")
+
+
+def check_soln(name, ys, rtol=5e-3):
+    """Robertson ODE rows (neval, ..., 3) against the CVODE table for t <=
+    4e6, at tests/test_torch_bdf.py:58-59's tolerances (every group or
+    member along the middle axes)."""
+    from diffsol_tpu_torch.models import robertson
+
+    ys = ys.cpu().numpy()[:8]
+    ref = robertson.SOLN[1:9, 1:].reshape((8,) + (1,) * (ys.ndim - 2) + (3,))
+    for i, atol in ((0, 1e-10), (2, 1e-8)):
+        np.testing.assert_allclose(ys[..., i], np.broadcast_to(ref[..., i], ys[..., i].shape),
+                                   rtol=rtol, atol=atol, err_msg=name)
+
+
+def sweep_cases():
+    """The five exact-solution cases of tests/test_parity_sweep.py:41-84."""
+    import dataclasses
+
+    from diffsol_tpu_torch.models import (exponential_decay, exponential_decay_algebraic,
+                                          logistic, misc)
+
+    def tight(pr):
+        return dataclasses.replace(pr, rtol=torch.tensor(SWEEP_RTOL, dtype=torch.float64),
+                                   atol=torch.full_like(pr.atol, SWEEP_ATOL))
+
+    gd = tight(misc.gaussian_decay_problem())
+    t1, t2, t3 = [0.25, 0.5, 1.0], [1.0, 5.0, 10.0], [0.5, 1.0]
+    return {
+        "exponential_decay": (exponential_decay.problem(rtol=SWEEP_RTOL, atol=SWEEP_ATOL), t1,
+                              exponential_decay.soln(t1, [0.1, 1.0])),
+        "logistic": (logistic.problem(rtol=SWEEP_RTOL, atol=SWEEP_ATOL), t2,
+                     logistic.soln(t2, [1.0, 1.0, 0.1])),
+        "gaussian_decay": (gd, t3, misc.gaussian_decay_soln(t3, gd.params.numpy())),
+        "dydt_y2": (tight(misc.dydt_y2_problem()), [0.4, 0.8],
+                    misc.dydt_y2_soln([0.4, 0.8])),
+        "exponential_decay_algebraic": (tight(exponential_decay_algebraic.problem()),
+                                        [0.4, 0.8],
+                                        exponential_decay_algebraic.soln([0.4, 0.8], [0.1])),
+    }
+
+
+def methods_phase(card_line):
+    """Phase 16: each of METHODS on the parity sweep's five cases on the
+    card, against the exact solution."""
+    import diffsol_tpu_torch as dtt
+
+    for name, (problem, te, exact) in sweep_cases().items():
+        for method in dtt.METHODS:
+            if method == "tsit45" and problem.eqn.mass is not None:
+                continue  # explicit RK takes no DAE (as the JAX test)
+
+            def run(problem=problem, te=te, method=method):
+                return dtt.solve_dense(dtt.solver(problem, method), te, max_steps=40_000)
+
+            sol, ms = timed_solve(run)
+            if sol.stop_reason != dtt.errors.TSTOP_REACHED or not sol.ys.is_cuda:
+                raise AssertionError(f"{name} {method}: stop_reason {sol.stop_reason}")
+            err = float(np.max(np.abs(sol.ys.cpu().numpy() - exact) / (np.abs(exact) + 1e-3)))
+            if not err < SWEEP_CHECK:
+                raise AssertionError(f"{name} {method}: error {err} >= {SWEEP_CHECK}")
+            print(f"[16] {name} {method}: {stats_line(sol)}, error vs exact {err:.3e} "
+                  f"(< {SWEEP_CHECK:g}), {ms:.2f} ms median of 3 (CUDA events); card "
+                  f"{card_line}", flush=True)
+
+
+def rk_lockstep_phase(dev, card_line):
+    """Phase 17: RK lockstep ensembles of 1,024 members on the card."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import logistic, robertson
+
+    te = robertson.SOLN[1:9, 0]
+    problem = robertson.problem_ode()
+    params = robertson_params(B_RK, np.random.default_rng(SEED), dev)
+    for method in ("tr_bdf2", "esdirk34"):
+        def run(method=method):
+            return dtt.solve_dense_ensemble(lambda pr: dtt.solver(pr, method), problem, te,
+                                            params, mode="lockstep", max_steps=20_000)
+
+        sol, ms = timed_solve(run)
+        if sol.tier != "lockstep" or sol.stop_reason != dtt.errors.TSTOP_REACHED:
+            raise AssertionError(f"robertson {method}: tier {sol.tier}, stop_reason "
+                                 f"{sol.stop_reason}")
+        check_soln(f"robertson {method} member 0", sol.ys[:, 0])
+        worst = 0.0
+        for b in (0, B_RK // 2 - 1, B_RK - 1):
+            one = dtt.solve_dense(dtt.solver(problem, method), te, params=params[b],
+                                  max_steps=20_000).ys
+            d = (sol.ys[:, b] - one).abs()
+            if bool((d > MEMBER_ATOL + MEMBER_RTOL * one.abs()).any()):
+                raise AssertionError(f"robertson {method}: member {b} off its single solve")
+            worst = max(worst, float((d / (MEMBER_ATOL + one.abs())).max()))
+        print(f"[17] robertson_ode {method} lockstep B={B_RK}: {stats_line(sol)}, "
+              f"{ms:.1f} ms median of 3 (CUDA events); member 0 meets the CVODE table "
+              f"(rtol 5e-3), members 0, {B_RK // 2 - 1}, {B_RK - 1} within {worst:.2e} "
+              f"relative of their single solves (< {MEMBER_RTOL:g}); card {card_line}",
+              flush=True)
+
+    rng = np.random.default_rng(SEED)
+    r = 1.0 + 0.1 * rng.uniform(-1.0, 1.0, B_RK)
+    r[0] = 1.0
+    lp = torch.tensor(np.stack([r, np.ones(B_RK), np.full(B_RK, 0.1)], axis=1), device=dev)
+    tl = [1.0, 5.0, 10.0]
+    lproblem = logistic.problem()
+
+    def run_logistic():
+        return dtt.solve_dense_ensemble(lambda pr: dtt.solver(pr, "tsit45"), lproblem, tl, lp,
+                                        mode="lockstep")
+
+    sol, ms = timed_solve(run_logistic)
+    exact = np.stack([logistic.soln(tl, p) for p in lp.cpu().numpy()], axis=1)
+    err = float(np.max(np.abs(sol.ys.cpu().numpy() - exact) / (np.abs(exact) + 1e-3)))
+    check = 200 * float(lproblem.rtol)
+    if sol.stop_reason != dtt.errors.TSTOP_REACHED or not err < check:
+        raise AssertionError(f"logistic tsit45: stop_reason {sol.stop_reason}, error {err}")
+    print(f"[17] logistic tsit45 lockstep B={B_RK}: {stats_line(sol)}, "
+          f"{sol.state.stats.rhs_evals} rhs evaluations, {ms:.2f} ms median of 3 (CUDA "
+          f"events); every member within {err:.2e} of the exact solution (< {check:g}); "
+          f"card {card_line}", flush=True)
+
+
+def profile_line(tag, fn, card_line):
+    """One traced call of the solve ``fn``: the kernel launches a step and
+    the card's busy share of the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # the card's activity only: a host-side record of the ~45,000 launches'
+    # operators would cost more to gather than the call itself
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps = fn().state.stats.steps
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [ev for ev in prof.key_averages()
+               if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    launches = sum(ev.count for ev in kernels)
+    busy_us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in kernels)
+    top = sorted(kernels, key=lambda ev: -getattr(ev, "self_device_time_total", 0.0))[:4]
+    print(f"[{tag}] profiled call {wall_us / 1e3:.1f} ms (host clock), {steps} steps, "
+          f"{launches} kernel launches = {launches / max(steps, 1):.1f} a step, device busy "
+          f"{busy_us / 1e3:.2f} ms = {busy_us / wall_us:.1%} of the call; top: "
+          + "; ".join(f"{ev.key[:50]} {ev.self_device_time_total / 1e3:.2f} ms x{ev.count}"
+                      for ev in top) + f"; the trace took {time.perf_counter() - t_prof:.1f} s "
+          f"in all; card {card_line}", flush=True)
+
+
+def blockdiag_phase(dev, card_line):
+    """Phase 18: the block-diagonal tier at the reference's width."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import robertson
+
+    te = robertson.T_EVAL_4E10
+    wide = robertson.problem_ode_groups(1000)
+    if wide.linear_solver.name != "blockdiag(3,1000)":
+        raise AssertionError(f"ngroups=1000 routed to {wide.linear_solver.name}")
+
+    def run_wide():
+        return dtt.solve_dense(dtt.BdfSolver(wide), te, max_steps=5000)
+
+    sol, ms = timed_solve(run_wide)
+    if sol.stop_reason != dtt.errors.TSTOP_REACHED or not sol.ys.is_cuda:
+        raise AssertionError(f"ngroups=1000: stop_reason {sol.stop_reason}")
+    check_soln("ngroups=1000", sol.ys.reshape(len(te), 1000, 3))
+    factorizations = sol.state.stats.linear_solver_setups
+    print(f"[18] robertson_ode ngroups=1000 (n=3000, blockdiag(3,1000)) BdfSolver to "
+          f"t=4e10: {stats_line(sol)}, {factorizations} batched LU factorizations of "
+          f"(1000, 3, 3), {ms:.1f} ms median of 3 (CUDA events); every group meets the "
+          f"CVODE table to t=4e6 (rtol 5e-3); card {card_line}", flush=True)
+    # the trace of a call costs ten times the call: trace its first 100
+    # steps, to t = 400, as the window
+    profile_line(18, lambda: dtt.solve_dense(dtt.BdfSolver(wide), te[:4], max_steps=5000),
+                 card_line)
+
+    narrow = robertson.problem_ode_groups(100)
+    B = 100
+    pb = torch.tensor(np.tile(np.array(robertson.P_DEFAULT), (B, 1)), device=dev)
+
+    def run_lock():
+        return dtt.solve_dense_ensemble(dtt.BdfSolver, narrow, te, pb, mode="lockstep",
+                                        max_steps=5000)
+
+    lock, ms = timed_solve(run_lock)
+    if lock.stop_reason != dtt.errors.TSTOP_REACHED:
+        raise AssertionError(f"g100 x b100: stop_reason {lock.stop_reason}")
+    for b in (0, B - 1):
+        one = dtt.solve_dense(dtt.BdfSolver(narrow), te, params=pb[b], max_steps=5000).ys
+        d = (lock.ys[:, b] - one).abs()
+        if bool((d > MEMBER_ATOL + MEMBER_RTOL * one.abs()).any()):
+            raise AssertionError(f"g100 x b100: member {b} off its single solve")
+    print(f"[18] robertson_ode g100 x b100 lockstep (one (10000, 3, 3) LU stack, "
+          f"{dtt.make_lockstep_problem(narrow, B).linear_solver.name}): {stats_line(lock)}, "
+          f"{ms:.1f} ms median of 3 (CUDA events); members 0 and {B - 1} match their "
+          f"single solves (rtol {MEMBER_RTOL:g}); card {card_line}", flush=True)
+
+    small_te = robertson.SOLN[1:9, 0]
+    blk = dtt.solve_dense(dtt.BdfSolver(robertson.problem_ode_groups(5)), small_te,
+                          max_steps=5000)
+    dense = dtt.solve_dense(dtt.BdfSolver(robertson.problem_ode_groups(5, use_coloring=False)),
+                            small_te, max_steps=5000)
+    diff = (blk.ys - dense.ys).abs()
+    if bool((diff > BLOCK_ATOL + BLOCK_RTOL * dense.ys.abs()).any()):
+        raise AssertionError(f"ngroups=5: block and dense tiers part by {float(diff.max())}")
+    print(f"[18] ngroups=5: block tier vs dense Jacobian max abs {float(diff.max()):.3e} "
+          f"(bound {BLOCK_ATOL:g} + {BLOCK_RTOL:g} |y|), steps {blk.state.stats.steps} vs "
+          f"{dense.state.stats.steps}; card {card_line}", flush=True)
+
+
+def mass_phase(card_line):
+    """Phase 19: a mass given as a matrix and a user Jacobian on the card,
+    against the same solve on the CPU."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import heat2d_mass
+
+    te = [0.01, 0.05]
+    for consistent, label in ((False, "lumped (diagonal) mass"), (True, "dense mass")):
+        problem = heat2d_mass.problem(4, consistent)
+        for method in ("bdf", "tr_bdf2"):
+            def run(device=None, problem=problem, method=method):
+                return dtt.solve_dense(dtt.solver(problem, method), te, max_steps=2000,
+                                       device=device)
+
+            (sol, ms), ref = timed_solve(run), run("cpu")
+            if sol.stop_reason != dtt.errors.TSTOP_REACHED or not sol.ys.is_cuda:
+                raise AssertionError(f"heat2d_mass {label} {method}: {sol.stop_reason}")
+            # 1e-8 relative, and 1e-14 absolute for the edge states at zero
+            diff = (sol.ys.cpu() - ref.ys).abs()
+            d = float((diff / (CARD_CPU_ATOL + ref.ys.abs())).max())
+            dsteps = abs(sol.state.stats.steps - ref.state.stats.steps)
+            if (bool((diff > CARD_CPU_ATOL + CARD_CPU_RTOL * ref.ys.abs()).any())
+                    or dsteps > CARD_CPU_STEPS):
+                raise AssertionError(f"heat2d_mass {label} {method}: card vs CPU max abs "
+                                     f"{float(diff.max())}, steps {sol.state.stats.steps} "
+                                     f"vs {ref.state.stats.steps}")
+            print(f"[19] heat2d_mass mgrid=4 (n=16) {label}, user Jacobian, {method}: "
+                  f"{stats_line(sol)}, {ms:.2f} ms median of 3 (CUDA events); vs the CPU "
+                  f"max abs {float(diff.max()):.2e} (max of |diff| / (1e-14 + |y|) "
+                  f"{d:.2e}), steps {sol.state.stats.steps} vs "
+                  f"{ref.state.stats.steps}; card {card_line}", flush=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1342,6 +1652,17 @@ def main() -> int:
     mixed_path, mixed_record = mixed_phase(dev, card_line, problem, shared)
     profile_paths([small_path, dae_path] + band_paths + mol2d_paths + [mixed_path],
                   card_line)
+    t_new = time.perf_counter()
+    for tag, phase in ((16, lambda: methods_phase(card_line)),
+                       (17, lambda: rk_lockstep_phase(dev, card_line)),
+                       (18, lambda: blockdiag_phase(dev, card_line)),
+                       (19, lambda: mass_phase(card_line))):
+        t_phase = time.perf_counter()
+        phase()
+        print(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s (host clock)",
+              flush=True)
+    print(f"[16-19] {time.perf_counter() - t_new:.1f} s together; card {card_line}",
+          flush=True)
     record = ([small_record] + variant_records + [mixed_record] + band_records
               + mol2d_records + wide_lu_records)
 

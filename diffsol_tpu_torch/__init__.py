@@ -6,11 +6,15 @@ float64, and every Pallas kernel of the covered paths is CUDA C++ for
 Hopper (``csrc/``), built with ``nvcc`` at first use: the fused small-n
 and banded BDF whole-solve kernels and the band LU factor and solve.
 
-The port so far covers the stiff BDF ensemble main path and the banded
-method-of-lines tier: problems with identity or diagonal mass (semi-
-explicit DAEs with consistent initial conditions solved for), root events
-that stop the solve or reset and continue, outputs and their quadrature,
-the dense- and band-LU BDF solver, ``solve_dense`` and ``solve``, and
+The port so far covers the stiff BDF ensemble main path, the banded
+method-of-lines tier and the single-instance solver surface below
+sensitivities: problems with identity, diagonal or dense mass (semi-
+explicit DAEs with consistent initial conditions solved for) and an
+optional user Jacobian (``rhs_implicit``), root events that stop the
+solve or reset and continue, outputs and their quadrature; the BDF solver
+on the dense, banded and block-diagonal linear-solver tiers, the SDIRK
+(``tr_bdf2``, ``esdirk34``) and explicit RK (``tsit45``) solvers and
+``solver``/``METHODS``; ``solve_dense`` and ``solve``, and
 ``solve_dense_ensemble`` in lockstep, independent and fused modes, on the
 card unless the caller asks for the CPU.
 """
@@ -19,6 +23,7 @@ from . import errors  # noqa: F401
 from .drivers import Solution, solve, solve_dense  # noqa: F401
 from .ensemble import make_lockstep_problem, solve_dense_ensemble  # noqa: F401
 from .equations import OdeEquations, make_equations  # noqa: F401
+from .factory import METHODS, solver  # noqa: F401
 from .problem import (  # noqa: F401
     InitialConditionOptions,
     OdeBuilder,
@@ -26,6 +31,14 @@ from .problem import (  # noqa: F401
     OdeSolverOptions,
     SolverConfig,
 )
-from .solvers import BdfSolver  # noqa: F401
+from .solvers import (  # noqa: F401
+    BdfSolver,
+    ErkSolver,
+    SdirkSolver,
+    Tableau,
+    esdirk34,
+    tr_bdf2,
+    tsit45,
+)
 
 __version__ = "0.1.0"

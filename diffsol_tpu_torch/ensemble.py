@@ -42,9 +42,12 @@ F64 = torch.float64
 def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
     """Lift a problem to member-major (B, n) lockstep form: ``params``
     gains a leading (nbatch,) axis and the callables act on all members at
-    once.  The member Jacobian (dense (n, n), or the (nb, n) band of the
-    banded tier) stacks to (B, n, n) or (B, nb, n); both linear-solver
-    tiers take member-major batches as they are."""
+    once.  The member Jacobian (dense (n, n), the (nb, n) band of the
+    banded tier or the (K, nb, nb) blocks of the block tier) stacks to
+    (B, n, n), (B, nb, n) or (B, K, nb, nb); the dense and banded tiers
+    take member-major batches as they are, and the block tier's member and
+    block axes fuse into one (B K, nb, nb) LU stack
+    (``blockdiag_lockstep(nb,K,B)``)."""
     eqn = problem.eqn
     vmap = torch.func.vmap
     member_jac = eqn.rhs_jac or torch.func.jacfwd(eqn.rhs, argnums=1)
@@ -79,8 +82,16 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
         nparams=eqn.nparams,
     )
     params_b = problem.params.expand(nbatch, -1).clone()
+    spec = problem.linear_solver
+    if spec.name.startswith("blockdiag"):
+        # the (B, K, nb, nb) Jacobian stack factors as one (B K, nb, nb) LU
+        from .ops.blockdiag import make_blockdiag_solver_lockstep
+
+        nb, K, perm = spec.meta[:3]
+        spec = make_blockdiag_solver_lockstep(perm, nb, K, nbatch)
     return dataclasses.replace(
         problem, eqn=new_eqn, params=params_b, lockstep_nbatch=nbatch,
+        linear_solver=spec,
     )
 
 
@@ -205,7 +216,12 @@ def solve_dense_ensemble(
 ) -> Solution:
     """Solve an ensemble over ``params_batch`` (B, nparams) float64.
 
-    ``make_solver`` is a problem -> solver factory (``BdfSolver``).
+    ``make_solver`` is a problem -> solver factory (``BdfSolver``, or
+    ``lambda pr: solver(pr, "tr_bdf2")``); the lockstep and independent
+    modes use it.  The fused and auto modes take no notice of it, as in
+    the JAX package (its ensemble.py:441-476): they run the BDF kernels
+    whenever one takes the problem, so an SDIRK or ERK ensemble asks for
+    ``mode="lockstep"``.
     Returns a :class:`Solution` whose ``ys`` is (neval, B, nstates).
     ``tile`` sets the fused tiers' member tile (each tier has its default);
     it is part of the result, since each tile takes its own step sequence.

@@ -3,11 +3,13 @@
 ``problem_from_jax`` copies every numeric field of a ``diffsol_tpu``
 ``OdeProblem`` (params, t0, h0, rtol, atol, the output tolerances, the
 quadrature flag, all solver options and the consistent-IC options) into
-this package's problem as float64 tensors, and a banded linear-solver
-tier as ``make_banded_solver(ml, mu)`` from the spec's ``meta``; a JAX
+this package's problem as float64 tensors, a banded linear-solver tier as
+``make_banded_solver(ml, mu)`` and a block-diagonal one as
+``make_blockdiag_solver(perm, nb, K)`` from the spec's ``meta``; a JAX
 problem built with ``use_coloring`` whose Jacobian stayed dense and
 colored gets ``use_coloring`` here too.  The user's callables are passed
-in torch, since a jnp body cannot be converted; for the 2-D models,
+in torch, since a jnp body cannot be converted (a Jacobian given through
+``rhs_implicit`` as ``rhs_jac``); for the 2-D models,
 ``model="heat2d"`` or ``"foodweb"`` builds them from this package's model
 with the JAX problem's own arrays (the mass diagonal, hence the interior
 mask, and the initial state) as their constants.
@@ -56,10 +58,11 @@ def _model_callables(model: str, jax_problem) -> dict:
 
 
 def problem_from_jax(jax_problem, rhs=None, init=None, mass=None, root=None,
-                     reset=None, out=None, model=None) -> OdeProblem:
+                     reset=None, out=None, model=None, rhs_jac=None) -> OdeProblem:
     """This package's problem with the numbers of ``jax_problem`` and the
     torch callables ``rhs(t, y, p)``, ``init(t, p)`` and the optional
-    ``mass(t, p)``, ``root``, ``reset`` and ``out`` ``(t, y, p)``; or, with
+    ``mass(t, p)``, ``root``, ``reset`` and ``out`` ``(t, y, p)`` and
+    ``rhs_jac(t, y, p)`` (the user Jacobian of ``rhs_implicit``); or, with
     ``model="heat2d"`` / ``"foodweb"``, the callables of that model built
     on the JAX problem's arrays."""
     if model is not None:
@@ -71,9 +74,9 @@ def problem_from_jax(jax_problem, rhs=None, init=None, mass=None, root=None,
         return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})
 
     options = copied(OdeSolverOptions, jax_problem.options)
+    b = OdeBuilder().rhs(rhs) if rhs_jac is None else OdeBuilder().rhs_implicit(rhs, rhs_jac)
     b = (
-        OdeBuilder()
-        .rhs(rhs)
+        b
         .init(init)
         .p(np.asarray(jax_problem.params, np.float64))
         .t0(float(np.asarray(jax_problem.t0)))
@@ -96,6 +99,11 @@ def problem_from_jax(jax_problem, rhs=None, init=None, mass=None, root=None,
         from .ops.banded import make_banded_solver
 
         b = b.linear_solver(make_banded_solver(*spec.meta[:2]))
+    elif spec.name.startswith("blockdiag"):
+        from .ops.blockdiag import make_blockdiag_solver
+
+        nb, K, perm = spec.meta[:3]
+        b = b.linear_solver(make_blockdiag_solver(np.asarray(perm), int(nb), int(K)))
     elif spec.name == "dense" and hasattr(jax_problem.eqn.rhs_jac, "jvp_probes"):
         b = b.use_coloring()  # the JAX OdeBuilder kept a colored dense Jacobian
     return b.build()

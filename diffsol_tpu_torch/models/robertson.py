@@ -5,7 +5,9 @@ diag(1, 1, 0), and test_models/robertson_ode.rs).
 
 p = [k1, k2, k3] = [0.04, 1e4, 3e7], init [1, 0, 0], reference tolerances
 rtol=1e-4, atol=[1e-8, 1e-6, 1e-6].  ``SOLN`` holds the CVODE/IDA reference
-points of the reference's tests (robertson.rs:117-148).  The rhs rows are
+points of the reference's tests (robertson.rs:117-148).
+``problem_ode_groups(ngroups)`` stacks ngroups copies of the ODE in one
+state (robertson_ode.rs:48-100), the reference's sparse-Jacobian benchmark.  The rhs rows are
 written operation for operation as in the JAX model, so both packages
 evaluate the same expression tree.
 """
@@ -94,3 +96,42 @@ def problem_ode(rtol=1e-4, atol=(1e-8, 1e-6, 1e-6), p=P_DEFAULT) -> OdeProblem:
         .atol(list(atol))
         .build()
     )
+
+
+def _groups_rhs(ngroups: int):
+    def rhs(t, y, pv):
+        u = y.reshape(ngroups, 3)
+        r0 = -pv[0] * u[:, 0] + pv[1] * u[:, 1] * u[:, 2]
+        r1 = (
+            pv[0] * u[:, 0] - pv[1] * u[:, 1] * u[:, 2]
+            - pv[2] * u[:, 1] * u[:, 1]
+        )
+        r2 = pv[2] * u[:, 1] * u[:, 1]
+        return torch.stack([r0, r1, r2], dim=1).reshape(-1)
+
+    return rhs
+
+
+def problem_ode_groups(ngroups: int, rtol=1e-4, atol=(1e-8, 1e-6, 1e-6),
+                       p=P_DEFAULT, use_coloring=True) -> OdeProblem:
+    """robertson_ode with ``ngroups`` duplicated groups sharing one
+    parameter set (states group-major [x_g, y_g, z_g], nstates =
+    3 ngroups).  With ``use_coloring`` the builder finds the 3x3 blocks
+    and routes the problem to the block-diagonal tier,
+    ``blockdiag(3, ngroups)``; without it the Jacobian is dense."""
+
+    def init(t, pv):
+        return torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64,
+                            device=pv.device).repeat(ngroups)
+
+    b = (
+        OdeBuilder()
+        .rhs(_groups_rhs(ngroups))
+        .init(init)
+        .p(list(p))
+        .rtol(rtol)
+        .atol(np.tile(np.asarray(atol, np.float64), ngroups))
+    )
+    if use_coloring:
+        b = b.use_coloring()
+    return b.build()

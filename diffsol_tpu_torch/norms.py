@@ -16,8 +16,17 @@ from __future__ import annotations
 import torch
 
 
+def error_scale(y, atol, rtol):
+    """The error weights' denominators ``|y|*rtol + atol``."""
+    return y.abs() * rtol + atol
+
+
 def _per_member(x, y, atol, rtol):
-    scale = y.abs() * rtol + atol
+    return scaled_per_member(x, error_scale(y, atol, rtol))
+
+
+def scaled_per_member(x, scale):
+    """(1/n) sum_i (x_i / scale_i)^2 for each member (0-d for one)."""
     term = x / scale
     return (term * term).mean(dim=-1)
 

@@ -111,27 +111,6 @@ def detect_sparsity(rhs, t0, y0, params, n: int):
     return np.nonzero(pattern)
 
 
-def decomposes_into_blocks(rows, cols, n: int, max_block: int = 16) -> bool:
-    """Whether the pattern's graph falls into two or more connected
-    components of at most ``max_block`` states, the case the JAX OdeBuilder
-    routes to its block-diagonal tier (ops/blockdiag.detect_blocks)."""
-    parent = np.arange(n)
-
-    def find(a):
-        while parent[a] != a:
-            parent[a] = parent[parent[a]]
-            a = parent[a]
-        return a
-
-    for r, c in zip(np.asarray(rows), np.asarray(cols)):
-        ra, ca = find(int(r)), find(int(c))
-        if ra != ca:
-            parent[ra] = ca
-    sizes = np.bincount([find(i) for i in range(n)], minlength=n)
-    sizes = sizes[sizes > 0]
-    return len(sizes) >= 2 and int(sizes.max()) <= max_block
-
-
 def make_colored_jac(rhs, rows, cols, colors, ncolors: int, n: int):
     """Dense Jacobian from ``ncolors`` JVP probes and a precomputed gather:
     a callable (t, y, p) -> (n, n) that composes with ``torch.func.vmap``

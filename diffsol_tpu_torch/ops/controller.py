@@ -36,3 +36,14 @@ def pi_controller_raw(error_norm, prev_error_norm, pi_integral,
     i_only = err_safe ** -ki
     pi_both = err_safe ** -(ki + kp) * prev_safe ** kp
     return torch.where(use_pi, pi_both, i_only)
+
+
+def clamp_factor(factor: float, min_reduce: float, max_reduce: float,
+                 min_increase: float, max_increase: float) -> float:
+    """Dead zone and hard clamps on a step-size factor
+    (runge_kutta.rs:466-495): inside (max_reduce, min_increase) the step
+    size stays (factor 1), outside the factor is clamped to [min_reduce,
+    max_increase].  A NaN factor stays NaN."""
+    if max_reduce < factor < min_increase:
+        factor = 1.0
+    return min(max(factor, min_reduce), max_increase)

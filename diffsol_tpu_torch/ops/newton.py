@@ -24,7 +24,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..norms import norm as wrms_norm
+from ..norms import error_scale, scaled_per_member
 
 CONTINUE = 0
 CONVERGED = 1
@@ -48,6 +48,8 @@ def newton_solve(residual: Callable, lin_solve: Callable, x0, error_y, atol,
     """Solve ``residual(x) = 0`` with the frozen iteration matrix applied
     by ``lin_solve``; ``eta0`` is the rate memory from the previous solve."""
     x = x0
+    # the weights stay those of error_y for the whole solve
+    scale = error_scale(error_y, atol, rtol)
     first_norm = 0.0
     eta = float(eta0)
     niter = 0
@@ -55,7 +57,7 @@ def newton_solve(residual: Callable, lin_solve: Callable, x0, error_y, atol,
     while status == CONTINUE and niter < max_iter:
         delta = lin_solve(residual(x))
         x = x - delta
-        nrm = float(wrms_norm(delta, error_y, atol, rtol))
+        nrm = math.sqrt(float(scaled_per_member(delta, scale).amax()))
         niter += 1
         if niter == 1:
             eta = max(eta, 1e4 * _EPS) ** 0.8

@@ -167,6 +167,7 @@ class OdeBuilder:
 
     def __init__(self):
         self._rhs = None
+        self._rhs_jac = None
         self._init = None
         self._mass = None
         self._root = None
@@ -188,6 +189,15 @@ class OdeBuilder:
     # equations ---------------------------------------------------------
     def rhs(self, f: Callable):
         self._rhs = f
+        return self
+
+    def rhs_implicit(self, f: Callable, jac: Callable):
+        """The rhs with the user's Jacobian ``jac(t, y, p)``, in the
+        representation of the problem's linear-solver tier (dense (n, n) by
+        default), in place of the forward-mode one.  It must be written in
+        torch operations, so that a lockstep ensemble can ``vmap`` it."""
+        self._rhs = f
+        self._rhs_jac = jac
         return self
 
     def init(self, f: Callable):
@@ -267,9 +277,6 @@ class OdeBuilder:
         return self
 
     # outside this port's slice -------------------------------------------
-    def rhs_implicit(self, f, jac):
-        _later("rhs_implicit", "queue 1 item 2")
-
     def reset_n(self, r):
         _later("index-aware reset_n", "queue 1 item 10")
 
@@ -289,14 +296,16 @@ class OdeBuilder:
         _later("adjoint tolerances", "queue 1 item 17")
 
     def linear_solver(self, spec: LinearSolverSpec):
-        """The Newton linear-solver tier: ``DENSE`` (the default) or
-        ``ops.banded.make_banded_solver(ml, mu)``."""
+        """The Newton linear-solver tier: ``DENSE`` (the default),
+        ``ops.banded.make_banded_solver(ml, mu)`` or
+        ``ops.blockdiag.make_blockdiag_solver(perm, nb, K)``."""
         if spec == "krylov":
             _later("the matrix-free Krylov tier", "queue 1 item 14")
         if not isinstance(spec, LinearSolverSpec):
             raise TypeError(
-                "linear_solver takes ops.linsol.DENSE or "
-                f"ops.banded.make_banded_solver(ml, mu), got {spec!r}")
+                "linear_solver takes ops.linsol.DENSE, "
+                "ops.banded.make_banded_solver(ml, mu) or "
+                f"ops.blockdiag.make_blockdiag_solver(...), got {spec!r}")
         self._linear_solver = spec
         return self
 
@@ -340,16 +349,24 @@ class OdeBuilder:
                 def mass_diag(t, p):
                     return torch.diagonal(mass_f(t, p), dim1=-2, dim2=-1)
 
-        rhs_jac = None
+        # a user Jacobian (rhs_implicit) wins over the tier's own, as in the
+        # JAX OdeBuilder
+        rhs_jac = self._rhs_jac
         linear_solver = self._linear_solver
-        if linear_solver.name.startswith("banded"):
+        if rhs_jac is None and linear_solver.name.startswith("banded"):
             # the tier's representation is the band (builder.rs
             # use_coloring's role for a banded pattern)
             from .ops.banded import make_banded_jac
 
             ml, mu = linear_solver.meta[:2]
             rhs_jac = make_banded_jac(self._rhs, ml, mu)
-        elif self._use_coloring:
+        elif rhs_jac is None and linear_solver.name.startswith("blockdiag"):
+            from .ops.blockdiag import make_blockdiag_jac
+
+            nb, K, perm = linear_solver.meta[:3]
+            rhs_jac = make_blockdiag_jac(self._rhs, perm, nb, K,
+                                         int((np.asarray(perm) >= 0).sum()))
+        elif rhs_jac is None and self._use_coloring:
             rhs_jac, linear_solver = self._colored_tier(params, linear_solver)
         eqn = make_equations(
             self._rhs, self._init, params, self._t0,
@@ -382,12 +399,14 @@ class OdeBuilder:
 
     def _colored_tier(self, params, linear_solver):
         """``use_coloring``'s routing, in the JAX OdeBuilder's order
-        (problem.py:473-546): independent dense blocks (not ported), a
-        narrow band to the banded tier, else the colored dense Jacobian
-        under the solver given.  Returns ``(rhs_jac, linear_solver)``."""
+        (problem.py:473-546): independent dense blocks to the
+        block-diagonal tier, a narrow band to the banded tier, else the
+        colored dense Jacobian under the solver given.  Returns
+        ``(rhs_jac, linear_solver)``."""
         from .ops.banded import make_banded_jac, make_banded_solver
-        from .ops.coloring import (decomposes_into_blocks, detect_sparsity,
-                                   greedy_color, make_colored_jac)
+        from .ops.blockdiag import (detect_blocks, make_blockdiag_jac,
+                                    make_blockdiag_solver)
+        from .ops.coloring import detect_sparsity, greedy_color, make_colored_jac
 
         t0 = torch.tensor(self._t0, dtype=F64)
         y0 = self._init(t0, params)
@@ -404,9 +423,11 @@ class OdeBuilder:
                 mu = max(mu, int(np.max(mj - mi)))
             blk_rows = np.concatenate([rows, mi])
             blk_cols = np.concatenate([cols, mj])
-        if n >= 8 and decomposes_into_blocks(blk_rows, blk_cols, n):
-            _later("the block-diagonal tier that use_coloring routes independent "
-                   "blocks to", "queue 1 item 13")
+        blocks = detect_blocks(blk_rows, blk_cols, n) if n >= 8 else None
+        if blocks is not None:
+            perm, nb, K = blocks
+            return (make_blockdiag_jac(self._rhs, perm, nb, K, n),
+                    make_blockdiag_solver(perm, nb, K))
         if n >= 8 and ml + mu + 1 <= max(n // 2, 1):
             return make_banded_jac(self._rhs, ml, mu), make_banded_solver(ml, mu)
         # (the JAX OdeBuilder's matrix-free Krylov route for n >= 256 is taken

@@ -20,9 +20,10 @@ accepted state ``y`` is the corrected solution D[0].
 
 Quadrature of an output advances a second difference matrix gD beside D
 (op/bdf.rs:45-57), and a root function is checked on the accepted step's
-interpolant (bdf.rs:1566-1579).  A singular diagonal mass starts from
-consistent initial conditions (:mod:`.consistent_ic`).  Not ported yet:
-sensitivities and a dense (non-diagonal) mass.
+interpolant (bdf.rs:1566-1579).  A mass is diagonal (applied elementwise)
+or dense (a matrix product, and ``M - c*J`` assembled in the tier's
+representation); a singular one starts from consistent initial conditions
+(:mod:`.consistent_ic`).  Not ported yet: sensitivities.
 """
 
 from __future__ import annotations
@@ -189,11 +190,6 @@ class BdfSolver:
         self.problem = problem
         self.config = config or SolverConfig.from_options(problem.options, "bdf")
         eqn = problem.eqn
-        if eqn.mass is not None and eqn.mass_diag_fn is None:
-            raise NotImplementedError(
-                "non-diagonal mass is not ported yet (ROADMAP.md queue 1 "
-                "item 4)"
-            )
         # the partition of algebraic states (zero mass diagonal)
         self._alg_mask = algebraic_mask(problem)
         self._nb = problem.lockstep_nbatch

@@ -16,6 +16,8 @@ The state is member-major, (n,) or (B, n), and the packed Jacobian comes
 from n forward-mode probes broadcast over the members, or, under the
 banded tier, as the band from ml+mu+1 cyclically colored probes, factored
 through the problem's banded solver (the band LU kernels on the card).
+Under the dense and the block-diagonal tiers it is factored by a dense LU,
+as the JAX package does for both.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from .. import errors
 from ..norms import norm as wrms_norm
 from ..ops.banded import make_banded_jac
+from ..ops.linsol import DENSE
 from ..ops.newton import CONTINUE, CONVERGED, DIVERGED, ETA_RESET_JACOBIAN
 
 _EPS = float(torch.finfo(torch.float64).eps)
@@ -69,10 +72,10 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
     p = problem
     spec = p.linear_solver
     banded = spec.name.startswith("banded")
-    if not banded and spec.name != "dense":
+    if not banded and spec.name != "dense" and not spec.name.startswith("blockdiag"):
         raise NotImplementedError(
             f"consistent initial conditions under the {spec.name} tier are not "
-            "ported yet (ROADMAP.md queue 1 items 13 and 14)")
+            "ported yet (ROADMAP.md queue 1 item 14)")
     t0 = p.t0 if t is None else p.t0.new_tensor(float(t))
     ic = p.ic_options
     tol = float(p.options.nonlinear_solver_tolerance)
@@ -117,11 +120,14 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
     def newton_with_linesearch(x, eta):
         """One Newton campaign with a frozen factorization, in the
         problem's linear-solver tier."""
-        factors = spec.factor(band_jac(None, x, None) if banded
-                              else _blockwise_jacfwd(residual, x))
+        # the dense and block tiers take the JAX package's dense branch: a
+        # one-off (..., n, n) LU of the packed Jacobian
+        lu = spec if banded else DENSE
+        factors = lu.factor(band_jac(None, x, None) if banded
+                            else _blockwise_jacfwd(residual, x))
 
         def lin(v):
-            return spec.solve(factors, v)
+            return lu.solve(factors, v)
 
         delta = lin(residual(x))
         nrm = nrm_of(delta)

@@ -62,8 +62,9 @@ def test_bdf_robertson_matches_cvode_table(port_solution):
 def test_bdf_diagonal_mass_and_failures():
     """A constant diagonal mass takes the elementwise path (M y' = f with
     M = diag(2, 2) halves the decay rate), a singular one starts from
-    consistent initial conditions (y1 = y0 here), and what the port still
-    lacks raises with its ROADMAP item."""
+    consistent initial conditions (y1 = y0 here), a dense one takes the
+    matrix path, and what the port still lacks raises with its ROADMAP
+    item."""
     f64 = torch.float64
     problem = (
         dtt.OdeBuilder()
@@ -94,16 +95,23 @@ def test_bdf_diagonal_mass_and_failures():
     assert sol.stop_reason == dtt.errors.TSTOP_REACHED
     np.testing.assert_allclose(sol.ys.numpy(), np.exp(-np.array([0.5, 1.0]))[:, None]
                                * np.ones(2), rtol=1e-6)
-    # what is still outside the port names its ROADMAP item
+    # a dense (non-diagonal) mass takes the matrix path: M y' = -y with
+    # M = [[1, .5], [0, 1]] has y2 = e^{-t}, y1 = e^{-t} (1 + t/2)
     dense_mass = (
         dtt.OdeBuilder()
         .rhs(lambda t, y, p: -y)
         .init(lambda t, p: torch.ones(2, dtype=f64))
         .mass(lambda t, p: torch.tensor([[1.0, 0.5], [0.0, 1.0]], dtype=f64))
+        .rtol(1e-8)
+        .atol(1e-10)
         .build()
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dtt.BdfSolver(dense_mass)
+    assert dense_mass.eqn.mass_diag_fn is None
+    sol = dtt.solve_dense(dtt.BdfSolver(dense_mass), [0.5, 1.0], device="cpu")
+    t = np.array([0.5, 1.0])
+    np.testing.assert_allclose(sol.ys.numpy(), np.exp(-t)[:, None]
+                               * np.stack([1.0 + 0.5 * t, np.ones(2)], axis=1), rtol=1e-6)
+    # what is still outside the port names its ROADMAP item
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dtt.OdeBuilder().reset_n(lambda t, y, p, n: y)
 

@@ -22,6 +22,7 @@ import diffsol_tpu_torch as dtt
 from diffsol_tpu_torch import _build
 from diffsol_tpu_torch.interop import problem_from_jax
 from diffsol_tpu_torch.models import heat1d as theat
+from diffsol_tpu_torch.ops.blockdiag import detect_blocks
 from diffsol_tpu_torch.ops import coloring as tcol
 
 torch.set_num_threads(1)
@@ -102,7 +103,7 @@ def test_detect_sparsity_and_colored_jac_match_jax():
     rows, cols = tcol.detect_sparsity(tr, t0, torch.tensor(y0), torch.tensor(p), 3 * ng)
     assert rows.tolist() == np.asarray(rows_j).tolist()
     assert cols.tolist() == np.asarray(cols_j).tolist()
-    assert tcol.decomposes_into_blocks(rows, cols, 3 * ng)
+    assert detect_blocks(rows, cols, 3 * ng) is not None
     jac, ncolors = tcol.colored_jac_for_problem(tr, t0, torch.tensor(y0), torch.tensor(p))
     jac_j, ncolors_j = jcol.colored_jac_for_problem(jr, jnp.asarray(0.0), jnp.asarray(y0),
                                                     jnp.asarray(p))
@@ -190,14 +191,14 @@ def test_use_coloring_keeps_a_wide_pattern_dense_and_colored():
 
 
 def test_use_coloring_names_the_tiers_that_are_not_ported():
-    """Independent blocks go to the JAX package's block-diagonal tier, and
-    ``"krylov"`` to its matrix-free one: the port names their ROADMAP items."""
+    """Independent blocks go to the block-diagonal tier, as in the JAX
+    OdeBuilder; ``"krylov"`` goes to the JAX package's matrix-free tier,
+    which the port names by its ROADMAP item."""
     tr = _groups_rhs(torch, 4)
     b = (dtt.OdeBuilder().rhs(tr)
          .init(lambda t, p: torch.tensor(np.tile([1.0, 0.0, 0.0], 4)))
          .p([0.04, 1e4, 3e7]).use_coloring())
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        b.build()
+    assert b.build().linear_solver.name == "blockdiag(3,4)"
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         dtt.OdeBuilder().linear_solver("krylov")
     # an explicit banded solver wins over use_coloring, as in the JAX OdeBuilder

@@ -793,3 +793,70 @@ def test_fused_kernel_n8_mixed_precision_cuda():
     # and against its own plain version, whose float32 operations run in
     # another order
     assert float(((ys_m - ys_p).abs() / w).max()) < 5.0
+
+
+# ---------------------------------------------------------------------------
+# the eager paths of the other methods, the block tier and a dense mass:
+# no kernel of the port's own, so the card's solve is held to the CPU's
+# (float64 both, the same step decisions)
+
+EAGER_RTOL = 1e-8
+
+
+def _card_vs_cpu(run):
+    """``run(device)`` on the card and on the CPU: steps within 2, ys
+    within 1e-8 relative (and 1e-14 absolute, for states at zero)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    got, ref = run("cuda"), run("cpu")
+    assert got.ys.device.type == "cuda"
+    assert got.stop_reason == ref.stop_reason == dtt.errors.TSTOP_REACHED
+    assert abs(got.state.stats.steps - ref.state.stats.steps) <= STEP_SLACK
+    torch.testing.assert_close(got.ys.cpu(), ref.ys, rtol=EAGER_RTOL, atol=1e-14)
+    return got, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["tr_bdf2", "tsit45"])
+def test_rk_lockstep_on_the_card_matches_cpu(method):
+    """B = 64 lockstep members through an RK method: Robertson ODE with k1
+    spread +-10 % (tr_bdf2) and the logistic equation with r spread +-10 %
+    (tsit45)."""
+    from diffsol_tpu_torch.models import logistic
+
+    if method == "tr_bdf2":
+        problem, params, t_eval = trob.problem_ode(), _params(64), trob.SOLN[1:9, 0]
+    else:
+        r = 1.0 + 0.1 * np.linspace(-1.0, 1.0, 64)
+        problem = logistic.problem(rtol=1e-6, atol=1e-8)
+        params, t_eval = np.stack([r, np.ones(64), np.full(64, 0.1)], axis=1), [1.0, 5.0, 10.0]
+    _card_vs_cpu(lambda dev: dtt.solve_dense_ensemble(
+        lambda pr: dtt.solver(pr, method), problem, t_eval, params, mode="lockstep",
+        max_steps=20_000, device=dev))
+
+
+@pytest.mark.cuda
+def test_blockdiag_on_the_card_matches_cpu():
+    """problem_ode_groups(5) on the block tier, one solve and a lockstep
+    ensemble of 8 (one (40, 3, 3) LU stack)."""
+    problem = trob.problem_ode_groups(5)
+    assert problem.linear_solver.name == "blockdiag(3,5)"
+    t_eval = [0.4, 4.0, 40.0, 400.0]
+    _card_vs_cpu(lambda dev: dtt.solve_dense(dtt.BdfSolver(problem), t_eval,
+                                             max_steps=5000, device=dev))
+    _card_vs_cpu(lambda dev: dtt.solve_dense_ensemble(
+        dtt.BdfSolver, problem, t_eval, _params(8), mode="lockstep", max_steps=5000,
+        device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bdf", "tr_bdf2"])
+def test_dense_mass_on_the_card_matches_cpu(method):
+    """The heat DAE of models/heat2d_mass.py with its dense consistent mass
+    and the user Jacobian of ``rhs_implicit``."""
+    from diffsol_tpu_torch.models import heat2d_mass
+
+    problem = heat2d_mass.problem(4, consistent=True)
+    assert problem.eqn.mass_diag_fn is None
+    _card_vs_cpu(lambda dev: dtt.solve_dense(dtt.solver(problem, method), [0.01, 0.05],
+                                             max_steps=2000, device=dev))
