@@ -9,10 +9,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every kernel library at once, one nvcc each: the fused BDF
    kernel (csrc/fused_bdf.cuh) once for each of its seven model headers
    (Robertson ODE and DAE, the root-stop, bouncing-ball, two quadrature
-   and transcendental models of models/fused_cases.py), the band LU
+   and transcendental models of models/fused_cases.py) and of phase 20's
+   three DiffSL ones, the band LU
    (csrc/band_lu.cuh) and the fused band BDF kernel
    (csrc/fused_band_bdf.cuh) once for each of the heat1d, heat2d and
-   foodweb rhs headers, and the fused BDF kernel's mixed-precision build;
+   foodweb rhs headers and phase 20's DiffSL heat1d and heat2d, and the
+   fused BDF kernel's mixed-precision build;
    print each fused BDF build's time and, for each of its two kernels (the
    256- and the 1024-thread build), ptxas's registers, stack frame, spill
    store and spill load bytes;
@@ -132,11 +134,36 @@ setups and its time (the median of 3 calls after a warm-up whose solution
 the gates read, between CUDA events) beside the card's name and power
 limit; these paths launch PyTorch's kernels only (their JAX counterparts
 reach no Pallas kernel).
+20. models written as DiffSL text (models/diffsl_sources.py, from the
+    hand-written models' constants), built with
+    OdeBuilder.build_from_diffsl, one at a time: (a) the Robertson ODE and
+    (b) DAE (mass diag(1, 1, 0) from its dudt labels) at B=10,000 with k1
+    spread +-10 % (numpy seed 0, member 0 nominal) to t = 4e10 through K1;
+    (c) the stop/reset model of tests/test_diffsl.py:166-173, 10,000
+    identical members through K1's reset build, the one reset at ln 2;
+    (d) heat1d n=128 (use_coloring -> banded(1,1)), B=1,024 diffusivities
+    linspace(0.5, 2.0); (e) heat2d mgrid=20 in the reference's matrix form
+    (D_ij, M_i { Mass_ij * dydt_j }; n = 400 colors itself to
+    banded(20,20)), B=1,024 identical members; (d) and (e) fused through K2
+    and lockstep through K3/K4.  Each: one kernel launch a fused call (the
+    counter set to 0 just before and read just after; K3/K4 counted around
+    the lockstep call); the kernel against its plain version by phase 12's
+    gates (K1 at B=10,000, heat1d at 1,024, heat2d at 256); the fused call
+    against the hand-written model's on the same members (1e-6 + 5e-4
+    |ref|, with whether the two IRs are equal, their rhs op counts and
+    header hashes); the closed form (robertson.SOLN and x + y + z = 1,
+    1.5 e^-(t - ln 2), the Fourier series, heat2d's boundary 0 within
+    1e-9); times, median of 5 (3 for heat2d) between CUDA events, the
+    DiffSL path, its twin's and the DiffSL path again (lockstep: the DiffSL
+    path and its twin's), beside the plain version's (one run).  Then the N models (reset_n) of
+    tests/test_diffsl.py and a two-root one: mode="fused" refuses them
+    (UnsupportedForKernel), mode="auto" solves them lockstep on the card,
+    y against its closed form and the hidden index N the fired root's.
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
 each also at the 2-D models' width (the band LU's at heat2d's and at
-foodweb's shape)
+foodweb's shape), and K1 and K2 once for each DiffSL model of phase 20
 (launches on their path, error against the plain version, times, the
 card's least time for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -363,12 +390,46 @@ def print_band_plan(label, check_solve):
           f"blocks); {out[1]} registers and {out[2]} local bytes a thread", flush=True)
 
 
+def k1_step_ops(solve) -> int:
+    """f64 operations of an accepted step of a fused BDF solve, a member
+    (bdf_step_ops with the dense n x n LU solve, plus the traced mass,
+    root and output)."""
+    from diffsol_tpu_torch.ops.eqn_codegen import op_count
+
+    cfg, model = solve.cfg, solve.model
+    n = cfg.n
+    extra = sum(op_count(ir) for ir in (model.mass, model.root, model.out)
+                if ir is not None)
+    # a constant mass scales the residual; a quadrature row costs its
+    # psi (5), delta (3), difference update (4) and, with error
+    # control, its share of the norm (4)
+    extra += (n if cfg.has_mass else 0) + cfg.nquad * (12 + 4 * cfg.out_in_err)
+    return bdf_step_ops(n, op_count(model.rhs), 2 * n * n) + extra
+
+
 def k1_record(variant, **numbers):
     """One entry of the kernels line for a variant of the fused BDF kernel
     (no library call computes a whole adaptive solve)."""
     return {"name": f"fused_bdf:{variant}", "route": "cuda",
             "source": "diffsol_tpu_torch/csrc/fused_bdf.cuh",
             "replaces": "diffsol_tpu/ops/pallas_stepper.py:656",
+            "library_ms": None, **numbers}
+
+
+def k2_bound(n, ml, mu, rhs_ops, nbatch, steps, p_numel, ys_numel):
+    """(ms, "bytes" or "operations") of a fused band solve: params, the
+    host's initial state and h per tile in, ys out once, or the f64 work of
+    the accepted steps (mean of ``steps`` a tile; a band solve each)."""
+    ops = nbatch * float(np.mean(steps)) * bdf_step_ops(n, rhs_ops, (2 * ml + 2 * mu + 1) * n)
+    return bound(8 * (p_numel + 2 * n * nbatch + len(steps) + ys_numel + 2 * n), ops) + (ops,)
+
+
+def k2_record(name, **numbers):
+    """One entry of the kernels line for the fused band BDF kernel (no
+    library call computes a whole adaptive solve)."""
+    return {"name": name, "route": "cuda",
+            "source": "diffsol_tpu_torch/csrc/fused_band_bdf.cuh",
+            "replaces": "diffsol_tpu/ops/pallas_stepper_band.py:290",
             "library_ms": None, **numbers}
 
 
@@ -602,7 +663,6 @@ def variant_phases(dev, rng, card_line, variants, check_solves, shared):
     variants' records."""
     from diffsol_tpu_torch import BdfSolver, errors, solve_dense_ensemble
     from diffsol_tpu_torch.ops import fused_stepper as fs
-    from diffsol_tpu_torch.ops.eqn_codegen import op_count
 
     records, dae_path = [], None
     for name, (problem, t_eval, make_params) in variants.items():
@@ -647,16 +707,7 @@ def variant_phases(dev, rng, card_line, variants, check_solves, shared):
         plain_ms = (time.perf_counter() - t0) * 1e3
         abs_m = check_variant(f"{name} B={B_MAIN}", main_solve(p_main), ref)
         kernel_ms = time_ms(path, 5)
-        cfg, model = main_solve.cfg, main_solve.model
-        n = cfg.n
-        extra = sum(op_count(ir) for ir in (model.mass, model.root, model.out)
-                    if ir is not None)
-        # a constant mass scales the residual; a quadrature row costs its
-        # psi (5), delta (3), difference update (4) and, with error
-        # control, its share of the norm (4)
-        extra += (n if cfg.has_mass else 0) + cfg.nquad * (12 + 4 * cfg.out_in_err)
-        step_ops = bdf_step_ops(n, op_count(model.rhs), 2 * n * n) + extra
-        ops = B_MAIN * int(sol.tile_steps.sum()) / len(steps) * step_ops
+        ops = B_MAIN * int(sol.tile_steps.sum()) / len(steps) * k1_step_ops(main_solve)
         nbytes = 8 * (p_main.numel() + sol.ys.numel() + len(t_eval)
                       + (0 if sol.gs is None else sol.gs.numel()))
         bound_ms, bound_by = bound(nbytes, ops)
@@ -859,10 +910,8 @@ def band_phases(dev, card_line, heat_problem, soln, check_solve):
     # ys out once, or the f64 work of the accepted steps (a band solve
     # each), whichever is longer
     rhs_ops = op_count(trace_model(heat_problem.eqn.rhs, None, n, 1).rhs)
-    ops = B_BAND * int(sol.tile_steps.sum()) / len(steps) * bdf_step_ops(
-        n, rhs_ops, (2 * 1 + 2 * 1 + 1) * n)
-    nbytes = 8 * (B_BAND + 2 * n * B_BAND + len(steps) + sol.ys.numel() + 2 * n)
-    bound_ms, bound_by = bound(nbytes, ops)
+    bound_ms, bound_by, ops = k2_bound(n, 1, 1, rhs_ops, B_BAND, steps, B_BAND,
+                                       sol.ys.numel())
     print(f"[10] fused band main path: {kernel_ms:.3f} ms median of 5; plain PyTorch "
           f"version {plain_ms:.1f} ms (one run, host clock); kernel vs plain max abs "
           f"{abs10:.3e}, {share10:.3e} of the bound, equal steps per tile; least time "
@@ -874,13 +923,9 @@ def band_phases(dev, card_line, heat_problem, soln, check_solve):
             BdfSolver, heat_problem, HEAT_T_EVAL, params, mode="lockstep"),
          "band_lu_solve_kernel"),
     ]
-    return paths, lu_records + [{
-        "name": "fused_band_bdf", "route": "cuda",
-        "source": "diffsol_tpu_torch/csrc/fused_band_bdf.cuh",
-        "replaces": "diffsol_tpu/ops/pallas_stepper_band.py:290",
-        "launches": k2, "max_abs_err": abs10, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-    }]
+    return paths, lu_records + [k2_record(
+        "fused_band_bdf", launches=k2, max_abs_err=abs10, ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by)]
 
 
 def mol2d_problem(name, banded=True):
@@ -1056,21 +1101,15 @@ def mol2d_phases(dev, card_line, check_solves):
                   f"(> {MOL2D_SLOW_S:g} s), so it is timed at B={timed_b}", flush=True)
         kernel_ms = time_ms(timed, 3)
         rhs_ops = op_count(check.model.rhs)
-        ops = timed_b * float(np.mean(steps)) * bdf_step_ops(
-            n, rhs_ops, (2 * ml + 2 * mu + 1) * n)
-        nbytes = 8 * (timed_b + 2 * n * timed_b + len(steps) + len(te) * n * timed_b + 2 * n)
-        bound_ms, bound_by = bound(nbytes, ops)
+        bound_ms, bound_by, ops = k2_bound(n, ml, mu, rhs_ops, timed_b, steps, timed_b,
+                                           len(te) * n * timed_b)
         print(f"[13] {name} fused path at B={timed_b}: {kernel_ms:.1f} ms median of 3; "
               f"least time {bound_ms:.4f} ms by {bound_by} ({rhs_ops} f64 operations an "
               f"rhs, {ops / 1e9:.3f} GFLOP, a lower bound); card {card_line}", flush=True)
         paths.append((f"{name} fused path (B={timed_b})", timed, "fused_band_bdf_kernel"))
-        records.append({
-            "name": f"fused_band_bdf:{name}", "route": "cuda",
-            "source": "diffsol_tpu_torch/csrc/fused_band_bdf.cuh",
-            "replaces": "diffsol_tpu/ops/pallas_stepper_band.py:290",
-            "launches": k2, "max_abs_err": abs_c, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        })
+        records.append(k2_record(
+            f"fused_band_bdf:{name}", launches=k2, max_abs_err=abs_c, ms=kernel_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
     return paths, records, lu_launches
 
 
@@ -1571,6 +1610,328 @@ def mass_phase(card_line):
                   f"{ref.state.stats.steps}; card {card_line}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: models written as DiffSL text, through K1 and K2 (fused) and
+# K3/K4 (banded lockstep)
+# ---------------------------------------------------------------------------
+
+# tests/test_diffsl.py:166-173: decay to 0.5 at ln 2, reset to 1.5; the
+# next crossing (ln 2 + ln 3) lies past the last output time
+DIFFSL_STOP_RESET = """
+in_i { r = 1.0 }
+u_i { y = 1.0 }
+F_i { -r * y }
+stop_i { y - 0.5 }
+reset_i { y + 1.0 }
+out_i { y }
+"""
+DIFFSL_RESET_T_EVAL = [0.25, 0.5, 0.75, 1.0, 1.25, 1.5]
+# tests/test_diffsl.py::test_model_index_builtin_N: the reset at t = 0.5
+# sets N to the fired root's index (0) and y to 0.1 + 0.5 N
+DIFFSL_MODEL_INDEX = """
+in_i { r = 1 }
+u_i { y = 0.1 }
+dudt_i { dydt = 0 }
+F_i { r * y * (1.0 - y) }
+stop_i { t - 0.5 }
+reset_i { 0.1 + 0.5 * N }
+out_i { y }
+"""
+# two roots, the second (y = 0.5, near t = 2.2) fires first: N = 1 and y
+# resets to 0.3 (the JAX lockstep path keeps N = 0, ROADMAP.md queue 3)
+DIFFSL_TWO_ROOTS = """
+in_i { r = 1.0 }
+u_i { y = 0.1 }
+F_i { r * y * (1.0 - y) }
+stop_i { t - 5.0, y - 0.5 }
+reset_i { 0.1 + 0.2 * N }
+out_i { y }
+"""
+B_DIFFSL_LOCKSTEP = 256
+# the phase-20 models that the small-n kernel takes
+K1_DIFFSL = ("diffsl_ode", "diffsl_dae", "diffsl_reset")
+
+
+def diffsl_models():
+    """name -> (the DiffSL problem, its hand-written twin or None, t_eval,
+    params and the twin's params (numpy, (B, np))), for phase 20."""
+    from diffsol_tpu_torch import OdeBuilder
+    from diffsol_tpu_torch.models import diffsl_sources as ds
+    from diffsol_tpu_torch.models import heat1d, robertson
+
+    atol = [1e-8, 1e-6, 1e-6]
+    spread = robertson_params(B_MAIN, np.random.default_rng(SEED), "cpu").numpy()
+    d = np.linspace(0.5, 2.0, B_BAND)[:, None]
+    return {
+        "diffsl_ode": (OdeBuilder().rtol(1e-4).atol(atol).build_from_diffsl(ds.robertson_ode()),
+                       robertson.problem_ode(), robertson.T_EVAL_4E10, spread, spread),
+        "diffsl_dae": (OdeBuilder().rtol(1e-4).atol(atol).build_from_diffsl(ds.robertson_dae()),
+                       robertson.problem_dae(), robertson.T_EVAL_4E10, spread, spread),
+        "diffsl_reset": (OdeBuilder().rtol(1e-8).atol(1e-10).build_from_diffsl(DIFFSL_STOP_RESET),
+                         None, DIFFSL_RESET_T_EVAL, np.ones((B_MAIN, 1)), None),
+        "diffsl_heat1d": (OdeBuilder().rtol(1e-6).atol(1e-8).use_coloring()
+                          .build_from_diffsl(ds.heat1d(HEAT_MGRID)),
+                          heat1d.make(HEAT_MGRID, rtol=1e-6, atol=1e-8, banded=True)[0],
+                          HEAT_T_EVAL, d, d),
+        # n = 400 >= 256 states: the builder colors and routes to the band
+        "diffsl_heat2d": (OdeBuilder().rtol(1e-5).atol(1e-5)
+                          .build_from_diffsl(ds.heat2d(MOL2D["heat2d"][0])),
+                          mol2d_problem("heat2d"), MOL2D["heat2d"][1],
+                          np.zeros((B_BAND, 0)), np.ones((B_BAND, 1))),
+    }
+
+
+def diffsl_check_solves(models):
+    """The kernel-vs-plain solves of phase 20 (built at phase 2, so that
+    their nvcc runs start with the others): K1 at full width, K2 at
+    heat1d's full width and at B_BAND_CHECK for heat2d."""
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+
+    out = {}
+    for name, (problem, _twin, te, params, _tp) in models.items():
+        if problem.linear_solver.name.startswith("banded"):
+            nb = B_BAND if name == "diffsl_heat1d" else B_BAND_CHECK
+            out[name] = fb.make_fused_band_bdf_solve(problem, te, nb)
+        else:
+            out[name] = fs.make_fused_bdf_solve(problem, te, len(params))
+    return out
+
+
+def diffsl_closed_form(name, sol, t_eval):
+    """Each DiffSL model's fused run against its closed form; returns a
+    line for the log."""
+    from diffsol_tpu_torch.models import diffsl_sources as ds
+    from diffsol_tpu_torch.models import heat1d, robertson
+
+    ys = sol.ys.cpu().numpy()
+    te = np.asarray(t_eval)
+    if name in ("diffsl_ode", "diffsl_dae"):
+        rows = robertson.SOLN[1:][robertson.SOLN[1:, 0] <= 4e6]
+        for s, tol in enumerate(SOLN_TOL):
+            if tol is not None:
+                np.testing.assert_allclose(ys[: len(rows), 0, s], rows[:, 1 + s],
+                                           rtol=tol[0], atol=tol[1])
+        total = float(np.abs(ys.sum(-1) - 1.0).max())
+        if not total <= 1e-6:
+            raise AssertionError(f"{name}: x + y + z off 1 by {total}")
+        return (f"member 0 matches SOLN (t <= 4e6), |x+y+z-1| <= {total:.2e} over every "
+                "member and point")
+    if name == "diffsl_reset":
+        t_r = np.log(2.0)
+        exact = np.where(te < t_r, np.exp(-te), 1.5 * np.exp(-(te - t_r)))
+        np.testing.assert_allclose(ys[:, :, 0], exact[:, None] * np.ones(ys.shape[1]),
+                                   rtol=1e-5)
+        return (f"y vs e^-t, then 1.5 e^-(t - ln 2) after the one reset: max rel "
+                f"{np.abs(ys[:, :, 0] / exact[:, None] - 1.0).max():.2e}")
+    if name == "diffsl_heat1d":
+        n = HEAT_MGRID + 1
+        _problem, soln = heat1d.make(HEAT_MGRID)
+        err = check_heat(name, sol, soln, np.linspace(0.5, 2.0, B_BAND), n)
+        return f"member d=1.0 vs the Fourier series {err:.3e}"
+    _D, mass, _u0, _dx2 = ds.heat2d_matrices(MOL2D["heat2d"][0])
+    edge = float(np.abs(ys[:, :, np.diagonal(mass) == 0.0]).max())
+    if not edge <= 1e-9:
+        raise AssertionError(f"{name}: boundary rows up to {edge}")
+    return f"boundary rows within {edge:.1e} of 0"
+
+
+def diffsl_index_phase(dev, card_line):
+    """The N models (reset_n): refused by the fused tier, solved lockstep
+    under mode="auto" on the card, with the reset values the index gives."""
+    from diffsol_tpu_torch import BdfSolver, OdeBuilder, errors, solve_dense_ensemble
+    from diffsol_tpu_torch.ops.eqn_codegen import UnsupportedForKernel
+
+    def logistic(y0, t):
+        return y0 * np.exp(t) / (1.0 - y0 + y0 * np.exp(t))
+
+    cases = (
+        ("model_index", DIFFSL_MODEL_INDEX, [0.25, 0.5, 0.75, 1.0],
+         lambda te: np.where(te <= 0.5, logistic(0.1, te), logistic(0.1, te - 0.5)), 0.0),
+        # y = 0.5 at t1 = ln 9, reset to 0.3; a second crossing past t = 4
+        ("two_roots", DIFFSL_TWO_ROOTS, [1.0, 2.0, 3.0, 4.0],
+         lambda te: np.where(te <= np.log(9.0), logistic(0.1, te),
+                             logistic(0.3, te - np.log(9.0))), 1.0),
+    )
+    for label, text, t_eval, exact, index in cases:
+        problem = OdeBuilder().rtol(1e-8).atol(1e-10).build_from_diffsl(text)
+        params = np.ones((B_DIFFSL_LOCKSTEP, 1))
+        try:
+            solve_dense_ensemble(BdfSolver, problem, t_eval, params, mode="fused")
+        except UnsupportedForKernel as e:
+            refused = str(e)
+        else:
+            raise AssertionError(f"{label}: the fused tier took a reset_n model")
+        t0 = time.perf_counter()
+        sol = solve_dense_ensemble(BdfSolver, problem, t_eval, params, mode="auto")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if sol.tier != "lockstep" or sol.stop_reason != errors.TSTOP_REACHED:
+            raise AssertionError(f"{label}: tier {sol.tier!r}, stop_reason {sol.stop_reason}")
+        ys = sol.ys.cpu().numpy()
+        te = np.asarray(t_eval)
+        if label == "two_roots":  # the second crossing: y = 0.5 again past t = 3
+            te, ys = te[:3], ys[:3]
+        want = exact(te)
+        np.testing.assert_allclose(ys[:, :, 0], want[:, None] * np.ones(ys.shape[1]),
+                                   rtol=1e-6)
+        if not np.all(ys[-1, :, 1] == index):
+            raise AssertionError(f"{label}: hidden index {ys[-1, :, 1]}, expected {index}")
+        print(f"[20] {label} (reset_n): mode='fused' refused ({refused}); mode='auto' -> "
+              f"{sol.tier}, B={B_DIFFSL_LOCKSTEP}, {sol.state.stats.steps} steps, "
+              f"TSTOP_REACHED, y vs the closed form max rel "
+              f"{np.abs(ys[:, :, 0] / want[:, None] - 1.0).max():.2e}, hidden index N = "
+              f"{index:g} after the reset; {secs:.2f} s (host clock, one run); card "
+              f"{card_line}", flush=True)
+
+
+def diffsl_phase(dev, card_line, models, check_solves):
+    """Phase 20; returns the kernels' records of the DiffSL paths."""
+    import hashlib
+
+    from diffsol_tpu_torch import BdfSolver, _build, errors, solve_dense_ensemble
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+    from diffsol_tpu_torch.ops.eqn_codegen import op_count
+
+    records = []
+    for name, (problem, twin, te, params, twin_params) in models.items():
+        band = problem.linear_solver.name.startswith("banded")
+        counter = fb.launch_fused_band_bdf if band else fs.launch_fused_bdf
+        p = torch.tensor(params, device=dev)
+        reps = 3 if name == "diffsl_heat2d" else 5
+
+        def path(problem=problem, te=te, p=p):
+            return solve_dense_ensemble(BdfSolver, problem, te, p, mode="fused")
+
+        # ---- the fused path: one launch of its kernel
+        counter.launches = 0
+        sol = path()
+        torch.cuda.synchronize()
+        launches = counter.launches
+        tier = "fused_band" if band else "fused_small"
+        if sol.tier != tier or launches != 1:
+            raise AssertionError(f"{name}: tier {sol.tier!r}, {launches} kernel launches")
+        if sol.stop_reason != errors.TSTOP_REACHED:
+            raise AssertionError(f"{name}: stop_reason {sol.stop_reason}")
+        n = problem.eqn.nstates
+        if (tuple(sol.ys.shape) != (len(te), len(params), n)
+                or not bool(torch.isfinite(sol.ys).all())):
+            raise AssertionError(f"{name}: ys shape {tuple(sol.ys.shape)} or non-finite")
+        line = diffsl_closed_form(name, sol, te)
+        steps = sol.tile_steps.cpu().numpy()
+        print(f"[20] {name}: {problem.linear_solver.name}, n={n}, B={len(params)}, tier "
+              f"{sol.tier}, {launches} kernel launch, TSTOP_REACHED; {line}; accepted steps "
+              f"per tile min {steps.min()}, median {int(np.median(steps))}, max "
+              f"{steps.max()}", flush=True)
+
+        # ---- the kernel against its plain version
+        check = check_solves[name]
+        lib = (_build.load_fused_band_bdf(check.header, *problem.linear_solver.meta) if band
+               else _build.load_fused_bdf(check.header))
+        built = [b["seconds"] for b in _build.BUILDS
+                 if b["library"] == lib._name.rsplit("/", 1)[-1]]
+        print(f"[20] {name}: rhs op_count {op_count(check.model.rhs)}, nvcc "
+              + (f"{built[0]:.1f} s" if built else "not run (the library was under build/)"),
+              flush=True)
+        pc = p if check.cfg.nbatch == len(params) else p[: check.cfg.nbatch].contiguous()
+        got = as_dict(check(pc))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = as_dict(check.reference(pc))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        max_abs = check_variant(f"{name} B={check.cfg.nbatch}", got, ref)
+        print(f"[20] {name}: kernel vs plain, B={check.cfg.nbatch} tile={check.tile}: max abs "
+              f"{max_abs:.3e}, statuses {sorted(set(got['status'].tolist()))}, equal steps "
+              f"per tile; plain version {plain_ms:.1f} ms (one run, host clock)", flush=True)
+
+        # ---- the hand-written twin on the same members
+        if twin is not None:
+            tw = solve_dense_ensemble(BdfSolver, twin, te, torch.tensor(twin_params, device=dev),
+                                      mode="fused")
+            diff = (sol.ys - tw.ys).abs()
+            if bool((diff > MODES_ATOL + MODES_RTOL * tw.ys.abs()).any()):
+                raise AssertionError(f"{name}: off its hand-written twin by "
+                                     f"{float(diff.max())}")
+            maker = fb.make_fused_band_bdf_solve if band else fs.make_fused_bdf_solve
+            twin_solve = maker(twin, te, check.cfg.nbatch)
+
+            def digest(header):
+                return hashlib.sha256(header.encode()).hexdigest()[:12]
+
+            print(f"[20] {name} vs the hand-written model's fused call: max abs "
+                  f"{float(diff.max()):.3e} (largest value {float(tw.ys.abs().max()):.4g}), "
+                  f"steps per tile equal: {torch.equal(sol.tile_steps, tw.tile_steps)}; "
+                  f"IR equal: {check.model.rhs == twin_solve.model.rhs}, rhs op_count "
+                  f"{op_count(check.model.rhs)} vs {op_count(twin_solve.model.rhs)}, header "
+                  f"{digest(check.header)} vs {digest(twin_solve.header)}", flush=True)
+
+        # ---- times and the least time for the accepted steps' work
+        kernel_ms = time_ms(path, reps)
+        # the twin in the same call, between two timings of the DiffSL
+        # path: whether a model costs the same written either way
+        versus = ""
+        if twin is not None:
+            twin_p = torch.tensor(twin_params, device=dev)
+
+            def twin_path(twin=twin, te=te, twin_p=twin_p, mode="fused"):
+                return solve_dense_ensemble(BdfSolver, twin, te, twin_p, mode=mode)
+
+            twin_ms = time_ms(twin_path, reps)
+            again_ms = time_ms(path, reps)
+            versus = (f"; the hand-written model's fused path {twin_ms:.3f} ms, then the "
+                      f"DiffSL path again {again_ms:.3f} ms")
+        if band:
+            bound_ms, bound_by, ops = k2_bound(n, *problem.linear_solver.meta,
+                                               op_count(check.model.rhs), len(params), steps,
+                                               p.numel(), sol.ys.numel())
+        else:
+            ops = len(params) * float(np.mean(steps)) * k1_step_ops(check)
+            bound_ms, bound_by = bound(8 * (p.numel() + sol.ys.numel() + len(te)), ops)
+        print(f"[20] {name}: fused path {kernel_ms:.3f} ms median of {reps} (CUDA events)"
+              f"{versus}; plain version {plain_ms:.1f} ms at B={check.cfg.nbatch}; least time "
+              f"{bound_ms:.4f} ms by {bound_by} ({ops / 1e9:.3f} GFLOP f64, a lower bound); "
+              f"card {card_line}", flush=True)
+        numbers = dict(launches=launches, max_abs_err=max_abs, ms=kernel_ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if not band:
+            records.append(k1_record(name, **numbers))
+            continue
+        records.append(k2_record(f"fused_band_bdf:{name}", **numbers))
+
+        # ---- the banded lockstep path: K3 and K4 on every Newton matrix
+        def lock_path(problem=problem, te=te, p=p):
+            return solve_dense_ensemble(BdfSolver, problem, te, p, mode="lockstep")
+
+        band_lu.launch_band_lu_factor.launches = 0
+        band_lu.launch_band_lu_solve.launches = 0
+        lock = lock_path()
+        torch.cuda.synchronize()
+        k3 = band_lu.launch_band_lu_factor.launches
+        k4 = band_lu.launch_band_lu_solve.launches
+        if lock.tier != "lockstep" or lock.stop_reason != errors.TSTOP_REACHED:
+            raise AssertionError(f"{name} lockstep: tier {lock.tier!r}, stop_reason "
+                                 f"{lock.stop_reason}")
+        if k3 < 1 or k4 < 1:
+            raise AssertionError(f"{name} lockstep launched K3 {k3} and K4 {k4} times")
+        diffsl_closed_form(name, lock, te)
+        diff = (sol.ys - lock.ys).abs()
+        if bool((diff > MODES_ATOL + MODES_RTOL * lock.ys.abs()).any()):
+            raise AssertionError(f"{name}: fused and lockstep disagree by {float(diff.max())}")
+        lock_ms = time_ms(lock_path, reps)
+        twin_lock_ms = time_ms(lambda: twin_path(mode="lockstep"), reps)
+        st = lock.state.stats
+        print(f"[20] {name} lockstep path: {st.steps} steps, {st.newton_iterations} Newton "
+              f"iterations, band LU launches factor {k3} solve {k4}, TSTOP_REACHED, the "
+              f"closed form holds, fused vs lockstep max abs {float(diff.max()):.3e}; "
+              f"{lock_ms:.1f} ms median of {reps} (CUDA events), the hand-written model's "
+              f"lockstep path {twin_lock_ms:.1f} ms; card {card_line}", flush=True)
+    diffsl_index_phase(dev, card_line)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1601,8 +1962,14 @@ def main() -> int:
     mixed_check = fs.make_fused_bdf_solve(problem, robertson.T_EVAL_4E10, B_CHECK,
                                           precision="mixed")
     t0 = time.perf_counter()
-    k1_solves = {"ode": check_solve, **check_solves, "mixed": mixed_check}
-    band_solves = {"heat1d": band_check, **mol2d_checks}
+    diffsl = diffsl_models()
+    diffsl_checks = diffsl_check_solves(diffsl)
+    print(f"[2] DiffSL models compiled, built and traced in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    k1_solves = {"ode": check_solve, **check_solves, "mixed": mixed_check,
+                 **{k: v for k, v in diffsl_checks.items() if k in K1_DIFFSL}}
+    band_solves = {"heat1d": band_check, **mol2d_checks,
+                   **{k: v for k, v in diffsl_checks.items() if k not in K1_DIFFSL}}
     with ThreadPoolExecutor(max_workers=len(k1_solves) + len(band_solves) + 1) as ex:
         # one nvcc each, all started together; the widest first
         builds = [ex.submit(_build.load_fused_band_bdf, sv.header, sv.cfg.ml, sv.cfg.mu)
@@ -1663,8 +2030,11 @@ def main() -> int:
               flush=True)
     print(f"[16-19] {time.perf_counter() - t_new:.1f} s together; card {card_line}",
           flush=True)
+    t_phase = time.perf_counter()
+    diffsl_records = diffsl_phase(dev, card_line, diffsl, diffsl_checks)
+    print(f"[20] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
     record = ([small_record] + variant_records + [mixed_record] + band_records
-              + mol2d_records + wide_lu_records)
+              + mol2d_records + wide_lu_records + diffsl_records)
 
     print(f"card: {card_line}")
     print(json.dumps({"kernels": record}))

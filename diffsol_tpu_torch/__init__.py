@@ -16,10 +16,15 @@ on the dense, banded and block-diagonal linear-solver tiers, the SDIRK
 (``tr_bdf2``, ``esdirk34``) and explicit RK (``tsit45``) solvers and
 ``solver``/``METHODS``; ``solve_dense`` and ``solve``, and
 ``solve_dense_ensemble`` in lockstep, independent and fused modes, on the
-card unless the caller asks for the CPU.
+card unless the caller asks for the CPU.  Models may also come as DiffSL
+text (``compile_diffsl``, ``OdeBuilder.build_from_diffsl`` and
+``build_from_eqn``), with the ``N`` built-in's index-aware reset
+(``reset_n``); their callables are plain torch, so they reach every solver
+and both fused kernels.
 """
 
 from . import errors  # noqa: F401
+from .diffsl import DiffslModel, compile_diffsl  # noqa: F401
 from .drivers import Solution, solve, solve_dense  # noqa: F401
 from .ensemble import make_lockstep_problem, solve_dense_ensemble  # noqa: F401
 from .equations import OdeEquations, make_equations  # noqa: F401

@@ -150,3 +150,31 @@ template <typename S>
 __device__ __forceinline__ Dual<S> dsol_where(bool m, const Dual<S>& a, const Dual<S>& b) {
   return m ? a : b;
 }
+
+// |x|, sign(x), max and min with the tangent rules of DualAlgebra
+// (dfinterp.py:384-397, :494-499): abs flips the tangent only where
+// x < 0 (at x = 0 the tangent is +dx); maximum takes x where x >= y and
+// minimum where x <= y, value and tangent; sign has a zero tangent.
+// sign(NaN) is 0, as torch.sign's.
+__device__ __forceinline__ double dsol_abs(double x) { return fabs(x); }
+__device__ __forceinline__ double dsol_sign(double x) {
+  return double(x > 0.0) - double(x < 0.0);
+}
+__device__ __forceinline__ double dsol_maximum(double a, double b) { return a >= b ? a : b; }
+__device__ __forceinline__ double dsol_minimum(double a, double b) { return a <= b ? a : b; }
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_abs(const Dual<S>& x) {
+  return Dual<S>(fabs(x.v), x.v < S(0) ? -x.d : x.d);
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_sign(const Dual<S>& x) {
+  return Dual<S>(S(x.v > S(0)) - S(x.v < S(0)), S(0));
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_maximum(const Dual<S>& a, const Dual<S>& b) {
+  return a.v >= b.v ? a : b;
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_minimum(const Dual<S>& a, const Dual<S>& b) {
+  return a.v <= b.v ? a : b;
+}

@@ -82,9 +82,15 @@ def _pin_to(solver, state, t: float):
 
 def _apply_reset(solver, state, params):
     """Apply the reset operator R(t, y) and refresh dy (reference
-    state.rs:246-320 apply_reset / apply_reset_with_mass)."""
+    state.rs:246-320 apply_reset / apply_reset_with_mass); an index-aware
+    reset gets the index of the root that fired (reference
+    set_model_index(root_idx) before apply_reset)."""
     p = solver.problem
-    y_new = p.eqn.reset(p.t0.new_tensor(state.t), state.y, params)
+    t = p.t0.new_tensor(state.t)
+    if p.eqn.reset_n is not None:
+        y_new = p.eqn.reset_n(t, state.y, params, state.root_idx)
+    else:
+        y_new = p.eqn.reset(t, state.y, params)
     state = dataclasses.replace(state, y=y_new, state_modified=True)
     return solver.reinit_after_reset(state, params)
 

@@ -75,6 +75,11 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
         root=over_members(eqn.root),
         out=over_members(eqn.out),
         reset=over_members(eqn.reset),
+        # the fired root's index is one for all members (member 0's
+        # crossing); the JAX lockstep problem drops reset_n (ROADMAP.md
+        # queue 3), so its N models reset with the current index
+        reset_n=(None if eqn.reset_n is None
+                 else vmap(eqn.reset_n, in_dims=(None, 0, 0, None))),
         rhs_jac=b_jac,
         nstates=eqn.nstates,
         nout=eqn.nout,

@@ -39,6 +39,10 @@ class OdeEquations:
     root: Optional[Callable] = None  # g(t, y, p) -> (nroots,)
     out: Optional[Callable] = None  # g(t, y, p) -> (nout,)
     reset: Optional[Callable] = None  # R(t, y, p) -> (n,)
+    # the index-aware reset R(t, y, p, root_idx) -> (n,) (the DiffSL
+    # model-index protocol, diffsol-c ode_solver_type.rs:66): where set, the
+    # drivers apply it at an event with the index of the root that fired
+    reset_n: Optional[Callable] = None
     # (t, y, p) -> the linear-solver tier's Jacobian: dense (n, n) by
     # default (jacfwd), the (nb, n) band under the banded tier
     rhs_jac: Optional[Callable] = None
@@ -71,7 +75,8 @@ class OdeEquations:
 
 
 def make_equations(rhs, init, params, t0=0.0, *, mass=None, mass_diag=None,
-                   rhs_jac=None, root=None, out=None, reset=None) -> OdeEquations:
+                   rhs_jac=None, root=None, out=None, reset=None,
+                   reset_n=None) -> OdeEquations:
     """Build an :class:`OdeEquations`, inferring ``nstates`` from one
     evaluation of ``init`` at (t0, params), and ``nroots`` and ``nout``
     from one evaluation of ``root`` and ``out`` on that state."""
@@ -88,7 +93,7 @@ def make_equations(rhs, init, params, t0=0.0, *, mass=None, mass_diag=None,
 
     return OdeEquations(
         rhs=rhs, init=init, mass=mass, mass_diag_fn=mass_diag,
-        root=root, out=out, reset=reset,
+        root=root, out=out, reset=reset, reset_n=reset_n,
         rhs_jac=rhs_jac, nstates=nstates, nout=size(out), nroots=size(root),
         nparams=int(params.numel()),
     )

@@ -19,7 +19,10 @@ check the IR against the callable and against ``torch.func.jacfwd``.
 
 Scope (the primitive set of dfinterp.py:21-29): + - * /, neg, pow (by an
 integer, by any constant, or by a traced exponent), exp, expm1, log,
-log1p, sqrt, rsqrt, sin, cos, tan, sinh, cosh, tanh, sigmoid, comparisons
+log1p, sqrt, rsqrt, sin, cos, tan, sinh, cosh, tanh, sigmoid, abs, sign,
+maximum and minimum (with DualAlgebra's tangents, dfinterp.py:384-397 and
+:494-499: abs flips the tangent only where x < 0, maximum and minimum take
+the first operand's on a tie, sign has none), comparisons
 and their and/or/not feeding ``where`` (whose mask may also be a constant
 boolean tensor), indexing, slicing, stack/cat, ``diag`` of a vector with
 ``diagonal`` (a mass written as a matrix) and shape plumbing.  For the
@@ -28,8 +31,10 @@ banded Pallas kernel: rev, pad, dot_general, concatenate) also ``roll``,
 ``flip``, ``index``/``index_select``/``gather`` by constant integer
 tensors, zero and reflection padding, ``sum`` over given dimensions and
 ``mm``/``bmm``/``mv``/``dot`` (what ``matmul`` and ``einsum`` become) as
-unrolled sums of products.  Anything else, and any data-dependent Python
-control flow, raises :class:`UnsupportedForKernel`.
+unrolled sums of products, whose products by a literal 0 fold away (so a
+DiffSL model's constant matrix contracted with the state keeps only its
+band's products).  Anything else, and any data-dependent Python control
+flow, raises :class:`UnsupportedForKernel`.
 """
 
 from __future__ import annotations
@@ -43,8 +48,11 @@ import torch
 
 F64 = torch.float64
 _UNARY = ("neg", "exp", "expm1", "log", "log1p", "sqrt", "rsqrt", "sin", "cos",
-          "tan", "sinh", "cosh", "tanh", "sigmoid")
+          "tan", "sinh", "cosh", "tanh", "sigmoid", "abs", "sign")
 _BINARY = ("add", "sub", "mul", "div")
+# maximum / minimum keep the operand the comparison picks, value and
+# tangent (DualAlgebra.maximum / minimum, dfinterp.py:389-397)
+_MINMAX = ("maximum", "minimum")
 # comparisons and logic give boolean nodes, which only ``where`` consumes
 _COMPARE = ("lt", "le", "gt", "ge", "eq", "ne")
 _LOGIC = {"logical_and": "and", "bitwise_and": "and", "logical_or": "or",
@@ -95,7 +103,37 @@ class _Builder:
         self.nodes = []
         self.index = {}  # common-subexpression table
 
+    def _literal(self, k):
+        node = self.nodes[k]
+        return node[1] if node[0] == "c" else None
+
+    def _fold(self, node):
+        """The node an arithmetic node with a literal 0 or 1 operand
+        reduces to, else None: x*0 -> 0, 0/x -> 0, 0+x -> x, x*1 -> x,
+        x/1 -> x, x-0 -> x.  A constant matrix contracted with the state
+        (a DiffSL Laplacian, A_ij * u_j) unrolls into n^2 products, nearly
+        all by a literal 0; folded, it keeps the band's.  The result changes
+        only where x is not finite (0 * inf is NaN, not 0), where the step
+        fails anyway, and the kernel and its plain version share the IR."""
+        op = node[0]
+        if op not in _BINARY:
+            return None
+        a, b = self._literal(node[1]), self._literal(node[2])
+        if op == "mul" and (a == 0.0 or b == 0.0):
+            return self.const(0.0)
+        if op == "div" and a == 0.0:
+            return self.const(0.0)
+        if (op == "add" and a == 0.0) or (op == "mul" and a == 1.0):
+            return node[2]
+        if ((op in ("add", "sub") and b == 0.0)
+                or (op in ("mul", "div") and b == 1.0)):
+            return node[1]
+        return None
+
     def add(self, node) -> int:
+        folded = self._fold(node)
+        if folded is not None:
+            return folded
         key = node if node[0] != "c" else ("c", float(node[1]).hex())
         k = self.index.get(key)
         if k is None:
@@ -219,7 +257,7 @@ def trace_ir(fn: Callable, arg_kinds, arg_sizes) -> ScalarIR:
         base = name.split(".")[1] if name.startswith("aten.") else name
         if kw.get("alpha", 1) != 1 or kw.get("rounding_mode") is not None:
             raise UnsupportedForKernel(f"{name} with {dict(kw)}")
-        if base in _BINARY:
+        if base in _BINARY or base in _MINMAX:
             res = binary(base, args[0], args[1])
         elif base == "rsub":
             res = binary("sub", args[1], args[0])
@@ -503,6 +541,11 @@ def _eval(ir: ScalarIR, t, y, p, ty=None):
             m, a, c = node[1], node[2], node[3]
             v = torch.where(vals[m], vals[a], vals[c])
             dv = torch.where(vals[m], tans[a], tans[c]) if dual else None
+        elif op in _MINMAX:
+            a, c = node[1], node[2]
+            take = (vals[a] >= vals[c]) if op == "maximum" else (vals[a] <= vals[c])
+            v = torch.where(take, vals[a], vals[c])
+            dv = torch.where(take, tans[a], tans[c]) if dual else None
         elif op in _BINARY:
             a, c = node[1], node[2]
             va, vb = vals[a], vals[c]
@@ -564,6 +607,14 @@ def _eval(ir: ScalarIR, t, y, p, ty=None):
             elif op == "tanh":
                 v = torch.tanh(x)
                 dv = (1.0 - v * v) * dx if dual else None
+            elif op == "abs":
+                # the tangent flips only where x < 0: +dx at x = 0
+                # (DualAlgebra.abs_), where torch's derivative gives 0
+                v = torch.abs(x)
+                dv = torch.where(x < 0.0, -dx, dx) if dual else None
+            elif op == "sign":
+                v = torch.sign(x)
+                dv = zero if dual else None
             else:
                 raise UnsupportedForKernel(f"IR op {op!r}")
         vals.append(v)
@@ -679,6 +730,8 @@ def _emit_body(ir: ScalarIR, stream_outputs: bool = False) -> list:
             e = f"!v{node[1]}"
         elif op == "where":
             e = f"dsol_where(v{node[1]}, v{node[2]}, v{node[3]})"
+        elif op in _MINMAX:
+            e = f"dsol_{op}(v{node[1]}, v{node[2]})"
         elif op in _BINARY:
             sym = {"add": "+", "sub": "-", "mul": "*", "div": "/"}[op]
             e = f"v{node[1]} {sym} v{node[2]}"

@@ -43,8 +43,9 @@ DAE whose initial conditions are consistent: the tier has no
 consistent-IC Newton, so a host probe refuses the others), root events
 that stop the solve or reset and continue (not together with a mass),
 quadrature of an output with or without error control, and every
-equation the codegen can trace.  Out of scope, and left to the lockstep
-path: dense mass and index-aware resets.
+equation the codegen can trace (DiffSL models too, whose callables are
+plain torch).  Out of scope, and left to the lockstep path: dense mass
+and index-aware resets (``reset_n``, the DiffSL ``N`` protocol).
 
 Roots keep the reference's batch semantics per tile: every member of a
 tile must cross the same root component in the same step, the crossing
@@ -1007,6 +1008,9 @@ def make_fused_bdf_solve(problem, t_eval, nbatch: int, tile=None,
         raise UnsupportedForKernel(
             "non-diagonal mass is not in the kernel tier (ROADMAP.md queue 1 "
             "item 4)")
+    if eqn.reset_n is not None:
+        raise UnsupportedForKernel(
+            "the index-aware reset_n is not in the kernel tier")
     has_root = eqn.root is not None
     if has_root and has_mass:
         raise UnsupportedForKernel(

@@ -16,6 +16,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .diffsl import compile_diffsl
 from .equations import OdeEquations, make_equations
 from .ops.linsol import DENSE, LinearSolverSpec
 
@@ -116,6 +117,8 @@ class OdeProblem:
     ic_options: InitialConditionOptions = field(
         default_factory=InitialConditionOptions)
     linear_solver: LinearSolverSpec = DENSE
+    # the compiled DiffSL model a problem was built from (build_from_eqn)
+    diffsl_model: Optional[object] = None
 
     def output_in_error_control(self) -> bool:
         return (self.integrate_out and self.eqn.out is not None
@@ -173,6 +176,7 @@ class OdeBuilder:
         self._root = None
         self._out = None
         self._reset = None
+        self._reset_n = None
         self._out_rtol = None
         self._out_atol = None
         self._integrate_out = False
@@ -276,10 +280,14 @@ class OdeBuilder:
         self._ic_options = opts
         return self
 
-    # outside this port's slice -------------------------------------------
-    def reset_n(self, r):
-        _later("index-aware reset_n", "queue 1 item 10")
+    def reset_n(self, r: Callable):
+        """Index-aware reset R(t, y, p, root_idx) -> (n,): applied at a
+        root in place of ``reset``, with the index of the root that fired
+        (the DiffSL ``N`` protocol)."""
+        self._reset_n = r
+        return self
 
+    # outside this port's slice -------------------------------------------
     def sens_rtol(self, v):
         _later("forward sensitivities", "queue 1 item 16")
 
@@ -317,11 +325,40 @@ class OdeBuilder:
         self._use_coloring = bool(flag)
         return self
 
-    def build_from_diffsl(self, source: str):
-        _later("DiffSL", "queue 1 item 10")
+    def build_from_eqn(self, model) -> OdeProblem:
+        """Build from a compiled :class:`~diffsol_tpu_torch.diffsl.DiffslModel`
+        (reference builder.rs ``build_from_eqn``: one compiled model,
+        several problems).  ``.p(...)`` overrides the ``in_i`` defaults and
+        must have as many values; a model of n >= 256 states switches
+        ``use_coloring`` on unless a solver or Jacobian was chosen, as the
+        reference's DiffSL bridge always colors (diffsl.rs:38-330)."""
+        fns = model.make_callables()
+        self._rhs = fns["rhs"]
+        self._init = fns["init"]
+        self._mass = fns.get("mass", self._mass)
+        self._root = fns.get("root", self._root)
+        self._out = fns.get("out", self._out)
+        self._reset = fns.get("reset", self._reset)
+        self._reset_n = fns.get("reset_n", self._reset_n)
+        ndefault = len(model.default_params)
+        if self._p.numel() == 0:
+            self._p = torch.tensor(np.asarray(model.default_params, np.float64))
+        elif self._p.shape[-1] != ndefault:
+            raise ValueError(
+                f"model declares {ndefault} inputs (in_i) but .p(...) "
+                f"supplied {self._p.shape[-1]}")
+        if (not self._use_coloring and self._rhs_jac is None
+                and self._linear_solver is DENSE):
+            y0 = self._init(torch.tensor(self._t0, dtype=F64), self._p)
+            self._use_coloring = int(y0.shape[-1]) >= 256
+        return dataclasses.replace(self.build(), diffsl_model=model)
 
-    def build_from_eqn(self, model):
-        _later("DiffSL", "queue 1 item 10")
+    def build_from_diffsl(self, source: str) -> OdeProblem:
+        """Build the problem from DiffSL model text (reference builder.rs
+        ``build_from_diffsl``): rhs, init, mass, root, out and reset come
+        from the model's F, u, M, stop, out and reset tensors
+        (:mod:`diffsol_tpu_torch.diffsl`)."""
+        return self.build_from_eqn(compile_diffsl(source))
 
     def dtype(self, d):
         _later("a float32 solve (OdeBuilder.dtype)", "queue 1 item 18")
@@ -372,6 +409,7 @@ class OdeBuilder:
             self._rhs, self._init, params, self._t0,
             mass=self._mass, mass_diag=mass_diag, rhs_jac=rhs_jac,
             root=self._root, out=self._out, reset=self._reset,
+            reset_n=self._reset_n,
         )
 
         def vec(v, nv):

@@ -284,7 +284,9 @@ def test_rhs_header_for_the_band_kernel():
                                                              y, p)
     np.testing.assert_allclose(cg.eval_rhs(model.rhs, 0.0, y, p).numpy(), want.numpy(),
                                rtol=1e-13, atol=1e-9)
-    assert cg.op_count(model.rhs) == 5 * 128
+    # five operations a state, less the last state's "+ 0" of the zero pad
+    # on the right, which the IR folds away
+    assert cg.op_count(model.rhs) == 5 * 128 - 1
 
 
 def test_band_kernel_rhs_is_emitted_output_by_output():

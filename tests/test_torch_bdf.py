@@ -113,7 +113,7 @@ def test_bdf_diagonal_mass_and_failures():
                                * np.stack([1.0 + 0.5 * t, np.ones(2)], axis=1), rtol=1e-6)
     # what is still outside the port names its ROADMAP item
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dtt.OdeBuilder().reset_n(lambda t, y, p, n: y)
+        dtt.OdeBuilder().sens_rtol(1e-6)
 
 
 def test_solve_dense_runs_on_the_card_unless_asked_for_the_cpu():

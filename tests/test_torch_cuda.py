@@ -860,3 +860,102 @@ def test_dense_mass_on_the_card_matches_cpu(method):
     assert problem.eqn.mass_diag_fn is None
     _card_vs_cpu(lambda dev: dtt.solve_dense(dtt.solver(problem, method), [0.01, 0.05],
                                              max_steps=2000, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# models written as DiffSL text, and the codegen's abs / maximum / minimum /
+# sign, through the kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["robertson_ode", "robertson_dae"])
+def test_fused_kernel_on_diffsl_robertson_cuda(name):
+    """K1 built from DiffSL text (models/diffsl_sources.py) against its
+    plain version: 300 members with k1 spread in two tiles of 128 and a
+    ragged one, to t = 4e10; the ODE traces to the hand-written model's IR,
+    the DAE's mass diag(1, 1, 0) comes from its dudt labels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import diffsl_sources
+
+    problem = (dtt.OdeBuilder().rtol(1e-4).atol([1e-8, 1e-6, 1e-6])
+               .build_from_diffsl(getattr(diffsl_sources, name)()))
+    solve = fs.make_fused_bdf_solve(problem, trob.T_EVAL_4E10, 300, tile=128)
+    if name == "robertson_ode":
+        hand = fs.make_fused_bdf_solve(trob.problem_ode(), trob.T_EVAL_4E10, 300, tile=128)
+        assert solve.model.rhs == hand.model.rhs
+    else:
+        assert solve.cfg.mass_const == (1.0, 1.0, 0.0)
+    got = _same_solve(solve, torch.tensor(_params(300), device="cuda"))
+    assert got["status"].tolist() == [fs.OK] * 3
+    torch.testing.assert_close(got["ys"].sum(1), torch.ones_like(got["ys"][:, 0]), rtol=0.0,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fused_band_kernel_on_diffsl_heat1d_cuda():
+    """K2 built from the DiffSL heat1d (n = 128; use_coloring routes it to
+    banded(1,1)) against its plain version: 256 diffusivities in two tiles,
+    equal steps and ys to rtol=1e-9, and within the solver's tolerance of
+    the hand-written heat1d's kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import diffsl_sources, heat1d
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+
+    problem = (dtt.OdeBuilder().rtol(1e-6).atol(1e-8).use_coloring()
+               .build_from_diffsl(diffsl_sources.heat1d(127)))
+    assert problem.linear_solver.name == "banded(1,1)"
+    t_eval = [0.001, 0.01, 0.05, 0.1, 0.2]
+    solve = fb.make_fused_band_bdf_solve(problem, t_eval, 256)
+    params = torch.linspace(0.5, 2.0, 256, dtype=torch.float64, device="cuda")[:, None]
+    before = fb.launch_fused_band_bdf.launches
+    ys, status, steps = solve(params)
+    torch.cuda.synchronize()
+    assert fb.launch_fused_band_bdf.launches == before + 1
+    ys_p, status_p, steps_p = solve.reference(params)
+    assert status.tolist() == status_p.tolist() == [fs.OK] * 2
+    assert torch.equal(steps, steps_p)
+    torch.testing.assert_close(ys, ys_p, rtol=YS_RTOL, atol=YS_ATOL)
+    hand, _ = heat1d.make(127, rtol=1e-6, atol=1e-8, banded=True)
+    ys_h = fb.make_fused_band_bdf_solve(hand, t_eval, 256)(params)[0]
+    torch.testing.assert_close(ys, ys_h, rtol=5e-4, atol=1e-6)
+
+
+def _piecewise(t, y, p):
+    """abs, maximum, minimum and sign in one rhs: kinks where y1 crosses 0
+    and where y1 and y2 / 2 cross; the sign's argument stays positive."""
+    return torch.stack([
+        -p[0] * y[0] + 0.5 * torch.abs(y[1]),
+        -torch.maximum(y[1], 0.5 * y[2]) + 0.1 * torch.sign(y[0] + 2.0),
+        -p[1] * torch.minimum(y[2], y[0] + 0.25),
+    ])
+
+
+@pytest.mark.cuda
+def test_fused_kernel_abs_max_min_sign_cuda():
+    """K1 with the device functions dsol_abs, dsol_maximum, dsol_minimum and
+    dsol_sign (csrc/dual.cuh) against its plain version: 200 members in two
+    tiles, equal steps and ys to rtol=1e-9; and the IR the kernel runs
+    evaluates like the callable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.ops import eqn_codegen as cg
+
+    problem = (dtt.OdeBuilder().rhs(_piecewise)
+               .init(lambda t, p: torch.tensor([1.0, -0.5, 0.8], dtype=torch.float64,
+                                               device=p.device))
+               .p([1.0, 2.0]).rtol(1e-6).atol(1e-9).build())
+    t_eval = [0.25, 0.5, 1.0, 2.0, 4.0]
+    solve = fs.make_fused_bdf_solve(problem, t_eval, 200, tile=128)
+    ops = {node[0] for node in solve.model.rhs.nodes}
+    assert {"abs", "maximum", "minimum", "sign"} <= ops
+    k = np.linspace(-1.0, 1.0, 200)
+    params = torch.tensor(np.stack([1.0 + 0.2 * k, 2.0 - 0.3 * k], 1), device="cuda")
+    got = _same_solve(solve, params)
+    assert got["status"].tolist() == [fs.OK] * 2
+    y = got["ys"][-1].T.contiguous()  # (200, 3) at t = 4
+    t = torch.full((200,), 4.0, dtype=torch.float64, device="cuda")
+    want = torch.func.vmap(_piecewise)(t, y, params)
+    torch.testing.assert_close(cg.eval_rhs(solve.model.rhs, t, y, params), want, rtol=0.0,
+                               atol=0.0)
