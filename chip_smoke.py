@@ -159,11 +159,42 @@ reach no Pallas kernel).
     tests/test_diffsl.py and a two-root one: mode="fused" refuses them
     (UnsupportedForKernel), mode="auto" solves them lockstep on the card,
     y against its closed form and the hidden index N the fired root's.
+21. forward sensitivities, each path timed as the median of 3 after a
+    warm-up between CUDA events, with its steps, Newton iterations and
+    linear solver setups: (a) the Robertson ODE lockstep,
+    BdfSolver(sens=True), B=10,000 with k1 spread +-10 % (numpy seed 0,
+    member 0 nominal), 3 rows, to t = 4e10 on the dense tier: ys as in
+    phase 4, members 0, 4,999 and 9,999 to t = 4e6 against
+    solve_dense_fwd_sens of their own solves on the card at rtol 1e-6 (1e-3
+    of its largest, tests/test_sens.py:182-208; at the problem's rtol 1e-4
+    that oracle is itself 2.6e-3 off the true sensitivity for member
+    9,999); (b) the same as the DAE, mass
+    diag(1, 1, 0), its rows made consistent at t0 (they sum to 0 within
+    1e-10) and member 0 against its oracle (5e-3); (c) heat1d n=128 banded
+    lockstep, B=1,024 diffusivities, 1 row, K3 and K4 counted around the
+    call (the rows' solves are K4 launches of naug B right-hand sides): the
+    member nearest d = 1 against d/dd of the Fourier series at t >= 0.01
+    (5e-4 of max |s|), members 0 and 1,023 against a B=64 lockstep solve on
+    the CPU (1e-8 relative, steps within 2); and heat2d (n=400, nb=41)
+    lockstep with sens=True at B=256, K4 counted, its rows exactly 0 (the
+    rhs does not read p); (d) robertson_ode ngroups=1000 on the block tier,
+    every group's rows against one dense-tier Robertson solve (1e-9 of its
+    largest); (e) K4 with R = 3 B rows against B factorizations in one
+    launch at heat1d's M - cJ (B=1,024, c=1e-3) and at heat2d's (nb=41),
+    against its plain version by phase 7's rule, its time, the plain
+    version's, torch.linalg.lu_solve on the dense expansion with the rows
+    broadcast, and the bound (each member's factors once, the rows in and
+    out); (f) tr_bdf2, esdirk34 and tsit45 with sens=True on the logistic
+    equation against the same solve on the CPU (1e-8 relative, steps
+    within 2), and the exponential decay with a reset through bdf and
+    tsit45 against central differences on the card (1e-3).
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
 each also at the 2-D models' width (the band LU's at heat2d's and at
-foodweb's shape), and K1 and K2 once for each DiffSL model of phase 20
+foodweb's shape), K1 and K2 once for each DiffSL model of phase 20, and
+K4 with rows per factorization at heat1d's and at heat2d's width (phase
+21; launches on paths (c) and its heat2d run)
 (launches on their path, error against the plain version, times, the
 card's least time for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -1932,6 +1963,310 @@ def diffsl_phase(dev, card_line, models, check_solves):
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 21: forward sensitivities (the continuous sensitivity equations,
+# sens=True, and solve_dense_fwd_sens) on the dense, block and banded tiers
+# ---------------------------------------------------------------------------
+
+# members to t = 4e6 against solve_dense_fwd_sens of their single solve,
+# relative to the oracle's largest row (tests/test_sens.py:182-208, and
+# :159-179 for the DAE)
+SENS_ODE_TOL, SENS_DAE_TOL = 1e-3, 5e-3
+# the ODE members' oracle is solved at rtol 1e-6: at the problem's rtol 1e-4
+# the oracle itself sits 2.6e-3 of its largest from the true sensitivity
+# for member 9,999 (k1 = 0.0362; rtol 1e-10 as the truth, on the CPU),
+# farther than the lockstep rows do (9.0e-4); at rtol 1e-6 within 1.2e-5
+SENS_ORACLE_RTOL, SENS_ORACLE_ATOL = 1e-6, (1e-10, 1e-8, 1e-8)
+# the DAE's rows at t0 sum to 0 (x + y + z = 1 for every p)
+SENS_CONSERVE_TOL = 1e-10
+# heat1d's member nearest d = 1 against the series' d/dd at t >= 0.01, of
+# max |s|: the MOL grid and the solver's tolerance part them by 6.3e-5 (a
+# single solve at d = 1, rtol 1e-6, on the CPU)
+SENS_HEAT_TOL = 5e-4
+# the block tier's 1,000 identical groups against one dense-tier Robertson
+# solve, of the largest row: 2.3e-14 on the CPU, equal steps
+SENS_BLOCK_TOL = 1e-9
+# the reset model's rows against central differences on the card
+# (tests/test_sens.py:129-156)
+SENS_FD_TOL = 1e-3
+B_SENS_CPU = 64
+B_SENS_HEAT2D = 256
+NAUG_ROWS = 3
+
+
+def sens_oracle_check(name, rows, problem, params, members, te, tol):
+    """The lockstep rows (neval, naug, B, n) of ``members`` against
+    solve_dense_fwd_sens of ``problem`` for each member on the card (its
+    members' derivatives are independent, so one lockstep problem of the
+    chosen members serves), relative to the oracle's largest entry for the
+    member; returns the largest share."""
+    import diffsol_tpu_torch as dtt
+
+    solver = dtt.BdfSolver(dtt.make_lockstep_problem(problem, len(members)))
+    _, oracle = dtt.solve_dense_fwd_sens(solver, te, params=params[list(members)],
+                                         max_steps=20_000)
+    oracle = oracle.movedim(0, 1)  # (neval, np, members, n)
+    worst = 0.0
+    for k, m in enumerate(members):
+        ref = oracle[:, :, k]
+        err = float((rows[: len(te), :, m] - ref).abs().max() / ref.abs().max())
+        if not err < tol:
+            raise AssertionError(f"{name} member {m}: rows off solve_dense_fwd_sens by "
+                                 f"{err:.3e} of its largest (bound {tol:g})")
+        worst = max(worst, err)
+    return worst
+
+
+def k4_rows_record(dev, card_line, tag, band, ml, mu, launches):
+    """Phase 21 (e): K4 with R = naug B rows against B factorizations in one
+    launch (row r with member r mod B), against its plain version by phase
+    7's rule; its time, the plain version's, torch.linalg.lu_solve on the
+    dense expansion with the same rows (one broadcast call), and the bound.
+    Returns the kernel record."""
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.ops.banded import band_to_dense
+
+    B, nb, n = band.shape
+    F = band_lu.band_lu_factor(band, ml, mu)
+    rows = torch.tensor(np.random.default_rng(SEED).standard_normal((NAUG_ROWS * B, n)),
+                        device=dev)
+    s0 = band_lu.launch_band_lu_solve.launches
+    x = band_lu.band_lu_solve(F, rows, ml, mu)
+    torch.cuda.synchronize()
+    if band_lu.launch_band_lu_solve.launches != s0 + 1:
+        raise AssertionError(f"{tag}: {NAUG_ROWS * B} rows took "
+                             f"{band_lu.launch_band_lu_solve.launches - s0} launches")
+    x_p = band_lu.band_lu_solve_reference(F, rows, ml, mu)
+    err = check_lu(f"K4 rows {tag}", x, x_p)
+    ms = time_ms(lambda: band_lu.band_lu_solve(F, rows, ml, mu), 10)
+    plain_ms = time_ms(lambda: band_lu.band_lu_solve_reference(F, rows, ml, mu), 1)
+    dense = torch.stack([band_to_dense(band[m], ml, mu) for m in range(B)])
+    lu, piv = torch.linalg.lu_factor(dense)
+    rhs = rows.reshape(NAUG_ROWS, B, n, 1)
+    x_lib = torch.linalg.lu_solve(lu, piv, rhs).reshape(NAUG_ROWS * B, n)
+    lib_err = float((x_lib - x).abs().max() / x.abs().max())
+    lib_ms = time_ms(lambda: torch.linalg.lu_solve(lu, piv, rhs), 5)
+    # bytes: each member's factor elements once (the ml multipliers of
+    # columns 0 .. n-2, the mu+1 rows of U), the rows in and out; the
+    # kernel reads each member's factors naug times, so it cannot reach it
+    nbytes = 8 * (B * ((n - 1) * ml + n * (mu + 1)) + 2 * NAUG_ROWS * B * n)
+    b_ms, b_by = bound(nbytes, NAUG_ROWS * B * n * (2 * ml + 2 * mu + 1))
+    print(f"[21e] K4 rows per factorization, {tag} (B={B} factorizations, n={n}, "
+          f"ml={ml}, mu={mu}, R={NAUG_ROWS * B} rows, one launch): vs plain max abs "
+          f"{err:.3e} (bound {LU_RTOL:g} relative); {ms:.4f} ms median of 10 (least "
+          f"{b_ms:.4f} ms by {b_by}); plain {plain_ms:.1f} ms (one run); "
+          f"torch.linalg.lu_solve on the dense (B, n, n) expansion, the rows broadcast "
+          f"{lib_ms:.3f} ms (x within {lib_err:.1e} relative); card {card_line}", flush=True)
+    return dict(name=f"band_lu_solve:rows_{tag}", route="cuda",
+                source="diffsol_tpu_torch/csrc/band_lu.cuh",
+                replaces="diffsol_tpu/ops/pallas_banded.py:72", launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def sens_phase(dev, card_line, heat_problem, soln):
+    """Phase 21; returns the K4 rows-per-factorization records."""
+    import dataclasses
+
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import exponential_decay, logistic, robertson
+    from diffsol_tpu_torch.ops import band_lu
+
+    def sens_solver(pr):
+        return dtt.BdfSolver(pr, sens=True)
+
+    te = robertson.T_EVAL_4E10
+    te6 = te[:8]  # to 4e6, where the oracle is checked
+    params = robertson_params(B_MAIN, np.random.default_rng(SEED), dev)
+
+    # ---- (a) and (b): Robertson ODE and DAE lockstep, dense tier
+    oracles = {"a": (robertson.problem_ode(rtol=SENS_ORACLE_RTOL, atol=SENS_ORACLE_ATOL),
+                     (0, B_MAIN // 2 - 1, B_MAIN - 1), SENS_ODE_TOL),
+               "b": (robertson.problem_dae(), (0,), SENS_DAE_TOL)}
+    for tag, problem in (("a", robertson.problem_ode()), ("b", robertson.problem_dae())):
+        def run(problem=problem):
+            return dtt.solve_dense_ensemble(sens_solver, problem, te, params,
+                                            mode="lockstep", max_steps=5000)
+
+        sol, ms = timed_solve(run)
+        if sol.tier != "lockstep" or sol.stop_reason != dtt.errors.TSTOP_REACHED:
+            raise AssertionError(f"[21{tag}] tier {sol.tier}, stop_reason {sol.stop_reason}")
+        if (tuple(sol.sens.shape) != (len(te), 3, B_MAIN, 3) or not sol.sens.is_cuda
+                or not bool(torch.isfinite(sol.sens).all())):
+            raise AssertionError(f"[21{tag}] sens {tuple(sol.sens.shape)} or not finite")
+        check_soln(f"[21{tag}] member 0", sol.ys[:, 0])
+        oracle_problem, members, tol = oracles[tag]
+        err = sens_oracle_check(f"[21{tag}]", sol.sens, oracle_problem, params, members,
+                                te6, tol)
+        extra = ""
+        if tag == "b":
+            lp = dtt.make_lockstep_problem(problem.to(dev), B_MAIN)
+            s0 = sens_solver(lp).init_state(params).s
+            drift = float(s0.sum(-1).abs().max())
+            if not drift < SENS_CONSERVE_TOL:
+                raise AssertionError(f"[21b] rows at t0 sum to {drift} (bound "
+                                     f"{SENS_CONSERVE_TOL:g})")
+            extra = f"; the rows at t0 sum to {drift:.1e} (< {SENS_CONSERVE_TOL:g})"
+        label = "ODE" if tag == "a" else "DAE (mass diag(1, 1, 0), consistent_init)"
+        print(f"[21{tag}] Robertson {label} lockstep B={B_MAIN}, BdfSolver(sens=True), 3 "
+              f"rows, t=4e10: {stats_line(sol)}, {ms:.1f} ms median of 3 (CUDA events); "
+              f"member 0 meets the CVODE table; members {list(members)} within {err:.2e} "
+              f"of solve_dense_fwd_sens at rtol {float(oracle_problem.rtol):g} (< {tol:g} "
+              f"of its largest){extra}; card {card_line}", flush=True)
+        if tag == "a":
+            # the card's busy share, over the first 77 steps (to t = 40)
+            profile_line("21a", lambda: dtt.solve_dense_ensemble(
+                sens_solver, problem, te[:4], params, mode="lockstep"), card_line)
+
+    # ---- (c) heat1d banded lockstep: K3 on every factorization, K4 on the
+    # main solves and every sensitivity solve (naug B rows a launch)
+    n = HEAT_MGRID + 1
+    d = np.linspace(0.5, 2.0, B_BAND)
+
+    def run_heat(device=None, pb=d[:, None]):
+        return dtt.solve_dense_ensemble(sens_solver, heat_problem, HEAT_T_EVAL, pb,
+                                        mode="lockstep", device=device)
+
+    band_lu.launch_band_lu_factor.launches = 0
+    band_lu.launch_band_lu_solve.launches = 0
+    heat = run_heat()
+    torch.cuda.synchronize()
+    k3, k4 = band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches
+    if k3 < 1 or k4 < 1:
+        raise AssertionError(f"[21c] launched K3 {k3} and K4 {k4} times")
+    err_ys = check_heat("[21c]", heat, soln, d, n)
+    _, heat_ms = timed_solve(run_heat)
+    m = int(np.argmin(np.abs(d - 1.0)))
+    h = 1.0 / (HEAT_MGRID + 2)
+    x = (np.arange(n) + 1.0) * h
+    t = np.asarray(HEAT_T_EVAL)
+    series = np.zeros((len(t), n))
+    for k in range(1, 200):
+        mk = 2 * k - 1
+        series += ((-1.0) ** (k - 1) * np.sin(mk * np.pi * x)[None, :]
+                   * np.exp(-(mk ** 2) * np.pi ** 2 * d[m] * t)[:, None])
+    exact = -8.0 * t[:, None] * series
+    rows = heat.sens[:, 0, m].cpu().numpy()
+    late = t >= 0.01
+    err_s = float(np.abs(rows[late] - exact[late]).max() / np.abs(rows).max())
+    if not err_s < SENS_HEAT_TOL:
+        raise AssertionError(f"[21c] member d={d[m]} off du/dd by {err_s:.3e} of max |s|")
+    cpu = run_heat("cpu", np.linspace(0.5, 2.0, B_SENS_CPU)[:, None])
+    worst = 0.0
+    for mg, mc in ((0, 0), (B_BAND - 1, B_SENS_CPU - 1)):
+        for got, ref in ((heat.ys[:, mg], cpu.ys[:, mc]), (heat.sens[:, :, mg], cpu.sens[:, :, mc])):
+            diff = (got.cpu() - ref).abs()
+            if bool((diff > CARD_CPU_ATOL + CARD_CPU_RTOL * ref.abs().max()).any()):
+                raise AssertionError(f"[21c] member {mg} off the CPU's by {float(diff.max())}")
+            worst = max(worst, float(diff.max() / ref.abs().max()))
+    dsteps = abs(heat.state.stats.steps - cpu.state.stats.steps)
+    if dsteps > CARD_CPU_STEPS:
+        raise AssertionError(f"[21c] steps {heat.state.stats.steps} vs the CPU's "
+                             f"{cpu.state.stats.steps}")
+    print(f"[21c] heat1d n={n} banded lockstep B={B_BAND}, BdfSolver(sens=True), 1 row: "
+          f"{stats_line(heat)}, K3 {k3} and K4 {k4} launches (the rows' solves among "
+          f"them), {heat_ms:.1f} ms median of 3 (CUDA events); ys vs the series "
+          f"{err_ys:.2e}; member d={d[m]:.4f} vs du/dd of the series {err_s:.2e} of max "
+          f"|s| (< {SENS_HEAT_TOL:g}, t >= 0.01); members 0 and {B_BAND - 1} vs a B="
+          f"{B_SENS_CPU} lockstep solve on the CPU within {worst:.1e} of their largest "
+          f"(< {CARD_CPU_RTOL:g}), steps {heat.state.stats.steps} vs "
+          f"{cpu.state.stats.steps}; card {card_line}", flush=True)
+
+    # heat2d's rows go through K4 at nb = 41; its rhs does not read p, so
+    # every row is exactly 0 (init, consistent_init and each Newton solve)
+    heat2d = mol2d_problem("heat2d")
+    band_lu.launch_band_lu_solve.launches = 0
+    h2 = dtt.solve_dense_ensemble(sens_solver, heat2d, MOL2D["heat2d"][1],
+                                  np.ones((B_SENS_HEAT2D, 1)), mode="lockstep")
+    torch.cuda.synchronize()
+    k4_nb41 = band_lu.launch_band_lu_solve.launches
+    if (h2.stop_reason != dtt.errors.TSTOP_REACHED or k4_nb41 < 1
+            or bool(h2.sens.abs().max() != 0.0)):
+        raise AssertionError(f"[21c] heat2d: stop_reason {h2.stop_reason}, K4 {k4_nb41}, "
+                             f"largest row {float(h2.sens.abs().max())}")
+    print(f"[21c] heat2d mgrid=20 (n=400, nb=41) banded lockstep B={B_SENS_HEAT2D}, "
+          f"sens=True: {stats_line(h2)}, K4 {k4_nb41} launches, every row exactly 0 (the "
+          f"rhs does not read p); card {card_line}", flush=True)
+
+    # ---- (d) the block tier at the reference's width
+    wide = robertson.problem_ode_groups(1000)
+    if wide.linear_solver.name != "blockdiag(3,1000)":
+        raise AssertionError(f"[21d] ngroups=1000 routed to {wide.linear_solver.name}")
+    blk, blk_ms = timed_solve(lambda: dtt.solve_dense(sens_solver(wide), te, max_steps=5000))
+    one = dtt.solve_dense(sens_solver(robertson.problem_ode()), te, max_steps=5000)
+    if blk.stop_reason != dtt.errors.TSTOP_REACHED or one.stop_reason != blk.stop_reason:
+        raise AssertionError(f"[21d] stop_reason {blk.stop_reason}, {one.stop_reason}")
+    groups = blk.sens.reshape(len(te), 3, 1000, 3)
+    err_b = float((groups - one.sens[:, :, None, :]).abs().max() / one.sens.abs().max())
+    if not err_b < SENS_BLOCK_TOL:
+        raise AssertionError(f"[21d] groups off the single solve by {err_b:.3e}")
+    print(f"[21d] robertson_ode ngroups=1000 (n=3000, blockdiag(3,1000)) BdfSolver(sens="
+          f"True) to t=4e10: {stats_line(blk)}, {blk_ms:.1f} ms median of 3 (CUDA events); "
+          f"every group's 3 rows within {err_b:.1e} of the dense-tier single solve's "
+          f"largest (< {SENS_BLOCK_TOL:g}; steps {blk.state.stats.steps} vs "
+          f"{one.state.stats.steps}); card {card_line}", flush=True)
+
+    # ---- (e) K4 with rows per factorization against its plain version
+    jac = torch.func.vmap(heat_problem.eqn.jac, in_dims=(None, 0, 0))(
+        torch.tensor(0.0, dtype=torch.float64, device=dev),
+        torch.zeros(B_BAND, n, dtype=torch.float64, device=dev),
+        torch.tensor(d[:, None], device=dev))
+    heat_band = heat_problem.linear_solver.assemble(None, jac, 1e-3)
+    t0 = torch.tensor(0.0, dtype=torch.float64, device=dev)
+    p1 = torch.ones(1, dtype=torch.float64, device=dev)
+    y2 = heat2d.eqn.init(t0, p1)
+    band2 = heat2d.linear_solver.assemble(heat2d.eqn.mass_repr(t0, p1),
+                                          heat2d.eqn.jac(t0, y2, p1), 1e-3)
+    records = [
+        k4_rows_record(dev, card_line, "heat1d", heat_band, 1, 1, k4),
+        k4_rows_record(dev, card_line, "nb41", band2.expand(B_BAND, -1, -1).contiguous(),
+                       *heat2d.linear_solver.meta, k4_nb41),
+    ]
+
+    # ---- (f) the SDIRK and ERK rows, and the reset jump
+    lp = dataclasses.replace(logistic.problem(),
+                             sens_rtol=torch.tensor(1e-6, dtype=torch.float64),
+                             sens_atol=torch.full((1,), 1e-6, dtype=torch.float64))
+    for method in ("tr_bdf2", "esdirk34", "tsit45"):
+        def run_rk(device=None, method=method):
+            return dtt.solve_dense(dtt.solver(lp, method, sens=True), [1.0, 5.0, 10.0],
+                                   max_steps=20_000, device=device)
+
+        (sol, ms), ref = timed_solve(run_rk), run_rk("cpu")
+        diff = (sol.sens.cpu() - ref.sens).abs()
+        dsteps = abs(sol.state.stats.steps - ref.state.stats.steps)
+        if (sol.stop_reason != dtt.errors.TSTOP_REACHED or dsteps > CARD_CPU_STEPS
+                or bool((diff > CARD_CPU_ATOL + CARD_CPU_RTOL * ref.sens.abs()).any())):
+            raise AssertionError(f"[21f] logistic {method}: card vs CPU rows "
+                                 f"{float(diff.max())}, steps {sol.state.stats.steps} vs "
+                                 f"{ref.state.stats.steps}")
+        print(f"[21f] logistic {method} sens=True (rows in the error test): "
+              f"{stats_line(sol)}, {ms:.2f} ms median of 3 (CUDA events); rows vs the CPU "
+              f"max abs {float(diff.max()):.2e}, steps {sol.state.stats.steps} vs "
+              f"{ref.state.stats.steps}; card {card_line}", flush=True)
+    tr = [2.0, 6.0, 10.0]
+    for method in ("bdf", "tsit45"):
+        def ys_at(p0, p1, method=method):
+            return dtt.solve_dense(dtt.solver(exponential_decay.problem_with_reset(
+                p=(p0, p1)), method), tr, max_steps=4000).ys
+
+        eps = 1e-6
+        fd = [(ys_at(0.1 + eps, 1.0) - ys_at(0.1 - eps, 1.0)) / (2 * eps),
+              (ys_at(0.1, 1.0 + eps) - ys_at(0.1, 1.0 - eps)) / (2 * eps)]
+        (sol, ms) = timed_solve(lambda method=method: dtt.solve_dense(
+            dtt.solver(exponential_decay.problem_with_reset(), method, sens=True), tr,
+            max_steps=4000))
+        errs = [float((sol.sens[:, j] - fd[j]).abs().max()) for j in range(2)]
+        if sol.stop_reason != dtt.errors.TSTOP_REACHED or not max(errs) < SENS_FD_TOL:
+            raise AssertionError(f"[21f] reset {method}: {sol.stop_reason}, vs central "
+                                 f"differences {errs}")
+        print(f"[21f] exponential decay with a reset, {method} sens=True: {stats_line(sol)}, "
+              f"{ms:.2f} ms median of 3 (CUDA events); rows vs central differences on the "
+              f"card {errs[0]:.1e} (p0, moves the event) and {errs[1]:.1e} (p1, the reset "
+              f"value) (< {SENS_FD_TOL:g}); card {card_line}", flush=True)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2033,8 +2368,11 @@ def main() -> int:
     t_phase = time.perf_counter()
     diffsl_records = diffsl_phase(dev, card_line, diffsl, diffsl_checks)
     print(f"[20] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
+    t_phase = time.perf_counter()
+    sens_records = sens_phase(dev, card_line, heat_problem, soln)
+    print(f"[21] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
     record = ([small_record] + variant_records + [mixed_record] + band_records
-              + mol2d_records + wide_lu_records + diffsl_records)
+              + mol2d_records + wide_lu_records + diffsl_records + sens_records)
 
     print(f"card: {card_line}")
     print(json.dumps({"kernels": record}))

@@ -4,10 +4,12 @@ The JAX package ``diffsol_tpu`` is the reference; this package mirrors its
 module names and public layouts.  Plain tensor code is eager PyTorch in
 float64, and every Pallas kernel of the covered paths is CUDA C++ for
 Hopper (``csrc/``), built with ``nvcc`` at first use: the fused small-n
-and banded BDF whole-solve kernels and the band LU factor and solve.
+and banded BDF whole-solve kernels and the band LU factor and solve (the
+solve also takes every sensitivity row against its member's factors in
+one launch).
 
 The port so far covers the stiff BDF ensemble main path, the banded
-method-of-lines tier and the single-instance solver surface below
+method-of-lines tier and the single-instance solver surface up to forward
 sensitivities: problems with identity, diagonal or dense mass (semi-
 explicit DAEs with consistent initial conditions solved for) and an
 optional user Jacobian (``rhs_implicit``), root events that stop the
@@ -16,7 +18,11 @@ on the dense, banded and block-diagonal linear-solver tiers, the SDIRK
 (``tr_bdf2``, ``esdirk34``) and explicit RK (``tsit45``) solvers and
 ``solver``/``METHODS``; ``solve_dense`` and ``solve``, and
 ``solve_dense_ensemble`` in lockstep, independent and fused modes, on the
-card unless the caller asks for the CPU.  Models may also come as DiffSL
+card unless the caller asks for the CPU.  Forward sensitivities come two
+ways: the continuous sensitivity equations (``sens=True`` on any of the
+three solvers, ``augmented.SensEquations``; ``Solution.sens``) on the
+dense, block-diagonal and banded tiers, lockstep ensembles included, and
+``solve_dense_fwd_sens``, forward mode through the solve.  Models may also come as DiffSL
 text (``compile_diffsl``, ``OdeBuilder.build_from_diffsl`` and
 ``build_from_eqn``), with the ``N`` built-in's index-aware reset
 (``reset_n``); their callables are plain torch, so they reach every solver
@@ -29,6 +35,7 @@ from .drivers import Solution, solve, solve_dense  # noqa: F401
 from .ensemble import make_lockstep_problem, solve_dense_ensemble  # noqa: F401
 from .equations import OdeEquations, make_equations  # noqa: F401
 from .factory import METHODS, solver  # noqa: F401
+from .sens import solve_dense_fwd_sens  # noqa: F401
 from .problem import (  # noqa: F401
     InitialConditionOptions,
     OdeBuilder,

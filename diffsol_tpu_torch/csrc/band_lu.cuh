@@ -69,8 +69,12 @@
 //   times a reciprocal formed a chunk at a time off the chain.  That
 //   reverses the order of each row's sum against the plain version's row
 //   loop and puts an ulp between the product and its division; both are
-//   held to the same 1e-12 relative as the rest.  One factorization
-//   serving many right-hand sides is read with a member stride of 0.
+//   held to the same 1e-12 relative as the rest.  Right-hand side r reads
+//   factorization r mod f_members, so one factorization serves every
+//   right-hand side and the naug-major augmented rows (naug B of them) of
+//   a lockstep ensemble share their member's factors in one launch, with
+//   no copy of the factors: each member's factors are read naug times (a
+//   block whose warps share one member's window is later work).
 //
 // * Shapes past the shared memory at four members a block and the chunk
 //   above (a factor window over 58 KB a member, (mu + 32) nb > ~7,250 at
@@ -520,16 +524,18 @@ band_lu_factor_kernel(const double* __restrict__ band, double* __restrict__ F, i
   }
 }
 
-// K4: F (n+mu, nb, B) factored, or (n+mu, nb, 1) for every member when
-// fm = 0; b (B, n) -> x (B, n).  Warp g of the block solves member
-// blockIdx.x * G + g.
+// K4: F (n+mu, nb, fm) factored, b (B, n) -> x (B, n) with B a multiple
+// of fm: right-hand side r reads factorization r % fm (fm = 1: one for
+// every right-hand side; fm = B: one each; fm = B / naug: the naug-major
+// augmented rows of a lockstep ensemble).  Warp g of the block solves
+// right-hand side blockIdx.x * G + g.
 template <bool ON_CHIP>
 __global__ void __launch_bounds__(MEMBERS * WARP)
 band_lu_solve_kernel(const double* __restrict__ F, int fm, const double* __restrict__ b,
                      double* __restrict__ x, int n, int ml, int mu, int B, int C, int stride) {
   extern __shared__ double smem[];
   const int nb = ml + mu + 1;
-  const size_t fs = fm ? (size_t)B : 1;  // doubles between F's (column, row) pairs
+  const size_t fs = (size_t)fm;  // doubles between F's (column, row) pairs
   constexpr int G = MEMBERS;
   const int g = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   const int m0 = blockIdx.x * G, m = m0 + g;
@@ -563,7 +569,7 @@ band_lu_solve_kernel(const double* __restrict__ F, int fm, const double* __restr
     const int gg = threadIdx.x % G, dd = threadIdx.x / G;  // dd < 32
     if (m0 + gg < B) {
       double* buf = smem + (size_t)gg * stride + (q & 1) * cap;
-      const double* f = F + (size_t)d0 * fs + (size_t)(m0 + gg) * fm;
+      const double* f = F + (size_t)d0 * fs + (size_t)((m0 + gg) % fm);
       for (int c = c0; c < c1; ++c)
         for (int d = dd; d < nr; d += WARP)
           __pipeline_memcpy_async(buf + (c - c0) * nr + d, f + ((size_t)c * nb + d) * fs,
@@ -647,18 +653,19 @@ extern "C" int band_lu_factor_launch(const double* band, double* F, int n, int m
   return (int)cudaGetLastError();
 }
 
-// f_members: 1 (one factorization for every right-hand side) or B
+// f_members factorizations, any divisor of the B right-hand sides:
+// right-hand side r reads factorization r % f_members
 extern "C" int band_lu_solve_launch(const double* F, int f_members, const double* b, double* x,
                                     int n, int ml, int mu, int B, void* stream) {
   using namespace diffsol_band;
-  if (n < 1 || ml < 0 || mu < 0 || B < 1 || (f_members != 1 && f_members != B))
+  if (n < 1 || ml < 0 || mu < 0 || B < 1 || f_members < 1 || B % f_members != 0)
     return (int)cudaErrorInvalidValue;
   const Plan p = solve_plan(n, ml, mu);
   if (!p.fits()) return (int)cudaErrorInvalidValue;
   auto kernel = p.on_chip ? band_lu_solve_kernel<true> : band_lu_solve_kernel<false>;
   if (const int rc = allow_shared(kernel, p)) return rc;
   kernel<<<(B + MEMBERS - 1) / MEMBERS, MEMBERS * WARP, p.bytes(), (cudaStream_t)stream>>>(
-      F, f_members == B ? 1 : 0, b, x, n, ml, mu, B, p.C, p.stride);
+      F, f_members, b, x, n, ml, mu, B, p.C, p.stride);
   return (int)cudaGetLastError();
 }
 

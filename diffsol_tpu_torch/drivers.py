@@ -8,6 +8,9 @@ every ``t_eval`` point inside each accepted step (the reference's
 (method.rs:774-805): on ROOT_FOUND the state is pinned back to the root
 time through the dense-output interpolant; with a reset operator it is
 applied and the solve goes on, without one the solve stops at the root.
+A solver with augmented rows (``sens=True``) records them beside ``ys``,
+interpolates them to a root and carries them across a reset with the
+sensitivity jump (reference state.rs:308-560).
 """
 
 from __future__ import annotations
@@ -52,6 +55,9 @@ class Solution:
     root_idx: int = -1
     tile_steps: Optional[torch.Tensor] = None
     tier: Optional[str] = None
+    # the augmented rows (forward sensitivities) at ``ts``, (neval, naug,
+    # *y.shape), so (neval, naug, B, n) in lockstep; None without them
+    sens: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "Solution":
         return dataclasses.replace(self, **kw)
@@ -77,6 +83,8 @@ def _pin_to(solver, state, t: float):
                t=t, state_modified=True)
     if solver.problem.integrate_out:
         upd["g"] = solver.interpolate_out(state, t)
+    if state.s is not None:
+        upd["s"] = solver.interpolate_sens(state, t)
     return dataclasses.replace(state, **upd)
 
 
@@ -84,15 +92,22 @@ def _apply_reset(solver, state, params):
     """Apply the reset operator R(t, y) and refresh dy (reference
     state.rs:246-320 apply_reset / apply_reset_with_mass); an index-aware
     reset gets the index of the root that fired (reference
-    set_model_index(root_idx) before apply_reset)."""
+    set_model_index(root_idx) before apply_reset).  Augmented rows get the
+    jump correction (state.rs:308-560 apply_reset_with_sens)."""
     p = solver.problem
     t = p.t0.new_tensor(state.t)
+    y_minus, dy_minus, s_minus = state.y, state.dy, state.s
     if p.eqn.reset_n is not None:
         y_new = p.eqn.reset_n(t, state.y, params, state.root_idx)
     else:
         y_new = p.eqn.reset(t, state.y, params)
     state = dataclasses.replace(state, y=y_new, state_modified=True)
-    return solver.reinit_after_reset(state, params)
+    state = solver.reinit_after_reset(state, params)
+    if s_minus is not None:
+        state = dataclasses.replace(state, s=solver.aug.apply_reset(
+            t, y_minus, dy_minus, state.y, state.dy, params, s_minus,
+            state.root_idx))
+    return state
 
 
 def _prepare(solver, params, state, device, who):
@@ -155,6 +170,8 @@ def solve_dense(solver, t_eval, params=None, state=None,
     final_time = te[-1]
     state = solver.set_stop_time(state, final_time)
     ys = state.y.new_zeros((neval,) + tuple(state.y.shape))
+    has_sens = state.s is not None
+    ss = state.s.new_zeros((neval,) + tuple(state.s.shape)) if has_sens else None
     gs = None
     if integrate_out:
         gs = state.g.new_zeros((neval,) + tuple(state.g.shape))
@@ -181,6 +198,8 @@ def solve_dense(solver, t_eval, params=None, state=None,
             while written < neval and te[written] <= t_upper:
                 tw = te[written]
                 ys[written] = solver.interpolate(stepped, tw)
+                if has_sens:
+                    ss[written] = solver.interpolate_sens(stepped, tw)
                 if integrate_out:
                     gs[written] = solver.interpolate_out(stepped, tw)
                 elif out_direct:
@@ -197,6 +216,7 @@ def solve_dense(solver, t_eval, params=None, state=None,
     return Solution(
         ts=t_eval.to(ys.device), ys=ys, stop_reason=int(stop),
         n_points=neval, state=state, gs=gs, root_t=root_t, root_idx=root_idx,
+        sens=ss,
     )
 
 
@@ -225,11 +245,16 @@ def solve(solver, final_time, params=None, state=None, max_steps: int = 10_000,
         g0 = out_of(state)
         gs = g0.new_zeros((nbuf,) + tuple(g0.shape))
 
+    has_sens = state.s is not None
+    ss = state.s.new_zeros((nbuf,) + tuple(state.s.shape)) if has_sens else None
+
     def write(k, st):
         ts[k] = st.t
         ys[k] = st.y
         if gs is not None:
             gs[k] = out_of(st)
+        if has_sens:
+            ss[k] = st.s
         return k + 1
 
     k = write(0, state)
@@ -254,5 +279,5 @@ def solve(solver, final_time, params=None, state=None, max_steps: int = 10_000,
         stop = errors.MAX_STEPS_REACHED
     return Solution(
         ts=ts, ys=ys, stop_reason=int(stop), n_points=k, state=state, gs=gs,
-        root_t=root_t, root_idx=root_idx,
+        root_t=root_t, root_idx=root_idx, sens=ss,
     )

@@ -14,7 +14,8 @@
   the kernels' plain PyTorch versions (the counterpart of Pallas
   ``interpret=True``) and ``Solution.tier`` ends in ``"_reference"``.
 * **auto**: fused when the problem is in a kernel's scope, lockstep
-  otherwise.
+  otherwise, and lockstep whenever the solver integrates augmented rows
+  (``sens=True``), which the fused kernels do not carry.
 
 A solve runs on ``device``, the card unless the caller passes
 ``device="cpu"``; ``params_batch`` (numpy, list or tensor) is placed
@@ -223,11 +224,16 @@ def solve_dense_ensemble(
 
     ``make_solver`` is a problem -> solver factory (``BdfSolver``, or
     ``lambda pr: solver(pr, "tr_bdf2")``); the lockstep and independent
-    modes use it.  The fused and auto modes take no notice of it, as in
-    the JAX package (its ensemble.py:441-476): they run the BDF kernels
-    whenever one takes the problem, so an SDIRK or ERK ensemble asks for
-    ``mode="lockstep"``.
-    Returns a :class:`Solution` whose ``ys`` is (neval, B, nstates).
+    modes use it.  The fused and auto modes run the BDF kernels whenever
+    one takes the problem, whatever the method, as the JAX package does
+    (its ensemble.py:441-476), so an SDIRK or ERK ensemble asks for
+    ``mode="lockstep"``.  A factory whose solver carries sensitivities
+    (``lambda pr: BdfSolver(pr, sens=True)``) is the exception: the
+    kernels carry no augmented rows, so ``mode="auto"`` goes lockstep and
+    ``mode="fused"`` raises :class:`UnsupportedForKernel` (where the JAX
+    package's fused tier returns ``sens=None`` without a word).
+    Returns a :class:`Solution` whose ``ys`` is (neval, B, nstates), and
+    with sensitivities ``sens`` (neval, naug, B, nstates).
     ``tile`` sets the fused tiers' member tile (each tier has its default);
     it is part of the result, since each tile takes its own step sequence.
     ``device`` is where the solve runs: None means ``"cuda"``, and raises
@@ -248,6 +254,12 @@ def solve_dense_ensemble(
     params_batch = params_batch.to(dev)
     nbatch = params_batch.shape[0]
 
+    if mode in ("fused", "auto") and getattr(make_solver(problem), "has_sens", False):
+        if mode == "fused":
+            raise UnsupportedForKernel(
+                "the fused kernels carry no sensitivity rows: use mode='lockstep' "
+                "(mode='auto' takes it) for a solver with sens=True")
+        mode = "lockstep"
     if mode in ("fused", "auto"):
         try:
             fsolve, tier, ts_on = _fused_solve_cached(problem, t_eval, nbatch,
@@ -278,6 +290,8 @@ def solve_dense_ensemble(
             ys=torch.stack([s.ys for s in sols], dim=1),
             gs=(None if sols[0].gs is None
                 else torch.stack([s.gs for s in sols], dim=1)),
+            sens=(None if sols[0].sens is None
+                  else torch.stack([s.sens for s in sols], dim=2)),
             stop_reason=torch.tensor([s.stop_reason for s in sols]),
             n_points=sols[0].n_points,
             state=[s.state for s in sols],

@@ -58,6 +58,16 @@ class OdeEquations:
             return self.rhs_jac(t, y, p)
         return torch.func.jacfwd(self.rhs, argnums=1)(t, y, p)
 
+    def sens_mul(self, t, y, p, v):
+        """(df/dp) @ v by forward mode (the forward sensitivities)."""
+        return torch.func.jvp(lambda pp: self.rhs(t, y, pp), (p,), (v,))[1]
+
+    def sens_transpose_mul(self, t, y, p, v):
+        """(df/dp)^T @ v by reverse mode (the adjoint's gradient
+        quadrature)."""
+        _, vjp = torch.func.vjp(lambda pp: self.rhs(t, y, pp), p)
+        return vjp(v)[0]
+
     def mass_repr(self, t, p):
         """None (identity), :class:`DiagMass`, or the dense matrix."""
         if self.mass is None:

@@ -16,7 +16,8 @@ METHODS = ("bdf", "tr_bdf2", "esdirk34", "tsit45")
 def solver(problem: OdeProblem, method: str = "bdf", **kwargs):
     """A solver by method name: ``bdf`` the variable-order NDF/BDF,
     ``tr_bdf2`` and ``esdirk34`` SDIRK, ``tsit45`` explicit RK.  Extra
-    keyword arguments go to the solver class (``config=...``)."""
+    keyword arguments go to the solver class (``config=...``,
+    ``sens=True``, ``augmented=...``)."""
     m = method.lower()
     if m == "bdf":
         return BdfSolver(problem, **kwargs)

@@ -1,8 +1,8 @@
 """Carry problems and results across from the JAX package.
 
 ``problem_from_jax`` copies every numeric field of a ``diffsol_tpu``
-``OdeProblem`` (params, t0, h0, rtol, atol, the output tolerances, the
-quadrature flag, all solver options and the consistent-IC options) into
+``OdeProblem`` (params, t0, h0, rtol, atol, the output and sensitivity
+tolerances, the quadrature flag, all solver options and the consistent-IC options) into
 this package's problem as float64 tensors, a banded linear-solver tier as
 ``make_banded_solver(ml, mu)`` and a block-diagonal one as
 ``make_blockdiag_solver(perm, nb, K)`` from the spec's ``meta``; a JAX
@@ -94,6 +94,10 @@ def problem_from_jax(jax_problem, rhs=None, init=None, mass=None, root=None,
         b = b.out_rtol(float(np.asarray(jax_problem.out_rtol)))
     if jax_problem.out_atol is not None:
         b = b.out_atol(np.asarray(jax_problem.out_atol, np.float64).reshape(-1))
+    if jax_problem.sens_rtol is not None:
+        b = b.sens_rtol(float(np.asarray(jax_problem.sens_rtol)))
+    if jax_problem.sens_atol is not None:
+        b = b.sens_atol(np.asarray(jax_problem.sens_atol, np.float64).reshape(-1))
     spec = jax_problem.linear_solver
     if spec.name.startswith("banded"):
         from .ops.banded import make_banded_solver
@@ -110,9 +114,11 @@ def problem_from_jax(jax_problem, rhs=None, init=None, mass=None, root=None,
 
 
 def solution_to_numpy(sol) -> dict:
-    """``ts``, ``ys``, ``gs``, ``stop_reason``, ``n_points``, ``root_t``,
-    ``root_idx``, ``tile_steps`` and ``tier`` of a solution, as numpy
-    arrays (``tier`` as is, ``gs`` and ``tile_steps`` None when unset)."""
+    """``ts``, ``ys``, ``gs``, ``sens``, ``stop_reason``, ``n_points``,
+    ``root_t``, ``root_idx``, ``tile_steps`` and ``tier`` of a solution, as
+    numpy arrays (``tier`` as is, ``gs``, ``sens`` and ``tile_steps`` None
+    when unset).  ``sens`` takes the JAX package's layout: (neval, naug, n),
+    and (neval, naug, n, B) for a lockstep ensemble."""
 
     def arr(v):
         if v is None:
@@ -121,8 +127,11 @@ def solution_to_numpy(sol) -> dict:
             return v.detach().cpu().numpy()
         return np.asarray(v)
 
+    sens = arr(sol.sens)
+    if sens is not None and sens.ndim == 4:  # lockstep (neval, naug, B, n)
+        sens = np.swapaxes(sens, -1, -2)
     return dict(
-        ts=arr(sol.ts), ys=arr(sol.ys), stop_reason=arr(sol.stop_reason),
+        ts=arr(sol.ts), ys=arr(sol.ys), sens=sens, stop_reason=arr(sol.stop_reason),
         n_points=int(sol.n_points), tile_steps=arr(sol.tile_steps),
         tier=sol.tier, gs=arr(sol.gs), root_t=arr(sol.root_t),
         root_idx=arr(sol.root_idx),

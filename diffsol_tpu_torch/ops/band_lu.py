@@ -14,15 +14,19 @@ Two implementations of the same algorithm, both float64:
   window in shared memory), built with ``nvcc`` at first use and launched
   by :func:`launch_band_lu_factor` and :func:`launch_band_lu_solve` for
   CUDA tensors.  The factor reads the member-major band and writes the
-  column-leading factors itself; the solve reads and writes ``(B, n)``
-  and takes one member's factors for every right-hand side with a member
-  stride of 0;
+  column-leading factors itself; the solve reads and writes ``(R, n)``
+  against ``fb`` factorizations, ``R`` a multiple of ``fb``, right-hand
+  side ``r`` with factorization ``r % fb``: one for every right-hand side,
+  one a member, or a lockstep ensemble's augmented rows stacked
+  naug-major over the members, without a copy of the factors;
 * the plain PyTorch versions :func:`band_lu_factor_reference` and
   :func:`band_lu_solve_reference`, a Python loop over columns vectorized
   over members, for CPU tensors and as the kernels' yardstick on the card.
 
 A CUDA tensor always goes to the kernel: a build or launch failure raises,
-and nothing falls back to the plain version or to the CPU.  The Pallas
+and nothing falls back to the plain version or to the CPU.  A launch reads
+raw device memory, so a tensor under a ``torch.func`` transform (``jvp``,
+``vmap``) is refused: the kernel would drop its tangent.  The Pallas
 kernels are float32 (Mosaic has no f64), so there the LU is a Newton
 preconditioner; here it is an exact solver.
 """
@@ -107,12 +111,23 @@ def band_lu_factor_reference(band: torch.Tensor, ml: int, mu: int) -> torch.Tens
 
 def band_lu_solve_reference(F: torch.Tensor, b: torch.Tensor, ml: int,
                             mu: int) -> torch.Tensor:
-    """factored (n+mu, nb, B), b (B, n) -> x (B, n)."""
-    n = F.shape[0] - mu
-    x = b.new_empty((n + npadx(ml, mu), b.shape[0]))
+    """factored (n+mu, nb, fb), b (R, n) with R a multiple of fb -> x (R,
+    n); right-hand side r uses factorization r % fb."""
+    n, fb = F.shape[0] - mu, F.shape[2]
+    _check_rows(fb, n, b)
+    R = b.shape[0]
+    if fb != R:
+        F = F[:, :, torch.arange(R, device=F.device) % fb]
+    x = b.new_empty((n + npadx(ml, mu), R))
     x[:n] = b.t()
     solve_columns(F, x, n, ml, mu)
     return x[:n].t()
+
+
+def _check_rows(fb: int, n: int, b: torch.Tensor):
+    if b.ndim != 2 or b.shape[1] != n or b.shape[0] % fb:
+        raise ValueError(f"b must be (R, {n}) with R a multiple of the {fb} "
+                         f"factorizations, got {tuple(b.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -123,12 +138,27 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _refuse_transformed(*tensors):
+    """A kernel launch reads raw memory: under ``torch.func.jvp`` it would
+    return tensors without a tangent, which the transform reads as zero
+    sensitivity.  Raise instead."""
+    from torch._C._functorch import is_functorch_wrapped_tensor
+
+    if any(is_functorch_wrapped_tensor(t) for t in tensors):
+        raise RuntimeError(
+            "the band LU kernels cannot run under a torch.func transform (jvp, "
+            "vmap): their launch would drop the tangent.  For the sensitivities "
+            "of a banded problem on the card use the continuous sensitivity "
+            "equations, BdfSolver(problem, sens=True)")
+
+
 def launch_band_lu_factor(band: torch.Tensor, ml: int, mu: int) -> torch.Tensor:
     """K3 on ``torch.cuda.current_stream()``: a (B, nb, n) float64 CUDA
     band -> factored (n+mu, nb, B).  Builds the kernel at first use;
     raises on a build or launch error."""
     from .._build import load_band_lu
 
+    _refuse_transformed(band)
     band3 = _as_members(band, ml, mu)
     if not band3.is_cuda:
         raise ValueError("launch_band_lu_factor needs a CUDA tensor")
@@ -151,11 +181,13 @@ launch_band_lu_factor.launches = 0
 
 def launch_band_lu_solve(F: torch.Tensor, b: torch.Tensor, ml: int,
                          mu: int) -> torch.Tensor:
-    """K4 on ``torch.cuda.current_stream()``: factored (n+mu, nb, B), or
-    (n+mu, nb, 1) for every right-hand side, and b (B, n), float64 on one
-    CUDA device -> x (B, n).  Raises on a build or launch error."""
+    """K4 on ``torch.cuda.current_stream()``: factored (n+mu, nb, fb) and
+    b (R, n), R a multiple of fb, float64 on one CUDA device -> x (R, n),
+    right-hand side r solved with factorization r % fb.  Raises on a
+    build or launch error."""
     from .._build import load_band_lu
 
+    _refuse_transformed(F, b)
     nb = ml + mu + 1
     if not (F.is_cuda and b.is_cuda) or F.device != b.device:
         raise ValueError("launch_band_lu_solve needs CUDA tensors on one device")
@@ -165,9 +197,7 @@ def launch_band_lu_solve(F: torch.Tensor, b: torch.Tensor, ml: int,
         raise ValueError(f"factors must be contiguous (n+mu, {nb}, B), got "
                          f"{tuple(F.shape)}")
     n, fb = F.shape[0] - mu, F.shape[2]
-    if b.ndim != 2 or b.shape[1] != n or fb not in (1, b.shape[0]):
-        raise ValueError(f"b must be ({fb}, {n}), or (B, {n}) for one factorization, got "
-                         f"{tuple(b.shape)}")
+    _check_rows(fb, n, b)
     B = b.shape[0]
     lib = load_band_lu()
     dev = F.device
@@ -198,15 +228,15 @@ def band_lu_factor(band: torch.Tensor, ml: int, mu: int) -> torch.Tensor:
 
 
 def band_lu_solve(F: torch.Tensor, b: torch.Tensor, ml: int, mu: int) -> torch.Tensor:
-    """Solve with :func:`band_lu_factor`'s output for b (B, n) or (n,):
-    K4 for CUDA tensors, the plain version for CPU tensors.  A
-    factorization of one member (B = 1) serves every right-hand side
-    (pallas_banded.py:156-157)."""
+    """Solve with :func:`band_lu_factor`'s output (fb factorizations) for
+    b (R, n), R a multiple of fb, or (n,): K4 for CUDA tensors, the plain
+    version for CPU tensors.  Right-hand side r uses factorization r % fb,
+    so one factorization serves every right-hand side
+    (pallas_banded.py:156-157) and the naug-major rows (naug B, n) of a
+    lockstep ensemble's sensitivities go in one launch (banded.py:231-243)."""
     b2 = b if b.ndim == 2 else b.unsqueeze(0)
     if F.is_cuda:
         x = launch_band_lu_solve(F, b2, ml, mu)
     else:
-        if F.shape[2] == 1 and b2.shape[0] > 1:
-            F = F.expand(-1, -1, b2.shape[0])
         x = band_lu_solve_reference(F, b2, ml, mu)
     return x if b.ndim == 2 else x[0]

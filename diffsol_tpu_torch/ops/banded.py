@@ -98,7 +98,10 @@ def make_banded_solver(ml: int, mu: int) -> LinearSolverSpec:
     or (B, nb, n) for a lockstep ensemble; the equations' ``rhs_jac`` must
     produce it (the OdeBuilder installs :func:`make_banded_jac` when this
     tier is selected).  Factors are the column-leading (n+mu, nb, B) band
-    of :mod:`.band_lu`.
+    of :mod:`.band_lu`.  ``solve`` takes (n,), lockstep (B, n), or the
+    augmented rows (naug, n) and (naug, B, n): the rows go naug-major into
+    one (naug B, n) solve, row r against factorization r mod B (the JAX
+    tier folds them into K4's lanes, banded.py:231-243).
     """
     ml, mu = int(ml), int(mu)
     if ml < 0 or mu < 0:
@@ -119,7 +122,8 @@ def make_banded_solver(ml: int, mu: int) -> LinearSolverSpec:
         return (band_lu_factor(a_band, ml, mu),)
 
     def solve(factors, b):
-        return band_lu_solve(factors[0], b, ml, mu)
+        n = b.shape[-1]
+        return band_lu_solve(factors[0], b.reshape(-1, n), ml, mu).reshape(b.shape)
 
     return LinearSolverSpec(
         name=f"banded({ml},{mu})", assemble=assemble, factor=factor,

@@ -138,7 +138,9 @@ def make_blockdiag_jac(rhs, perm, nb: int, K: int, n: int):
 def _spec(perm, nb: int, K: int, name: str, meta: tuple) -> LinearSolverSpec:
     """The tier's vtable.  Matrices are (..., K, nb, nb) block stacks,
     right-hand sides (..., n) states in natural order; every leading axis
-    (a lockstep ensemble's members) joins the one batched LU."""
+    of a matrix (a lockstep ensemble's members) joins the one batched LU,
+    and the leading axes a right-hand side has beyond the matrix's (the
+    augmented rows) broadcast over it in the same ``lu_solve`` call."""
     layout = _Layout(perm, nb, K)
 
     def assemble(mass, jac, c):
@@ -163,7 +165,8 @@ def _spec(perm, nb: int, K: int, name: str, meta: tuple) -> LinearSolverSpec:
         lay = layout.on(b.device)
         bb = layout.gather(b, lay)  # (..., K, nb)
         lu, piv = factors
-        x = torch.linalg.lu_solve(lu, piv, bb.reshape(-1, nb, 1)).reshape(bb.shape)
+        x = torch.linalg.lu_solve(
+            lu, piv, bb.reshape(-1, lu.shape[0], nb, 1)).reshape(bb.shape)
         if layout.identity:
             return x.reshape(b.shape)
         flat = x.reshape(bb.shape[:-2] + (K * nb,))[..., lay["take"]]

@@ -99,8 +99,9 @@ class OdeProblem:
 
     ``params`` is (nparams,) for one instance and (B, nparams) for a
     lockstep ensemble (``lockstep_nbatch = B``), whose state is member-major
-    (B, n).  ``atol`` is (n,) and broadcasts over members; so does
-    ``out_atol`` (nout,), the quadrature's tolerance.
+    (B, n).  ``atol`` is (n,) and broadcasts over members; so do
+    ``out_atol`` (nout,), the quadrature's tolerance, and ``sens_atol``
+    (n,), the forward sensitivities'.
     """
 
     eqn: OdeEquations
@@ -111,6 +112,10 @@ class OdeProblem:
     atol: torch.Tensor
     out_rtol: Optional[torch.Tensor] = None
     out_atol: Optional[torch.Tensor] = None
+    # the sensitivity rows' tolerances; both set puts the rows into the
+    # error test (JAX problem.py:127-128)
+    sens_rtol: Optional[torch.Tensor] = None
+    sens_atol: Optional[torch.Tensor] = None
     integrate_out: bool = False
     lockstep_nbatch: int = 1
     options: OdeSolverOptions = field(default_factory=OdeSolverOptions)
@@ -123,6 +128,9 @@ class OdeProblem:
     def output_in_error_control(self) -> bool:
         return (self.integrate_out and self.eqn.out is not None
                 and self.out_rtol is not None and self.out_atol is not None)
+
+    def sens_in_error_control(self) -> bool:
+        return self.sens_rtol is not None and self.sens_atol is not None
 
     def to(self, device) -> "OdeProblem":
         """The same problem with its tensors on ``device``."""
@@ -138,6 +146,8 @@ class OdeProblem:
             atol=self.atol.to(device),
             out_rtol=moved(self.out_rtol),
             out_atol=moved(self.out_atol),
+            sens_rtol=moved(self.sens_rtol),
+            sens_atol=moved(self.sens_atol),
         )
 
 
@@ -179,6 +189,8 @@ class OdeBuilder:
         self._reset_n = None
         self._out_rtol = None
         self._out_atol = None
+        self._sens_rtol = None
+        self._sens_atol = None
         self._integrate_out = False
         self._ic_options = InitialConditionOptions()
         self._p = torch.zeros(0, dtype=F64)
@@ -260,6 +272,24 @@ class OdeBuilder:
         self._out_atol = v
         return self
 
+    def sens_rtol(self, v):
+        """Relative tolerance of the forward-sensitivity rows."""
+        self._sens_rtol = v
+        return self
+
+    def sens_atol(self, v):
+        """Absolute tolerance of the forward-sensitivity rows, a scalar or
+        one a state."""
+        self._sens_atol = v
+        return self
+
+    def turn_off_sensitivities_error_control(self):
+        """Exclude the sensitivity rows from the error test (reference
+        builder.rs:1501)."""
+        self._sens_rtol = None
+        self._sens_atol = None
+        return self
+
     def turn_off_output_error_control(self):
         """Exclude the quadrature output from the error test."""
         self._out_rtol = None
@@ -288,12 +318,6 @@ class OdeBuilder:
         return self
 
     # outside this port's slice -------------------------------------------
-    def sens_rtol(self, v):
-        _later("forward sensitivities", "queue 1 item 16")
-
-    def sens_atol(self, v):
-        _later("forward sensitivities", "queue 1 item 16")
-
     def param_rtol(self, v):
         _later("adjoint tolerances", "queue 1 item 17")
 
@@ -429,6 +453,10 @@ class OdeBuilder:
                       else torch.tensor(float(self._out_rtol), dtype=F64)),
             out_atol=(None if self._out_atol is None
                       else vec(self._out_atol, eqn.nout)),
+            sens_rtol=(None if self._sens_rtol is None
+                       else torch.tensor(float(self._sens_rtol), dtype=F64)),
+            sens_atol=(None if self._sens_atol is None
+                       else vec(self._sens_atol, eqn.nstates)),
             integrate_out=self._integrate_out,
             options=self._options,
             ic_options=self._ic_options,

@@ -23,7 +23,14 @@ Quadrature of an output advances a second difference matrix gD beside D
 interpolant (bdf.rs:1566-1579).  A mass is diagonal (applied elementwise)
 or dense (a matrix product, and ``M - c*J`` assembled in the tier's
 representation); a singular one starts from consistent initial conditions
-(:mod:`.consistent_ic`).  Not ported yet: sensitivities.
+(:mod:`.consistent_ic`).
+
+With ``sens=True`` (or an ``augmented`` equation set) the continuous
+forward sensitivities ride along (bdf.rs:934-989): their rows keep a
+difference matrix ``sD`` of their own, are predicted and corrected by
+Newton against the main step's factorized ``M - c*J`` after the main
+solve, join the error test and the order selection when the problem sets
+``sens_rtol`` and ``sens_atol``, and are rescaled with D.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import errors
+from ..augmented import SensEquations
 from ..norms import squared_norm, squared_norm_and_worst
 from ..ops.controller import pi_controller_raw
 from ..ops.newton import ETA_RESET_JACOBIAN, ETA_RESET_TIMESTEP, newton_solve
@@ -85,10 +93,13 @@ def apply_ru(ru: np.ndarray, D: torch.Tensor) -> torch.Tensor:
     return torch.tensordot(ru_t, D, dims=([0], [0]))
 
 
-def rescale_all(D, gD, order: int, factor: float):
-    """Both difference matrices under a step-size change by ``factor``."""
+def rescale_all(D, gD, sD, order: int, factor: float):
+    """The difference matrices of the state, the quadrature and the
+    sensitivities (ND-leading; None without) under a step-size change by
+    ``factor``."""
     ru = compute_ru(order, factor)
-    return apply_ru(ru, D), apply_ru(ru, gD)
+    return (apply_ru(ru, D), apply_ru(ru, gD),
+            None if sD is None else apply_ru(ru, sD))
 
 
 def predict_from_diff(D, order: int):
@@ -152,6 +163,8 @@ class BdfState:
     ``D`` is the (ND, *y.shape) difference matrix and ``gD`` the
     quadrature's (ND, *g.shape), with ``g`` of size 0 when nothing is
     integrated; ``root_g`` holds the root function at the current point.
+    With sensitivities, ``s`` holds the (naug, *y.shape) rows and ``sD``
+    their (naug, ND, *y.shape) difference matrices (None without).
     Scalar control is held as Python numbers.  ``state_modified`` tells the
     next step to restart the difference matrices at order 1 from (y, dy)
     (after a pin-back to a root or a reset)."""
@@ -180,13 +193,28 @@ class BdfState:
     root_t: float = math.nan
     root_idx: int = -1
     state_modified: bool = False
+    s: Optional[torch.Tensor] = None
+    sD: Optional[torch.Tensor] = None
+
+
+def _nd_first(sD):
+    """(naug, ND, ...) -> the (ND, naug, ...) view the D helpers take."""
+    return None if sD is None else sD.movedim(1, 0)
+
+
+def _rows_first(sDt):
+    return None if sDt is None else sDt.movedim(0, 1)
 
 
 class BdfSolver:
-    """Variable-order NDF/BDF method on an :class:`OdeProblem`."""
+    """Variable-order NDF/BDF method on an :class:`OdeProblem`;
+    ``sens=True`` integrates the forward sensitivities
+    (:class:`~diffsol_tpu_torch.augmented.SensEquations`) beside it, and
+    ``augmented`` takes any other augmented equation set."""
 
     def __init__(self, problem: OdeProblem,
-                 config: Optional[SolverConfig] = None):
+                 config: Optional[SolverConfig] = None, sens: bool = False,
+                 augmented=None):
         self.problem = problem
         self.config = config or SolverConfig.from_options(problem.options, "bdf")
         eqn = problem.eqn
@@ -194,9 +222,46 @@ class BdfSolver:
         self._alg_mask = algebraic_mask(problem)
         self._nb = problem.lockstep_nbatch
         self._jvp_probes = getattr(eqn.rhs_jac, "jvp_probes", eqn.nstates)
+        if augmented is None and sens:
+            augmented = SensEquations(problem)
+        self.aug = augmented
+        self.sens = self.has_sens = augmented is not None
+
+    def with_config(self, config: SolverConfig):
+        """A new solver over the same problem and augmented equations with
+        another configuration (reference method.rs:84 `config_mut`); a
+        solve goes on from the previous one's ``state``."""
+        return type(self)(self.problem, config=config, augmented=self.aug)
 
     def _t(self, t: float) -> torch.Tensor:
         return self.problem.t0.new_tensor(t)
+
+    def _sens_solve(self, t_pred, y_ctx, params, cval, sDt, order, factors, eta):
+        """Newton on every augmented row against the main step's factors
+        (bdf.rs:934-989): ``(s_delta, converged, niter)``."""
+        p = self.problem
+        aug = self.aug
+        jvp_rows, f_p = aug.linear_parts(t_pred, y_ctx, params)
+        s_pred = predict_from_diff(sDt, order)
+        psi_s = psi_from_diff(sDt, order)
+
+        def residual(S):
+            # mass_mul broadcasts over the leading row axis
+            return (p.eqn.mass_mul(t_pred, params, S - s_pred + psi_s)
+                    - cval * (jvp_rows(S) + f_p))
+
+        res = newton_solve(
+            residual, lambda v: p.linear_solver.solve(factors, v),
+            s_pred, s_pred, aug.atol(p), aug.rtol(p), eta,
+            tol=p.options.nonlinear_solver_tolerance,
+            max_iter=self.config.maximum_newton_iterations,
+        )
+        return res.x - s_pred, res.converged, res.niter
+
+    def _sens_err(self, x, s):
+        """The rows' squared error norm: the largest row's."""
+        p = self.problem
+        return float(squared_norm(x, s, p.sens_atol, p.sens_rtol))
 
     # ------------------------------------------------------------------
     def _jac_slim(self, st: dict, t, y, params, c, rhs_pred, jac_pred,
@@ -247,13 +312,20 @@ class BdfSolver:
         st = dict(stats=Stats(), jac=None, factors=None, ssj=0, ssrj=0,
                   c_last=c0, eta=ETA_RESET_JACOBIAN)
         self._jac_slim(st, t0, y, params, c0, True, True, "lu_from_checkpoint")
+        s = sD = None
+        if self.sens:
+            # a DAE's algebraic rows made consistent (state.rs:167-239)
+            s, ds = self.aug.start(p.t0, y, dy, params, self._alg_mask)
+            sD = s.new_zeros((s.shape[0], ND) + tuple(y.shape))
+            sD[:, 0] = s
+            sD[:, 1] = h * ds
         return BdfState(
             y=y, dy=dy, t=t0, h=h, D=D, order=1, n_equal_steps=0,
             jac=st["jac"], factors=st["factors"], eta=ETA_RESET_JACOBIAN,
             prev_error_norm=math.nan, steps_since_jac=0,
             steps_since_rhs_jac=0, c_last=c0, newton_fails_total=0,
             tstop=math.nan, status=ic_status,
-            stats=st["stats"], g=g, gD=gD, root_g=root_g,
+            stats=st["stats"], g=g, gD=gD, root_g=root_g, s=s, sD=sD,
         )
 
     def _out(self, t: float, y, params):
@@ -285,10 +357,11 @@ class BdfSolver:
         )
         if overshoot:
             factor = (tstop - state.t) / state.h
-            D, gD = rescale_all(state.D, state.gD, state.order, factor)
+            D, gD, sDt = rescale_all(state.D, state.gD, _nd_first(state.sD),
+                                     state.order, factor)
             state = dataclasses.replace(
-                state, D=D, gD=gD, h=state.h * factor, n_equal_steps=0,
-                eta=ETA_RESET_TIMESTEP,
+                state, D=D, gD=gD, sD=_rows_first(sDt), h=state.h * factor,
+                n_equal_steps=0, eta=ETA_RESET_TIMESTEP,
             )
         if tstop < state.t - troundoff:
             state = dataclasses.replace(
@@ -318,6 +391,8 @@ class BdfSolver:
         )
         D = state.D
         gD = state.gD
+        sDt = _nd_first(state.sD)
+        sens_in_err = self.sens and p.sens_in_error_control()
         h = state.h
         n_equal0 = state.n_equal_steps
         prev_err0 = state.prev_error_norm
@@ -337,6 +412,12 @@ class BdfSolver:
                 gD = torch.zeros_like(state.gD)
                 gD[0] = state.g
                 gD[1] = h * self._out(state.t, state.y, params)
+            if self.sens:
+                # the rows as the driver left them (interpolated to a root,
+                # then across its reset), with their derivative there
+                sDt = torch.zeros_like(sDt)
+                sDt[0] = state.s
+                sDt[1] = h * self.aug.rhs(self._t(state.t), state.y, params, state.s)
             order, n_equal0, prev_err0 = 1, 0, math.nan
             c1 = state.h * float(_ALPHA[1])
             rel1 = abs(c1 / st["c_last"] - 1.0)
@@ -382,6 +463,13 @@ class BdfSolver:
             )
             d = res.x - y_pred
             solve_ok = res.converged
+            niter_total = res.niter
+            if self.sens:
+                # every row against the same factors, from the same eta
+                s_delta, s_ok, s_niter = self._sens_solve(
+                    t_pred, y_pred, params, cval, sDt, order, factors, st["eta"])
+                solve_ok = solve_ok and s_ok
+                niter_total += s_niter
 
             # quadrature delta (op/bdf.rs:45-57: d_g = c*dg - psi_g)
             if integrate_out:
@@ -395,6 +483,9 @@ class BdfSolver:
                 err_a = max(err_a, float(squared_norm(
                     g_delta, state.g, p.out_atol, p.out_rtol))
                     * float(_ERROR_CONST2[order]))
+            if sens_in_err:
+                err_a = max(err_a, self._sens_err(s_delta, state.s)
+                            * float(_ERROR_CONST2[order]))
             accepted_a = solve_ok and err_a <= 1.0
             stats = st["stats"]
             if solve_ok:
@@ -418,10 +509,10 @@ class BdfSolver:
             rel = abs(c_jac / st["c_last"] - 1.0)
             rhs_pred = (first and rel < opts.threshold_to_update_rhs_jacobian) or (
                 second and st["ssrj"] > 0)
-            stats.newton_iterations += res.niter
+            stats.newton_iterations += niter_total
             stats.newton_fails += int(not solve_ok)
             stats.error_test_failures += int(err_fail)
-            stats.rhs_evals += res.niter
+            stats.rhs_evals += niter_total
             st["eta"] = res.eta
             cause = ("lu_from_first_fail" if first else
                      "lu_from_second_fail" if second else "lu_from_error_test")
@@ -429,7 +520,7 @@ class BdfSolver:
                            not accepted_a, cause)
 
             if do_rescale:
-                D, gD = rescale_all(D, gD, order, factor)
+                D, gD, sDt = rescale_all(D, gD, sDt, order, factor)
                 y_pred = predict_from_diff(D, order)
                 psi = psi_from_diff(D, order)
 
@@ -464,6 +555,10 @@ class BdfSolver:
         if integrate_out:
             g_new = predict_from_diff(gD, order) + g_delta
             gD_new = update_diff(gD, g_delta, order)
+        s_new, sD_new = state.s, sDt
+        if self.sens:
+            sD_new = update_diff(sDt, s_delta, order)
+            s_new = sD_new[0]
         stats = st["stats"]
         stats.steps += 1
         st["ssj"] += 1
@@ -474,8 +569,10 @@ class BdfSolver:
         new_order, sel_factor, do_change = order, 1.0, False
         if n_equal > order:
             def predicted_err(col, const_idx):
-                return float(squared_norm(D_new[col], y_new, atol, rtol)) * float(
-                    _ERROR_CONST2[const_idx])
+                e = float(squared_norm(D_new[col], y_new, atol, rtol))
+                if sens_in_err:
+                    e = max(e, self._sens_err(sD_new[col], s_new))
+                return e * float(_ERROR_CONST2[const_idx])
 
             em = predicted_err(order, max(order - 1, 0)) if order > 1 else math.inf
             ep = (predicted_err(order + 2, min(order + 1, MAX_ORDER))
@@ -495,7 +592,8 @@ class BdfSolver:
         order_new = new_order if do_change else order
         h_new = h * (sel_factor if do_change else 1.0)
         if do_change:
-            D_new, gD_new = rescale_all(D_new, gD_new, new_order, sel_factor)
+            D_new, gD_new, sD_new = rescale_all(D_new, gD_new, sD_new, new_order,
+                                                sel_factor)
             st["eta"] = ETA_RESET_TIMESTEP
         c2 = h_new * float(_ALPHA[order_new])
         rel2 = abs(c2 / st["c_last"] - 1.0)
@@ -536,7 +634,8 @@ class BdfSolver:
             )
             if overshoot:
                 ts_factor = (tstop - t_new) / h_new
-                D_new, gD_new = rescale_all(D_new, gD_new, order_new, ts_factor)
+                D_new, gD_new, sD_new = rescale_all(D_new, gD_new, sD_new, order_new,
+                                                    ts_factor)
                 h_new = h_new * ts_factor
                 n_equal_new = 0
                 eta = ETA_RESET_TIMESTEP
@@ -551,6 +650,7 @@ class BdfSolver:
             newton_fails_total=newton_fails, tstop=tstop, status=stop,
             stats=stats, g=g_new, gD=gD_new, root_g=root_g_new,
             root_t=root_t, root_idx=root_idx, state_modified=False,
+            s=s_new, sD=_rows_first(sD_new),
         )
 
     # ------------------------------------------------------------------
@@ -562,3 +662,7 @@ class BdfSolver:
 
     def interpolate_out(self, state: BdfState, t: float):
         return interp_from_diff(t, state.gD, state.t, state.h, state.order)
+
+    def interpolate_sens(self, state: BdfState, t: float):
+        """The augmented rows at ``t``, (naug, *y.shape)."""
+        return interp_from_diff(t, _nd_first(state.sD), state.t, state.h, state.order)

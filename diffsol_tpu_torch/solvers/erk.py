@@ -9,6 +9,9 @@ dead-zone clamp, and a retry with a smaller step until the test passes.
 Then a root check on the step's dense output and the stop time.  The JAX
 version is a ``lax.while_loop``; this one is an eager step whose scalar
 control lives in Python numbers, as in the port's BDF solver.
+Augmented rows (``sens=True``: the forward sensitivities) go through the
+same stages (runge_kutta.rs:537-608) and join the error test when the
+problem sets ``sens_rtol`` and ``sens_atol``.
 
 Requirements checked at construction (runge_kutta.rs:232-284): no mass
 matrix; the tableau is explicit and stiffly accurate (last row of ``a``
@@ -28,7 +31,7 @@ from .. import errors
 from ..norms import squared_norm, squared_norm_and_worst
 from ..ops.controller import clamp_factor, pi_controller_raw
 from ..problem import OdeProblem, SolverConfig
-from .rk_common import RkSolver, RkState, Stats, no_sens, stage_sum
+from .rk_common import RkSolver, RkState, Stats, stage_sum
 from .state import initial_state, initial_step_size
 from .tableau import Tableau, tsit45
 
@@ -39,7 +42,6 @@ class ErkSolver(RkSolver):
     def __init__(self, problem: OdeProblem, tableau: Optional[Tableau] = None,
                  config: Optional[SolverConfig] = None, sens: bool = False,
                  augmented=None):
-        no_sens(sens, augmented)
         if problem.eqn.mass is not None:
             raise ValueError("explicit RK does not support mass matrices")
         tab = tableau if tableau is not None else tsit45()
@@ -55,6 +57,7 @@ class ErkSolver(RkSolver):
         self.config = config or SolverConfig.from_options(problem.options, "erk")
         self._nb = problem.lockstep_nbatch
         self._tabs = {}
+        self._set_aug(sens, augmented)
 
     # ------------------------------------------------------------------
     def init_state(self, params=None) -> RkState:
@@ -66,16 +69,24 @@ class ErkSolver(RkSolver):
         t0 = float(p.t0)
         root_g = (p.eqn.root(p.t0, y, params) if p.eqn.root is not None
                   else y.new_zeros(0))
+        rows = {}
+        if self.sens:
+            sv, ds = self.aug.start(p.t0, y, dy, params)
+            rows = dict(s=sv, ds=ds, s_prev=sv,
+                        sdiff=sv.new_zeros((s,) + tuple(sv.shape)))
         return RkState(
             y=y, dy=dy, g=g, t=t0, h=h, y_prev=y, dy_prev=dy, g_prev=g, t_prev=t0,
             diff=y.new_zeros((s,) + tuple(y.shape)),
             gdiff=g.new_zeros((s,) + tuple(g.shape)),
             prev_error_norm=math.nan, root_g=root_g, tstop=math.nan,
-            status=errors.INTERNAL_TIMESTEP, stats=Stats(),
+            status=errors.INTERNAL_TIMESTEP, stats=Stats(), **rows,
         )
 
-    def _stages(self, h: float, y, dy, g_dg, t: float, params, a):
-        """The explicit stages: ``(diff, gdiff, y_last, k_last)``."""
+    def _stages(self, h: float, y, dy, g_dg, t: float, params, a, s_rows=None,
+                ds_rows=None):
+        """The explicit stages: ``(diff, gdiff, y_last, k_last)``, and with
+        the augmented rows ``s_rows`` (derivative ``ds_rows``) also
+        ``(sdiff, s_last, ds_last)``."""
         p = self.problem
         c = self.tableau.c
         s = self.tableau.s
@@ -84,14 +95,25 @@ class ErkSolver(RkSolver):
         diff[0] = h * dy
         if p.integrate_out:
             gdiff[0] = h * g_dg
+        sens = s_rows is not None
+        if sens:
+            sdiff = s_rows.new_empty((s,) + tuple(s_rows.shape))
+            sdiff[0] = h * ds_rows
+            s_i, ds_i = s_rows, ds_rows
         y_i, k_i = y, dy
         for i in range(1, s):
             y_i = y + stage_sum(a[i, :i], diff[:i])
             t_i = t + c[i] * h
             k_i = p.eqn.rhs(self._t(t_i), y_i, params)
             diff[i] = h * k_i
+            if sens:
+                s_i = s_rows + stage_sum(a[i, :i], sdiff[:i])
+                ds_i = self.aug.rhs(self._t(t_i), y_i, params, s_i)
+                sdiff[i] = h * ds_i
             if p.integrate_out:
                 gdiff[i] = h * self._out_rate(t_i, y_i, params)
+        if sens:
+            return diff, gdiff, y_i, k_i, sdiff, s_i, ds_i
         return diff, gdiff, y_i, k_i
 
     def step(self, state: RkState, params=None) -> RkState:
@@ -111,6 +133,11 @@ class ErkSolver(RkSolver):
             root_g = p.eqn.root(self._t(state.t), state.y, params)
         g_dg = (self._out_rate(state.t, state.y, params) if p.integrate_out
                 else state.y.new_zeros(0))
+        ds0 = None
+        if self.sens:
+            # the rows' derivative afresh after a reset corrected them
+            ds0 = (self.aug.rhs(self._t(state.t), state.y, params, state.s)
+                   if state.state_modified else state.ds)
 
         h = state.h
         natt = 0
@@ -120,14 +147,19 @@ class ErkSolver(RkSolver):
         accepted = False
         err = math.inf
         while not accepted and status == errors.INTERNAL_TIMESTEP:
-            diff, gdiff, y_new, dy_new = self._stages(
-                h, state.y, state.dy, g_dg, state.t, params, a)
+            stages = self._stages(h, state.y, state.dy, g_dg, state.t, params, a,
+                                  state.s if self.sens else None, ds0)
+            diff, gdiff, y_new, dy_new = stages[:4]
             sq, wm = squared_norm_and_worst(stage_sum(d_vec, diff), state.y,
                                             p.atol, p.rtol)
             err = float(sq)
             if p.output_in_error_control():
                 err = max(err, float(squared_norm(stage_sum(d_vec, gdiff), state.g,
                                                   p.out_atol, p.out_rtol)))
+            if self.sens and p.sens_in_error_control():
+                err = max(err, float(squared_norm(
+                    stage_sum(d_vec, stages[4]), state.s, self.aug.atol(p),
+                    self.aug.rtol(p))))
             accepted = err < 1.0
             if not accepted:
                 raw = float(pi_controller_raw(err, prev, ki, kp, eff_order))
@@ -154,9 +186,13 @@ class ErkSolver(RkSolver):
             worst_member=wm,
             # s-1 rhs evaluations an attempt (stage 0 is dy, first same as last)
             rhs_evals=st.rhs_evals + (self.tableau.s - 1) * (natt + 1))
+        rows = {}
+        if self.sens:
+            sdiff, s_new, ds_new = stages[4:]
+            rows = dict(s=s_new, ds=ds_new, sdiff=sdiff, s_prev=state.s)
         new = dataclasses.replace(
             state, y=y_new, dy=dy_new, g=g_new, t=t_new, h=h_next,
             y_prev=state.y, dy_prev=state.dy, g_prev=state.g, t_prev=state.t,
             diff=diff, gdiff=gdiff, prev_error_norm=err, root_g=root_g,
-            state_modified=False, stats=stats, root_t=math.nan, root_idx=-1)
+            state_modified=False, stats=stats, root_t=math.nan, root_idx=-1, **rows)
         return self._finish_step(new, state, params, root_g)

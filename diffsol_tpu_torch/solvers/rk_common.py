@@ -10,6 +10,8 @@ state and the accepted step's stage values ``diff[i] = z_i`` (member-major,
 port's BDF state.  Dense output inside the last step [t_prev, t] uses the
 tableau's continuous extension ``beta`` where it has one, else a cubic
 Hermite on the first and last stage values (runge_kutta.rs:962-1079).
+Augmented rows (forward sensitivities) keep their own stage values
+``sdiff[i]``, (s, naug, *y.shape), and interpolate the same way.
 """
 
 from __future__ import annotations
@@ -63,7 +65,10 @@ class RkState:
     accepted step's stage values of the state and of the quadrature.
     ``tstop`` and ``prev_error_norm`` are NaN when unset.  The SDIRK solver
     also keeps the Jacobian, its factorization, Newton's eta memory and the
-    Jacobian-update policy's counters; they stay None for ERK."""
+    Jacobian-update policy's counters; they stay None for ERK.  With
+    augmented rows, ``s``/``ds``/``s_prev`` are the (naug, *y.shape) rows,
+    their derivative and the rows before the last step, and ``sdiff`` the
+    rows' stage values, (s, naug, *y.shape); all None without."""
 
     y: torch.Tensor
     dy: torch.Tensor
@@ -90,6 +95,10 @@ class RkState:
     steps_since_jac: int = 0
     steps_since_rhs_jac: int = 0
     h_at_last_jac: Optional[float] = None
+    s: Optional[torch.Tensor] = None
+    ds: Optional[torch.Tensor] = None
+    s_prev: Optional[torch.Tensor] = None
+    sdiff: Optional[torch.Tensor] = None
 
 
 def tableau_arrays(tab: Tableau, device=None):
@@ -155,9 +164,12 @@ def interp_out(tab: Tableau, beta, state: RkState, t):
 
 
 def interp_sens(tab: Tableau, beta, state: RkState, t):
-    raise NotImplementedError(
-        "forward sensitivities are not ported to diffsol_tpu_torch yet "
-        "(ROADMAP.md queue 1 item 16)")
+    """The augmented rows inside [t_prev, t] (runge_kutta.rs:1083+), each
+    row as :func:`interp_y` interpolates the state."""
+    _, theta = _theta(state, t)
+    if tab.beta is not None:
+        return state.s_prev + stage_sum(_beta_poly(beta, theta, False), state.sdiff)
+    return _hermite(theta, state.s_prev, state.s, state.sdiff)
 
 
 def _hermite(theta, u0, u1, diff):
@@ -200,25 +212,28 @@ def past_tstop(t: float, h: float, tstop: float) -> bool:
     return tstop < t - 100.0 * _EPS * (abs(t) + abs(h))
 
 
-def no_sens(sens, augmented):
-    """Refuse the sensitivity options, which are not ported yet."""
-    if sens or augmented is not None:
-        raise NotImplementedError(
-            "forward sensitivities are not ported to diffsol_tpu_torch yet "
-            "(ROADMAP.md queue 1 item 16)")
-
-
 class RkSolver:
     """What the Runge-Kutta solvers share (runge_kutta.rs `Rk`): a
     subclass sets ``problem``, ``tableau``, ``config``, ``_nb`` (the
     lockstep members) and ``_tabs`` (an empty dict), and brings
     ``init_state`` and ``step``."""
 
+    def _set_aug(self, sens: bool, augmented):
+        """Install the augmented equations: ``augmented``, or the forward
+        sensitivities when ``sens``."""
+        if augmented is None and sens:
+            from ..augmented import SensEquations
+
+            augmented = SensEquations(self.problem)
+        self.aug = augmented
+        self.sens = self.has_sens = augmented is not None
+
     def with_config(self, config: SolverConfig):
-        """A new solver over the same problem and tableau with another
-        configuration (reference method.rs:84 `config_mut`); a solve goes
-        on from the previous one's ``state``."""
-        return type(self)(self.problem, tableau=self.tableau, config=config)
+        """A new solver over the same problem, tableau and augmented
+        equations with another configuration (reference method.rs:84
+        `config_mut`); a solve goes on from the previous one's ``state``."""
+        return type(self)(self.problem, tableau=self.tableau, config=config,
+                          augmented=self.aug)
 
     @property
     def order(self) -> int:

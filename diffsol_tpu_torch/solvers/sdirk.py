@@ -17,6 +17,11 @@ explicit first stage is h*dy.  The Jacobian-update policy has the
 reference's five causes (sdirk.rs:256-304); a Newton failure first
 refreshes the Jacobian, a second one cuts h by 0.3.
 
+Augmented rows (``sens=True``: the forward sensitivities) solve each
+stage after the state's, by Newton against the same LU (M sz = h (J (sphi
++ gamma sz) + f_p), runge_kutta.rs:695-740), and join the filtered error
+test when the problem sets ``sens_rtol`` and ``sens_atol``.
+
 The JAX version is a ``lax.while_loop`` over attempts with ``lax.cond``
 branches; this one is an eager step, its scalar control in Python numbers.
 The state is member-major, (n,) or (B, n) for a lockstep ensemble, whose
@@ -38,7 +43,7 @@ from ..ops.controller import clamp_factor, pi_controller_raw
 from ..ops.newton import ETA_RESET_JACOBIAN, ETA_RESET_TIMESTEP, newton_solve
 from ..problem import OdeProblem, SolverConfig
 from .consistent_ic import algebraic_mask, make_consistent
-from .rk_common import RkSolver, RkState, Stats, no_sens, stage_sum
+from .rk_common import RkSolver, RkState, Stats, stage_sum
 from .state import initial_state, initial_step_size
 from .tableau import Tableau, tr_bdf2
 
@@ -57,7 +62,6 @@ class SdirkSolver(RkSolver):
     def __init__(self, problem: OdeProblem, tableau: Optional[Tableau] = None,
                  config: Optional[SolverConfig] = None, sens: bool = False,
                  augmented=None):
-        no_sens(sens, augmented)
         tab = tableau if tableau is not None else tr_bdf2()
         a = np.asarray(tab.a)
         gamma = a[-1, -1]
@@ -78,6 +82,7 @@ class SdirkSolver(RkSolver):
         # JVP probes an evaluation of the Jacobian (jac_mul_evals)
         self._jvp_probes = getattr(problem.eqn.rhs_jac, "jvp_probes",
                                    problem.eqn.nstates)
+        self._set_aug(sens, augmented)
 
     # ------------------------------------------------------------------
     def _factor(self, t: float, params, jac, h: float):
@@ -133,6 +138,11 @@ class SdirkSolver(RkSolver):
         s = self.tableau.s
         root_g = (p.eqn.root(p.t0, y, params) if p.eqn.root is not None
                   else y.new_zeros(0))
+        rows = {}
+        if self.sens:
+            sv, ds = self.aug.start(p.t0, y, dy, params, self._alg_mask)
+            rows = dict(s=sv, ds=ds, s_prev=sv,
+                        sdiff=sv.new_zeros((s,) + tuple(sv.shape)))
         return RkState(
             y=y, dy=dy, g=g, t=t0, h=h, y_prev=y, dy_prev=dy, g_prev=g, t_prev=t0,
             diff=y.new_zeros((s,) + tuple(y.shape)),
@@ -140,7 +150,7 @@ class SdirkSolver(RkSolver):
             prev_error_norm=math.nan, root_g=root_g, tstop=math.nan, status=status,
             stats=st["stats"], jac=st["jac"], factors=st["factors"],
             eta=ETA_RESET_JACOBIAN, steps_since_jac=0, steps_since_rhs_jac=0,
-            h_at_last_jac=h,
+            h_at_last_jac=h, **rows,
         )
 
     def reinit_after_reset(self, state: RkState, params) -> RkState:
@@ -154,7 +164,8 @@ class SdirkSolver(RkSolver):
 
     # ------------------------------------------------------------------
     def _stage_predict(self, i: int, h: float, dy0, diff):
-        """Newton's starting guess for stage i (runge_kutta.rs:610-630)."""
+        """Newton's starting guess for stage i (runge_kutta.rs:610-630),
+        of the state or, from ``ds`` and ``sdiff``, of the augmented rows."""
         if i == 0:
             return h * dy0
         if i == 1:
@@ -187,6 +198,12 @@ class SdirkSolver(RkSolver):
             root_g = p.eqn.root(self._t(state.t), state.y, params)
         g_dg = (self._out_rate(state.t, state.y, params) if integrate_out
                 else state.y.new_zeros(0))
+        aug = self.aug
+        ds0 = None
+        if self.sens:
+            # the rows' derivative afresh after a reset corrected them
+            ds0 = (aug.rhs(self._t(state.t), state.y, params, state.s)
+                   if state.state_modified else state.ds)
 
         st = dict(stats=dataclasses.replace(state.stats), jac=state.jac,
                   factors=state.factors, eta=state.eta, ssj=state.steps_since_jac,
@@ -202,13 +219,18 @@ class SdirkSolver(RkSolver):
         while not accepted and status == errors.INTERNAL_TIMESTEP:
             diff = torch.zeros_like(state.diff)
             gdiff = torch.zeros_like(state.gdiff)
+            sdiff = None if state.sdiff is None else torch.zeros_like(state.sdiff)
             if start == 1:
                 diff[0] = h * state.dy
                 if integrate_out:
                     gdiff[0] = h * g_dg
+                if self.sens:
+                    sdiff[0] = h * ds0
             failed = False
             y_stage = state.y
             z_last = diff[0]
+            s_stage = state.s
+            sz_last = None if sdiff is None else sdiff[0]
             niter = 0  # the last stage's Newton iterations
             for i in range(start, s):
                 t_i = state.t + c_np[i] * h
@@ -221,8 +243,12 @@ class SdirkSolver(RkSolver):
                         return p.eqn.mass_mul(t_it, params, z) - h * fz
 
                     factors = st["factors"]
+
+                    def lin(v, factors=factors):
+                        return p.linear_solver.solve(factors, v)
+
                     res = newton_solve(
-                        residual, lambda v: p.linear_solver.solve(factors, v),
+                        residual, lin,
                         self._stage_predict(i, h, state.dy, diff), state.y,
                         p.atol, p.rtol, st["eta"], tol=opts.nonlinear_solver_tolerance,
                         max_iter=cfg.maximum_newton_iterations)
@@ -232,6 +258,28 @@ class SdirkSolver(RkSolver):
                     y_stage = phi + gamma * z_last
                     diff[i] = z_last
                     failed = not res.converged
+                    if self.sens:
+                        # the rows' stage: M sz = h (J (sphi + gamma sz) + f_p)
+                        # against the same factors (runge_kutta.rs:695-740)
+                        jvp_rows, f_p = aug.linear_parts(t_it, y_stage, params)
+                        sphi = (state.s + stage_sum(a[i, :i], sdiff[:i]) if i > 0
+                                else state.s)
+
+                        def residual_s(sz, sphi=sphi, t_it=t_it, h=h,
+                                       jvp_rows=jvp_rows, f_p=f_p):
+                            return (p.eqn.mass_mul(t_it, params, sz)
+                                    - h * (jvp_rows(sphi + gamma * sz) + f_p))
+
+                        res_s = newton_solve(
+                            residual_s, lin, self._stage_predict(i, h, ds0, sdiff),
+                            state.s, aug.atol(p), aug.rtol(p), st["eta"],
+                            tol=opts.nonlinear_solver_tolerance,
+                            max_iter=cfg.maximum_newton_iterations)
+                        sz_last = res_s.x
+                        sdiff[i] = sz_last
+                        s_stage = sphi + gamma * sz_last
+                        failed = failed or not res_s.converged
+                        niter += res_s.niter
                     st["stats"].newton_iterations += niter
                     st["stats"].rhs_evals += niter  # one rhs an iteration
                 if integrate_out:
@@ -266,6 +314,13 @@ class SdirkSolver(RkSolver):
             if p.output_in_error_control():
                 err = max(err, float(squared_norm(stage_sum(d_vec, gdiff), state.g,
                                                   p.out_atol, p.out_rtol)))
+            if self.sens and p.sens_in_error_control():
+                serr = stage_sum(d_vec, sdiff)
+                if p.eqn.mass is not None:
+                    serr = p.eqn.mass_mul(self._t(state.t), params, serr)
+                serr = p.linear_solver.solve(st["factors"], serr)
+                err = max(err, float(squared_norm(serr, state.s, aug.atol(p),
+                                                  aug.rtol(p))))
             safety = (2.0 * m + 1.0) / (2.0 * m + niter)
             raw = float(pi_controller_raw(err, prev_err, ki, kp, eff_order))
             factor = clamp_factor(0.9 * safety * raw, *clamps)
@@ -296,6 +351,9 @@ class SdirkSolver(RkSolver):
         stats.newton_fails = newton_fails
         stats.worst_member = wm
         g_new = state.g + stage_sum(b_vec, gdiff) if integrate_out else state.g
+        rows = {}
+        if self.sens:
+            rows = dict(s=s_stage, ds=sz_last / h, sdiff=sdiff, s_prev=state.s)
         new = dataclasses.replace(
             state, y=y_stage, dy=z_last / h, g=g_new, t=t_new, h=h_next,
             y_prev=state.y, dy_prev=state.dy, g_prev=state.g, t_prev=state.t,
@@ -303,5 +361,5 @@ class SdirkSolver(RkSolver):
             state_modified=False, stats=stats, jac=st["jac"], factors=st["factors"],
             eta=st["eta"], steps_since_jac=st["ssj"] + 1,
             steps_since_rhs_jac=st["ssrj"] + 1, h_at_last_jac=st["h_last"],
-            root_t=math.nan, root_idx=-1)
+            root_t=math.nan, root_idx=-1, **rows)
         return self._finish_step(new, state, params, root_g)

@@ -959,3 +959,71 @@ def test_fused_kernel_abs_max_min_sign_cuda():
     want = torch.func.vmap(_piecewise)(t, y, params)
     torch.testing.assert_close(cg.eval_rhs(solve.model.rhs, t, y, params), want, rtol=0.0,
                                atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# forward sensitivities: K4 with rows per factorization, the banded
+# lockstep sensitivity path, and the refusal of forward mode through the
+# band kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("naug", [1, 3, 5])
+@pytest.mark.parametrize("fb", ["one", "members"])
+def test_band_lu_solve_rows_per_factorization_cuda(naug, fb):
+    """K4 with R = naug B right-hand sides against fb = 1 or B
+    factorizations, row r with factorization r mod fb, one launch and no
+    copy of the factors: against the plain version within LU_RTOL and A x
+    = b row by row within 1e-10."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.ops import band_lu
+
+    n, B, ml, mu = 128, 64, 3, 2
+    band = _random_dominant_band(1 if fb == "one" else B, n, ml, mu, seed=2)
+    F = band_lu.band_lu_factor(band, ml, mu)
+    rng = np.random.default_rng(3)
+    b = torch.tensor(rng.standard_normal((naug * B, n)), device="cuda")
+    s0 = band_lu.launch_band_lu_solve.launches
+    x = band_lu.band_lu_solve(F, b, ml, mu)
+    torch.cuda.synchronize()
+    assert band_lu.launch_band_lu_solve.launches == s0 + 1
+    x_p = band_lu.band_lu_solve_reference(F, b, ml, mu)
+    torch.testing.assert_close(x, x_p, rtol=LU_RTOL, atol=LU_RTOL * float(x_p.abs().max()))
+    members = torch.arange(naug * B, device="cuda") % band.shape[0]
+    ax = _band_matvec(band[members], x, ml, mu)
+    torch.testing.assert_close(ax, b, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_banded_lockstep_sensitivities_on_the_card_match_cpu():
+    """heat1d n=33, B=8 diffusivities, BdfSolver(sens=True) lockstep on the
+    banded tier: K3/K4 on the card (the sensitivity rows through K4 with
+    rows per factorization) against the plain versions on the CPU."""
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.ops import band_lu
+
+    problem, _ = heat1d.make(32, rtol=1e-6, atol=1e-8, banded=True)
+    params = np.linspace(0.5, 2.0, 8)[:, None]
+    s0 = band_lu.launch_band_lu_solve.launches
+    got, ref = _card_vs_cpu(lambda dev: dtt.solve_dense_ensemble(
+        lambda pr: dtt.BdfSolver(pr, sens=True), problem, [0.01, 0.05, 0.2], params,
+        mode="lockstep", device=dev))
+    assert band_lu.launch_band_lu_solve.launches > s0
+    assert got.sens.shape == (3, 1, 8, 33)
+    torch.testing.assert_close(got.sens.cpu(), ref.sens, rtol=EAGER_RTOL,
+                               atol=1e-14 + EAGER_RTOL * float(ref.sens.abs().max()))
+
+
+@pytest.mark.cuda
+def test_fwd_sens_through_the_band_kernels_raises_cuda():
+    """Forward mode cannot pass a ctypes launch: solve_dense_fwd_sens of a
+    banded problem on the card raises, naming the continuous route, where a
+    silent launch would return zero sensitivities."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import heat1d
+
+    problem, _ = heat1d.make(15, banded=True)
+    with pytest.raises(RuntimeError, match="sens=True"):
+        dtt.solve_dense_fwd_sens(dtt.BdfSolver(problem), [0.01, 0.05])

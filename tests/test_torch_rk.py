@@ -121,19 +121,23 @@ def test_tableau_coefficients_equal_jax(name):
 @pytest.mark.parametrize("method", ["tr_bdf2", "esdirk34", "tsit45"])
 def test_interpolation_of_a_recorded_state_matches_jax(method):
     """The JAX solver's state after five logistic steps (with a quadrature
-    of the state, so g and gdiff are real), read into an RkState: y, dy and
-    the output inside the last step agree with JAX's within 1e-13.  TR-BDF2
-    and TSIT45 interpolate with their beta polynomial, ESDIRK34 with the
-    cubic Hermite."""
+    of the state, so g and gdiff are real, and the forward sensitivities,
+    so s and sdiff are), read into an RkState: y, dy, the output and the
+    sensitivity rows inside the last step agree with JAX's within 1e-13.
+    TR-BDF2 and TSIT45 interpolate with their beta polynomial, ESDIRK34
+    with the cubic Hermite."""
     jp = dataclasses.replace(jlog.problem(rtol=1e-6, atol=1e-8), integrate_out=True)
-    js = dt.solver(jp, method)
+    js = dt.solver(jp, method, sens=True)
     st = js.init_state()
     for _ in range(5):
         st = js.step(st)
     a = {f.name: getattr(st, f.name) for f in dataclasses.fields(trk.RkState)
-         if f.name in ("y", "dy", "g", "y_prev", "dy_prev", "g_prev", "diff", "gdiff")}
+         if f.name in ("y", "dy", "g", "y_prev", "dy_prev", "g_prev", "diff", "gdiff",
+                       "s", "s_prev")}
     rec = trk.RkState(
         **{k: torch.tensor(np.asarray(v)) for k, v in a.items()},
+        # the JAX rows' stage values are (naug, s, n), the port's (s, naug, n)
+        sdiff=torch.tensor(np.moveaxis(np.asarray(st.sdiff), 1, 0)),
         t=float(st.t), h=float(st.h), t_prev=float(st.t_prev),
         prev_error_norm=float(st.prev_error_norm), root_g=torch.zeros(0),
         tstop=float("nan"), status=0)
@@ -142,12 +146,10 @@ def test_interpolation_of_a_recorded_state_matches_jax(method):
     for theta in (0.0, 0.3, 0.5, 0.9, 1.0):
         t = float(st.t_prev) + theta * (float(st.t) - float(st.t_prev))
         for tf, jf in ((trk.interp_y, jrk.interp_y), (trk.interp_dy, jrk.interp_dy),
-                       (trk.interp_out, jrk.interp_out)):
+                       (trk.interp_out, jrk.interp_out), (trk.interp_sens, jrk.interp_sens)):
             np.testing.assert_allclose(tf(tab, beta, rec, t).numpy(),
                                        np.asarray(jf(js.tableau, st, jnp.asarray(t))),
                                        rtol=1e-13, atol=1e-13)
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        trk.interp_sens(tab, beta, rec, float(st.t))
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +210,15 @@ def test_sdirk_statistics_sane():
     assert stats.steps > 3
     assert stats.newton_iterations >= stats.steps
     assert stats.linear_solver_setups >= 1
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        dtt.SdirkSolver(tp, sens=True)
+    # with the sensitivities every stage's row solve adds its Newton
+    # iterations (and rhs evaluations), as JAX counts them
+    jps = dataclasses.replace(jp, sens_rtol=jnp.asarray(1e-6), sens_atol=jnp.full((1,), 1e-8))
+    tps = problem_from_jax(jps, tlog.rhs, tlog.init)
+    got_s, ref_s = _adaptive_pair(dt.SdirkSolver(jps, tableau=dt.esdirk34(), sens=True),
+                                  dtt.SdirkSolver(tps, tableau=dtt.esdirk34(), sens=True),
+                                  10.0, COUNTERS + ("newton_iterations", "rhs_evals"))
+    assert got_s.state.stats.newton_iterations == int(ref_s.state.stats.newton_iterations)
+    assert got_s.state.stats.newton_iterations > stats.newton_iterations
 
 
 # ---------------------------------------------------------------------------
