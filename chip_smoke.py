@@ -188,13 +188,33 @@ reach no Pallas kernel).
     equation against the same solve on the CPU (1e-8 relative, steps
     within 2), and the exponential decay with a reset through bdf and
     tsit45 against central differences on the card (1e-3).
+22. adjoints (make_differentiable_solve / _quadrature and the ensemble
+    forms), each path timed as the median of 3 after a warm-up between
+    CUDA events, with its forward and backward steps, Newton iterations and
+    failures and the table's bytes: (a) Robertson ODE lockstep B=10,000 (k1
+    spread +-10 %, numpy seed 0), t_eval 0.4 ... 4e6, loss sum ys^2: the
+    forward alone (no_grad) and forward + backward; members 0, 4,999 and
+    9,999 against 2 sum y.s from solve_dense_fwd_sens at rtol 1e-6 (5e-3
+    of the largest); one traced backward pass (of the outputs to t = 40):
+    launches a step and the busy share; (b) heat1d n=128 banded lockstep
+    B=1,024: K3/K4 counted around the forward pass (above 0) and around
+    the dense-table backward pass (exactly 0), every member against 2 sum
+    y.s from the sens=True lockstep rows (1e-4); (c) checkpoint_interval=32
+    on (a) (its gradient within 5e-3, both modes' peak
+    torch.cuda.max_memory_allocated and times) and on (b) (K3/K4 counted in
+    the backward pass: the segment re-solves); (d) make_differentiable_solve
+    on the exponential decay with a reset and make_differentiable_quadrature
+    on its quadrature: the card against the CPU (1e-8 relative) and against
+    central differences on the card (1e-3 relative, 1e-4 absolute).
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
 each also at the 2-D models' width (the band LU's at heat2d's and at
 foodweb's shape), K1 and K2 once for each DiffSL model of phase 20, and
 K4 with rows per factorization at heat1d's and at heat2d's width (phase
-21; launches on paths (c) and its heat2d run)
+21; launches on paths (c) and its heat2d run), and K3/K4 on phase 22's
+banded gradient (`band_lu_factor:adjoint_heat1d`, `band_lu_solve:...`,
+launches of its forward pass, the other numbers phase 7's at that shape)
 (launches on their path, error against the plain version, times, the
 card's least time for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -1520,9 +1540,10 @@ def rk_lockstep_phase(dev, card_line):
           f"card {card_line}", flush=True)
 
 
-def profile_line(tag, fn, card_line):
-    """One traced call of the solve ``fn``: the kernel launches a step and
-    the card's busy share of the call."""
+def profile_line(tag, fn, card_line, steps_of=lambda sol: sol.state.stats.steps):
+    """One traced call of ``fn`` (a solve, whose steps ``steps_of`` reads
+    from its result): the kernel launches a step and the card's busy share
+    of the call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1531,7 +1552,7 @@ def profile_line(tag, fn, card_line):
     t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        steps = fn().state.stats.steps
+        steps = steps_of(fn())
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [ev for ev in prof.key_averages()
@@ -2267,6 +2288,221 @@ def sens_phase(dev, card_line, heat_problem, soln):
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 22: adjoints (make_differentiable_solve / _quadrature and their
+# lockstep ensemble forms as torch.autograd.Functions)
+# ---------------------------------------------------------------------------
+
+# (a) the lockstep gradient's members against 2 sum y.s of their own
+# forward sensitivities at rtol 1e-6 (phase 21's oracle), of the largest
+# component (tests/test_adjoint.py:112-129): the CPU rehearsal at B = 20
+# (scripts/torch_adjoint_cpu.py rehearsal) puts members 0, 4,999 and 9,999
+# within 1.8e-3, 1.6e-3 and 2.0e-3 of it, and as far from the truth
+ADJ_ORACLE_TOL = 5e-3
+# (c) checkpoint_interval=32 against the dense table: the JAX test's 2e-4
+# (tests/test_adjoint_checkpointing.py:84) is at rtol 1e-8; at Robertson's
+# rtol 1e-4 the two modes part by the adjoint's own error, 1.75e-3 in the
+# CPU rehearsal and 2.1e-3 in the JAX package on one instance (both within
+# ~2e-3 of the truth), so the bound is (a)'s
+ADJ_BOUNDED_TOL = ADJ_ORACLE_TOL
+# (b) heat1d's members against 2 sum y.s of the sens=True lockstep rows, of
+# each member's largest component: 3.5e-6 in the CPU rehearsal at B = 16
+ADJ_HEAT_TOL = 1e-4
+# (d) central differences as tests/test_adjoint.py:132-192: the reset
+# model relative to its largest component, the quadrature absolute
+ADJ_FD_RESET_TOL, ADJ_FD_QUAD_TOL = 1e-3, 1e-4
+
+
+def grad_call(fn, params, loss):
+    """``(output, dL/dp)`` of ``loss(fn(p))`` through torch.autograd."""
+    p = params.detach().clone().requires_grad_(True)
+    out = fn(p)
+    (g,) = torch.autograd.grad(loss(out), p)
+    return out.detach(), g
+
+
+def adjoint_stats(fn) -> str:
+    info = fn.info
+    f, b = info["forward"], info["backward"]
+    store = (f"table {info['table_bytes'] / 2**20:.3f} MiB" if "table_bytes" in info
+             else f"{info['checkpoints']} checkpoints, {info['resolve_steps']} re-solve steps")
+    return (f"forward {f.steps} steps / {f.newton_iterations} Newton iterations, backward "
+            f"{b.steps} steps / {b.newton_iterations} Newton iterations / {b.newton_fails} "
+            f"Newton failures (the solve fails past 50), {store}")
+
+
+def member_rel(g, ref):
+    """Each member's largest difference relative to its largest component."""
+    return ((g - ref).abs().amax(-1) / ref.abs().amax(-1)).cpu()
+
+
+def adjoint_phase(dev, card_line, heat_problem, band_records):
+    """Phase 22; returns the band LU records of 22(b)'s path."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import exponential_decay, robertson
+    from diffsol_tpu_torch.ops import band_lu
+
+    def sum_sq(ys):
+        return (ys**2).sum()
+
+    # ---- (a) Robertson ODE lockstep at full width, to t = 4e6
+    te6 = robertson.T_EVAL_4E10[:8]
+    params = robertson_params(B_MAIN, np.random.default_rng(SEED), dev)
+    problem = robertson.problem_ode()
+    fn = dtt.make_differentiable_solve_ensemble(problem, te6, B_MAIN)
+
+    def forward_only():
+        with torch.no_grad():
+            return fn(params)
+
+    fwd_ms = time_ms(forward_only, 3)
+    ys, g = grad_call(fn, params, sum_sq)
+    _, fb_ms = timed_solve(lambda: grad_call(fn, params, sum_sq))
+    if tuple(g.shape) != (B_MAIN, 3) or not g.is_cuda or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"[22a] gradient {tuple(g.shape)} on {g.device} or not finite")
+    check_soln("[22a] member 0", ys[:, 0])
+    members = [0, B_MAIN // 2 - 1, B_MAIN - 1]
+    oracle = robertson.problem_ode(rtol=SENS_ORACLE_RTOL, atol=SENS_ORACLE_ATOL)
+    o_ys, o_sens = dtt.solve_dense_fwd_sens(
+        dtt.BdfSolver(dtt.make_lockstep_problem(oracle, len(members))), te6,
+        params=params[members], max_steps=20_000)
+    ref = 2.0 * torch.einsum("tbn,ptbn->bp", o_ys, o_sens)
+    errs = member_rel(g[members], ref)
+    if not bool((errs < ADJ_ORACLE_TOL).all()):
+        raise AssertionError(f"[22a] members {members} off their forward sensitivities by "
+                             f"{errs.tolist()} (bound {ADJ_ORACLE_TOL:g})")
+    info_a = adjoint_stats(fn)
+    print(f"[22a] Robertson ODE lockstep B={B_MAIN} to t=4e6, make_differentiable_solve_"
+          f"ensemble, loss sum ys^2: {info_a}; forward alone (no_grad) {fwd_ms:.1f} ms, "
+          f"forward + backward {fb_ms:.1f} ms, medians of 3 (CUDA events); members "
+          f"{members} within {[f'{e:.2e}' for e in errs.tolist()]} of 2 sum y.s from "
+          f"solve_dense_fwd_sens at rtol {SENS_ORACLE_RTOL:g} (< {ADJ_ORACLE_TOL:g} of the "
+          f"largest); card {card_line}", flush=True)
+    short = dtt.make_differentiable_solve_ensemble(problem, te6[:4], B_MAIN)
+    p_short = params.clone().requires_grad_(True)
+    out = short(p_short)
+    torch.cuda.synchronize()
+    print("[22a] the traced call below is the backward pass alone of the outputs to t = 40",
+          flush=True)
+    profile_line("22a", lambda: torch.autograd.grad(sum_sq(out), p_short), card_line,
+                 steps_of=lambda _: short.info["backward"].steps)
+
+    # ---- (c) bounded memory, Robertson: the same ensemble, checkpoint_interval=32
+    def peak_of(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    bounded = dtt.make_differentiable_solve_ensemble(problem, te6, B_MAIN,
+                                                     checkpoint_interval=32)
+    peak_dense = peak_of(lambda: grad_call(fn, params, sum_sq))
+    peak_bnd = peak_of(lambda: grad_call(bounded, params, sum_sq))
+    (_, g_bnd), bnd_ms = timed_solve(lambda: grad_call(bounded, params, sum_sq))
+    err_c = float(member_rel(g_bnd, g).max())
+    if not err_c < ADJ_BOUNDED_TOL:
+        raise AssertionError(f"[22c] bounded gradient off the dense table's by {err_c:.3e}")
+    print(f"[22c] Robertson checkpoint_interval=32: {adjoint_stats(bounded)}; forward + "
+          f"backward {bnd_ms:.1f} ms (dense table {fb_ms:.1f} ms), medians of 3; peak "
+          f"memory above the inputs {peak_bnd:.1f} MiB (dense table {peak_dense:.1f} MiB, "
+          f"torch.cuda.max_memory_allocated); every member within {err_c:.2e} of the dense "
+          f"table's gradient (< {ADJ_BOUNDED_TOL:g}); card {card_line}", flush=True)
+
+    # ---- (b) heat1d banded lockstep at full width: K3/K4 in the forward pass
+    d = torch.tensor(np.linspace(0.5, 2.0, B_BAND)[:, None], device=dev)
+    heat = dtt.make_differentiable_solve_ensemble(heat_problem, HEAT_T_EVAL, B_BAND)
+
+    def counts():
+        torch.cuda.synchronize()
+        return (band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches)
+
+    band_lu.launch_band_lu_factor.launches = 0
+    band_lu.launch_band_lu_solve.launches = 0
+    p_heat = d.clone().requires_grad_(True)
+    ys_h = heat(p_heat)
+    fwd_k = counts()
+    (g_h,) = torch.autograd.grad(sum_sq(ys_h), p_heat)
+    all_k = counts()
+    if fwd_k[0] < 1 or fwd_k[1] < 1 or all_k != fwd_k:
+        raise AssertionError(f"[22b] K3/K4 launches: forward {fwd_k}, forward + backward "
+                             f"{all_k} (the dense-table backward launches none)")
+
+    def heat_forward():
+        with torch.no_grad():
+            return heat(d)
+
+    heat_fwd_ms = time_ms(heat_forward, 3)
+    _, heat_ms = timed_solve(lambda: grad_call(heat, d, sum_sq))
+    rows = dtt.solve_dense_ensemble(lambda pr: dtt.BdfSolver(pr, sens=True), heat_problem,
+                                    HEAT_T_EVAL, d, mode="lockstep")
+    ref_h = 2.0 * torch.einsum("tbn,tpbn->bp", rows.ys, rows.sens)
+    errs_h = member_rel(g_h, ref_h)
+    if not bool((errs_h < ADJ_HEAT_TOL).all()):
+        raise AssertionError(f"[22b] members off the sens=True rows by up to "
+                             f"{float(errs_h.max()):.3e} (bound {ADJ_HEAT_TOL:g})")
+    print(f"[22b] heat1d n={HEAT_MGRID + 1} banded lockstep B={B_BAND}, the gradient of sum "
+          f"ys^2: {adjoint_stats(heat)}; K3 {fwd_k[0]} and K4 {fwd_k[1]} launches in the "
+          f"forward pass, none in the dense (B, {HEAT_MGRID + 2}, {HEAT_MGRID + 2}) backward; "
+          f"forward alone {heat_fwd_ms:.1f} ms, forward + backward {heat_ms:.1f} ms, medians "
+          f"of 3; every member within {float(errs_h.max()):.2e} of 2 sum y.s from the "
+          f"sens=True lockstep rows (< {ADJ_HEAT_TOL:g}); card {card_line}", flush=True)
+    heat_bnd = dtt.make_differentiable_solve_ensemble(heat_problem, HEAT_T_EVAL, B_BAND,
+                                                      checkpoint_interval=32)
+    p_heat = d.clone().requires_grad_(True)
+    ys_hb = heat_bnd(p_heat)
+    mid = counts()
+    (g_hb,) = torch.autograd.grad(sum_sq(ys_hb), p_heat)
+    end = counts()
+    bwd_k = (end[0] - mid[0], end[1] - mid[1])
+    err_hb = float(member_rel(g_hb, g_h).max())
+    if bwd_k[0] < 1 or bwd_k[1] < 1 or not err_hb < ADJ_BOUNDED_TOL:
+        raise AssertionError(f"[22c] heat1d bounded: backward K3/K4 {bwd_k}, gradient off "
+                             f"the dense table's by {err_hb:.3e}")
+    print(f"[22c] heat1d checkpoint_interval=32: {adjoint_stats(heat_bnd)}; K3 {bwd_k[0]} "
+          f"and K4 {bwd_k[1]} launches in the backward pass (the segment re-solves); within "
+          f"{err_hb:.2e} of the dense table's gradient; card {card_line}", flush=True)
+
+    # ---- (d) single-instance paths, the card against the CPU and central
+    # differences
+    eps = 1e-6
+    cases = (
+        ("make_differentiable_solve, exponential decay with a reset",
+         exponential_decay.problem_with_reset(), ADJ_FD_RESET_TOL, True,
+         lambda pr, dv: dtt.make_differentiable_solve(pr, [2.0, 6.0, 10.0], device=dv),
+         sum_sq,
+         lambda pr, p: float(sum_sq(dtt.solve_dense(dtt.BdfSolver(pr), [2.0, 6.0, 10.0],
+                                                    params=p, max_steps=4000).ys))),
+        ("make_differentiable_quadrature, exponential decay to t=4",
+         exponential_decay.problem(integrate_out=True), ADJ_FD_QUAD_TOL, False,
+         lambda pr, dv: dtt.make_differentiable_quadrature(pr, 4.0, device=dv),
+         torch.sum,
+         lambda pr, p: float(dtt.solve_dense(dtt.BdfSolver(pr), [4.0], params=p,
+                                             max_steps=4000).gs[-1].sum())),
+    )
+    for label, pr, tol, relative, make, loss, plain in cases:
+        p0 = pr.params.to(dev)
+        card_fn = make(pr, None)
+        _, g_card = grad_call(card_fn, p0, loss)
+        (_, _), ms = timed_solve(lambda: grad_call(card_fn, p0, loss))
+        _, g_cpu = grad_call(make(pr, "cpu"), pr.params, loss)
+        diff = float(((g_card.cpu() - g_cpu).abs() / g_cpu.abs()).max())
+        fd = torch.tensor([(plain(pr, p0 + eps * e) - plain(pr, p0 - eps * e)) / (2 * eps)
+                           for e in torch.eye(len(p0), dtype=torch.float64, device=dev)])
+        err_fd = float((g_cpu - fd).abs().max() / (fd.abs().max() if relative else 1.0))
+        if not diff < CARD_CPU_RTOL or not err_fd < tol:
+            raise AssertionError(f"[22d] {label}: card vs CPU {diff:.3e}, vs central "
+                                 f"differences {err_fd:.3e}")
+        print(f"[22d] {label}: {adjoint_stats(card_fn)}; {ms:.2f} ms median of 3 (CUDA "
+              f"events); the card's gradient within {diff:.1e} of the CPU's (< "
+              f"{CARD_CPU_RTOL:g}), within {err_fd:.1e} of central differences on the card "
+              f"(< {tol:g}); card {card_line}", flush=True)
+
+    return [dict(rec, name=f"{rec['name']}:adjoint_heat1d", launches=k)
+            for rec, k in zip(band_records, fwd_k)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2371,8 +2607,12 @@ def main() -> int:
     t_phase = time.perf_counter()
     sens_records = sens_phase(dev, card_line, heat_problem, soln)
     print(f"[21] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
+    t_phase = time.perf_counter()
+    adjoint_records = adjoint_phase(dev, card_line, heat_problem, band_records[:2])
+    print(f"[22] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
     record = ([small_record] + variant_records + [mixed_record] + band_records
-              + mol2d_records + wide_lu_records + diffsl_records + sens_records)
+              + mol2d_records + wide_lu_records + diffsl_records + sens_records
+              + adjoint_records)
 
     print(f"card: {card_line}")
     print(json.dumps({"kernels": record}))

@@ -9,8 +9,8 @@ solve also takes every sensitivity row against its member's factors in
 one launch).
 
 The port so far covers the stiff BDF ensemble main path, the banded
-method-of-lines tier and the single-instance solver surface up to forward
-sensitivities: problems with identity, diagonal or dense mass (semi-
+method-of-lines tier and the single-instance solver surface up to the
+adjoints: problems with identity, diagonal or dense mass (semi-
 explicit DAEs with consistent initial conditions solved for) and an
 optional user Jacobian (``rhs_implicit``), root events that stop the
 solve or reset and continue, outputs and their quadrature; the BDF solver
@@ -22,7 +22,15 @@ card unless the caller asks for the CPU.  Forward sensitivities come two
 ways: the continuous sensitivity equations (``sens=True`` on any of the
 three solvers, ``augmented.SensEquations``; ``Solution.sens``) on the
 dense, block-diagonal and banded tiers, lockstep ensembles included, and
-``solve_dense_fwd_sens``, forward mode through the solve.  Models may also come as DiffSL
+``solve_dense_fwd_sens``, forward mode through the solve.  Gradients come
+from the adjoint: ``make_differentiable_solve`` and
+``make_differentiable_quadrature`` and their ensemble forms
+(``make_differentiable_solve_ensemble``, lockstep or independent, and
+``make_differentiable_quadrature_ensemble``) return callables whose
+``torch.autograd.Function`` runs the backward pass, with the dense step
+table or bounded-memory checkpoints, output jumps, singular-mass DAEs and
+reset-event corrections; a banded lockstep forward pass runs the band LU
+kernels on the card.  Models may also come as DiffSL
 text (``compile_diffsl``, ``OdeBuilder.build_from_diffsl`` and
 ``build_from_eqn``), with the ``N`` built-in's index-aware reset
 (``reset_n``); their callables are plain torch, so they reach every solver
@@ -30,6 +38,14 @@ and both fused kernels.
 """
 
 from . import errors  # noqa: F401
+from .adjoint import (  # noqa: F401
+    make_differentiable_quadrature,
+    make_differentiable_solve,
+)
+from .adjoint_ensemble import (  # noqa: F401
+    make_differentiable_quadrature_ensemble,
+    make_differentiable_solve_ensemble,
+)
 from .diffsl import DiffslModel, compile_diffsl  # noqa: F401
 from .drivers import Solution, solve, solve_dense  # noqa: F401
 from .ensemble import make_lockstep_problem, solve_dense_ensemble  # noqa: F401

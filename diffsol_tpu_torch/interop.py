@@ -1,8 +1,9 @@
 """Carry problems and results across from the JAX package.
 
 ``problem_from_jax`` copies every numeric field of a ``diffsol_tpu``
-``OdeProblem`` (params, t0, h0, rtol, atol, the output and sensitivity
-tolerances, the quadrature flag, all solver options and the consistent-IC options) into
+``OdeProblem`` (params, t0, h0, rtol, atol, the output, sensitivity and
+adjoint parameter-row tolerances, the quadrature flag, all solver options
+and the consistent-IC options) into
 this package's problem as float64 tensors, a banded linear-solver tier as
 ``make_banded_solver(ml, mu)`` and a block-diagonal one as
 ``make_blockdiag_solver(perm, nb, K)`` from the spec's ``meta``; a JAX
@@ -98,6 +99,12 @@ def problem_from_jax(jax_problem, rhs=None, init=None, mass=None, root=None,
         b = b.sens_rtol(float(np.asarray(jax_problem.sens_rtol)))
     if jax_problem.sens_atol is not None:
         b = b.sens_atol(np.asarray(jax_problem.sens_atol, np.float64).reshape(-1))
+    if jax_problem.param_rtol is not None:
+        b = b.param_rtol(float(np.asarray(jax_problem.param_rtol)))
+    for name in ("param_atol", "param_scales"):
+        v = getattr(jax_problem, name)
+        if v is not None:
+            b = getattr(b, name)(np.asarray(v, np.float64).reshape(-1))
     spec = jax_problem.linear_solver
     if spec.name.startswith("banded"):
         from .ops.banded import make_banded_solver

@@ -81,7 +81,7 @@ def problem_dae(rtol=1e-4, atol=(1e-8, 1e-6, 1e-6), p=P_DEFAULT) -> OdeProblem:
         .mass(mass)
         .p(list(p))
         .rtol(rtol)
-        .atol(list(atol))
+        .atol(np.asarray(atol, np.float64))
         .build()
     )
 
@@ -93,7 +93,7 @@ def problem_ode(rtol=1e-4, atol=(1e-8, 1e-6, 1e-6), p=P_DEFAULT) -> OdeProblem:
         .init(init)
         .p(list(p))
         .rtol(rtol)
-        .atol(list(atol))
+        .atol(np.asarray(atol, np.float64))
         .build()
     )
 

@@ -116,6 +116,12 @@ class OdeProblem:
     # error test (JAX problem.py:127-128)
     sens_rtol: Optional[torch.Tensor] = None
     sens_atol: Optional[torch.Tensor] = None
+    # the adjoint's parameter-gradient rows (JAX problem.py:130-134):
+    # param_atol, scaled by param_scales, is their absolute tolerance in the
+    # backward solve (adjoint._adjoint_problem)
+    param_rtol: Optional[torch.Tensor] = None
+    param_atol: Optional[torch.Tensor] = None
+    param_scales: Optional[torch.Tensor] = None
     integrate_out: bool = False
     lockstep_nbatch: int = 1
     options: OdeSolverOptions = field(default_factory=OdeSolverOptions)
@@ -148,6 +154,9 @@ class OdeProblem:
             out_atol=moved(self.out_atol),
             sens_rtol=moved(self.sens_rtol),
             sens_atol=moved(self.sens_atol),
+            param_rtol=moved(self.param_rtol),
+            param_atol=moved(self.param_atol),
+            param_scales=moved(self.param_scales),
         )
 
 
@@ -191,6 +200,9 @@ class OdeBuilder:
         self._out_atol = None
         self._sens_rtol = None
         self._sens_atol = None
+        self._param_rtol = None
+        self._param_atol = None
+        self._param_scales = None
         self._integrate_out = False
         self._ic_options = InitialConditionOptions()
         self._p = torch.zeros(0, dtype=F64)
@@ -290,6 +302,30 @@ class OdeBuilder:
         self._sens_atol = None
         return self
 
+    def param_rtol(self, v):
+        """Relative tolerance of the adjoint's parameter-gradient rows."""
+        self._param_rtol = v
+        return self
+
+    def param_atol(self, v):
+        """Absolute tolerance of the adjoint's parameter-gradient rows, a
+        scalar or one a parameter."""
+        self._param_atol = v
+        return self
+
+    def param_scales(self, v):
+        """Absolute-tolerance scale per parameter for the adjoint's
+        parameter-gradient rows (reference builder.rs param_scales)."""
+        self._param_scales = v
+        return self
+
+    def turn_off_param_error_control(self):
+        """Exclude the adjoint's parameter-gradient rows from the error
+        test (reference builder.rs:1521)."""
+        self._param_rtol = None
+        self._param_atol = None
+        return self
+
     def turn_off_output_error_control(self):
         """Exclude the quadrature output from the error test."""
         self._out_rtol = None
@@ -318,15 +354,6 @@ class OdeBuilder:
         return self
 
     # outside this port's slice -------------------------------------------
-    def param_rtol(self, v):
-        _later("adjoint tolerances", "queue 1 item 17")
-
-    def param_atol(self, v):
-        _later("adjoint tolerances", "queue 1 item 17")
-
-    def param_scales(self, v):
-        _later("adjoint tolerances", "queue 1 item 17")
-
     def linear_solver(self, spec: LinearSolverSpec):
         """The Newton linear-solver tier: ``DENSE`` (the default),
         ``ops.banded.make_banded_solver(ml, mu)`` or
@@ -457,6 +484,12 @@ class OdeBuilder:
                        else torch.tensor(float(self._sens_rtol), dtype=F64)),
             sens_atol=(None if self._sens_atol is None
                        else vec(self._sens_atol, eqn.nstates)),
+            param_rtol=(None if self._param_rtol is None
+                        else torch.tensor(float(self._param_rtol), dtype=F64)),
+            param_atol=(None if self._param_atol is None
+                        else vec(self._param_atol, eqn.nparams)),
+            param_scales=(None if self._param_scales is None
+                          else vec(self._param_scales, eqn.nparams)),
             integrate_out=self._integrate_out,
             options=self._options,
             ic_options=self._ic_options,

@@ -112,8 +112,8 @@ def test_bdf_diagonal_mass_and_failures():
     np.testing.assert_allclose(sol.ys.numpy(), np.exp(-t)[:, None]
                                * np.stack([1.0 + 0.5 * t, np.ones(2)], axis=1), rtol=1e-6)
     # what is still outside the port names its ROADMAP item
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
-        dtt.OdeBuilder().param_rtol(1e-6)
+    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
+        dtt.OdeBuilder().dtype(torch.float32)
 
 
 def test_solve_dense_runs_on_the_card_unless_asked_for_the_cpu():

@@ -1027,3 +1027,60 @@ def test_fwd_sens_through_the_band_kernels_raises_cuda():
     problem, _ = heat1d.make(15, banded=True)
     with pytest.raises(RuntimeError, match="sens=True"):
         dtt.solve_dense_fwd_sens(dtt.BdfSolver(problem), [0.01, 0.05])
+
+
+@pytest.mark.cuda
+def test_banded_lockstep_adjoint_on_the_card_matches_cpu():
+    """heat1d n=33, B=8 diffusivities, the gradient of sum ys^2 through
+    make_differentiable_solve_ensemble on the banded tier: K3/K4 launch in
+    the forward pass and never in the dense-table backward pass; the
+    gradient as the CPU's (the band LU's plain version) within 1e-8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.ops import band_lu
+
+    problem, _ = heat1d.make(32, rtol=1e-6, atol=1e-8, banded=True)
+    params = np.linspace(0.5, 2.0, 8)[:, None]
+    t_eval = [0.01, 0.05, 0.2]
+
+    def grad(dev):
+        fn = dtt.make_differentiable_solve_ensemble(problem, t_eval, 8, device=dev)
+        p = torch.tensor(params, device=dev).requires_grad_(True)
+        ys = fn(p)
+        torch.cuda.synchronize()
+        mid = (band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches)
+        (g,) = torch.autograd.grad((ys**2).sum(), p)
+        torch.cuda.synchronize()
+        return g, fn.info, mid
+
+    k0 = (band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches)
+    g, info, mid = grad("cuda")
+    end = (band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches)
+    assert g.is_cuda and g.shape == (8, 1)
+    assert mid[0] > k0[0] and mid[1] > k0[1]  # the forward pass
+    assert end == mid  # the backward pass: the dense adjoint only
+    g_cpu, info_cpu, _ = grad("cpu")
+    assert abs(info["forward"].steps - info_cpu["forward"].steps) <= STEP_SLACK
+    torch.testing.assert_close(g.cpu(), g_cpu, rtol=EAGER_RTOL, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_adjoint_entry_points_run_on_the_card_by_default():
+    """Without ``device`` the differentiable solve runs on the card and
+    wants its params there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import exponential_decay
+
+    problem = exponential_decay.problem(rtol=1e-8, atol=1e-10)
+    ys_of = dtt.make_differentiable_solve(problem, [0.5, 1.0])
+    with pytest.raises(ValueError, match="lie on cpu"):
+        ys_of(problem.params)
+    p = problem.params.cuda().requires_grad_(True)
+    ys = ys_of(p)
+    (g,) = torch.autograd.grad(ys.sum(), p)
+    assert ys.is_cuda and g.is_cuda
+    t = np.array([0.5, 1.0])
+    np.testing.assert_allclose(g.cpu().numpy(), [np.sum(-2.0 * t * np.exp(-0.1 * t)),
+                                                 np.sum(2.0 * np.exp(-0.1 * t))], rtol=1e-6)

@@ -2,7 +2,8 @@
 same DiffSL text: the ``solve_dense`` / ``solve`` twins of
 tests/test_diffsl.py, with equal stop reasons and accepted steps and ys
 within TRAJ_RTOL, TRAJ_ATOL = 1e-6, 1e-14 (tests/test_torch_bdf.py), and
-the tests that wait for later modules.  The ensembles and the fused tiers
+the tests that wait for later modules; the gradient through the adjoint
+against central differences and the JAX package's.  The ensembles and the fused tiers
 are in tests/test_torch_diffsl_ensemble.py.  No JAX kernel runs here.
 """
 
@@ -89,7 +90,31 @@ def test_solve_matches_jax(name):
 
 
 def test_grad_through_diffsl_problem():
-    pytest.skip("gradients through a solve need the adjoints, ROADMAP.md queue 1 item 17")
+    """The adjoint through a DiffSL-built solve (tests/test_diffsl.py:214-224):
+    against central differences at that test's tolerance, and against the
+    JAX package's gradient on the same model text (the same algorithm, equal
+    steps: 1e-9 of the largest component)."""
+    import jax
+
+    from diffsol_tpu.adjoint import make_differentiable_solve as jax_mds
+
+    t_eval = np.linspace(0.0, 2.0, 4)
+    problem = dtt.OdeBuilder().rtol(1e-9).atol(1e-11).p([1.0, 10.0]) \
+        .build_from_diffsl(LOGISTIC)
+    ys_of = dtt.make_differentiable_solve(problem, t_eval, device="cpu")
+    p = problem.params.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(ys_of(p).sum(), p)
+    eps = 1e-6
+    for i in range(2):
+        e = torch.zeros(2, dtype=torch.float64)
+        e[i] = eps
+        fd = (float(ys_of(problem.params + e).sum())
+              - float(ys_of(problem.params - e).sum())) / (2 * eps)
+        np.testing.assert_allclose(float(g[i]), fd, rtol=1e-4, atol=1e-8)
+    jp = dt.OdeBuilder().rtol(1e-9).atol(1e-11).p([1.0, 10.0]).build_from_diffsl(LOGISTIC)
+    jys_of = jax_mds(jp, jnp.asarray(t_eval))
+    g_jax = np.asarray(jax.grad(lambda pp: jnp.sum(jys_of(pp)))(jp.params))
+    assert np.abs(g.numpy() - g_jax).max() / np.abs(g_jax).max() < 1e-9, (g, g_jax)
 
 
 def test_diffsl_f32_traces_f32_arithmetic():
