@@ -206,6 +206,38 @@ reach no Pallas kernel).
     on the exponential decay with a reset and make_differentiable_quadrature
     on its quadrature: the card against the CPU (1e-8 relative) and against
     central differences on the card (1e-3 relative, 1e-4 absolute).
+23. float32 solves, forward mode through the band LU, the SDE solvers and
+    the API surface: (a) Robertson ODE lockstep in float32
+    (OdeBuilder.dtype) at bench.py's f32 width, B=100,000, rtol 1e-4, atol
+    1e-6, k1 spread +-10 % (linspace), t_eval 0.4 ... 4e5: ys float32,
+    x + y + z = 1 within 1e-3, member B/2 within 2e-2 of the CVODE table at
+    t = 0.4, 4, 40 (bench.py:340-349); then B=10,000 in float32 and in
+    float64, members 0, 4,999 and 9,999 within 2e-4 of each other to
+    t = 40, both timed (median of 3) and their stats_json printed; (b)
+    heat1d n=128 banded lockstep in float32, B=1,024 diffusivities,
+    rtol 1e-4: every K3/K4 launch the float build's (counted around the
+    call), within 10 error weights of the float64 solve; (c) heat2d
+    (nb=41) lockstep in float32 (its float K3/K4 launches counted, within
+    10 error weights of float64), and the float K3/K4 against their float
+    plain versions at heat1d's M - cJ and on a random nb=41 band (n=400):
+    1e-5 of the largest entry, A x = b within 1e-4 of max |b|, times
+    (median of 20), the float bound and torch.linalg's float32 dense LU;
+    (d) solve_dense_fwd_sens of heat1d's B=1,024 banded lockstep ensemble
+    on the card, K3/K4 counted (the tangent solves are K4 launches),
+    against phase 21's sens=True rows (rtol 5e-4, atol 1e-7, the routes'
+    bound in tests/test_torch_sens.py) and at B=16 against the CPU (1e-10
+    relative), and one K4 call under torch.func.jvp against the rule's
+    plain version (1e-12 relative), timed beside torch.func.jvp of
+    torch.linalg.solve on the dense expansion; (e) Euler-Maruyama on an
+    Ornstein-Uhlenbeck ensemble of 131,072 paths x 2,000 steps with a
+    seeded generator on the card (the stationary variance within 10 % of
+    sigma^2/2theta, |mean| < 0.02), and Milstein against EM on geometric
+    Brownian motion, 16,384 paths at 50 ... 800 steps, the exact solution
+    from the same increments (Milstein below EM everywhere and below 0.01
+    at 400 steps, fitted strong orders within 0.15 of 1.0 and 0.5), with
+    times and kernel launches a step; (f) the five counter snapshots of
+    tests/test_snapshots.py on the card (steps within 2 of JAX's) and
+    raise_for_status on y' = y^2.
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
@@ -214,7 +246,11 @@ foodweb's shape), K1 and K2 once for each DiffSL model of phase 20, and
 K4 with rows per factorization at heat1d's and at heat2d's width (phase
 21; launches on paths (c) and its heat2d run), and K3/K4 on phase 22's
 banded gradient (`band_lu_factor:adjoint_heat1d`, `band_lu_solve:...`,
-launches of its forward pass, the other numbers phase 7's at that shape)
+launches of its forward pass, the other numbers phase 7's at that shape),
+the float K3/K4 at heat1d's and at nb=41's shape (`band_lu_factor:f32`,
+`band_lu_solve:f32`, `:f32_nb41`; launches on phase 23's heat1d and
+heat2d float32 paths) and K4 under forward mode
+(`band_lu_solve:jvp_heat1d`, launches on phase 23 d's path)
 (launches on their path, error against the plain version, times, the
 card's least time for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -317,6 +353,20 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host wall time of ``fn`` in microseconds over ``reps`` calls
+    issued back to back, after one warm-up call; the card drains the
+    queue once at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e6
 
 
 def bound(nbytes: float, ops: float):
@@ -830,7 +880,7 @@ def band_lu_phase(dev, heat_problem, card_line):
         F_p = band_lu.band_lu_factor_reference(band, ml, mu)
         x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
         torch.cuda.synchronize()
-        ef = check_lu(f"{name} factor", F, F_p)
+        ef = check_lu(f"{name} factor", F.lu, F_p)
         ex = check_lu(f"{name} solve", x, x_p)
         if name == "heat1d":  # the main path's shapes
             errs = {"factor": ef, "solve": ex}
@@ -839,10 +889,12 @@ def band_lu_phase(dev, heat_problem, card_line):
               f"(bound {LU_RTOL:g} relative); one launch each", flush=True)
 
     F = band_lu.band_lu_factor(heat_band, 1, 1)
-    k3_ms = time_ms(lambda: band_lu.band_lu_factor(heat_band, 1, 1), 20)
-    k4_ms = time_ms(lambda: band_lu.band_lu_solve(F, b, 1, 1), 20)
+    # the kernels through their launch wrappers; the entry points'
+    # autograd.Functions cost the host more, measured below
+    k3_ms = time_ms(lambda: band_lu.launch_band_lu_factor(heat_band, 1, 1), 20)
+    k4_ms = time_ms(lambda: band_lu.launch_band_lu_solve(F.lu, b, 1, 1), 20)
     k3_plain = time_ms(lambda: band_lu.band_lu_factor_reference(heat_band, 1, 1), 3)
-    k4_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F, b, 1, 1), 3)
+    k4_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F.lu, b, 1, 1), 3)
     dense = torch.zeros(B, n, n, dtype=torch.float64, device=dev)
     i = torch.arange(n, device=dev)
     dense[:, i, i] = heat_band[:, 1]
@@ -854,6 +906,17 @@ def band_lu_phase(dev, heat_problem, card_line):
     lib_err = float((x_lib - x_k).abs().max())
     lib_f_ms = time_ms(lambda: torch.linalg.lu_factor(dense), 5)
     lib_s_ms = time_ms(lambda: torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)), 5)
+    # the host's cost of the entry points' autograd.Functions: the entry
+    # point against its launch wrapper, wall time a call over 200 calls
+    host = {name: host_us(fn, 200) for name, fn in (
+        ("factor", lambda: band_lu.band_lu_factor(heat_band, 1, 1)),
+        ("launch_factor", lambda: band_lu.launch_band_lu_factor(heat_band, 1, 1)),
+        ("solve", lambda: band_lu.band_lu_solve(F, b, 1, 1)),
+        ("launch_solve", lambda: band_lu.launch_band_lu_solve(F.lu, b, 1, 1)))}
+    print(f"[7] host time a call (mean of 200): band_lu_factor {host['factor']:.1f} us "
+          f"against launch_band_lu_factor {host['launch_factor']:.1f} us, band_lu_solve "
+          f"{host['solve']:.1f} us against launch_band_lu_solve {host['launch_solve']:.1f} us "
+          f"(the difference is the autograd.Function's own cost)", flush=True)
     # bytes: the band read once and the factors written once (factor); the
     # factor elements the two sweeps use (the ml multipliers of columns
     # 0 .. n-2, the mu+1 rows of U), b read once and x written once
@@ -1190,12 +1253,12 @@ def band_lu_wide_phase(dev, card_line, lu_launches):
         F_p = band_lu.band_lu_factor_reference(band, ml, mu)
         x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
         torch.cuda.synchronize()
-        ef = check_lu(f"{name} nb={nb} factor", F, F_p)
+        ef = check_lu(f"{name} nb={nb} factor", F.lu, F_p)
         ex = check_lu(f"{name} nb={nb} solve", x, x_p)
-        k3_ms = time_ms(lambda: band_lu.band_lu_factor(band, ml, mu), 10)
-        k4_ms = time_ms(lambda: band_lu.band_lu_solve(F, b, ml, mu), 10)
+        k3_ms = time_ms(lambda: band_lu.launch_band_lu_factor(band, ml, mu), 10)
+        k4_ms = time_ms(lambda: band_lu.launch_band_lu_solve(F.lu, b, ml, mu), 10)
         k3_plain = time_ms(lambda: band_lu.band_lu_factor_reference(band, ml, mu), 1)
-        k4_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F, b, ml, mu), 1)
+        k4_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F.lu, b, ml, mu), 1)
         dense = band_to_dense(band1, ml, mu).expand(B, -1, -1).contiguous()
         lu, piv = torch.linalg.lu_factor(dense)
         x_lib = torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)).squeeze(-1)
@@ -2045,7 +2108,6 @@ def k4_rows_record(dev, card_line, tag, band, ml, mu, launches):
     dense expansion with the same rows (one broadcast call), and the bound.
     Returns the kernel record."""
     from diffsol_tpu_torch.ops import band_lu
-    from diffsol_tpu_torch.ops.banded import band_to_dense
 
     B, nb, n = band.shape
     F = band_lu.band_lu_factor(band, ml, mu)
@@ -2057,11 +2119,11 @@ def k4_rows_record(dev, card_line, tag, band, ml, mu, launches):
     if band_lu.launch_band_lu_solve.launches != s0 + 1:
         raise AssertionError(f"{tag}: {NAUG_ROWS * B} rows took "
                              f"{band_lu.launch_band_lu_solve.launches - s0} launches")
-    x_p = band_lu.band_lu_solve_reference(F, rows, ml, mu)
+    x_p = band_lu.band_lu_solve_reference(F.lu, rows, ml, mu)
     err = check_lu(f"K4 rows {tag}", x, x_p)
-    ms = time_ms(lambda: band_lu.band_lu_solve(F, rows, ml, mu), 10)
-    plain_ms = time_ms(lambda: band_lu.band_lu_solve_reference(F, rows, ml, mu), 1)
-    dense = torch.stack([band_to_dense(band[m], ml, mu) for m in range(B)])
+    ms = time_ms(lambda: band_lu.launch_band_lu_solve(F.lu, rows, ml, mu), 10)
+    plain_ms = time_ms(lambda: band_lu.band_lu_solve_reference(F.lu, rows, ml, mu), 1)
+    dense = dense_of(band, ml, mu)
     lu, piv = torch.linalg.lu_factor(dense)
     rhs = rows.reshape(NAUG_ROWS, B, n, 1)
     x_lib = torch.linalg.lu_solve(lu, piv, rhs).reshape(NAUG_ROWS * B, n)
@@ -2086,7 +2148,8 @@ def k4_rows_record(dev, card_line, tag, band, ml, mu, launches):
 
 
 def sens_phase(dev, card_line, heat_problem, soln):
-    """Phase 21; returns the K4 rows-per-factorization records."""
+    """Phase 21; returns the K4 rows-per-factorization records and (c)'s
+    heat1d solution with its rows."""
     import dataclasses
 
     import diffsol_tpu_torch as dtt
@@ -2285,7 +2348,7 @@ def sens_phase(dev, card_line, heat_problem, soln):
               f"{ms:.2f} ms median of 3 (CUDA events); rows vs central differences on the "
               f"card {errs[0]:.1e} (p0, moves the event) and {errs[1]:.1e} (p1, the reset "
               f"value) (< {SENS_FD_TOL:g}); card {card_line}", flush=True)
-    return records
+    return records, heat
 
 
 # ---------------------------------------------------------------------------
@@ -2503,6 +2566,515 @@ def adjoint_phase(dev, card_line, heat_problem, band_records):
             for rec, k in zip(band_records, fwd_k)]
 
 
+# ---------------------------------------------------------------------------
+# phase 23: float32 solves, forward mode through the band LU kernels, the
+# SDE solvers and the API surface
+# ---------------------------------------------------------------------------
+
+# (a) bench.py's f32 rows (:55, :310-350, :674-678): lockstep Robertson at
+# rtol 1e-4, atol 1e-6, k1 spread +-10 % (linspace), t_eval 0.4 ... 4e5
+F32_T_EVAL = [0.4, 4.0, 40.0, 400.0, 4000.0, 4.0e4, 4.0e5]
+B_F32, B_F32_CMP = 100_000, 10_000
+F32_CONSERVE_TOL = 1e-3  # bench.py:340-341
+# (g) K1 vs its plain version on a float32 problem: both round each rhs
+# to float32, one float32 ulp apart where their float64 values straddle a
+# rounding boundary, which moves a tile's step sequence now and then (one
+# step in one of 79 tiles on the H100), so float32 gates: steps within
+# F32_FUSED_STEPS a tile and ys within F32_CMP_ATOL
+F32_FUSED_STEPS = 2
+F32_SOLN_RTOL = 2e-2  # bench.py:342-349, member B // 2 at t = 0.4, 4, 40
+F32_CMP_ATOL = 2e-4  # tests/test_ensemble.py:224-227, float32 vs float64 to t = 40
+# (b) heat1d float32 against float64 lockstep, in error weights atol + rtol |y|
+F32_BAND_WEIGHTS = 10.0
+# (c) the float K3/K4 against their float plain versions (relative to the
+# largest entry), and A x = b relative to max |b|: one float32 algorithm
+# parting by FMA contraction and the back sweep's order
+# (tests/test_torch_cuda.py F32_LU_RTOL, F32_RESIDUAL)
+F32_LU_RTOL, F32_RESIDUAL = 1e-5, 1e-4
+# (d) solve_dense_fwd_sens against the sens=True rows, the bound
+# tests/test_torch_sens.py holds the two routes to; and the card against
+# the CPU, one algorithm in float64
+FWD_ROUTES_RTOL, FWD_ROUTES_ATOL = 5e-4, 1e-7
+B_FWD_CPU, FWD_CPU_RTOL = 16, 1e-10
+# (e) the SDE gates of tests/test_sde.py at Monte Carlo width; the fitted
+# strong orders within SDE_SLOPE_TOL of 1.0 (Milstein) and 0.5 (EM)
+SDE_OU_PATHS, SDE_OU_STEPS = 131_072, 2000
+SDE_GBM_PATHS, SDE_GBM_NSTEPS = 16_384, (50, 100, 200, 400, 800)
+SDE_SLOPE_TOL = 0.15
+# (f) the steps of tests/test_snapshots.py's SNAPSHOTS (exact on the CPU,
+# tests/test_torch_snapshots.py); the card's LU rounds otherwise than
+# LAPACK, so the card is held within CARD_CPU_STEPS of them
+SNAPSHOT_STEPS = {"expdecay_bdf": 35, "logistic_bdf": 91, "robertson_dae_bdf": 197,
+                  "logistic_trbdf2": 156, "expdecay_tsit45": 5}
+
+
+def bound32(nbytes: float, ops: float):
+    """As :func:`bound` for float32 work: bytes over the memory rate or
+    float32 operations over the card's float32 peak, the larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dense_of(band, ml: int, mu: int) -> torch.Tensor:
+    """The dense (B, n, n) matrices of a (B, nb, n) member-major band."""
+    B, nb, n = band.shape
+    dense = band.new_zeros((B, n, n))
+    j = torch.arange(n, device=band.device)
+    for dd in range(nb):
+        i = j + dd - mu
+        ok = (i >= 0) & (i < n)
+        dense[:, i[ok], j[ok]] = band[:, dd, ok]
+    return dense
+
+
+def launches_of(fn):
+    """``(result, kernel launches on the card)`` of one traced call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(ev.count for ev in prof.key_averages()
+                    if getattr(ev, "device_type", None) == DeviceType.CUDA)
+
+
+def f32_lu_record(dev, card_line, tag, band, ml, mu, launches):
+    """The float K3/K4 against their float plain versions on ``band``
+    (B, nb, n) float32: error, A x = b, times (median of 20; plain 3),
+    the float bound and torch.linalg's float32 dense LU; two records."""
+    from diffsol_tpu_torch.ops import band_lu
+
+    B, nb, n = band.shape
+    b = torch.tensor(np.random.default_rng(SEED).standard_normal((B, n)), device=dev).float()
+    f0, s0 = band_lu.launch_band_lu_factor.launches_f32, band_lu.launch_band_lu_solve.launches_f32
+    fac = band_lu.band_lu_factor(band, ml, mu)
+    x = band_lu.band_lu_solve(fac, b, ml, mu)
+    F = fac.lu
+    torch.cuda.synchronize()
+    counted = (band_lu.launch_band_lu_factor.launches_f32 - f0,
+               band_lu.launch_band_lu_solve.launches_f32 - s0)
+    if counted != (1, 1) or F.dtype != torch.float32 or x.dtype != torch.float32:
+        raise AssertionError(f"[23c] {tag}: float launches {counted}, dtypes {F.dtype}, "
+                             f"{x.dtype}")
+    F_p = band_lu.band_lu_factor_reference(band, ml, mu)
+    x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
+    errs = []
+    for what, got, ref in (("factors", F, F_p), ("x", x, x_p)):
+        err = float((got - ref).abs().max())
+        if not err <= F32_LU_RTOL * float(ref.abs().max()):
+            raise AssertionError(f"[23c] {tag} {what}: kernel vs plain {err:.3e} (bound "
+                                 f"{F32_LU_RTOL:g} of {float(ref.abs().max()):.3e})")
+        errs.append(err)
+    dense = dense_of(band, ml, mu)
+    resid = float((torch.bmm(dense, x.unsqueeze(-1)).squeeze(-1) - b).abs().max())
+    if not resid <= F32_RESIDUAL * float(b.abs().max()):
+        raise AssertionError(f"[23c] {tag}: |A x - b| {resid:.3e} (bound {F32_RESIDUAL:g} of "
+                             f"max |b|)")
+    k3_ms = time_ms(lambda: band_lu.launch_band_lu_factor(band, ml, mu), 20)
+    k4_ms = time_ms(lambda: band_lu.launch_band_lu_solve(F, b, ml, mu), 20)
+    k3_plain = time_ms(lambda: band_lu.band_lu_factor_reference(band, ml, mu), 3)
+    k4_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F, b, ml, mu), 3)
+    lu, piv = torch.linalg.lu_factor(dense)
+    lib_f_ms = time_ms(lambda: torch.linalg.lu_factor(dense), 5)
+    lib_s_ms = time_ms(lambda: torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)), 5)
+    # phase 7's counts in 4-byte words
+    f_bound = bound32(4 * B * (nb * n + (n + mu) * nb), B * n * (1 + ml + 2 * ml * mu))
+    s_bound = bound32(4 * B * ((n - 1) * ml + n * (mu + 1) + 2 * n),
+                      B * (2 * (n - 1) * ml + (2 * mu + 1) * n))
+    print(f"[23c] float K3/K4 at {tag} (B={B}, n={n}, ml={ml}, mu={mu}): kernel vs plain "
+          f"factors {errs[0]:.2e}, x {errs[1]:.2e} (< {F32_LU_RTOL:g} of the largest), "
+          f"|A x - b| {resid:.2e} (< {F32_RESIDUAL:g} of max |b|); factor {k3_ms:.4f} ms "
+          f"(least {f_bound[0]:.4f} by {f_bound[1]}), solve {k4_ms:.4f} ms (least "
+          f"{s_bound[0]:.4f} by {s_bound[1]}), medians of 20; plain {k3_plain:.2f} / "
+          f"{k4_plain:.2f} ms; torch.linalg.lu_factor / lu_solve float32 on the dense "
+          f"expansion {lib_f_ms:.3f} / {lib_s_ms:.3f} ms; launches on the path {launches}; "
+          f"card {card_line}", flush=True)
+    common = {"route": "cuda", "source": "diffsol_tpu_torch/csrc/band_lu.cuh"}
+    return [
+        dict(name=f"band_lu_factor:{tag}", replaces="diffsol_tpu/ops/pallas_banded.py:51",
+             launches=launches[0], max_abs_err=errs[0], ms=k3_ms, plain_ms=k3_plain,
+             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=lib_f_ms, **common),
+        dict(name=f"band_lu_solve:{tag}", replaces="diffsol_tpu/ops/pallas_banded.py:72",
+             launches=launches[1], max_abs_err=errs[1], ms=k4_ms, plain_ms=k4_plain,
+             bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=lib_s_ms, **common),
+    ]
+
+
+def k4_jvp_record(dev, card_line, heat_problem, launches):
+    """K4 under forward mode at heat1d's M - cJ (B_BAND, c=1e-3): the
+    primal and tangent solves of band_lu_solve under torch.func.jvp (two
+    K4 launches and a band mat-vec) against the rule's plain version;
+    the library call is torch.func.jvp of torch.linalg.solve on the dense
+    expansion."""
+    from diffsol_tpu_torch.ops import band_lu
+
+    n = HEAT_MGRID + 1
+    d = torch.tensor(np.linspace(0.5, 2.0, B_BAND)[:, None], device=dev)
+    jac = torch.func.vmap(heat_problem.eqn.jac, in_dims=(None, 0, 0))(
+        torch.tensor(0.0, dtype=torch.float64, device=dev),
+        torch.zeros(B_BAND, n, dtype=torch.float64, device=dev), d)
+    band = heat_problem.linear_solver.assemble(None, jac, 1e-3)
+    rng = np.random.default_rng(SEED)
+    dband = torch.tensor(rng.standard_normal(band.shape), device=dev) * (band != 0)
+    b, db = (torch.tensor(rng.standard_normal((B_BAND, n)), device=dev) for _ in range(2))
+    F = band_lu.band_lu_factor(band, 1, 1).lu
+
+    def kernel():
+        return torch.func.jvp(
+            lambda a, rhs: band_lu.band_lu_solve(band_lu.BandFactors(F, a), rhs, 1, 1),
+            (band, b), (dband, db))
+
+    def plain():
+        x = band_lu.band_lu_solve_reference(F, b, 1, 1)
+        return x, band_lu.band_lu_solve_reference(
+            F, db - band_lu.band_matvec(dband, x, 1, 1), 1, 1)
+
+    s0 = band_lu.launch_band_lu_solve.launches
+    (x, dx), (x_p, dx_p) = kernel(), plain()
+    torch.cuda.synchronize()
+    if band_lu.launch_band_lu_solve.launches - s0 != 2:
+        raise AssertionError("[23d] the jvp of one solve launched K4 "
+                             f"{band_lu.launch_band_lu_solve.launches - s0} times, not 2")
+    err = max(float((x - x_p).abs().max()), float((dx - dx_p).abs().max()))
+    if not err <= LU_RTOL * float(dx_p.abs().max()):
+        raise AssertionError(f"[23d] K4 jvp vs its plain version {err:.3e}")
+    ms = time_ms(kernel, 20)
+    plain_ms = time_ms(plain, 3)
+    dense, ddense = dense_of(band, 1, 1), dense_of(dband, 1, 1)
+    lib_ms = time_ms(lambda: torch.func.jvp(torch.linalg.solve, (dense, b), (ddense, db)), 5)
+    # the transform's own cost on the same inputs: jvp of a copy
+    jvp_ms = time_ms(lambda: torch.func.jvp(lambda a, rhs: rhs * 1.0, (band, b), (dband, db)),
+                     20)
+    # the factor elements both sweeps read, A' (nb n), b, b', x and x' a member
+    nb = 3
+    bd = bound(8 * B_BAND * ((n - 1) + 2 * n + nb * n + 4 * n),
+               B_BAND * 2 * (2 * (n - 1) + 3 * n) + B_BAND * 2 * nb * n)
+    print(f"[23d] K4 under torch.func.jvp at heat1d's M - cJ (B={B_BAND}, n={n}): two K4 "
+          f"launches and a band mat-vec, {ms:.4f} ms median of 20 (least {bd[0]:.4f} ms by "
+          f"{bd[1]}), of which torch.func.jvp's own setup {jvp_ms:.4f} ms (the jvp of a "
+          f"copy); the rule's plain version {plain_ms:.2f} ms, within {err:.2e}; "
+          f"torch.func.jvp of torch.linalg.solve on the dense expansion {lib_ms:.3f} ms; "
+          f"card {card_line}", flush=True)
+    return dict(name="band_lu_solve:jvp_heat1d", route="cuda",
+                source="diffsol_tpu_torch/csrc/band_lu.cuh",
+                replaces="diffsol_tpu/ops/pallas_banded.py:72", launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bd[0], bound_by=bd[1],
+                library_ms=lib_ms)
+
+
+def f32_sde_api_phase(dev, card_line, heat_problem, heat_rows):
+    """Phase 23; returns the float K3/K4 and the forward-mode K4 records."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import (exponential_decay, heat1d, heat2d, logistic,
+                                          robertson)
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.solvers import sde
+    from diffsol_tpu_torch.utils import stats_json
+
+    f32 = torch.float32
+
+    def k1_params(nbatch, dtype):
+        k1 = 0.04 * (1.0 + 0.1 * np.linspace(-1.0, 1.0, nbatch))
+        p = np.stack([k1, np.full(nbatch, 1e4), np.full(nbatch, 3e7)], axis=1)
+        return torch.tensor(p, device=dev).to(dtype)
+
+    def counters_zero():
+        torch.cuda.synchronize()
+        for fn in (band_lu.launch_band_lu_factor, band_lu.launch_band_lu_solve):
+            fn.launches = fn.launches_f32 = 0
+
+    def counters():
+        torch.cuda.synchronize()
+        return (band_lu.launch_band_lu_factor.launches_f32,
+                band_lu.launch_band_lu_solve.launches_f32,
+                band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches)
+
+    # ---- (a) float32 lockstep Robertson at bench.py's f32 width
+    rob = {dt: robertson.problem_ode(rtol=1e-4, atol=1e-6, dtype=dt)
+           for dt in (f32, torch.float64)}
+
+    def rob_run(dtype, nbatch):
+        return dtt.solve_dense_ensemble(dtt.BdfSolver, rob[dtype], F32_T_EVAL,
+                                        k1_params(nbatch, dtype), mode="lockstep",
+                                        max_steps=5000)
+
+    big, big_ms = timed_solve(lambda: rob_run(f32, B_F32))
+    mid = B_F32 // 2
+    cons = float((big.ys.double().sum(-1) - 1.0).abs().max())
+    rel = [abs(float(big.ys[r, mid, 0]) - robertson.SOLN[r + 1, 1]) / robertson.SOLN[r + 1, 1]
+           for r in range(3)]
+    if (big.ys.dtype != f32 or big.stop_reason < 0 or not cons < F32_CONSERVE_TOL
+            or not max(rel) < F32_SOLN_RTOL):
+        raise AssertionError(f"[23a] B={B_F32}: ys {big.ys.dtype}, stop {big.stop_reason}, "
+                             f"conservation {cons:.2e}, member {mid} vs SOLN {rel}")
+    print(f"[23a] Robertson ODE lockstep float32 B={B_F32} (rtol 1e-4, atol 1e-6, t_eval "
+          f"0.4 ... 4e5; bench.py row_b100k_f32): {stats_line(big)}, {big_ms:.1f} ms median "
+          f"of 3 (CUDA events); ys {big.ys.dtype}, x + y + z = 1 within {cons:.2e} (< "
+          f"{F32_CONSERVE_TOL:g}), member {mid} x within {max(rel):.2e} of the CVODE table at "
+          f"t = 0.4, 4, 40 (< {F32_SOLN_RTOL:g}); card {card_line}", flush=True)
+    s32, ms32 = timed_solve(lambda: rob_run(f32, B_F32_CMP))
+    s64, ms64 = timed_solve(lambda: rob_run(torch.float64, B_F32_CMP))
+    members = [0, B_F32_CMP // 2 - 1, B_F32_CMP - 1]
+    gap = (s32.ys.double() - s64.ys).abs()
+    early = float(gap[:3, members].max())
+    if s32.stop_reason < 0 or s64.stop_reason < 0 or not early < F32_CMP_ATOL:
+        raise AssertionError(f"[23a] B={B_F32_CMP}: float32 vs float64 members {members} "
+                             f"{early:.2e} to t = 40 (bound {F32_CMP_ATOL:g})")
+    print(f"[23a] B={B_F32_CMP} lockstep float32 {ms32:.1f} ms ({stats_line(s32)}) against "
+          f"float64 {ms64:.1f} ms ({stats_line(s64)}), medians of 3: float32 over float64 "
+          f"{ms64 / ms32:.3f}x (bench.py's f32_vs_f64_speedup); members {members} within "
+          f"{early:.2e} of float64 to t = 40 (< {F32_CMP_ATOL:g}), largest gap over the "
+          f"horizon and all members {float(gap.max()):.2e}; card {card_line}", flush=True)
+    print(f"[23a] stats_json float32: {stats_json(s32)}", flush=True)
+    print(f"[23a] stats_json float64: {stats_json(s64)}", flush=True)
+
+    # ---- (b) float32 banded lockstep: heat1d through the float K3/K4
+    d = np.linspace(0.5, 2.0, B_BAND)[:, None]
+    heat32, _ = heat1d.make(HEAT_MGRID, rtol=1e-4, atol=1e-6, banded=True, dtype=f32)
+    heat64, _ = heat1d.make(HEAT_MGRID, rtol=1e-4, atol=1e-6, banded=True)
+
+    def heat_run(problem):
+        return dtt.solve_dense_ensemble(dtt.BdfSolver, problem, HEAT_T_EVAL, d,
+                                        mode="lockstep")
+
+    counters_zero()
+    h32 = heat_run(heat32)
+    k_heat = counters()
+    if k_heat[0] < 1 or k_heat[1] < 1 or k_heat[:2] != k_heat[2:]:
+        raise AssertionError(f"[23b] float K3/K4 launches {k_heat[:2]} of {k_heat[2:]}")
+    (_, h32_ms), (h64, h64_ms) = timed_solve(lambda: heat_run(heat32)), timed_solve(
+        lambda: heat_run(heat64))
+    weights = float(((h32.ys.double() - h64.ys).abs()
+                     / (1e-6 + 1e-4 * h64.ys.abs())).max())
+    if h32.ys.dtype != f32 or h32.stop_reason < 0 or not weights < F32_BAND_WEIGHTS:
+        raise AssertionError(f"[23b] heat1d float32: {h32.ys.dtype}, stop {h32.stop_reason}, "
+                             f"{weights:.2f} error weights from float64")
+    print(f"[23b] heat1d n={HEAT_MGRID + 1} banded lockstep float32 B={B_BAND} (rtol 1e-4, "
+          f"atol 1e-6): {stats_line(h32)}, K3 {k_heat[0]} and K4 {k_heat[1]} float launches "
+          f"(all of them), {h32_ms:.1f} ms against float64's {h64_ms:.1f} ms ({stats_line(h64)}"
+          f"), medians of 3; within {weights:.3f} error weights of float64 (< "
+          f"{F32_BAND_WEIGHTS:g}); card {card_line}", flush=True)
+
+    # ---- (c) the float K3/K4 against their plain versions, heat1d and nb = 41;
+    # nb = 41's launches on heat2d's float32 lockstep path
+    te2 = MOL2D["heat2d"][1]
+    h2 = {dt: heat2d.make(MOL2D["heat2d"][0], dtype=dt) for dt in (f32, torch.float64)}
+    counters_zero()
+    s2 = dtt.solve_dense_ensemble(dtt.BdfSolver, h2[f32], te2, np.ones((B_BAND, 1)),
+                                  mode="lockstep")
+    k_2d = counters()
+    s2_64 = dtt.solve_dense_ensemble(dtt.BdfSolver, h2[torch.float64], te2,
+                                     np.ones((B_BAND, 1)), mode="lockstep")
+    w2 = float(((s2.ys.double() - s2_64.ys).abs() / (1e-5 + 1e-5 * s2_64.ys.abs())).max())
+    if (k_2d[0] < 1 or k_2d[1] < 1 or k_2d[:2] != k_2d[2:] or s2.ys.dtype != f32
+            or s2.stop_reason < 0 or not w2 < F32_BAND_WEIGHTS):
+        raise AssertionError(f"[23c] heat2d float32: launches {k_2d}, stop "
+                             f"{s2.stop_reason}, {w2:.2f} error weights from float64")
+    print(f"[23c] heat2d mgrid=20 (n=400, nb=41) lockstep float32 B={B_BAND}: "
+          f"{stats_line(s2)}, K3 {k_2d[0]} and K4 {k_2d[1]} float launches, within "
+          f"{w2:.3f} error weights of float64 ({stats_line(s2_64)}); card {card_line}",
+          flush=True)
+    n = HEAT_MGRID + 1
+    jac = torch.func.vmap(heat32.eqn.jac, in_dims=(None, 0, 0))(
+        torch.tensor(0.0, dtype=f32, device=dev), torch.zeros(B_BAND, n, dtype=f32, device=dev),
+        torch.tensor(d, device=dev).float())
+    band_h = heat32.linear_solver.assemble(None, jac, 1e-3)
+    from diffsol_tpu_torch.ops.banded import _band_index
+    rnd = np.random.default_rng(SEED).standard_normal((B_BAND, 41, 400))
+    rnd[:, 20] += 2.0 * 41
+    band_41 = torch.tensor(rnd * _band_index(400, 20, 20)[1], device=dev).float()
+    records = (f32_lu_record(dev, card_line, "f32", band_h, 1, 1, k_heat[:2])
+               + f32_lu_record(dev, card_line, "f32_nb41", band_41, 20, 20, k_2d[:2]))
+
+    # ---- (d) forward mode through K3/K4: solve_dense_fwd_sens on the card
+    lp = dtt.make_lockstep_problem(heat_problem, B_BAND)
+    d64 = torch.tensor(d, device=dev)
+    counters_zero()
+    t0 = time.perf_counter()
+    _, fwd = dtt.solve_dense_fwd_sens(dtt.BdfSolver(lp), HEAT_T_EVAL, params=d64)
+    k_fwd = counters()
+    fwd_s = time.perf_counter() - t0
+    rows = heat_rows.sens.movedim(1, 0)  # (naug, neval, B, n)
+    over = float(((fwd - rows).abs() - FWD_ROUTES_RTOL * rows.abs()).max())
+    if k_fwd[2] < 1 or k_fwd[3] < 1 or fwd.shape != rows.shape or not over <= FWD_ROUTES_ATOL:
+        raise AssertionError(f"[23d] fwd_sens: K3/K4 {k_fwd[2:]}, shape {tuple(fwd.shape)}, "
+                             f"off the sens=True rows by {over:.3e} past the bound")
+    lp16 = dtt.make_lockstep_problem(heat_problem, B_FWD_CPU)
+    d16 = np.linspace(0.5, 2.0, B_FWD_CPU)[:, None]
+    _, card16 = dtt.solve_dense_fwd_sens(dtt.BdfSolver(lp16), HEAT_T_EVAL, params=d16)
+    _, cpu16 = dtt.solve_dense_fwd_sens(dtt.BdfSolver(lp16), HEAT_T_EVAL, params=d16,
+                                        device="cpu")
+    diff16 = float((card16.cpu() - cpu16).abs().max() / cpu16.abs().max())
+    if not diff16 < FWD_CPU_RTOL:
+        raise AssertionError(f"[23d] fwd_sens B={B_FWD_CPU}: card vs CPU {diff16:.3e}")
+    print(f"[23d] solve_dense_fwd_sens(BdfSolver(heat1d n={n} banded lockstep B={B_BAND})) "
+          f"on the card: K3 {k_fwd[2]} and K4 {k_fwd[3]} launches (the tangent solves are K4 "
+          f"launches), {fwd_s:.2f} s (host clock, one call); within rtol "
+          f"{FWD_ROUTES_RTOL:g}, atol {FWD_ROUTES_ATOL:g} of phase 21's sens=True rows; at "
+          f"B={B_FWD_CPU} within {diff16:.1e} of the CPU's (< {FWD_CPU_RTOL:g}); card "
+          f"{card_line}", flush=True)
+    records.append(k4_jvp_record(dev, card_line, heat_problem, k_fwd[3]))
+
+    # ---- (e) the SDE solvers at Monte Carlo width
+    theta, sigma = 1.5, 0.4
+
+    def ou_rhs(t, y, p):
+        return -p[0] * y
+
+    def ou_diff(t, y, p):
+        return torch.ones_like(y) * p[1]
+
+    gen = torch.Generator(device=dev)
+
+    def ou_run(nsteps, t1):
+        gen.manual_seed(SEED)
+        return sde.solve_em_ensemble(
+            ou_rhs, ou_diff, torch.zeros(1, dtype=torch.float64, device=dev), 0.0, t1,
+            nsteps, torch.tensor([theta, sigma], device=dev), gen, SDE_OU_PATHS)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ou = ou_run(SDE_OU_STEPS, 8.0)
+    torch.cuda.synchronize()
+    ou_s = time.perf_counter() - t0
+    _, ou_launches = launches_of(lambda: ou_run(100, 0.4))
+    tail = ou.ys[:, -500:, 0]
+    var, mean, want = float(tail.var()), float(tail.mean()), sigma**2 / (2 * theta)
+    if (tuple(ou.ys.shape) != (SDE_OU_PATHS, SDE_OU_STEPS + 1, 1) or ou.ys.device.type != dev.type
+            or not abs(var - want) < 0.1 * want or not abs(mean) < 0.02):
+        raise AssertionError(f"[23e] OU: ys {tuple(ou.ys.shape)}, variance {var:.4f} vs "
+                             f"{want:.4f}, mean {mean:.4f}")
+    print(f"[23e] solve_em_ensemble, Ornstein-Uhlenbeck theta={theta}, sigma={sigma}: "
+          f"{SDE_OU_PATHS} paths x {SDE_OU_STEPS} steps on [0, 8] in {ou_s:.2f} s (host "
+          f"clock, one call), {ou_launches / 100:.1f} kernel launches a step (a traced "
+          f"100-step call); the "
+          f"last 500 steps' variance {var:.5f} against sigma^2/2theta = {want:.5f} "
+          f"({(var - want) / want:+.2%}, < 10 %), mean {mean:+.5f} (< 0.02); card "
+          f"{card_line}", flush=True)
+    mu_g, sig_g = 0.05, 0.5
+    y0 = torch.ones((SDE_GBM_PATHS, 1), dtype=torch.float64, device=dev)
+    pg = torch.tensor([mu_g, sig_g], device=dev)
+
+    def gbm_rhs(t, y, p):
+        return p[0] * y
+
+    def gbm_diff(t, y, p):
+        return p[1] * y
+
+    errs = {"em": [], "milstein": []}
+    times = {"em": [], "milstein": []}
+    for nsteps in SDE_GBM_NSTEPS:
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + nsteps)
+        w = (torch.randn((nsteps,) + tuple(y0.shape), generator=g, dtype=torch.float64,
+                         device=dev) * np.sqrt(1.0 / nsteps)).sum(0)
+        exact = torch.exp((mu_g - 0.5 * sig_g**2) + sig_g * w)
+        for name, fn in (("em", sde.solve_em), ("milstein", sde.solve_milstein)):
+            g.manual_seed(SEED + nsteps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = fn(gbm_rhs, gbm_diff, y0, 0.0, 1.0, nsteps, pg, g)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            errs[name].append(float((sol.ys[-1] - exact).abs().mean()))
+    hs = np.log(1.0 / np.asarray(SDE_GBM_NSTEPS))
+    slopes = {k: float(np.polyfit(hs, np.log(v), 1)[0]) for k, v in errs.items()}
+    i400 = SDE_GBM_NSTEPS.index(400)
+    if (not all(m < e for m, e in zip(errs["milstein"], errs["em"]))
+            or not errs["milstein"][i400] < 0.01
+            or not abs(slopes["milstein"] - 1.0) < SDE_SLOPE_TOL
+            or not abs(slopes["em"] - 0.5) < SDE_SLOPE_TOL):
+        raise AssertionError(f"[23e] GBM strong errors {errs}, slopes {slopes}")
+    _, mil_launches = launches_of(lambda: sde.solve_milstein(gbm_rhs, gbm_diff, y0, 0.0, 1.0,
+                                                              100, pg, g))
+    print(f"[23e] geometric Brownian motion mu={mu_g}, sigma={sig_g}, {SDE_GBM_PATHS} paths, "
+          f"exact solution from the same increments: mean strong error at nsteps "
+          f"{list(SDE_GBM_NSTEPS)}: EM {[f'{e:.3e}' for e in errs['em']]}, Milstein "
+          f"{[f'{e:.3e}' for e in errs['milstein']]}; fitted orders EM {slopes['em']:.3f} "
+          f"(0.5 +- {SDE_SLOPE_TOL:g}), Milstein {slopes['milstein']:.3f} (1.0 +- "
+          f"{SDE_SLOPE_TOL:g}); times (host clock) EM {[f'{t:.1f}' for t in times['em']]} "
+          f"ms, Milstein {[f'{t:.1f}' for t in times['milstein']]} ms; Milstein "
+          f"{mil_launches / 100:.1f} kernel launches a step; card {card_line}", flush=True)
+
+    # ---- (g) a float32 problem on the fused tier: K1's float64 build,
+    # params cast up, the callables' float32 casts kept as roundings in
+    # the generated model, held to K1's plain version
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+
+    p_fused = k1_params(B_F32_CMP, f32)
+
+    def fused32():
+        return dtt.solve_dense_ensemble(dtt.BdfSolver, rob[f32], F32_T_EVAL, p_fused,
+                                        mode="fused")
+
+    torch.cuda.synchronize()
+    fs.launch_fused_bdf.launches = 0
+    fz = fused32()
+    torch.cuda.synchronize()
+    k1_launches = fs.launch_fused_bdf.launches
+    plain = fs.make_fused_bdf_solve(rob[f32], F32_T_EVAL, B_F32_CMP)
+    if "dsol_f32(" not in plain.header:
+        raise AssertionError("[23g] the float32 problem's model header rounds nothing")
+    ys_p, st_p, steps_p = plain.reference(p_fused.double())
+    torch.cuda.synchronize()
+    if (fz.tier != "fused_small" or fz.ys.dtype != torch.float64 or k1_launches < 1
+            or fz.stop_reason != dtt.errors.TSTOP_REACHED or int(st_p.min()) != fs.OK):
+        raise AssertionError(f"[23g] tier {fz.tier}, ys {fz.ys.dtype}, {k1_launches} K1 "
+                             f"launches, stop {fz.stop_reason}, plain status {st_p.tolist()}")
+    ys_g = fz.ys.movedim(1, -1)
+    step_gap = (fz.tile_steps - steps_p).abs()
+    abs_g = float((ys_g - ys_p).abs().max())
+    rel_g = float(((ys_g - ys_p).abs() / ys_p.abs()).max())
+    share_g = float(((ys_g - ys_p).abs() / (1e-6 + 1e-4 * ys_p.abs())).max())
+    if int(step_gap.max()) > F32_FUSED_STEPS or not abs_g <= F32_CMP_ATOL:
+        raise AssertionError(f"[23g] K1 vs plain: steps a tile {fz.tile_steps.tolist()} vs "
+                             f"{steps_p.tolist()}, ys max abs {abs_g:.3e}")
+    cons_g = float((fz.ys.sum(-1) - 1.0).abs().max())
+    if not cons_g < F32_CONSERVE_TOL:
+        raise AssertionError(f"[23g] conservation {cons_g:.3e}")
+    _, fz_ms = timed_solve(fused32)
+    print(f"[23g] Robertson float32 problem, mode=\"fused\", B={B_F32_CMP}: tier {fz.tier}, "
+          f"ys {fz.ys.dtype}, {k1_launches} K1 launch(es), steps a tile "
+          f"{fz.tile_steps.min().item()}-{fz.tile_steps.max().item()}, "
+          f"{int((step_gap > 0).sum())} of {len(step_gap)} tiles apart from the plain "
+          f"version's by up to {int(step_gap.max())} (bound {F32_FUSED_STEPS}); K1 vs plain "
+          f"max abs {abs_g:.3e} (bound {F32_CMP_ATOL:g}), max rel {rel_g:.3e}, {share_g:.3e} "
+          f"of an error weight; conservation {cons_g:.2e}; {fz_ms:.3f} ms median of 3; "
+          f"card {card_line}", flush=True)
+
+    # ---- (f) the API surface on the card
+    from diffsol_tpu_torch.utils import stats_dict
+
+    cases = {
+        "expdecay_bdf": (exponential_decay.problem(rtol=1e-6, atol=1e-8), "bdf", 1.0),
+        "logistic_bdf": (logistic.problem(rtol=1e-6, atol=1e-8), "bdf", 10.0),
+        "robertson_dae_bdf": (robertson.problem_dae(), "bdf", 4e5),
+        "logistic_trbdf2": (logistic.problem(rtol=1e-6, atol=1e-8), "tr_bdf2", 10.0),
+        "expdecay_tsit45": (exponential_decay.problem(rtol=1e-6, atol=1e-8), "tsit45", 1.0),
+    }
+    for name, (pr, method, tf) in cases.items():
+        sol = dtt.solve_dense(dtt.solver(pr, method), [tf * 0.5, tf], max_steps=20_000)
+        got = stats_dict(sol)
+        if (sol.stop_reason != dtt.errors.TSTOP_REACHED or sol.ys.device.type != dev.type
+                or abs(got["steps"] - SNAPSHOT_STEPS[name]) > CARD_CPU_STEPS):
+            raise AssertionError(f"[23f] {name}: stop {sol.stop_reason}, {got}")
+        print(f"[23f] snapshot {name} on the card: {got} (tests/test_snapshots.py: "
+              f"{SNAPSHOT_STEPS[name]} steps); card {card_line}", flush=True)
+    blow = (dtt.OdeBuilder().rhs(lambda t, y, p: y * y)
+            .init(lambda t, p: torch.ones(1, dtype=torch.float64, device=p.device))
+            .p([0.0]).rtol(1e-8).atol(1e-10).build())
+    sol = dtt.solve_dense(dtt.BdfSolver(blow), [0.5, 2.0], max_steps=2000)
+    try:
+        sol.raise_for_status()
+    except dtt.errors.DiffsolError as e:
+        print(f"[23f] y' = y^2 from 1: stop_reason {sol.stop_reason}, raise_for_status "
+              f"raised DiffsolError({e}); card {card_line}", flush=True)
+    else:
+        raise AssertionError(f"[23f] raise_for_status did not raise (stop {sol.stop_reason})")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2532,12 +3104,16 @@ def main() -> int:
         for name, (_, te, max_steps) in MOL2D.items()}
     mixed_check = fs.make_fused_bdf_solve(problem, robertson.T_EVAL_4E10, B_CHECK,
                                           precision="mixed")
+    # phase 23 g's float32 problem: its model rounds each rhs to float32
+    f32_check = fs.make_fused_bdf_solve(
+        robertson.problem_ode(rtol=1e-4, atol=1e-6, dtype=torch.float32), F32_T_EVAL,
+        B_F32_CMP)
     t0 = time.perf_counter()
     diffsl = diffsl_models()
     diffsl_checks = diffsl_check_solves(diffsl)
     print(f"[2] DiffSL models compiled, built and traced in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    k1_solves = {"ode": check_solve, **check_solves, "mixed": mixed_check,
+    k1_solves = {"ode": check_solve, **check_solves, "mixed": mixed_check, "f32": f32_check,
                  **{k: v for k, v in diffsl_checks.items() if k in K1_DIFFSL}}
     band_solves = {"heat1d": band_check, **mol2d_checks,
                    **{k: v for k, v in diffsl_checks.items() if k not in K1_DIFFSL}}
@@ -2580,8 +3156,10 @@ def main() -> int:
     for label, n_, ml_, mu_ in (("heat1d", 128, 1, 1), ("heat2d", 400, 20, 20),
                                 ("foodweb", 200, 20, 20)):
         print(f"[6] band LU dynamic shared memory a block at {label}'s shape (n={n_}, "
-              f"ml=mu={ml_}): factor {lu_lib.band_lu_shared_bytes(n_, ml_, mu_, 0)} B, solve "
-              f"{lu_lib.band_lu_shared_bytes(n_, ml_, mu_, 1)} B", flush=True)
+              f"ml=mu={ml_}): factor {lu_lib.band_lu_shared_bytes(n_, ml_, mu_, 0, 8)} B, "
+              f"solve {lu_lib.band_lu_shared_bytes(n_, ml_, mu_, 1, 8)} B (float build: "
+              f"{lu_lib.band_lu_shared_bytes(n_, ml_, mu_, 0, 4)} B, "
+              f"{lu_lib.band_lu_shared_bytes(n_, ml_, mu_, 1, 4)} B)", flush=True)
     for label, sv in band_solves.items():
         print_band_plan(label, sv)
     band_paths, band_records = band_phases(dev, card_line, heat_problem, soln, band_check)
@@ -2605,14 +3183,17 @@ def main() -> int:
     diffsl_records = diffsl_phase(dev, card_line, diffsl, diffsl_checks)
     print(f"[20] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
     t_phase = time.perf_counter()
-    sens_records = sens_phase(dev, card_line, heat_problem, soln)
+    sens_records, heat_rows = sens_phase(dev, card_line, heat_problem, soln)
     print(f"[21] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
     t_phase = time.perf_counter()
     adjoint_records = adjoint_phase(dev, card_line, heat_problem, band_records[:2])
     print(f"[22] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
+    t_phase = time.perf_counter()
+    f32_records = f32_sde_api_phase(dev, card_line, heat_problem, heat_rows)
+    print(f"[23] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
     record = ([small_record] + variant_records + [mixed_record] + band_records
               + mol2d_records + wide_lu_records + diffsl_records + sens_records
-              + adjoint_records)
+              + adjoint_records + f32_records)
 
     print(f"card: {card_line}")
     print(json.dumps({"kernels": record}))

@@ -2,11 +2,13 @@
 
 The JAX package ``diffsol_tpu`` is the reference; this package mirrors its
 module names and public layouts.  Plain tensor code is eager PyTorch in
-float64, and every Pallas kernel of the covered paths is CUDA C++ for
-Hopper (``csrc/``), built with ``nvcc`` at first use: the fused small-n
-and banded BDF whole-solve kernels and the band LU factor and solve (the
-solve also takes every sensitivity row against its member's factors in
-one launch).
+float64, or float32 for a problem built with ``OdeBuilder.dtype``, and
+every Pallas kernel of the covered paths is CUDA C++ for Hopper
+(``csrc/``), built with ``nvcc`` at first use: the fused small-n and
+banded BDF whole-solve kernels and the band LU factor and solve (a double
+and a float build; the solve also takes every sensitivity row against
+its member's factors in one launch, and forward mode passes through
+both).
 
 The port so far covers the stiff BDF ensemble main path, the banded
 method-of-lines tier and the single-instance solver surface up to the
@@ -22,7 +24,8 @@ card unless the caller asks for the CPU.  Forward sensitivities come two
 ways: the continuous sensitivity equations (``sens=True`` on any of the
 three solvers, ``augmented.SensEquations``; ``Solution.sens``) on the
 dense, block-diagonal and banded tiers, lockstep ensembles included, and
-``solve_dense_fwd_sens``, forward mode through the solve.  Gradients come
+``solve_dense_fwd_sens``, forward mode through the solve (through the
+band LU kernels on the banded tier).  Gradients come
 from the adjoint: ``make_differentiable_solve`` and
 ``make_differentiable_quadrature`` and their ensemble forms
 (``make_differentiable_solve_ensemble``, lockstep or independent, and
@@ -34,7 +37,10 @@ kernels on the card.  Models may also come as DiffSL
 text (``compile_diffsl``, ``OdeBuilder.build_from_diffsl`` and
 ``build_from_eqn``), with the ``N`` built-in's index-aware reset
 (``reset_n``); their callables are plain torch, so they reach every solver
-and both fused kernels.
+and both fused kernels.  Stochastic ODEs go through ``solvers.sde``
+(Euler-Maruyama, Milstein, path ensembles, noise classification) with an
+explicit ``torch.Generator``; ``utils.stats_dict``/``stats_json`` and
+``Solution.raise_for_status`` are the API surface around a solve.
 """
 
 from . import errors  # noqa: F401

@@ -13,7 +13,8 @@ and spill bytes; :data:`BUILDS` records them with the build time.
 The libraries:
 
 * ``fused_bdf`` (K1): ``fused_bdf.cuh`` with a model header;
-* ``band_lu`` (K3, K4): ``band_lu.cuh``, no model header;
+* ``band_lu`` (K3, K4): ``band_lu.cuh``, no model header, the double and
+  the float build of each kernel in one library;
 * ``fused_band_bdf`` (K2): ``fused_band_bdf.cuh`` with a model header and
   the band widths.
 
@@ -61,8 +62,12 @@ _SIGNATURES = {
         "band_lu_factor_launch": ([_P, _P, _I, _I, _I, _I, _P], _I),
         # F, its members (1 or B), b, x, n, ml, mu, B, stream
         "band_lu_solve_launch": ([_P, _I, _P, _P, _I, _I, _I, _I, _P], _I),
-        # n, ml, mu, solve (0: the factor) -> bytes a block
-        "band_lu_shared_bytes": ([_I, _I, _I, _I], _I),
+        # the float builds, the same arguments
+        "band_lu_factor_launch_f32": ([_P, _P, _I, _I, _I, _I, _P], _I),
+        "band_lu_solve_launch_f32": ([_P, _I, _P, _P, _I, _I, _I, _I, _P], _I),
+        # n, ml, mu, solve (0: the factor), the scalar's bytes (8 or 4)
+        # -> bytes a block
+        "band_lu_shared_bytes": ([_I, _I, _I, _I, _I], _I),
     },
     "fused_band_bdf": {
         # params, init, h_tile, t_eval, atol, mass diag, ys, info, scratch,

@@ -9,9 +9,11 @@
 // them.  No pivoting: the iteration matrices M - cJ of parabolic
 // method-of-lines operators are diagonally dominant (the trade LAPACK's
 // dgtsv-style fast paths make; the fused band stepper guards it with an
-// element-growth test).  Everything is double (the Pallas kernels are f32
-// because Mosaic has no f64; there the LU is a Newton preconditioner, here
-// an exact solver).
+// element-growth test).  The fused band stepper's loops are double; K3 and
+// K4 are templates on the scalar, built for double and for float (the
+// float32 problems of OdeBuilder.dtype, the counterpart of the f32 Pallas
+// kernels: Mosaic has no f64, so there the LU is a Newton preconditioner,
+// here an exact solver in the problem's precision).
 //
 // Two parts:
 //
@@ -77,10 +79,12 @@
 //   block whose warps share one member's window is later work).
 //
 // * Shapes past the shared memory at four members a block and the chunk
-//   above (a factor window over 58 KB a member, (mu + 32) nb > ~7,250 at
-//   nb > 8, so ml = mu > 45; x over ~7,000 doubles a member at heat1d's
-//   width) take the same loops with the window in device memory (the
-//   <false> instantiations): slower, not refused.  No model of the port
+//   above (a factor window over 58 KB a member, (mu + 32) nb > ~7,250
+//   doubles at nb > 8, so ml = mu > 45, or > ~14,500 floats, ml = mu > 71;
+//   x over ~7,000 doubles or ~14,200 floats a member at heat1d's width)
+//   take the same loops with the window in device memory (the <T, false>
+//   instantiations): slower, not refused.  The float build halves the
+//   bytes of every bound below.  No model of the port
 //   runs there, so the plan does not search for a smaller on-chip layout.
 //
 // Measured on an H100 80GB HBM3 at 700.00 W (chip_smoke.py phases 7, 11
@@ -365,13 +369,16 @@ constexpr int MEMBERS = 4;           // members a block, a warp each
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may take on sm_90
 
 // How a launch lays out shared memory: MEMBERS members a block, C columns
-// a chunk, `stride` doubles a member (odd, so that the members' copies of
+// a chunk, `stride` elements a member (odd, so that the members' copies of
 // one element sit in different banks), the window on chip or in device
-// memory.
+// memory.  `elem` is the scalar's bytes (8: double, 4: float), so the
+// float build's windows take half the bytes and stay on chip to wider
+// bands (ml = mu <= 71 for the factor, against 45 for double).
 struct Plan {
   int C, stride;
   bool on_chip;
-  size_t bytes() const { return (size_t)MEMBERS * stride * sizeof(double); }
+  int elem;
+  size_t bytes() const { return (size_t)MEMBERS * stride * elem; }
   bool fits() const { return bytes() <= SMEM_MAX; }
 };
 
@@ -384,54 +391,59 @@ inline int solve_cols(int rows) { return rows <= 16 ? 64 : (rows < 1024 ? 1024 /
 // K3: a window of mu + 2C columns of nb doubles and C reciprocals a member;
 // past the shared memory, the window is the factors' own columns in
 // device memory and only the reciprocals stay on chip.
-inline Plan factor_plan(int ml, int mu) {
+inline Plan factor_plan(int ml, int mu, int elem = sizeof(double)) {
   const int nb = ml + mu + 1, C = chunk_cols(nb);
-  const Plan p{C, odd((size_t)(mu + 2 * C) * nb + C), true};
-  return p.fits() ? p : Plan{C, odd(C), false};
+  const Plan p{C, odd((size_t)(mu + 2 * C) * nb + C), true, elem};
+  return p.fits() ? p : Plan{C, odd(C), false, elem};
 }
 
 // K4: two buffers of C columns by max(ml, mu + 1) factor rows, C pivot
 // reciprocals and x, a member; past the shared memory, x stays in device
-// memory (the output).  Neither fits past max(ml, mu + 1) = 3,631.
-inline Plan solve_plan(int n, int ml, int mu) {
+// memory (the output).  Neither fits past max(ml, mu + 1) = 3,631 (double;
+// float: 7,263).  At heat1d's width x stays on chip to n ~ 6,900 (double)
+// and ~ 14,200 (float).
+inline Plan solve_plan(int n, int ml, int mu, int elem = sizeof(double)) {
   const int rows = ml > mu + 1 ? ml : mu + 1, C = solve_cols(rows);
-  const Plan p{C, odd((size_t)(2 * rows + 1) * C + n), true};
-  return p.fits() ? p : Plan{C, odd((size_t)(2 * rows + 1) * C), false};
+  const Plan p{C, odd((size_t)(2 * rows + 1) * C + n), true, elem};
+  return p.fits() ? p : Plan{C, odd((size_t)(2 * rows + 1) * C), false, elem};
 }
 
 // K3: band (B, nb, n) member-major, band[m][d][j] = A_m[j+d-mu][j] ->
 // F (n+mu, nb, B) factored, pad columns included.  Warp g of the block
-// factors member blockIdx.x * G + g.
-template <bool ON_CHIP>
+// factors member blockIdx.x * G + g.  T is double, or float for a float32
+// problem (the counterpart of the float32 Pallas band LU); every cp.async
+// piece is one element, aligned to its own size.
+template <typename T, bool ON_CHIP>
 __global__ void __launch_bounds__(MEMBERS * WARP)
-band_lu_factor_kernel(const double* __restrict__ band, double* __restrict__ F, int n, int ml,
+band_lu_factor_kernel(const T* __restrict__ band, T* __restrict__ F, int n, int ml,
                       int mu, int B, int C, int stride) {
   // offsets: int within shared memory, size_t within F
   using Off = typename std::conditional<ON_CHIP, int, size_t>::type;
-  extern __shared__ double smem[];
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* const smem = reinterpret_cast<T*>(smem_bytes);
   const int nb = ml + mu + 1, ncols = n + mu, W = mu + 2 * C;
   constexpr int G = MEMBERS;
   const int g = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   const int m0 = blockIdx.x * G, m = m0 + g;
   const bool active = m < B;
-  double* const mine = smem + (size_t)g * stride;
-  double* const invs = ON_CHIP ? mine + (size_t)W * nb : mine;  // this chunk's reciprocals
+  T* const mine = smem + (size_t)g * stride;
+  T* const invs = ON_CHIP ? mine + (size_t)W * nb : mine;  // this chunk's reciprocals
   // row d of column c: base[(c - wbase) * cs + d * es], where the window
   // starts at column wbase (on chip) or is F itself (wbase = 0)
-  double* const base = ON_CHIP ? mine : F + m;
+  T* const base = ON_CHIP ? mine : F + m;
   const Off es = ON_CHIP ? 1 : (Off)B, cs = (Off)nb * es;
-  const double* const src = band + (size_t)m * nb * n;
+  const T* const src = band + (size_t)m * nb * n;
   int wbase = 0;
 
   // columns [a, b) of this member into the window; pad columns are unit
   auto load = [&](int a, int b) {
     for (int c = a + lane; c < b; c += WARP) {
-      double* dst = base + (Off)(c - wbase) * cs;
+      T* dst = base + (Off)(c - wbase) * cs;
       for (int d = 0; d < nb; ++d) {
         if (c >= n) {
-          dst[d * es] = (d == mu) ? 1.0 : 0.0;
+          dst[d * es] = (d == mu) ? T(1) : T(0);
         } else if constexpr (ON_CHIP) {
-          __pipeline_memcpy_async(dst + d, src + (size_t)d * n + c, sizeof(double));
+          __pipeline_memcpy_async(dst + d, src + (size_t)d * n + c, sizeof(T));
         } else {
           dst[d * es] = src[(size_t)d * n + c];
         }
@@ -460,8 +472,8 @@ band_lu_factor_kernel(const double* __restrict__ band, double* __restrict__ F, i
       if (active)
         for (int p0 = 0; p0 < C + mu; p0 += C) {
           const int cnt = min(C, C + mu - p0) * nb;
-          const double* from = mine + (p0 + C) * nb;
-          double* to = mine + p0 * nb;
+          const T* from = mine + (p0 + C) * nb;
+          T* to = mine + p0 * nb;
           for (int e = lane; e < cnt; e += WARP) to[e] = from[e];
           __syncwarp();
         }
@@ -473,18 +485,18 @@ band_lu_factor_kernel(const double* __restrict__ band, double* __restrict__ F, i
     if (active) {
       for (int k = k0; k < k1; ++k) {
         __syncwarp();
-        double* const ck = base + (Off)(k - wbase) * cs;
-        const double inv = 1.0 / ck[mu * es];
+        T* const ck = base + (Off)(k - wbase) * cs;
+        const T inv = T(1) / ck[mu * es];
         if (lane == 0) invs[k - k0] = inv;
         for (int i = i0; i >= 1 && i <= ml; i += WARP) {
-          const double l = ck[(mu + i) * es] * inv;
+          const T l = ck[(mu + i) * es] * inv;
           // u = U[k][k+dj] at up[0], e = A[k+i][k+dj] at up[i es]; four
           // at a time, every load before the stores
-          double* up = ck + mu * es + (Off)(js + 1) * (nb - 1) * es;
+          T* up = ck + mu * es + (Off)(js + 1) * (nb - 1) * es;
           const Off ie = (Off)i * es;
           int dj = js + 1;
           for (; dj + 3 * S <= mu; dj += 4 * S, up += 4 * st) {
-            double u[4], v[4];
+            T u[4], v[4];
 #pragma unroll
             for (int t = 0; t < 4; ++t) {
               u[t] = up[t * st];
@@ -504,13 +516,13 @@ band_lu_factor_kernel(const double* __restrict__ band, double* __restrict__ F, i
     if constexpr (ON_CHIP) {
       const int c1 = (k1 == n) ? ncols : k1;
       const int gg = threadIdx.x % G, dd = threadIdx.x / G;  // dd < 32
-      const double* win = smem + (size_t)gg * stride;
-      const double* sc = win + (size_t)W * nb;
+      const T* win = smem + (size_t)gg * stride;
+      const T* sc = win + (size_t)W * nb;
       if (m0 + gg < B)
         for (int c = k0; c < c1; ++c) {
-          const double* cc = win + (c - k0) * nb;
+          const T* cc = win + (c - k0) * nb;
           for (int d = dd; d < nb; d += WARP) {
-            double v = cc[d];
+            T v = cc[d];
             if (d > mu && c < k1) v *= sc[c - k0];
             F[((size_t)c * nb + d) * B + m0 + gg] = v;
           }
@@ -528,22 +540,23 @@ band_lu_factor_kernel(const double* __restrict__ band, double* __restrict__ F, i
 // of fm: right-hand side r reads factorization r % fm (fm = 1: one for
 // every right-hand side; fm = B: one each; fm = B / naug: the naug-major
 // augmented rows of a lockstep ensemble).  Warp g of the block solves
-// right-hand side blockIdx.x * G + g.
-template <bool ON_CHIP>
+// right-hand side blockIdx.x * G + g.  T as K3's.
+template <typename T, bool ON_CHIP>
 __global__ void __launch_bounds__(MEMBERS * WARP)
-band_lu_solve_kernel(const double* __restrict__ F, int fm, const double* __restrict__ b,
-                     double* __restrict__ x, int n, int ml, int mu, int B, int C, int stride) {
-  extern __shared__ double smem[];
+band_lu_solve_kernel(const T* __restrict__ F, int fm, const T* __restrict__ b,
+                     T* __restrict__ x, int n, int ml, int mu, int B, int C, int stride) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* const smem = reinterpret_cast<T*>(smem_bytes);
   const int nb = ml + mu + 1;
-  const size_t fs = (size_t)fm;  // doubles between F's (column, row) pairs
+  const size_t fs = (size_t)fm;  // elements between F's (column, row) pairs
   constexpr int G = MEMBERS;
   const int g = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   const int m0 = blockIdx.x * G, m = m0 + g;
   const bool active = m < B;
   const int rows = ml > mu + 1 ? ml : mu + 1, cap = C * rows;
-  double* const mine = smem + (size_t)g * stride;
-  double* const rinv = mine + 2 * cap;  // a back chunk's 1 / U[k][k]
-  double* const xs = ON_CHIP ? rinv + C : x + (size_t)m * n;
+  T* const mine = smem + (size_t)g * stride;
+  T* const rinv = mine + 2 * cap;  // a back chunk's 1 / U[k][k]
+  T* const xs = ON_CHIP ? rinv + C : x + (size_t)m * n;
   // the chunks: nf forward ones over columns 0 .. n-2 (the ml multiplier
   // rows), then the backward ones over columns n-1 .. 0 (the mu+1 rows of U)
   const int nf = (ml > 0 && n > 1) ? (n - 1 + C - 1) / C : 0;
@@ -568,12 +581,12 @@ band_lu_solve_kernel(const double* __restrict__ F, int fm, const double* __restr
     span(q, c0, c1, d0, nr);
     const int gg = threadIdx.x % G, dd = threadIdx.x / G;  // dd < 32
     if (m0 + gg < B) {
-      double* buf = smem + (size_t)gg * stride + (q & 1) * cap;
-      const double* f = F + (size_t)d0 * fs + (size_t)((m0 + gg) % fm);
+      T* buf = smem + (size_t)gg * stride + (q & 1) * cap;
+      const T* f = F + (size_t)d0 * fs + (size_t)((m0 + gg) % fm);
       for (int c = c0; c < c1; ++c)
         for (int d = dd; d < nr; d += WARP)
           __pipeline_memcpy_async(buf + (c - c0) * nr + d, f + ((size_t)c * nb + d) * fs,
-                                  sizeof(double));
+                                  sizeof(T));
     }
     __pipeline_commit();
   };
@@ -581,7 +594,7 @@ band_lu_solve_kernel(const double* __restrict__ F, int fm, const double* __restr
   if (active)
     for (int r = lane; r < n; r += WARP) xs[r] = b[(size_t)m * n + r];
   fetch(0);
-  double pending = 0.0;  // x[k+1] of the back sweep, stored one step late
+  T pending = T(0);  // x[k+1] of the back sweep, stored one step late
   for (int q = 0; q < nq; ++q) {
     if (q + 1 < nq) {
       fetch(q + 1);
@@ -592,13 +605,13 @@ band_lu_solve_kernel(const double* __restrict__ F, int fm, const double* __restr
     __syncthreads();
     int c0, c1, d0, nr;
     span(q, c0, c1, d0, nr);
-    const double* buf = mine + (q & 1) * cap;
+    const T* buf = mine + (q & 1) * cap;
     if (active && q < nf) {
       // forward: x[k+i] -= L[k+i][k] x[k], i = 1 .. ml split over the lanes
       for (int k = c0; k < c1; ++k) {
         __syncwarp();
-        const double xk = xs[k];
-        const double* lk = buf + (k - c0) * nr;  // lk[i-1] = F[k][mu+i]
+        const T xk = xs[k];
+        const T* lk = buf + (k - c0) * nr;  // lk[i-1] = F[k][mu+i]
         for (int i = lane + 1; i <= ml && k + i < n; i += WARP)
           xs[k + i] = xs[k + i] - lk[i - 1] * xk;
       }
@@ -607,11 +620,11 @@ band_lu_solve_kernel(const double* __restrict__ F, int fm, const double* __restr
       // formed a chunk at a time off the chain (within an ulp of acc /
       // U[k][k]); then x[k-dj] -= U[k-dj][k] x[k], dj = 1 .. mu split over
       // the lanes.  No lane reads x[k+1] at step k, so lane 0 stores it then.
-      for (int c = c0 + lane; c < c1; c += WARP) rinv[c - c0] = 1.0 / buf[(c - c0) * nr + mu];
+      for (int c = c0 + lane; c < c1; c += WARP) rinv[c - c0] = T(1) / buf[(c - c0) * nr + mu];
       for (int k = c1 - 1; k >= c0; --k) {
         __syncwarp();
-        const double* uk = buf + (k - c0) * nr;  // uk[d] = F[k][d]
-        const double xk = xs[k] * rinv[k - c0];
+        const T* uk = buf + (k - c0) * nr;  // uk[d] = F[k][d]
+        const T xk = xs[k] * rinv[k - c0];
         if (lane == 0 && k + 1 < n) xs[k + 1] = pending;
         pending = xk;
         for (int dj = lane + 1; dj <= mu && k - dj >= 0; dj += WARP)
@@ -638,42 +651,67 @@ int allow_shared(Kernel kernel, const Plan& p) {
 
 }  // namespace diffsol_band
 
-// The C entry points, bound with ctypes (ops/band_lu.py).  Pointers are
-// device pointers; each launches on `stream` and returns the CUDA error of
-// the shared-memory request or of the launch (0 = launched).
-extern "C" int band_lu_factor_launch(const double* band, double* F, int n, int ml, int mu,
-                                     int B, void* stream) {
-  using namespace diffsol_band;
+namespace diffsol_band {
+
+template <typename T>
+int factor_launch(const T* band, T* F, int n, int ml, int mu, int B, void* stream) {
   if (n < 1 || ml < 0 || mu < 0 || B < 1) return (int)cudaErrorInvalidValue;
-  const Plan p = factor_plan(ml, mu);
-  auto kernel = p.on_chip ? band_lu_factor_kernel<true> : band_lu_factor_kernel<false>;
+  const Plan p = factor_plan(ml, mu, sizeof(T));
+  auto kernel = p.on_chip ? band_lu_factor_kernel<T, true> : band_lu_factor_kernel<T, false>;
   if (const int rc = allow_shared(kernel, p)) return rc;
   kernel<<<(B + MEMBERS - 1) / MEMBERS, MEMBERS * WARP, p.bytes(), (cudaStream_t)stream>>>(
       band, F, n, ml, mu, B, p.C, p.stride);
   return (int)cudaGetLastError();
 }
 
-// f_members factorizations, any divisor of the B right-hand sides:
-// right-hand side r reads factorization r % f_members
-extern "C" int band_lu_solve_launch(const double* F, int f_members, const double* b, double* x,
-                                    int n, int ml, int mu, int B, void* stream) {
-  using namespace diffsol_band;
+template <typename T>
+int solve_launch(const T* F, int f_members, const T* b, T* x, int n, int ml, int mu, int B,
+                 void* stream) {
   if (n < 1 || ml < 0 || mu < 0 || B < 1 || f_members < 1 || B % f_members != 0)
     return (int)cudaErrorInvalidValue;
-  const Plan p = solve_plan(n, ml, mu);
+  const Plan p = solve_plan(n, ml, mu, sizeof(T));
   if (!p.fits()) return (int)cudaErrorInvalidValue;
-  auto kernel = p.on_chip ? band_lu_solve_kernel<true> : band_lu_solve_kernel<false>;
+  auto kernel = p.on_chip ? band_lu_solve_kernel<T, true> : band_lu_solve_kernel<T, false>;
   if (const int rc = allow_shared(kernel, p)) return rc;
   kernel<<<(B + MEMBERS - 1) / MEMBERS, MEMBERS * WARP, p.bytes(), (cudaStream_t)stream>>>(
       F, f_members, b, x, n, ml, mu, B, p.C, p.stride);
   return (int)cudaGetLastError();
 }
 
+}  // namespace diffsol_band
+
+// The C entry points, bound with ctypes (ops/band_lu.py), the double build
+// and the float build (_f32).  Pointers are device pointers; each launches
+// on `stream` and returns the CUDA error of the shared-memory request or
+// of the launch (0 = launched).
+extern "C" int band_lu_factor_launch(const double* band, double* F, int n, int ml, int mu,
+                                     int B, void* stream) {
+  return diffsol_band::factor_launch(band, F, n, ml, mu, B, stream);
+}
+
+extern "C" int band_lu_factor_launch_f32(const float* band, float* F, int n, int ml, int mu,
+                                         int B, void* stream) {
+  return diffsol_band::factor_launch(band, F, n, ml, mu, B, stream);
+}
+
+// f_members factorizations, any divisor of the B right-hand sides:
+// right-hand side r reads factorization r % f_members
+extern "C" int band_lu_solve_launch(const double* F, int f_members, const double* b, double* x,
+                                    int n, int ml, int mu, int B, void* stream) {
+  return diffsol_band::solve_launch(F, f_members, b, x, n, ml, mu, B, stream);
+}
+
+extern "C" int band_lu_solve_launch_f32(const float* F, int f_members, const float* b,
+                                        float* x, int n, int ml, int mu, int B, void* stream) {
+  return diffsol_band::solve_launch(F, f_members, b, x, n, ml, mu, B, stream);
+}
+
 // The dynamic shared memory a block of the factor (solve = 0) or of the
-// solve (solve = 1) takes at these shapes, for the build report.
-extern "C" int band_lu_shared_bytes(int n, int ml, int mu, int solve) {
+// solve (solve = 1) takes at these shapes, for the build report; elem is
+// the scalar's bytes (8: the double build, 4: the float build).
+extern "C" int band_lu_shared_bytes(int n, int ml, int mu, int solve, int elem) {
   using namespace diffsol_band;
-  return (int)(solve ? solve_plan(n, ml, mu) : factor_plan(ml, mu)).bytes();
+  return (int)(solve ? solve_plan(n, ml, mu, elem) : factor_plan(ml, mu, elem)).bytes();
 }
 
 #endif  // DIFFSOL_BAND_LU_NO_ENTRY

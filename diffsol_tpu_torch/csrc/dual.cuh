@@ -170,6 +170,15 @@ template <typename S>
 __device__ __forceinline__ Dual<S> dsol_sign(const Dual<S>& x) {
   return Dual<S>(S(x.v > S(0)) - S(x.v < S(0)), S(0));
 }
+// A cast to float32 in the model (OdeBuilder.dtype's wrapper): value and
+// tangent rounded to float to nearest, as torch's _to_copy and its jvp;
+// the arithmetic after it stays in the scalar type.
+__device__ __forceinline__ double dsol_f32(double x) { return double(__double2float_rn(x)); }
+__device__ __forceinline__ float dsol_f32(float x) { return x; }
+template <typename S>
+__device__ __forceinline__ Dual<S> dsol_f32(const Dual<S>& x) {
+  return Dual<S>(dsol_f32(x.v), dsol_f32(x.d));
+}
 template <typename S>
 __device__ __forceinline__ Dual<S> dsol_maximum(const Dual<S>& a, const Dual<S>& b) {
   return a.v >= b.v ? a : b;

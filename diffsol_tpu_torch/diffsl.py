@@ -425,22 +425,23 @@ class _TorchNp:
     A tensor passes through untouched (``torch.as_tensor`` on a traced or
     batched tensor breaks ``make_fx``, ``vmap`` and ``jvp``); a Python
     number stays a Python number where numpy's semantics allow it, and
-    becomes a float64 tensor on ``device`` where a torch function needs
-    one."""
+    becomes a tensor of the problem's dtype on ``device`` where a torch
+    function needs one."""
 
-    def __init__(self, device):
+    def __init__(self, device, dtype=F64):
         self.device = device
+        self.dtype = dtype
 
     def tensor(self, a) -> torch.Tensor:
         if _is_tensor(a):
             return a
         if np.ndim(a) == 0:  # a fill on the device, no host copy
-            return torch.full((), float(a), dtype=F64, device=self.device)
-        return torch.as_tensor(np.asarray(a, np.float64), device=self.device)
+            return torch.full((), float(a), dtype=self.dtype, device=self.device)
+        return torch.as_tensor(np.asarray(a, np.float64), device=self.device).to(self.dtype)
 
     def stack(self, parts):
         if not any(_is_tensor(a) for a in parts):  # literals: one copy
-            return torch.tensor(parts, dtype=F64, device=self.device)
+            return torch.tensor(parts, dtype=self.dtype, device=self.device)
         return torch.stack([self.tensor(a) for a in parts])
 
     def asarray(self, a):
@@ -466,7 +467,7 @@ class _TorchNp:
         return torch.cat([self.tensor(a) for a in parts])
 
     def zeros(self, shape):
-        return torch.zeros(shape, dtype=F64, device=self.device)
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
     def where(self, m, a, b):
         if not _is_tensor(m):
@@ -962,13 +963,15 @@ class DiffslModel:
 
     # ---- callables ----
     def make_callables(self) -> dict:
-        """The float64 torch closures ``rhs(t, y, p)``, ``init(t, p)`` and,
+        """The torch closures ``rhs(t, y, p)``, ``init(t, p)`` and,
         as the model has them, ``mass(t, p)``, ``root``, ``out``, ``reset``
         ``(t, y, p)`` and ``reset_n(t, y, p, k)``.
 
         The mass is the exact Jacobian of the linear mass action; when the
         action reads neither t nor a parameter it is computed once, here,
-        and kept with the folded constants."""
+        and kept with the folded constants.  They compute in the dtype of
+        ``p`` (float64, or float32 for ``OdeBuilder.dtype(torch.float32)``),
+        the folded constants and literals included."""
         by_name = {td.name: td for td in self.defs}
         param_labels = self.param_labels
         state_segs = self.state_segments
@@ -1029,10 +1032,10 @@ class DiffslModel:
             return arr
 
         def hidden_zero(like):
-            return torch.zeros((1,), dtype=F64, device=like.device)
+            return torch.zeros((1,), dtype=like.dtype, device=like.device)
 
         def init(t, p):
-            xp = _TorchNp(p.device)
+            xp = _TorchNp(p.device, p.dtype)
             env = eval_intermediates(base_env(t, p), xp, skip_state_deps=True)
             td = by_name["u"]
             arr, _ = _eval_vector(td, _Eval(xp, env, {}, td.idx or "i"))
@@ -1042,7 +1045,7 @@ class DiffslModel:
             return arr
 
         def rhs(t, y, p):
-            xp = _TorchNp(y.device)
+            xp = _TorchNp(y.device, y.dtype)
             yf = y.reshape((n_full,))
             env = eval_intermediates(bind_state(base_env(t, p), yf), xp)
             f = eval_special("F", env, xp).reshape((n,))
@@ -1054,7 +1057,7 @@ class DiffslModel:
 
         if self.has_mass:
             def mass_action(t, p, v):
-                xp = _TorchNp(v.device)
+                xp = _TorchNp(v.device, v.dtype)
                 vf = v.reshape((n_full,))
                 vb = vf[:n]
                 env = base_env(t, p)
@@ -1073,7 +1076,7 @@ class DiffslModel:
             def mass_jac(t, p):
                 # M_i is linear in dudt: the matrix is its exact Jacobian
                 return torch.func.jacfwd(lambda v: mass_action(t, p, v))(
-                    torch.zeros((n_full,), dtype=F64, device=p.device))
+                    torch.zeros((n_full,), dtype=p.dtype, device=p.device))
 
             moving = {"t", "N"} | {pl[0] for pl in param_labels}
             if _deps("M", by_name, order, {}) & moving:
@@ -1089,7 +1092,7 @@ class DiffslModel:
 
         def make_state_fn(tdname):
             def f(t, y, p):
-                xp = _TorchNp(y.device)
+                xp = _TorchNp(y.device, y.dtype)
                 env = bind_state(base_env(t, p), y.reshape((n_full,)))
                 return eval_special(tdname, eval_intermediates(env, xp), xp)
 
@@ -1113,8 +1116,8 @@ class DiffslModel:
                     # reference protocol: N <- index of the fired root,
                     # THEN the reset applies (ode_solver_type.rs:66)
                     yf = y.reshape((n_full,))
-                    kf = torch.as_tensor(k, dtype=F64, device=yf.device).reshape((1,))
-                    xp = _TorchNp(yf.device)
+                    kf = torch.as_tensor(k, dtype=yf.dtype, device=yf.device).reshape((1,))
+                    xp = _TorchNp(yf.device, yf.dtype)
                     env = bind_state(base_env(t, p), yf)
                     env["N"] = (kf[0], 0)
                     vals = eval_special("reset", eval_intermediates(env, xp), xp)

@@ -62,6 +62,13 @@ class Solution:
     def replace(self, **kw) -> "Solution":
         return dataclasses.replace(self, **kw)
 
+    def raise_for_status(self) -> "Solution":
+        """Raise :class:`~diffsol_tpu_torch.errors.DiffsolError` when the
+        solve failed (a negative ``stop_reason``), naming the time the
+        final state reached; else return the solution."""
+        errors.check_status(int(self.stop_reason), float(self.state.t))
+        return self
+
 
 def resolve_device(device, who: str) -> torch.device:
     """The device a solve runs on: None means the card, and raises when
@@ -118,7 +125,7 @@ def _prepare(solver, params, state, device, who):
         solver.problem = solver.problem.to(dev)
     p = solver.problem
     params = p.params if params is None else torch.as_tensor(
-        params, dtype=torch.float64).to(dev)
+        params, dtype=p.dtype).to(dev)
     if state is None:
         state = solver.init_state(params)
     elif state.y.device != dev:

@@ -17,6 +17,10 @@
   otherwise, and lockstep whenever the solver integrates augmented rows
   (``sens=True``), which the fused kernels do not carry.
 
+A float32 problem (``OdeBuilder.dtype``) solves in float32 in lockstep and
+independent modes; the fused tiers run their float64 kernels on it and
+return float64, as the JAX package's fused tier does.
+
 A solve runs on ``device``, the card unless the caller passes
 ``device="cpu"``; ``params_batch`` (numpy, list or tensor) is placed
 there.  Without a card the default raises rather than run on the CPU.
@@ -159,10 +163,15 @@ def _fused_solution(fsolve, tier, ts_on, params_batch, t_eval, problem) -> Solut
     TSTOP_REACHED with no root reported, a root without a reset ends
     ROOT_FOUND at member 0's polished crossing, and a crossing that a
     tile's members, or the tiles among themselves, disagree on is
-    ROOT_BATCH_INCONSISTENT."""
+    ROOT_BATCH_INCONSISTENT.  The kernels are float64 builds: a float32
+    problem's params are cast up and ``ys`` comes back float64, as from
+    the JAX package's fused tier (pallas_stepper.py:2036).  Its callables'
+    casts to float32 round each rhs there as in the plain version, which
+    runs them (the generated model keeps each cast, eqn_codegen's
+    ``f32``)."""
     from .ops import fused_stepper as fs
 
-    raw = fsolve(params_batch)
+    raw = fsolve(params_batch.to(torch.float64))
     gs = root_t = root_idx = None
     if isinstance(raw, dict):
         ys, status, steps = raw["ys"], raw["status"], raw["steps"]
@@ -220,7 +229,8 @@ def solve_dense_ensemble(
     device=None,
     precision: str = "df",
 ) -> Solution:
-    """Solve an ensemble over ``params_batch`` (B, nparams) float64.
+    """Solve an ensemble over ``params_batch`` (B, nparams) in the
+    problem's dtype (float64, or float32 for ``OdeBuilder.dtype``).
 
     ``make_solver`` is a problem -> solver factory (``BdfSolver``, or
     ``lambda pr: solver(pr, "tr_bdf2")``); the lockstep and independent
@@ -247,10 +257,11 @@ def solve_dense_ensemble(
         raise ValueError(f"precision must be 'df', 'mixed' or 'fast': {precision!r}")
     dev = resolve_device(device, "solve_dense_ensemble")
     if isinstance(params_batch, torch.Tensor):
-        if params_batch.dtype != F64:
-            raise TypeError(f"params_batch must be float64, got {params_batch.dtype}")
+        if params_batch.dtype != problem.dtype:
+            raise TypeError(f"params_batch must be {problem.dtype} as the problem, "
+                            f"got {params_batch.dtype}")
     else:
-        params_batch = torch.as_tensor(params_batch, dtype=F64)
+        params_batch = torch.as_tensor(params_batch, dtype=F64).to(problem.dtype)
     params_batch = params_batch.to(dev)
     nbatch = params_batch.shape[0]
 

@@ -90,8 +90,10 @@ def make_equations(rhs, init, params, t0=0.0, *, mass=None, mass_diag=None,
     """Build an :class:`OdeEquations`, inferring ``nstates`` from one
     evaluation of ``init`` at (t0, params), and ``nroots`` and ``nout``
     from one evaluation of ``root`` and ``out`` on that state."""
-    params = torch.as_tensor(params, dtype=F64)
-    t0 = torch.as_tensor(t0, dtype=F64, device=params.device)
+    params = torch.as_tensor(params)
+    if not params.is_floating_point():
+        params = params.to(F64)
+    t0 = torch.as_tensor(t0, dtype=params.dtype, device=params.device)
     y0 = init(t0, params)
     nstates = int(y0.shape[-1]) if y0.ndim else 1
 

@@ -117,6 +117,8 @@ def problem_from_jax(jax_problem, rhs=None, init=None, mass=None, root=None,
         b = b.linear_solver(make_blockdiag_solver(np.asarray(perm), int(nb), int(K)))
     elif spec.name == "dense" and hasattr(jax_problem.eqn.rhs_jac, "jvp_probes"):
         b = b.use_coloring()  # the JAX OdeBuilder kept a colored dense Jacobian
+    if str(np.asarray(jax_problem.t0).dtype) == "float32":
+        b = b.dtype(torch.float32)  # its numbers are float32's, exactly
     return b.build()
 
 

@@ -20,10 +20,10 @@ from ..problem import OdeBuilder
 F64 = torch.float64
 
 
-def make(mgrid: int = 20, rtol=1e-6, atol=1e-6, banded: bool = False):
+def make(mgrid: int = 20, rtol=1e-6, atol=1e-6, banded: bool = False, dtype=None):
     """Return (problem, soln) for an mgrid+1-point MOL discretization;
     ``banded`` routes Newton through the tridiagonal band tier
-    (ml = mu = 1)."""
+    (ml = mu = 1), ``dtype=torch.float32`` builds the float32 problem."""
     n = mgrid + 1
     h = 1.0 / (mgrid + 2)
 
@@ -40,6 +40,8 @@ def make(mgrid: int = 20, rtol=1e-6, atol=1e-6, banded: bool = False):
     b = OdeBuilder().rhs(rhs).init(init).p([1.0]).rtol(rtol).atol(atol)
     if banded:
         b = b.linear_solver(make_banded_solver(1, 1))
+    if dtype is not None:
+        b = b.dtype(dtype)
     problem = b.build()
 
     def soln(t, d: float = 1.0):

@@ -65,8 +65,10 @@ def callables(mgrid: int, mass_diag=None, u0=None) -> dict:
     return dict(rhs=rhs, init=init, mass=mass, out=out)
 
 
-def make(mgrid: int = 10, rtol=1e-5, atol=1e-5, banded: bool = True) -> OdeProblem:
-    """The heat2d DAE problem (n = mgrid^2 states)."""
+def make(mgrid: int = 10, rtol=1e-5, atol=1e-5, banded: bool = True,
+         dtype=None) -> OdeProblem:
+    """The heat2d DAE problem (n = mgrid^2 states); ``dtype=torch.float32``
+    builds the float32 problem."""
     fns = callables(mgrid)
     b = (
         OdeBuilder()
@@ -80,4 +82,6 @@ def make(mgrid: int = 10, rtol=1e-5, atol=1e-5, banded: bool = True) -> OdeProbl
     )
     if banded:
         b = b.linear_solver(make_banded_solver(mgrid, mgrid))
+    if dtype is not None:
+        b = b.dtype(dtype)
     return b.build()

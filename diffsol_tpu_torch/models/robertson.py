@@ -86,16 +86,21 @@ def problem_dae(rtol=1e-4, atol=(1e-8, 1e-6, 1e-6), p=P_DEFAULT) -> OdeProblem:
     )
 
 
-def problem_ode(rtol=1e-4, atol=(1e-8, 1e-6, 1e-6), p=P_DEFAULT) -> OdeProblem:
-    return (
+def problem_ode(rtol=1e-4, atol=(1e-8, 1e-6, 1e-6), p=P_DEFAULT,
+                dtype=None) -> OdeProblem:
+    """``dtype=torch.float32`` builds the float32 problem (JAX
+    robertson.py:84-96)."""
+    b = (
         OdeBuilder()
         .rhs(rhs_ode)
         .init(init)
         .p(list(p))
         .rtol(rtol)
         .atol(np.asarray(atol, np.float64))
-        .build()
     )
+    if dtype is not None:
+        b = b.dtype(dtype)
+    return b.build()
 
 
 def _groups_rhs(ngroups: int):
@@ -113,12 +118,13 @@ def _groups_rhs(ngroups: int):
 
 
 def problem_ode_groups(ngroups: int, rtol=1e-4, atol=(1e-8, 1e-6, 1e-6),
-                       p=P_DEFAULT, use_coloring=True) -> OdeProblem:
+                       p=P_DEFAULT, use_coloring=True, dtype=None) -> OdeProblem:
     """robertson_ode with ``ngroups`` duplicated groups sharing one
     parameter set (states group-major [x_g, y_g, z_g], nstates =
     3 ngroups).  With ``use_coloring`` the builder finds the 3x3 blocks
     and routes the problem to the block-diagonal tier,
-    ``blockdiag(3, ngroups)``; without it the Jacobian is dense."""
+    ``blockdiag(3, ngroups)``; without it the Jacobian is dense.
+    ``dtype`` as in :func:`problem_ode`."""
 
     def init(t, pv):
         return torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64,
@@ -134,4 +140,6 @@ def problem_ode_groups(ngroups: int, rtol=1e-4, atol=(1e-8, 1e-6, 1e-6),
     )
     if use_coloring:
         b = b.use_coloring()
+    if dtype is not None:
+        b = b.dtype(dtype)
     return b.build()

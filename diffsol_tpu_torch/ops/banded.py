@@ -14,9 +14,12 @@ the reference's sparse LU backends (KLU, faer sparse).
   KLU pivots, which a fixed-shape band code cannot).
 
 The JAX tier's ``kernel=`` switch (an f32 Pallas preconditioner on the
-TPU, the f64 XLA loop elsewhere) collapses into one float64 path whose
-device decides, as in :mod:`.band_lu`: CUDA tensors launch the band LU
-kernels (K3, K4), CPU tensors run their plain versions.
+TPU, the f64 XLA loop elsewhere) collapses into one path in the problem's
+dtype whose device decides, as in :mod:`.band_lu`: CUDA tensors launch
+the band LU kernels (K3, K4; a float32 problem their float build), CPU
+tensors run their plain versions.  The factors keep the assembled band
+beside them, so forward mode (``torch.func.jvp``, as in
+``solve_dense_fwd_sens``) passes through the solve.
 """
 
 from __future__ import annotations
@@ -98,10 +101,11 @@ def make_banded_solver(ml: int, mu: int) -> LinearSolverSpec:
     or (B, nb, n) for a lockstep ensemble; the equations' ``rhs_jac`` must
     produce it (the OdeBuilder installs :func:`make_banded_jac` when this
     tier is selected).  Factors are the column-leading (n+mu, nb, B) band
-    of :mod:`.band_lu`.  ``solve`` takes (n,), lockstep (B, n), or the
-    augmented rows (naug, n) and (naug, B, n): the rows go naug-major into
-    one (naug B, n) solve, row r against factorization r mod B (the JAX
-    tier folds them into K4's lanes, banded.py:231-243).
+    of :mod:`.band_lu` and the assembled band itself, whose tangent the
+    solve's forward-mode rule reads.  ``solve`` takes (n,), lockstep
+    (B, n), or the augmented rows (naug, n) and (naug, B, n): the rows go
+    naug-major into one (naug B, n) solve, row r against factorization r
+    mod B (the JAX tier folds them into K4's lanes, banded.py:231-243).
     """
     ml, mu = int(ml), int(mu)
     if ml < 0 or mu < 0:
@@ -119,11 +123,11 @@ def make_banded_solver(ml: int, mu: int) -> LinearSolverSpec:
         return m_band - c * jac_band
 
     def factor(a_band):
-        return (band_lu_factor(a_band, ml, mu),)
+        return band_lu_factor(a_band, ml, mu)
 
     def solve(factors, b):
         n = b.shape[-1]
-        return band_lu_solve(factors[0], b.reshape(-1, n), ml, mu).reshape(b.shape)
+        return band_lu_solve(factors, b.reshape(-1, n), ml, mu).reshape(b.shape)
 
     return LinearSolverSpec(
         name=f"banded({ml},{mu})", assemble=assemble, factor=factor,

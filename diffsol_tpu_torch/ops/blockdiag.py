@@ -81,16 +81,18 @@ class _Layout:
         )
         self._on = {}
 
-    def on(self, device) -> dict:
-        got = self._on.get(device)
+    def on(self, device, dtype=torch.float64) -> dict:
+        """The index tensors on ``device``, the identity blocks in
+        ``dtype``."""
+        got = self._on.get((device, dtype))
         if got is None:
             got = {k: v.to(device) for k, v in self._host.items()}
-            eye = torch.eye(self.nb, dtype=torch.float64, device=device)
+            eye = torch.eye(self.nb, dtype=dtype, device=device)
             got["eye"] = eye
             # identity on the padding's diagonal keeps the LU nonsingular
-            got["pad_diag"] = torch.diag_embed((~got["vmask"]).to(torch.float64))
+            got["pad_diag"] = torch.diag_embed((~got["vmask"]).to(dtype))
             got["pad"] = ~(got["vmask"][:, :, None] & got["vmask"][:, None, :])
-            self._on[device] = got
+            self._on[(device, dtype)] = got
         return got
 
     def gather(self, v, lay):
@@ -116,10 +118,10 @@ def make_blockdiag_jac(rhs, perm, nb: int, K: int, n: int):
     seeds_on = {}
 
     def jac(t, y, p):
-        lay = layout.on(y.device)
-        seeds = seeds_on.get(y.device)
+        lay = layout.on(y.device, y.dtype)
+        seeds = seeds_on.get((y.device, y.dtype))
         if seeds is None:
-            seeds = seeds_on[y.device] = seeds_host.to(y.device)
+            seeds = seeds_on[(y.device, y.dtype)] = seeds_host.to(y.device, y.dtype)
         probes = torch.stack([
             torch.func.jvp(lambda yy: rhs(t, yy, p), (y,),
                            (seeds[c].expand_as(y).contiguous(),))[1]
@@ -144,7 +146,7 @@ def _spec(perm, nb: int, K: int, name: str, meta: tuple) -> LinearSolverSpec:
     layout = _Layout(perm, nb, K)
 
     def assemble(mass, jac, c):
-        lay = layout.on(jac.device)
+        lay = layout.on(jac.device, jac.dtype)
         a = -c * jac
         if mass is None:
             a = a + lay["eye"]
@@ -162,7 +164,7 @@ def _spec(perm, nb: int, K: int, name: str, meta: tuple) -> LinearSolverSpec:
         return torch.linalg.lu_factor_ex(a.reshape(-1, nb, nb))[:2]
 
     def solve(factors, b):
-        lay = layout.on(b.device)
+        lay = layout.on(b.device, b.dtype)
         bb = layout.gather(b, lay)  # (..., K, nb)
         lu, piv = factors
         x = torch.linalg.lu_solve(

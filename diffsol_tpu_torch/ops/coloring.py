@@ -87,7 +87,9 @@ def detect_sparsity(rhs, t0, y0, params, n: int):
     the reference's NaN probing, input-dependent control flow can hide
     structure."""
     rng = np.random.default_rng(0)
-    y0 = torch.as_tensor(y0, dtype=F64)
+    y0 = torch.as_tensor(y0)
+    if not y0.is_floating_point():
+        y0 = y0.to(F64)
     y0_np = y0.detach().cpu().numpy()
     scale = np.maximum(np.abs(y0_np), 1.0)
     candidates = [
@@ -100,7 +102,7 @@ def detect_sparsity(rhs, t0, y0, params, n: int):
     any_finite = False
     for y_probe in candidates:
         jac = torch.func.jacfwd(rhs, argnums=1)(
-            t0, torch.as_tensor(y_probe, dtype=F64, device=y0.device), params)
+            t0, torch.as_tensor(y_probe, device=y0.device).to(y0.dtype), params)
         jac = jac.detach().cpu().numpy()
         if not np.all(np.isfinite(jac)):
             continue

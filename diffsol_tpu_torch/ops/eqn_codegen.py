@@ -47,8 +47,11 @@ import numpy as np
 import torch
 
 F64 = torch.float64
+# "f32" is a cast to float32 (``OdeBuilder.dtype``'s wrapper around each
+# callable): the value and its tangent rounded to float, as torch's
+# ``_to_copy`` and its jvp round them; what follows it stays double
 _UNARY = ("neg", "exp", "expm1", "log", "log1p", "sqrt", "rsqrt", "sin", "cos",
-          "tan", "sinh", "cosh", "tanh", "sigmoid", "abs", "sign")
+          "tan", "sinh", "cosh", "tanh", "sigmoid", "abs", "sign", "f32")
 _BINARY = ("add", "sub", "mul", "div")
 # maximum / minimum keep the operand the comparison picks, value and
 # tangent (DualAlgebra.maximum / minimum, dfinterp.py:389-397)
@@ -110,12 +113,16 @@ class _Builder:
     def _fold(self, node):
         """The node an arithmetic node with a literal 0 or 1 operand
         reduces to, else None: x*0 -> 0, 0/x -> 0, 0+x -> x, x*1 -> x,
-        x/1 -> x, x-0 -> x.  A constant matrix contracted with the state
+        x/1 -> x, x-0 -> x; a cast of a literal to float32 to the rounded
+        literal.  A constant matrix contracted with the state
         (a DiffSL Laplacian, A_ij * u_j) unrolls into n^2 products, nearly
         all by a literal 0; folded, it keeps the band's.  The result changes
         only where x is not finite (0 * inf is NaN, not 0), where the step
         fails anyway, and the kernel and its plain version share the IR."""
         op = node[0]
+        if op == "f32":  # a literal rounds here, once
+            a = self._literal(node[1])
+            return None if a is None else self.const(float(np.float32(a)))
         if op not in _BINARY:
             return None
         a, b = self._literal(node[1]), self._literal(node[2])
@@ -403,6 +410,8 @@ def trace_ir(fn: Callable, arg_kinds, arg_sizes) -> ScalarIR:
             if dt is not None and dt not in (torch.float64, torch.float32):
                 raise UnsupportedForKernel(f"{name} to {dt}")
             res = val(args[0])
+            if dt == torch.float32:
+                res = _map1(lambda u: b.add(("f32", u)), res)
         else:
             raise UnsupportedForKernel(
                 f"operation {name} is outside the fused kernel's scope"
@@ -615,6 +624,9 @@ def _eval(ir: ScalarIR, t, y, p, ty=None):
             elif op == "sign":
                 v = torch.sign(x)
                 dv = zero if dual else None
+            elif op == "f32":
+                v = x.float().double()
+                dv = dx.float().double() if dual else None
             else:
                 raise UnsupportedForKernel(f"IR op {op!r}")
         vals.append(v)

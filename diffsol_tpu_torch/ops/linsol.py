@@ -2,8 +2,9 @@
 
 * ``dense`` factors the iteration matrix ``A = M - c*J`` with
   ``torch.linalg.lu_factor`` and solves with ``torch.linalg.lu_solve``;
-  both are float64 on the CPU and on CUDA and take a member-major
-  (B, n, n) stack as readily as one (n, n) matrix.  A right-hand side's
+  both run in the problem's dtype (float64, or float32) on the CPU and on
+  CUDA and take a member-major (B, n, n) stack as readily as one (n, n)
+  matrix.  A right-hand side's
   extra leading axis (the augmented rows, (naug, n) or (naug, B, n))
   broadcasts over the factorization in the same ``lu_solve`` call.  (The JAX package's
   hand-unrolled ``smalllu`` exists only because TPU XLA has no f64 LU, so

@@ -13,8 +13,9 @@
   across solves and reset to 20^1.25 on a Jacobian refresh and to 100^1.25
   on a step-size change.
 
-The loop is eager and its bookkeeping is float64 (the JAX version keeps it
-in float32 for the TPU).
+The loop is eager and its bookkeeping is Python floats (the JAX version
+keeps it in float32 for the TPU); the eta floor's eps is the state's
+dtype's, as in the JAX version.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ DIVERGED = 2
 
 ETA_RESET_JACOBIAN = 20.0**1.25
 ETA_RESET_TIMESTEP = 100.0**1.25
-_EPS = float(torch.finfo(torch.float64).eps)
 
 
 class NewtonResult(NamedTuple):
@@ -52,6 +52,7 @@ def newton_solve(residual: Callable, lin_solve: Callable, x0, error_y, atol,
     scale = error_scale(error_y, atol, rtol)
     first_norm = 0.0
     eta = float(eta0)
+    eps = float(torch.finfo(x0.dtype).eps)
     niter = 0
     status = CONTINUE
     while status == CONTINUE and niter < max_iter:
@@ -60,7 +61,7 @@ def newton_solve(residual: Callable, lin_solve: Callable, x0, error_y, atol,
         nrm = math.sqrt(float(scaled_per_member(delta, scale).amax()))
         niter += 1
         if niter == 1:
-            eta = max(eta, 1e4 * _EPS) ** 0.8
+            eta = max(eta, 1e4 * eps) ** 0.8
             diverged = False
             first_norm = nrm
         else:

@@ -2,9 +2,10 @@
 ``diffsol_tpu.problem``; the defaults are the reference's and the JAX
 package's).
 
-Every tensor a problem holds is float64.  The builder keeps them on the
-CPU; the solve entry points move a problem with :meth:`OdeProblem.to` to
-the device they run on, the card unless the caller asks for the CPU.
+Every tensor a problem holds has its dtype: float64 unless the builder
+was given ``.dtype(torch.float32)``.  The builder keeps them on the CPU;
+the solve entry points move a problem with :meth:`OdeProblem.to` to the
+device they run on, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from .equations import OdeEquations, make_equations
 from .ops.linsol import DENSE, LinearSolverSpec
 
 F64 = torch.float64
+DTYPES = (torch.float64, torch.float32)
 
 
 @dataclass(frozen=True)
@@ -138,6 +140,12 @@ class OdeProblem:
     def sens_in_error_control(self) -> bool:
         return self.sens_rtol is not None and self.sens_atol is not None
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The solve's precision: every tensor of the problem, the state
+        and the outputs carry it (``OdeBuilder.dtype``)."""
+        return self.t0.dtype
+
     def to(self, device) -> "OdeProblem":
         """The same problem with its tensors on ``device``."""
         def moved(v):
@@ -213,6 +221,7 @@ class OdeBuilder:
         self._options = OdeSolverOptions()
         self._linear_solver = DENSE
         self._use_coloring = False
+        self._dtype = None  # float64
 
     # equations ---------------------------------------------------------
     def rhs(self, f: Callable):
@@ -412,26 +421,58 @@ class OdeBuilder:
         return self.build_from_eqn(compile_diffsl(source))
 
     def dtype(self, d):
-        _later("a float32 solve (OdeBuilder.dtype)", "queue 1 item 18")
+        """Solve precision, ``torch.float64`` (the default) or
+        ``torch.float32`` (reference ScalarType{F32,F64},
+        diffsol-c/src/scalar_type.rs; JAX problem.py:420-430).  The init,
+        rhs, mass, root, out, reset and Jacobian callables are wrapped so
+        that their outputs carry this dtype whatever the user's closures
+        return, and params, t0, h0 and every tolerance carry it too.  On
+        the card a float32 banded problem runs the band LU kernels' float
+        build."""
+        if d not in DTYPES:
+            raise TypeError(f"dtype must be torch.float64 or torch.float32, got {d}")
+        self._dtype = d
+        return self
 
     # build --------------------------------------------------------------
     def build(self) -> OdeProblem:
         if self._rhs is None or self._init is None:
             raise ValueError("OdeBuilder requires at least .rhs(...) and .init(...)")
-        params = self._p
+        # work on locals: build() must not change the builder, so that a
+        # second build with another dtype does not stack casts (JAX
+        # problem.py:434-460)
+        dtype = self._dtype or F64
+        rhs_f, init_f, mass_f = self._rhs, self._init, self._mass
+        root_f, out_f, reset_f = self._root, self._out, self._reset
+        reset_n_f, rhs_jac = self._reset_n, self._rhs_jac
+        if self._dtype is not None:
+            def cast(f):
+                if f is None:
+                    return None
+
+                def casted(*a):
+                    out = f(*a)
+                    if not isinstance(out, torch.Tensor):
+                        out = torch.as_tensor(out)
+                    return out.to(dtype)
+                return casted
+
+            rhs_f, init_f, mass_f = cast(rhs_f), cast(init_f), cast(mass_f)
+            root_f, out_f, reset_f = cast(root_f), cast(out_f), cast(reset_f)
+            reset_n_f, rhs_jac = cast(reset_n_f), cast(rhs_jac)
+        params = self._p.to(dtype)
         mass_diag = None
-        if self._mass is not None:
+        if mass_f is not None:
             # probe at several times and perturbed params, as the JAX
             # builder does: a mass whose off-diagonals merely vanish at
             # (t0, p) must not be taken as diagonal
-            mass_f = self._mass
             probes = [
                 (self._t0, params),
                 (self._t0 + 1.0, params),
                 (self._t0 + 0.5, params * 1.25 + 0.125),
             ]
             if all(
-                _is_diagonal(mass_f(torch.tensor(t, dtype=F64), pp))
+                _is_diagonal(mass_f(torch.tensor(t, dtype=dtype), pp))
                 for t, pp in probes
             ):
                 def mass_diag(t, p):
@@ -439,7 +480,6 @@ class OdeBuilder:
 
         # a user Jacobian (rhs_implicit) wins over the tier's own, as in the
         # JAX OdeBuilder
-        rhs_jac = self._rhs_jac
         linear_solver = self._linear_solver
         if rhs_jac is None and linear_solver.name.startswith("banded"):
             # the tier's representation is the band (builder.rs
@@ -447,56 +487,53 @@ class OdeBuilder:
             from .ops.banded import make_banded_jac
 
             ml, mu = linear_solver.meta[:2]
-            rhs_jac = make_banded_jac(self._rhs, ml, mu)
+            rhs_jac = make_banded_jac(rhs_f, ml, mu)
         elif rhs_jac is None and linear_solver.name.startswith("blockdiag"):
             from .ops.blockdiag import make_blockdiag_jac
 
             nb, K, perm = linear_solver.meta[:3]
-            rhs_jac = make_blockdiag_jac(self._rhs, perm, nb, K,
+            rhs_jac = make_blockdiag_jac(rhs_f, perm, nb, K,
                                          int((np.asarray(perm) >= 0).sum()))
         elif rhs_jac is None and self._use_coloring:
-            rhs_jac, linear_solver = self._colored_tier(params, linear_solver)
+            rhs_jac, linear_solver = self._colored_tier(
+                rhs_f, init_f, mass_f, params, linear_solver)
         eqn = make_equations(
-            self._rhs, self._init, params, self._t0,
-            mass=self._mass, mass_diag=mass_diag, rhs_jac=rhs_jac,
-            root=self._root, out=self._out, reset=self._reset,
-            reset_n=self._reset_n,
+            rhs_f, init_f, params, self._t0,
+            mass=mass_f, mass_diag=mass_diag, rhs_jac=rhs_jac,
+            root=root_f, out=out_f, reset=reset_f, reset_n=reset_n_f,
         )
 
+        def scalar(v):
+            return None if v is None else torch.tensor(float(v), dtype=dtype)
+
         def vec(v, nv):
-            v = (v.detach().to(F64).cpu() if isinstance(v, torch.Tensor)
-                 else torch.tensor(np.asarray(v, np.float64))).reshape(-1)
+            if v is None:
+                return None
+            v = (v.detach().to(dtype).cpu() if isinstance(v, torch.Tensor)
+                 else torch.tensor(np.asarray(v, np.float64)).to(dtype)).reshape(-1)
             return v.expand(nv).clone() if v.numel() == 1 else v
 
-        atol = vec(self._atol, eqn.nstates)
         return OdeProblem(
             eqn=eqn,
             params=params.clone(),
-            t0=torch.tensor(self._t0, dtype=F64),
-            h0=torch.tensor(self._h0, dtype=F64),
-            rtol=torch.tensor(self._rtol, dtype=F64),
-            atol=atol,
-            out_rtol=(None if self._out_rtol is None
-                      else torch.tensor(float(self._out_rtol), dtype=F64)),
-            out_atol=(None if self._out_atol is None
-                      else vec(self._out_atol, eqn.nout)),
-            sens_rtol=(None if self._sens_rtol is None
-                       else torch.tensor(float(self._sens_rtol), dtype=F64)),
-            sens_atol=(None if self._sens_atol is None
-                       else vec(self._sens_atol, eqn.nstates)),
-            param_rtol=(None if self._param_rtol is None
-                        else torch.tensor(float(self._param_rtol), dtype=F64)),
-            param_atol=(None if self._param_atol is None
-                        else vec(self._param_atol, eqn.nparams)),
-            param_scales=(None if self._param_scales is None
-                          else vec(self._param_scales, eqn.nparams)),
+            t0=scalar(self._t0),
+            h0=scalar(self._h0),
+            rtol=scalar(self._rtol),
+            atol=vec(self._atol, eqn.nstates),
+            out_rtol=scalar(self._out_rtol),
+            out_atol=vec(self._out_atol, eqn.nout),
+            sens_rtol=scalar(self._sens_rtol),
+            sens_atol=vec(self._sens_atol, eqn.nstates),
+            param_rtol=scalar(self._param_rtol),
+            param_atol=vec(self._param_atol, eqn.nparams),
+            param_scales=vec(self._param_scales, eqn.nparams),
             integrate_out=self._integrate_out,
             options=self._options,
             ic_options=self._ic_options,
             linear_solver=linear_solver,
         )
 
-    def _colored_tier(self, params, linear_solver):
+    def _colored_tier(self, rhs_f, init_f, mass_f, params, linear_solver):
         """``use_coloring``'s routing, in the JAX OdeBuilder's order
         (problem.py:473-546): independent dense blocks to the
         block-diagonal tier, a narrow band to the banded tier, else the
@@ -507,16 +544,16 @@ class OdeBuilder:
                                     make_blockdiag_solver)
         from .ops.coloring import detect_sparsity, greedy_color, make_colored_jac
 
-        t0 = torch.tensor(self._t0, dtype=F64)
-        y0 = self._init(t0, params)
+        t0 = torch.tensor(self._t0, dtype=params.dtype)
+        y0 = init_f(t0, params)
         n = int(y0.shape[-1])
-        rows, cols = detect_sparsity(self._rhs, t0, y0, params, n)
+        rows, cols = detect_sparsity(rhs_f, t0, y0, params, n)
         ml = int(np.max(rows - cols)) if len(rows) else 0
         mu = int(np.max(cols - rows)) if len(rows) else 0
         blk_rows, blk_cols = rows, cols
-        if self._mass is not None:
+        if mass_f is not None:
             # the iteration matrix is M - c J: the band must cover M too
-            mi, mj = np.nonzero(self._mass(t0, params).detach().cpu().numpy())
+            mi, mj = np.nonzero(mass_f(t0, params).detach().cpu().numpy())
             if len(mi):
                 ml = max(ml, int(np.max(mi - mj)))
                 mu = max(mu, int(np.max(mj - mi)))
@@ -525,11 +562,11 @@ class OdeBuilder:
         blocks = detect_blocks(blk_rows, blk_cols, n) if n >= 8 else None
         if blocks is not None:
             perm, nb, K = blocks
-            return (make_blockdiag_jac(self._rhs, perm, nb, K, n),
+            return (make_blockdiag_jac(rhs_f, perm, nb, K, n),
                     make_blockdiag_solver(perm, nb, K))
         if n >= 8 and ml + mu + 1 <= max(n // 2, 1):
-            return make_banded_jac(self._rhs, ml, mu), make_banded_solver(ml, mu)
+            return make_banded_jac(rhs_f, ml, mu), make_banded_solver(ml, mu)
         # (the JAX OdeBuilder's matrix-free Krylov route for n >= 256 is taken
         # on a TPU only, where a dense f64 LU cannot compile; queue 1 item 14)
         colors, ncolors = greedy_color(rows, cols, n, n)
-        return make_colored_jac(self._rhs, rows, cols, colors, ncolors, n), linear_solver
+        return make_colored_jac(rhs_f, rows, cols, colors, ncolors, n), linear_solver

@@ -16,9 +16,11 @@ Two routes, as in the JAX package:
    its factorized ``M - c J``: ``BdfSolver(problem, sens=True)`` (or the
    SDIRK and ERK solvers), whose ``Solution.sens`` holds the rows.
 
-A kernel launch reads raw memory and cannot carry a tangent, so route 1
-refuses a problem whose linear solves run the band LU kernels on the card
-(the launch wrappers raise); route 2 runs them.
+Both routes run the band LU kernels on the card for a banded problem:
+route 1 through the forward-mode rule of the tier's entry points
+(:mod:`.ops.band_lu`: the factors carry no tangent, and the solve's
+tangent x' = A^-1 (b' - A' x) is one more K4 launch on the same factors),
+route 2 with the rows as right-hand sides of K4.
 """
 
 from __future__ import annotations
@@ -26,8 +28,6 @@ from __future__ import annotations
 import torch
 
 from .drivers import resolve_device, solve_dense
-
-F64 = torch.float64
 
 
 def solve_dense_fwd_sens(solver, t_eval, params=None, max_steps: int = 100_000,
@@ -43,7 +43,7 @@ def solve_dense_fwd_sens(solver, t_eval, params=None, max_steps: int = 100_000,
     """
     dev = resolve_device(device, "solve_dense_fwd_sens")
     p = solver.problem
-    params = p.params if params is None else torch.as_tensor(params, dtype=F64)
+    params = p.params if params is None else torch.as_tensor(params, dtype=p.dtype)
     params = params.to(dev)
     npar = params.shape[-1]
 

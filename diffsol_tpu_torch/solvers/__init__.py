@@ -1,5 +1,6 @@
 """Time steppers (counterparts of ``diffsol_tpu.solvers``)."""
 
+from . import sde  # noqa: F401
 from .bdf import BdfSolver  # noqa: F401
 from .erk import ErkSolver  # noqa: F401
 from .sdirk import SdirkSolver  # noqa: F401

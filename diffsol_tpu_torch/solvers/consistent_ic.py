@@ -32,7 +32,6 @@ from ..ops.banded import make_banded_jac
 from ..ops.linsol import DENSE
 from ..ops.newton import CONTINUE, CONVERGED, DIVERGED, ETA_RESET_JACOBIAN
 
-_EPS = float(torch.finfo(torch.float64).eps)
 
 
 def algebraic_mask(problem, params=None):
@@ -79,7 +78,8 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
     t0 = p.t0 if t is None else p.t0.new_tensor(float(t))
     ic = p.ic_options
     tol = float(p.options.nonlinear_solver_tolerance)
-    steptol = _EPS ** (2.0 / 3.0)
+    eps = float(torch.finfo(y.dtype).eps)  # the state's dtype's, as JAX's
+    steptol = eps ** (2.0 / 3.0)
     tau, armijo_c = ic.step_reduction_factor, ic.armijo_constant
     max_newton = ic.max_newton_iterations
     is_alg = is_alg.to(y.device)  # the solver's mask may predate the move to the card
@@ -99,7 +99,7 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
     def check(niter, nrm, first_norm, eta):
         """Convergence check (convergence.rs:69-130) -> (status, eta)."""
         if niter == 1:
-            eta_new = max(eta, 1e4 * _EPS) ** 0.8
+            eta_new = max(eta, 1e4 * eps) ** 0.8
             diverged = False
         else:
             ratio = nrm / first_norm if first_norm > 0.0 else math.inf

@@ -101,11 +101,11 @@ class RkState:
     sdiff: Optional[torch.Tensor] = None
 
 
-def tableau_arrays(tab: Tableau, device=None):
-    """``(a, b, c, d, beta)`` of a tableau as float64 tensors on
+def tableau_arrays(tab: Tableau, device=None, dtype=torch.float64):
+    """``(a, b, c, d, beta)`` of a tableau as ``dtype`` tensors on
     ``device`` (``beta`` None without a continuous extension)."""
     def t(v):
-        return torch.tensor(np.asarray(v), dtype=torch.float64, device=device)
+        return torch.tensor(np.asarray(v), dtype=dtype, device=device)
 
     beta = None if tab.beta is None else t(tab.beta)
     return t(tab.a), t(tab.b), t(tab.c), t(tab.d), beta
@@ -240,10 +240,12 @@ class RkSolver:
         return self.tableau.order
 
     def _arrays(self, device):
-        """The tableau's tensors on ``device``, made once a device."""
+        """The tableau's tensors on ``device`` in the problem's dtype, made
+        once a device."""
         got = self._tabs.get(device)
         if got is None:
-            got = self._tabs[device] = tableau_arrays(self.tableau, device)
+            got = self._tabs[device] = tableau_arrays(self.tableau, device,
+                                                      self.problem.dtype)
         return got
 
     def _t(self, t: float) -> torch.Tensor:

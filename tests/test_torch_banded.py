@@ -105,7 +105,7 @@ def test_plain_band_lu_matches_jax_xla(ml, mu, n):
     jx = np.asarray(jb._band_lu_solve(jnp.asarray(jf), jnp.asarray(b), ml, mu))
     F = band_lu.band_lu_factor(torch.tensor(band), ml, mu)  # (n + mu, nb, 1)
     x = band_lu.band_lu_solve(F, torch.tensor(b), ml, mu)
-    np.testing.assert_allclose(F[:, :, 0].numpy().T, jf, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(F.lu[:, :, 0].numpy().T, jf, rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(x.numpy(), jx, rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(a @ x.numpy(), b, rtol=1e-10, atol=1e-10)
     # three members, member-major (B, nb, n): each its own system
@@ -131,7 +131,7 @@ def test_plain_band_lu_matches_jax_pallas_interpret():
     F = band_lu.band_lu_factor(torch.tensor(np.asarray(band)), ml, mu)
     x = band_lu.band_lu_solve(F, torch.tensor(b), ml, mu)
     # the column-leading layouts are the same
-    np.testing.assert_allclose(F[:, :, 0].numpy(), np.asarray(pf), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(F.lu[:, :, 0].numpy(), np.asarray(pf), rtol=1e-4, atol=1e-5)
     assert np.max(np.abs(x.numpy() - px)) < 1e-4
 
 

@@ -63,8 +63,8 @@ def test_bdf_diagonal_mass_and_failures():
     """A constant diagonal mass takes the elementwise path (M y' = f with
     M = diag(2, 2) halves the decay rate), a singular one starts from
     consistent initial conditions (y1 = y0 here), a dense one takes the
-    matrix path, and what the port still lacks raises with its ROADMAP
-    item."""
+    matrix path, each also in float32 (``OdeBuilder.dtype``), and what the
+    port still lacks raises with its ROADMAP item."""
     f64 = torch.float64
     problem = (
         dtt.OdeBuilder()
@@ -111,9 +111,26 @@ def test_bdf_diagonal_mass_and_failures():
     t = np.array([0.5, 1.0])
     np.testing.assert_allclose(sol.ys.numpy(), np.exp(-t)[:, None]
                                * np.stack([1.0 + 0.5 * t, np.ones(2)], axis=1), rtol=1e-6)
+    # float32 (ROADMAP item 18b): the same three masses build and solve in
+    # float32, the diagonal one on the elementwise path, within float32's
+    # tolerance of the float64 solutions
+    for prob in (problem, singular, dense_mass):
+        b32 = (dtt.OdeBuilder().rhs(prob.eqn.rhs).init(prob.eqn.init)
+               .mass(prob.eqn.mass).p(prob.params.tolist()).rtol(1e-5).atol(1e-7)
+               .dtype(torch.float32))
+        p32 = b32.build()
+        assert p32.dtype == p32.params.dtype == p32.atol.dtype == torch.float32
+        assert (p32.eqn.mass_diag_fn is None) == (prob.eqn.mass_diag_fn is None)
+        s32 = dtt.solve_dense(dtt.BdfSolver(p32), [0.5, 1.0], device="cpu")
+        s64 = dtt.solve_dense(dtt.BdfSolver(prob), [0.5, 1.0], device="cpu")
+        assert s32.ys.dtype == torch.float32
+        assert s32.stop_reason == dtt.errors.TSTOP_REACHED
+        np.testing.assert_allclose(s32.ys.numpy(), s64.ys.numpy(), rtol=2e-4)
+    with pytest.raises(TypeError, match="float64 or torch.float32"):
+        dtt.OdeBuilder().dtype(torch.float16)
     # what is still outside the port names its ROADMAP item
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        dtt.OdeBuilder().dtype(torch.float32)
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        dtt.OdeBuilder().linear_solver("krylov")
 
 
 def test_solve_dense_runs_on_the_card_unless_asked_for_the_cpu():

@@ -362,8 +362,9 @@ def _check_band_lu(band, b, ml, mu, residual_tol):
     from diffsol_tpu_torch.ops import band_lu
 
     f0, s0 = band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches
-    F = band_lu.band_lu_factor(band, ml, mu)
-    x = band_lu.band_lu_solve(F, b, ml, mu)
+    fac = band_lu.band_lu_factor(band, ml, mu)
+    x = band_lu.band_lu_solve(fac, b, ml, mu)
+    F = fac.lu
     torch.cuda.synchronize()
     assert band_lu.launch_band_lu_factor.launches == f0 + 1
     assert band_lu.launch_band_lu_solve.launches == s0 + 1
@@ -981,14 +982,14 @@ def test_band_lu_solve_rows_per_factorization_cuda(naug, fb):
 
     n, B, ml, mu = 128, 64, 3, 2
     band = _random_dominant_band(1 if fb == "one" else B, n, ml, mu, seed=2)
-    F = band_lu.band_lu_factor(band, ml, mu)
+    fac = band_lu.band_lu_factor(band, ml, mu)
     rng = np.random.default_rng(3)
     b = torch.tensor(rng.standard_normal((naug * B, n)), device="cuda")
     s0 = band_lu.launch_band_lu_solve.launches
-    x = band_lu.band_lu_solve(F, b, ml, mu)
+    x = band_lu.band_lu_solve(fac, b, ml, mu)
     torch.cuda.synchronize()
     assert band_lu.launch_band_lu_solve.launches == s0 + 1
-    x_p = band_lu.band_lu_solve_reference(F, b, ml, mu)
+    x_p = band_lu.band_lu_solve_reference(fac.lu, b, ml, mu)
     torch.testing.assert_close(x, x_p, rtol=LU_RTOL, atol=LU_RTOL * float(x_p.abs().max()))
     members = torch.arange(naug * B, device="cuda") % band.shape[0]
     ax = _band_matvec(band[members], x, ml, mu)
@@ -1016,17 +1017,115 @@ def test_banded_lockstep_sensitivities_on_the_card_match_cpu():
 
 
 @pytest.mark.cuda
-def test_fwd_sens_through_the_band_kernels_raises_cuda():
-    """Forward mode cannot pass a ctypes launch: solve_dense_fwd_sens of a
-    banded problem on the card raises, naming the continuous route, where a
-    silent launch would return zero sensitivities."""
+@pytest.mark.parametrize("nbatch", [None, 4])
+def test_fwd_sens_through_the_band_kernels_raises_cuda(nbatch):
+    """Forward mode through the band LU kernels: solve_dense_fwd_sens of a
+    banded heat1d problem (n = 16; one instance and a lockstep ensemble of
+    4 diffusivities) runs K3 and K4 on the card, the tangent solves as K4
+    launches, where it once raised; it matches the CPU (the plain versions
+    under the same forward-mode rule) within 1e-10 relative.  The raw
+    launch wrappers still refuse a transformed tensor."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.ops import band_lu
 
-    problem, _ = heat1d.make(15, banded=True)
-    with pytest.raises(RuntimeError, match="sens=True"):
-        dtt.solve_dense_fwd_sens(dtt.BdfSolver(problem), [0.01, 0.05])
+    problem, _ = heat1d.make(15, rtol=1e-6, atol=1e-8, banded=True)
+    t_eval = [0.01, 0.05]
+    params = None if nbatch is None else np.linspace(0.5, 2.0, nbatch)[:, None]
+    if nbatch is not None:
+        problem = dtt.make_lockstep_problem(problem, nbatch)
+
+    def run(dev):
+        return dtt.solve_dense_fwd_sens(dtt.BdfSolver(problem), t_eval, params=params,
+                                        device=dev)
+
+    f0, s0 = band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches
+    ys, sens = run("cuda")
+    torch.cuda.synchronize()
+    assert band_lu.launch_band_lu_factor.launches > f0
+    assert band_lu.launch_band_lu_solve.launches > s0
+    ys_c, sens_c = run("cpu")
+    assert sens.is_cuda and sens.shape == sens_c.shape
+    torch.testing.assert_close(ys.cpu(), ys_c, rtol=1e-10, atol=1e-14)
+    torch.testing.assert_close(sens.cpu(), sens_c, rtol=1e-10,
+                               atol=1e-10 * float(sens_c.abs().max()))
+    band = _heat1d_iteration_band(2, 16)
+    F = band_lu.band_lu_factor(band, 1, 1).lu
+    with pytest.raises(RuntimeError, match=r"BdfSolver\(problem, sens=True\)"):
+        torch.func.jvp(lambda x: band_lu.launch_band_lu_solve(F, x, 1, 1),
+                       (band[:, 1],), (band[:, 1],))
+
+
+# the float build of K3/K4 against its float plain version: one algorithm
+# in float32, parting by FMA contraction and the back sweep's order, about
+# one float32 rounding (6e-8) a column step; A x = b within F32_RESIDUAL of
+# max |b| (measured on the H100, see PERF.md)
+F32_LU_RTOL = 1e-5
+F32_RESIDUAL = 1e-4
+# a float32 solve on the card against the CPU's: 5 % of Robertson's ~190
+F32_STEP_SLACK = 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,ml,mu,n,nbatch,nrhs,plan", [
+    pytest.param("heat1d", 1, 1, 128, 1024, 1024, None, id="heat1d"),
+    pytest.param("random", 3, 2, 128, 1024, 1024, None, id="random_ml3_mu2"),
+    pytest.param("random", 20, 20, 400, 1000, 1000, None, id="nb41_B1000"),
+    pytest.param("random", 20, 20, 400, 1, 256, None, id="nb41_one_factorization_256_rhs"),
+    pytest.param("random", 20, 20, 12, 5, 5, None, id="nb41_n12"),
+    # the float window takes half the bytes: on chip to ml = mu = 71 (the
+    # double one to 45), x on chip to n ~ 14,200 at heat1d's width
+    pytest.param("random", 60, 60, 300, 5, 5, ("factor", True), id="window_on_chip_ml60"),
+    pytest.param("random", 80, 80, 300, 3, 3, ("factor", False),
+                 id="window_in_device_memory_ml80"),
+    pytest.param("random", 1, 1, 10_000, 5, 5, ("solve", True), id="x_on_chip_n10k"),
+    pytest.param("random", 1, 1, 30_000, 5, 5, ("solve", False), id="x_in_device_memory_n30k"),
+])
+def test_band_lu_f32_kernels_match_plain_version_cuda(case, ml, mu, n, nbatch, nrhs, plan):
+    """K3 and K4's float builds against their float32 plain versions at
+    the shapes of the double tests (heat1d, nb = 41, both memory paths),
+    each launch counted as a float launch; mixed dtypes are refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch._build import load_band_lu
+    from diffsol_tpu_torch.ops import band_lu
+
+    if case == "heat1d":
+        band = _heat1d_iteration_band(nbatch, n).float()
+    else:
+        band = _random_dominant_band(nbatch, n, ml, mu).float()
+    b = torch.tensor(np.random.default_rng(1).standard_normal((nrhs, n)), device="cuda").float()
+    if plan is not None:
+        # the device-memory plans keep only a chunk's reciprocals (factor)
+        # or its buffers (solve) on chip
+        which, on_chip = plan
+        solve = which == "solve"
+        per_member = 5 * 64 + n if solve else (mu + 32) * (ml + mu + 1) + 16
+        got = load_band_lu().band_lu_shared_bytes(n, ml, mu, int(solve), 4)
+        assert (got == 4 * 4 * (per_member | 1)) == on_chip, got
+    f0, s0 = band_lu.launch_band_lu_factor.launches_f32, band_lu.launch_band_lu_solve.launches_f32
+    fac = band_lu.band_lu_factor(band, ml, mu)
+    x = band_lu.band_lu_solve(fac, b, ml, mu)
+    F = fac.lu
+    torch.cuda.synchronize()
+    assert F.dtype == x.dtype == torch.float32
+    assert band_lu.launch_band_lu_factor.launches_f32 == f0 + 1
+    assert band_lu.launch_band_lu_solve.launches_f32 == s0 + 1
+    F_p = band_lu.band_lu_factor_reference(band, ml, mu)
+    x_p = band_lu.band_lu_solve_reference(F_p.expand(-1, -1, nrhs) if nbatch == 1 else F_p,
+                                          b, ml, mu)
+    assert F_p.dtype == x_p.dtype == torch.float32
+    torch.testing.assert_close(F, F_p, rtol=F32_LU_RTOL,
+                               atol=F32_LU_RTOL * float(F_p.abs().max()))
+    torch.testing.assert_close(x, x_p, rtol=F32_LU_RTOL,
+                               atol=F32_LU_RTOL * float(x_p.abs().max()))
+    ax = _band_matvec(band.expand(nrhs, -1, -1) if nbatch == 1 else band, x, ml, mu)
+    torch.testing.assert_close(ax, b, rtol=F32_RESIDUAL, atol=F32_RESIDUAL * float(b.abs().max()))
+    with pytest.raises(TypeError, match="one dtype"):
+        band_lu.band_lu_solve(fac, b.double(), ml, mu)
+    with pytest.raises(TypeError, match="one dtype"):
+        band_lu.launch_band_lu_solve(F.double(), b, ml, mu)
 
 
 @pytest.mark.cuda
@@ -1084,3 +1183,139 @@ def test_adjoint_entry_points_run_on_the_card_by_default():
     t = np.array([0.5, 1.0])
     np.testing.assert_allclose(g.cpu().numpy(), [np.sum(-2.0 * t * np.exp(-0.1 * t)),
                                                  np.sum(2.0 * np.exp(-0.1 * t))], rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["dense", "banded", "blockdiag"])
+def test_f32_lockstep_on_the_card_matches_cpu(tier):
+    """Float32 lockstep ensembles on the card against the same solve on the
+    CPU: Robertson (dense tier, B = 64), heat1d n = 33 (banded tier, the
+    float K3/K4, B = 8) and robertson_ode 4 groups (block tier, B = 4).
+    Both float32 and one algorithm, but the card's LU rounds otherwise
+    than LAPACK and float32 roundoff steers the step sequence (Robertson to
+    4e5: 4 steps apart of ~190 on the H100), so steps within F32_STEP_SLACK
+    and ys within tests/test_ensemble.py's float32 bound, 2e-4 absolute."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.ops import band_lu
+
+    f32 = torch.float32
+    if tier == "dense":
+        problem, params, t_eval = trob.problem_ode(rtol=1e-4, atol=1e-6, dtype=f32), \
+            _params(64), [0.4, 40.0, 4e5]
+    elif tier == "banded":
+        problem = heat1d.make(32, rtol=1e-4, atol=1e-6, banded=True, dtype=f32)[0]
+        params, t_eval = np.linspace(0.5, 2.0, 8)[:, None], [0.01, 0.05, 0.2]
+    else:
+        problem, params, t_eval = trob.problem_ode_groups(4, dtype=f32), _params(4), [0.4, 40.0]
+    f0 = band_lu.launch_band_lu_factor.launches_f32
+
+    def run(dev):
+        return dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval, params,
+                                        mode="lockstep", max_steps=5000, device=dev)
+
+    got, ref = run("cuda"), run("cpu")
+    torch.cuda.synchronize()
+    assert got.ys.dtype == ref.ys.dtype == f32 and got.ys.is_cuda
+    assert got.stop_reason == ref.stop_reason == dtt.errors.TSTOP_REACHED
+    assert abs(got.state.stats.steps - ref.state.stats.steps) <= F32_STEP_SLACK
+    assert (band_lu.launch_band_lu_factor.launches_f32 > f0) == (tier == "banded")
+    torch.testing.assert_close(got.ys.cpu(), ref.ys, rtol=0.0, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_fused_kernels_on_a_float32_problem_cuda(kernel):
+    """A float32 problem on the fused tiers: the float64 kernels, params
+    cast up, float64 out, with the callables' casts to float32 kept as
+    roundings in the generated model (dsol_f32), so kernel and plain
+    version compute the same thing: Robertson to 4e5 (K1, 300 members in
+    three tiles) and heat1d n = 33 (K2, 64 diffusivities).  Float32 gates,
+    as test_f32_lockstep_on_the_card_matches_cpu's: where the two sides'
+    float64 rhs straddle a float32 rounding boundary they round one
+    float32 ulp apart, which carries through the steps (on the H100: 2.8e-7
+    relative for K1, 1.8e-8 for K2, equal steps here; at B = 10,000 one
+    tile of 79 one step apart, chip_smoke.py phase 23 g), so steps within
+    STEP_SLACK a tile and ys within the float32 bound 2e-4.  Then
+    solve_dense_ensemble(mode="fused") on the card launches the kernel
+    and equals the call above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+
+    f32 = torch.float32
+    if kernel == "K1":
+        problem, t_eval = trob.problem_ode(rtol=1e-4, atol=1e-6, dtype=f32), [0.4, 40.0, 4e5]
+        params = _params(300)
+        solve = fs.make_fused_bdf_solve(problem, t_eval, 300, tile=128)
+        counter = fs.launch_fused_bdf
+    else:
+        problem = heat1d.make(32, rtol=1e-4, atol=1e-6, banded=True, dtype=f32)[0]
+        t_eval, params = [0.01, 0.05, 0.2], np.linspace(0.5, 2.0, 64)[:, None]
+        solve = fb.make_fused_band_bdf_solve(problem, t_eval, 64)
+        counter = fb.launch_fused_band_bdf
+    assert solve.model.rhs is not None and "f32" in {node[0] for node in solve.model.rhs.nodes}
+    # the entry point casts the problem's float32 params up
+    p64 = torch.tensor(params, dtype=f32, device="cuda").double()
+    before = counter.launches
+    ys, status, steps = solve(p64)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ys_p, status_p, steps_p = solve.reference(p64)
+    assert status.tolist() == status_p.tolist() == [fs.OK] * solve.ntiles
+    assert int((steps - steps_p).abs().max()) <= STEP_SLACK
+    torch.testing.assert_close(ys, ys_p, rtol=0.0, atol=2e-4)
+    before = counter.launches
+    sol = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval,
+                                   torch.tensor(params, dtype=f32, device="cuda"), mode="fused",
+                                   tile=128 if kernel == "K1" else None)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and sol.ys.dtype == torch.float64
+    assert torch.equal(sol.tile_steps, steps)
+    assert torch.equal(sol.ys, ys.movedim(-1, 1))
+
+
+@pytest.mark.cuda
+def test_sde_solvers_on_the_card():
+    """The SDE solvers with a generator on the card: an Ornstein-Uhlenbeck
+    ensemble of 16,384 paths meets sigma^2/2theta within 10 % and mean 0
+    within 0.02 (tests/test_sde.py's gates); Milstein beats EM on geometric
+    Brownian motion (4,096 paths, 400 steps, the exact solution from the
+    same increments) and stays within 0.01; on the increments the card's
+    generator drew, the card's steps match the CPU's within 1e-12; a CPU
+    generator for a card solve is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.solvers import sde
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    theta, sigma = 1.5, 0.4
+    ou = sde.solve_em_ensemble(lambda t, y, p: -p[0] * y, lambda t, y, p: torch.ones_like(y) * p[1],
+                               torch.zeros(1, dtype=torch.float64), 0.0, 8.0, 2000,
+                               [theta, sigma], gen(0), 16_384)
+    assert ou.ys.is_cuda and ou.ys.shape == (16_384, 2001, 1)
+    tail = ou.ys[:, -500:, 0]
+    want = sigma**2 / (2 * theta)
+    assert abs(float(tail.var()) - want) < 0.1 * want and abs(float(tail.mean())) < 0.02
+    mu, sg, nsteps = 0.05, 0.5, 400
+    y0 = torch.ones((4096, 1), dtype=torch.float64, device="cuda")
+    dws = torch.randn((nsteps, 4096, 1), generator=gen(1), dtype=torch.float64,
+                      device="cuda") * np.sqrt(1.0 / nsteps)
+    exact = torch.exp((mu - 0.5 * sg**2) + sg * dws.sum(0))
+    rhs, diff = (lambda t, y, p: p[0] * y), (lambda t, y, p: p[1] * y)
+    em = sde.solve_em(rhs, diff, y0, 0.0, 1.0, nsteps, [mu, sg], gen(1))
+    mil = sde.solve_milstein(rhs, diff, y0, 0.0, 1.0, nsteps, [mu, sg], gen(1))
+    err_em = float((em.ys[-1] - exact).abs().mean())
+    err_mil = float((mil.ys[-1] - exact).abs().mean())
+    assert err_mil < err_em and err_mil < 0.01
+    h = torch.tensor(1.0 / nsteps, dtype=torch.float64)
+    ts = mil.ts.cpu()
+    cpu = sde._milstein_steps(rhs, diff, y0.cpu(), ts, dws.cpu(),
+                              torch.tensor([mu, sg], dtype=torch.float64), h)
+    torch.testing.assert_close(mil.ys.cpu(), cpu, rtol=1e-12, atol=1e-14)
+    with pytest.raises(ValueError, match="generator"):
+        sde.solve_em(rhs, diff, y0, 0.0, 1.0, 10, [mu, sg], torch.Generator())

@@ -118,7 +118,38 @@ def test_grad_through_diffsl_problem():
 
 
 def test_diffsl_f32_traces_f32_arithmetic():
-    pytest.skip("a float32 solve needs OdeBuilder.dtype, ROADMAP.md queue 1 item 18")
+    """Twin of tests/test_diffsl.py:374-383: under OdeBuilder.dtype(float32)
+    the DiffSL callables compute in float32, folded constants and literals
+    included, so the traced rhs holds no float64 tensor; the values are
+    the JAX package's."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    code = """
+    A_ij { (0,0): 1.0, (0,1): 2.0, (1,0): 3.0, (1,1): 4.0 }
+    c { 0.5 }
+    u_i { a = 1.0, b = 2.0 }
+    F_i { c * A_ij * u_j + 1.5 }
+    """
+    problem = dtt.OdeBuilder().dtype(torch.float32).build_from_diffsl(code)
+    assert problem.params.dtype == torch.float32
+    y = torch.ones(2, dtype=torch.float32)
+    t = torch.zeros((), dtype=torch.float32)
+    f = problem.eqn.rhs(t, y, problem.params)
+    assert f.dtype == torch.float32
+    np.testing.assert_allclose(f.numpy(), 0.5 * np.array([3.0, 7.0]) + 1.5)
+    jp = dt.OdeBuilder().dtype(jnp.float32).build_from_diffsl(code)
+    jf = jp.eqn.rhs(jnp.asarray(0.0, jnp.float32), jnp.ones((2,), jnp.float32), jp.params)
+    np.testing.assert_array_equal(f.numpy(), np.asarray(jf))
+    # the callables themselves, not only the builder's cast, compute in
+    # float32: every operation of the traced rhs gives float32 (the folded
+    # constants' float64 host copies are cast once, on first use)
+    fns = problem.diffsl_model.make_callables()
+    graph = make_fx(fns["rhs"])(t, y, problem.params)
+    dtypes = {n.meta["val"].dtype for n in graph.graph.nodes
+              if n.op == "call_function" and isinstance(n.meta.get("val"), torch.Tensor)}
+    assert dtypes == {torch.float32}, dtypes
+    y0 = fns["init"](t, problem.params)
+    assert y0.dtype == torch.float32
 
 
 def test_spm_and_dfn_battery_models():

@@ -221,7 +221,7 @@ def test_banded_rows_match_jax_xla():
     x1 = band_lu.band_lu_solve(F1, _t(rows.reshape(-1, rows.shape[-1])), ml, mu)
     np.testing.assert_allclose(
         x1.numpy(), band_lu.band_lu_solve_reference(
-            F1.expand(-1, -1, x1.shape[0]).contiguous(), _t(rows.reshape(-1, rows.shape[-1])),
+            F1.lu.expand(-1, -1, x1.shape[0]).contiguous(), _t(rows.reshape(-1, rows.shape[-1])),
             ml, mu).numpy(), rtol=1e-15, atol=0)
 
 
@@ -272,7 +272,7 @@ def test_fwd_sens_refuses_the_band_kernels():
     b = _t(rows[0])
 
     def through_k4(x):
-        return band_lu.launch_band_lu_solve(F, x, ml, mu)
+        return band_lu.launch_band_lu_solve(F.lu, x, ml, mu)
 
     def through_k3(x):
         return band_lu.launch_band_lu_factor(x, ml, mu)
