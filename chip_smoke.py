@@ -238,6 +238,24 @@ reach no Pallas kernel).
     times and kernel launches a step; (f) the five counter snapshots of
     tests/test_snapshots.py on the card (steps within 2 of JAX's) and
     raise_for_status on y' = y^2.
+24. the matrix-free Newton-Krylov tier (no kernel of its own): (a) rhs =
+    -p y + C y at n = 962 (the reference DFN's state count), C dense
+    uniform(-0.01, 0.01) from numpy seed 2 (tests/test_krylov.py's
+    coupling), to t = 1 at rtol 1e-6, atol 1e-8, through krylov(lu32)
+    and through the dense LU, each within rtol 1e-4, atol 1e-7 of scipy's
+    expm, with steps, Newton iterations, GMRES calls, restarts, Arnoldi
+    iterations and host reads, the time (median of 3, CUDA events), one
+    traced call's launches a step and busy share, and which tier is
+    faster; use_coloring's route for the dense coupling; (b) the heat2d
+    DAE at mgrid 20 (n = 400) as a lockstep krylov ensemble of 1,024
+    identical members (256, printed as a cut, where four times the B = 256
+    call would pass 36 s), its matrix-free consistent ICs and joint GMRES,
+    every member within rtol 1e-3, atol 1e-6 of the banded lockstep solve
+    (K3/K4 counted), both timed.
+25. the C ABI: build libdiffsol_tpu_torch.so and the port's C consumer
+    (g++/gcc), run the consumer with DIFFSOL_PLATFORM unset (the card) and
+    require "ALL CHECKS PASSED" (build and run times printed), and show
+    in-process that a handle's problem lives on the card.
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
@@ -3075,6 +3093,212 @@ def f32_sde_api_phase(dev, card_line, heat_problem, heat_rows):
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the matrix-free Newton-Krylov tier (ops/krylov.py, no kernel of
+# its own: GMRES on torch.func.jvp, a float32 torch.linalg LU preconditioner)
+# against the dense torch.linalg LU at the reference DFN's state count, and
+# in lockstep against the banded tier (K3/K4).  phase 25: the C ABI.
+
+KRYLOV_N = 962  # the reference's DFN state count
+KRYLOV_SEED = 2  # tests/test_krylov.py:92-142's coupling, at n = 300 there
+KRYLOV_T_EVAL = [0.5, 1.0]
+KRYLOV_EXPM_RTOL, KRYLOV_EXPM_ATOL = 1e-4, 1e-7  # tests/test_krylov.py:139-141
+KRYLOV_MGRID = 20  # heat2d n = 400 (bench.py:681-690)
+KRYLOV_HEAT2D_T_EVAL = [0.01, 0.1]
+B_KRYLOV, B_KRYLOV_CUT = 1024, 256
+# the B = 1,024 lockstep call runs only where four times the B = 256 call's
+# time stays under this (the phase's budget is about 60 s)
+KRYLOV_B_BUDGET_S = 36.0
+# member against the banded lockstep solve (tests/test_krylov.py:281-283)
+KRYLOV_BAND_RTOL, KRYLOV_BAND_ATOL = 1e-3, 1e-6
+CAPI_TIMEOUT_S = 600
+
+
+def krylov_phase(dev, card_line):
+    """Phase 24: (a) rhs = -p y + C y at n = 962, C dense uniform(-0.01,
+    0.01) from numpy seed 2, to t = 1 at rtol 1e-6, atol 1e-8, through
+    krylov(lu32) and through the dense LU, each against scipy's expm; (b)
+    the heat2d DAE at mgrid 20 as a lockstep krylov ensemble against the
+    banded lockstep solve of the same members."""
+    import scipy.linalg
+
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.ensemble import make_lockstep_problem
+    from diffsol_tpu_torch.models import heat2d
+    from diffsol_tpu_torch.ops import band_lu, krylov
+
+    n = KRYLOV_N
+    C = np.random.default_rng(KRYLOV_SEED).uniform(-0.01, 0.01, (n, n))
+    c_on = {}
+
+    def rhs(t, y, p):
+        Cd = c_on.get(y.device)
+        if Cd is None:
+            Cd = c_on[y.device] = torch.tensor(C, device=y.device)
+        return -p[0] * y + Cd @ y
+
+    def init(t, p):
+        return torch.ones(n, dtype=torch.float64, device=p.device)
+
+    def build(route):
+        b = dtt.OdeBuilder().rhs(rhs).init(init).p([1.0]).rtol(1e-6).atol(1e-8)
+        if route == "krylov":
+            b = b.linear_solver("krylov")
+        elif route == "auto":
+            b = b.use_coloring()
+        return b.build()
+
+    auto = build("auto")
+    print(f"[24] (a) n = {n}: use_coloring routes the dense coupling to "
+          f"{auto.linear_solver.name!r} (the JAX builder's rule off a TPU)", flush=True)
+    exact = scipy.linalg.expm(C - np.eye(n)) @ np.ones(n)
+    results = {}
+    for route in ("krylov", "dense"):
+        problem = build(route)
+        solver = dtt.BdfSolver(problem)
+        krylov.reset_gmres_counts()
+        sol = dtt.solve_dense(solver, KRYLOV_T_EVAL, max_steps=2000)
+        counts = krylov.gmres_counts()
+        if sol.stop_reason < 0:
+            raise RuntimeError(f"[24] (a) {route}: stop_reason {sol.stop_reason}")
+        err = float(np.max(np.abs(sol.ys[-1].cpu().numpy() - exact)
+                           / (KRYLOV_EXPM_ATOL + KRYLOV_EXPM_RTOL * np.abs(exact))))
+        if not err <= 1.0:
+            raise RuntimeError(f"[24] (a) {route}: {err:.3g} bounds from expm")
+        # the counted call was the warm-up: the median of 3 more
+        times = []
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            dtt.solve_dense(solver, KRYLOV_T_EVAL, max_steps=2000)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = float(np.median(times))
+        gm = (f"; GMRES {counts['calls']} calls, {counts['restarts']} restarts, "
+              f"{counts['arnoldi']} Arnoldi iterations, {counts['host_reads']} host reads"
+              if route == "krylov" else "")
+        print(f"[24] (a) {problem.linear_solver.name}: {stats_line(sol)}, "
+              f"{sol.state.stats.jacobian_evals} Jacobian evaluations{gm}; {ms:.1f} ms "
+              f"median of 3 (CUDA events); t = 1 within {err:.3f} of the expm bound "
+              f"(rtol {KRYLOV_EXPM_RTOL:g}, atol {KRYLOV_EXPM_ATOL:g}); card {card_line}",
+              flush=True)
+        profile_line(f"24 a {route}",
+                     lambda: dtt.solve_dense(solver, KRYLOV_T_EVAL, max_steps=2000), card_line)
+        results[route] = ms
+    faster = min(results, key=results.get)
+    slower = max(results, key=results.get)
+    print(f"[24] (a) at n = {n} the {faster} tier is faster: {results[slower] / results[faster]:.2f}"
+          f"x ({results[faster]:.1f} ms against {results[slower]:.1f} ms); card {card_line}",
+          flush=True)
+
+    # ---- (b) heat2d DAE, lockstep krylov against the banded lockstep
+    fns = heat2d.callables(KRYLOV_MGRID)
+    kry = (dtt.OdeBuilder().rhs(fns["rhs"]).init(fns["init"]).mass(fns["mass"]).p([1.0])
+           .rtol(1e-5).atol(1e-5).linear_solver("krylov").build())
+    band = heat2d.make(KRYLOV_MGRID)
+    print(f"[24] (b) heat2d n = {KRYLOV_MGRID ** 2}: {kry.linear_solver.name}, its "
+          f"preconditioner's Jacobian from "
+          f"{'colored probes' if kry.linear_solver.meta[4] is not None else 'jacfwd'}; "
+          f"mass diagonal: {kry.eqn.mass_diag_fn is not None}", flush=True)
+
+    def run(problem, nb):
+        lp = make_lockstep_problem(problem.to(dev), nb)
+        params = torch.ones((nb, 1), dtype=torch.float64, device=dev)
+        solver = dtt.BdfSolver(lp)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        sol = dtt.solve_dense(solver, KRYLOV_HEAT2D_T_EVAL, params=params, max_steps=5000)
+        end.record()
+        torch.cuda.synchronize()
+        return sol, start.elapsed_time(end)
+
+    # B = 256 first: the measured call where B = 1,024 would pass the
+    # phase's budget, else the warm-up
+    krylov.reset_gmres_counts()
+    sol, ms_k = run(kry, B_KRYLOV_CUT)
+    counts = krylov.gmres_counts()
+    ms256, nb = ms_k, B_KRYLOV_CUT
+    if ms256 * 4 / 1e3 <= KRYLOV_B_BUDGET_S:
+        nb = B_KRYLOV
+        krylov.reset_gmres_counts()
+        sol, ms_k = run(kry, nb)
+        counts = krylov.gmres_counts()
+    else:
+        print(f"[24] (b) cut: B = {B_KRYLOV_CUT}, not {B_KRYLOV} (the B = {B_KRYLOV_CUT} "
+              f"call took {ms256:.0f} ms; four times that passes {KRYLOV_B_BUDGET_S:g} s)",
+              flush=True)
+    run(band, nb)  # the warm-up
+    band_lu.launch_band_lu_factor.launches = band_lu.launch_band_lu_solve.launches = 0
+    solb, ms_b = run(band, nb)
+    k3, k4 = band_lu.launch_band_lu_factor.launches, band_lu.launch_band_lu_solve.launches
+    if sol.stop_reason < 0 or solb.stop_reason < 0:
+        raise RuntimeError(f"[24] (b) stop_reason {sol.stop_reason} / {solb.stop_reason}")
+    if k3 == 0 or k4 == 0:
+        raise RuntimeError("[24] (b) the banded lockstep solve launched no K3/K4")
+    got, ref = sol.ys.cpu().numpy(), solb.ys.cpu().numpy()
+    err = float(np.max(np.abs(got - ref) / (KRYLOV_BAND_ATOL + KRYLOV_BAND_RTOL * np.abs(ref))))
+    if not err <= 1.0:
+        raise RuntimeError(f"[24] (b) krylov against banded: {err:.3g} bounds")
+    print(f"[24] (b) heat2d lockstep B = {nb}: krylov_lockstep(lu32) {stats_line(sol)}, GMRES "
+          f"{counts['calls']} calls (the consistent ICs' among them), {counts['restarts']} "
+          f"restarts, {counts['arnoldi']} Arnoldi iterations, {counts['host_reads']} host "
+          f"reads, {ms_k:.1f} ms (B = {B_KRYLOV_CUT}: {ms256:.1f} ms; the first call at its B); "
+          f"banded lockstep {stats_line(solb)}, K3 {k3} and K4 {k4} launches, {ms_b:.1f} ms "
+          f"(after a warm-up; CUDA events, one call each); every member within {err:.3f} of the bound "
+          f"(rtol {KRYLOV_BAND_RTOL:g}, atol {KRYLOV_BAND_ATOL:g}); card {card_line}", flush=True)
+
+
+CAPI_LOGISTIC = "in_i { r = 1.0, k = 1.0 }\nu { 0.1 }\nF { r * u * (1.0 - u / k) }\n"
+
+
+def capi_phase(card_line):
+    """Phase 25: build libdiffsol_tpu_torch.so and the port's C consumer,
+    run the consumer with DIFFSOL_PLATFORM unset (the card) and require
+    every check; in-process, a handle's problem lives on the card."""
+    import os
+
+    from diffsol_tpu_torch import _build, capi_host
+
+    t0 = time.perf_counter()
+    built = _build.build_capi()
+    print(f"[25] libdiffsol_tpu_torch.so and test_capi built in {built['seconds']:.1f} s "
+          f"(g++/gcc; {time.perf_counter() - t0:.1f} s with the check for an earlier build)",
+          flush=True)
+    env = _build.capi_env(None)
+    t0 = time.perf_counter()
+    res = subprocess.run([str(built["consumer"])], env=env, cwd=built["dir"],
+                         capture_output=True, text=True, timeout=CAPI_TIMEOUT_S)
+    run_s = time.perf_counter() - t0
+    if res.returncode != 0 or "ALL CHECKS PASSED" not in res.stdout:
+        raise RuntimeError(f"[25] the C consumer failed ({res.returncode}):\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    print(f"[25] the C consumer on the card (DIFFSOL_PLATFORM unset): "
+          f"{res.stdout.strip().splitlines()[-1]!r} in {run_s:.1f} s (host clock, its "
+          f"interpreter's start and torch's import included); card {card_line}", flush=True)
+    saved = os.environ.pop("DIFFSOL_PLATFORM", None)
+    try:
+        h = capi_host.new_jit(CAPI_LOGISTIC)
+        capi_host.set_params(h, [1.0, 10.0])
+        problem = capi_host._get(h).problem()
+        ys, stop = capi_host.solve_dense(h, [0.1, 0.25, 0.4])
+        capi_host.free(h)
+    finally:
+        if saved is not None:
+            os.environ["DIFFSOL_PLATFORM"] = saved
+    t = np.array([0.1, 0.25, 0.4])
+    exact = 10.0 * 0.1 * np.exp(t) / (10.0 + 0.1 * (np.exp(t) - 1.0))
+    if not (problem.params.is_cuda and problem.t0.is_cuda and stop >= 0
+            and np.max(np.abs(np.asarray(ys) - exact)) < 1e-5):
+        raise RuntimeError(f"[25] in-process handle: params on {problem.params.device}, "
+                           f"stop {stop}, ys {ys}")
+    print(f"[25] in-process: a handle's problem holds its tensors on "
+          f"{problem.params.device}; solve_dense within "
+          f"{np.max(np.abs(np.asarray(ys) - exact)):.2e} of the logistic", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3191,6 +3415,12 @@ def main() -> int:
     t_phase = time.perf_counter()
     f32_records = f32_sde_api_phase(dev, card_line, heat_problem, heat_rows)
     print(f"[23] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
+    for tag, phase in ((24, lambda: krylov_phase(dev, card_line)),
+                       (25, lambda: capi_phase(card_line))):
+        t_phase = time.perf_counter()
+        phase()
+        print(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s (host clock)",
+              flush=True)
     record = ([small_record] + variant_records + [mixed_record] + band_records
               + mol2d_records + wide_lu_records + diffsl_records + sens_records
               + adjoint_records + f32_records)

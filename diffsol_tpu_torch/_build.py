@@ -20,6 +20,11 @@ The libraries:
 
 * ``coloring``: ``coloring.cpp``, host code built with ``g++`` (the greedy
   colorer of :mod:`.ops.coloring`).
+* the C ABI: ``native/capi.cpp`` as ``libdiffsol_tpu_torch.so``, which
+  embeds this interpreter's ``libpython`` and drives :mod:`.capi_host`,
+  compiled against the repository's header ``native/diffsol_tpu.h``, and
+  the C consumer ``native/test_capi.c`` linked against it
+  (:func:`build_capi`, ``g++``/``gcc``).
 
 The loaders may run in several threads at once, one compiler each.
 """
@@ -37,7 +42,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "diffsol_tpu_torch"
+NATIVE = Path(__file__).resolve().parent / "native"
+REPO = Path(__file__).resolve().parent.parent
+BUILD_DIR = REPO / "build" / "diffsol_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -209,3 +216,76 @@ def load_coloring() -> ctypes.CDLL:
                                          ctypes.c_int64, i64p]
     _loaded["coloring"] = lib
     return lib
+
+
+def build_capi() -> dict:
+    """Build the port's C ABI at first use: ``libdiffsol_tpu_torch.so``
+    from ``native/capi.cpp`` (against ``native/diffsol_tpu.h`` of the
+    repository and this interpreter's shared ``libpython``) and the C
+    consumer ``test_capi`` from ``native/test_capi.c``, into
+    ``build/diffsol_tpu_torch/capi_<hash>/``.  Returns ``{"dir",
+    "library", "consumer", "seconds"}`` (seconds 0 when already built);
+    raises if a compiler is missing or fails."""
+    import sysconfig
+
+    inc = sysconfig.get_path("include")
+    libdir = sysconfig.get_config_var("LIBDIR")
+    pyver = f"python{sys.version_info.major}.{sys.version_info.minor}"
+    header_dir = REPO / "native"
+    srcs = [NATIVE / "capi.cpp", NATIVE / "test_capi.c", header_dir / "diffsol_tpu.h"]
+    key = hashlib.sha256("\0".join([inc, str(libdir), pyver] + [f.read_text() for f in srcs])
+                         .encode()).hexdigest()[:20]
+    out = BUILD_DIR / f"capi_{key}"
+    built = dict(dir=out, library=out / "libdiffsol_tpu_torch.so",
+                 consumer=out / "test_capi", seconds=0.0)
+    if out.exists():
+        return built
+    gxx, gcc = shutil.which("g++"), shutil.which("gcc")
+    if gxx is None or gcc is None:
+        raise RuntimeError("g++ and gcc are needed to build the C ABI")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix=f"capi_{key}_", dir=BUILD_DIR))
+    cmds = [
+        [gxx, "-O2", "-shared", "-fPIC", "-o", str(tmp / "libdiffsol_tpu_torch.so"),
+         str(NATIVE / "capi.cpp"), f"-I{inc}", f"-I{header_dir}", f"-L{libdir}",
+         f"-l{pyver}", f"-Wl,-rpath,{libdir}"],
+        [gcc, "-O2", "-o", str(tmp / "test_capi"), str(NATIVE / "test_capi.c"),
+         f"-I{header_dir}", f"-L{tmp}", "-ldiffsol_tpu_torch", "-lm",
+         f"-Wl,-rpath,{out}"],
+    ]
+    t0 = time.perf_counter()
+    try:
+        for cmd in cmds:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cmd[0]} failed for the C ABI ({proc.returncode}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+        try:
+            os.rename(tmp, out)  # atomic: no half-built directory
+        except OSError:
+            if not out.exists():
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    built["seconds"] = time.perf_counter() - t0
+    BUILDS.append(dict(name="capi", library=built["library"].name,
+                       seconds=built["seconds"], ptxas=[]))
+    return built
+
+
+def capi_env(platform=None) -> dict:
+    """The environment for a C program that embeds this interpreter: the
+    embedded interpreter boots from the base prefix, so it gets the
+    repository and this environment's site-packages on ``PYTHONPATH``;
+    ``DIFFSOL_PLATFORM`` is set to ``platform``, or removed (the card)."""
+    import sysconfig
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO), sysconfig.get_path("purelib")]
+        + [p for p in sys.path if "site-packages" in p])
+    if platform is None:
+        env.pop("DIFFSOL_PLATFORM", None)
+    else:
+        env["DIFFSOL_PLATFORM"] = platform
+    return env

@@ -26,34 +26,29 @@ int64_t diffsol_greedy_color(const int64_t* rows, const int64_t* cols, int64_t n
                              int64_t n_rows, int64_t n_cols, int64_t* colors) {
   if (n_cols <= 0 || n_rows < 0 || nnz < 0) return -1;
 
-  // row -> the columns with a nonzero in it
+  // row -> the columns with a nonzero in it, and column -> its rows
   std::vector<std::vector<int64_t>> row_cols(static_cast<size_t>(n_rows));
+  std::vector<std::vector<int64_t>> col_rows(static_cast<size_t>(n_cols));
   for (int64_t k = 0; k < nnz; ++k) {
     const int64_t r = rows[k], c = cols[k];
     if (r < 0 || r >= n_rows || c < 0 || c >= n_cols) return -1;
     row_cols[static_cast<size_t>(r)].push_back(c);
+    col_rows[static_cast<size_t>(c)].push_back(r);
   }
 
-  // two columns conflict if they share a row
-  std::vector<std::vector<int64_t>> adj(static_cast<size_t>(n_cols));
-  for (const auto& rc : row_cols) {
-    for (size_t a = 0; a < rc.size(); ++a) {
-      for (size_t b = a + 1; b < rc.size(); ++b) {
-        adj[static_cast<size_t>(rc[a])].push_back(rc[b]);
-        adj[static_cast<size_t>(rc[b])].push_back(rc[a]);
-      }
-    }
-  }
-
-  // first fit in natural column order
+  // first fit in natural column order: a column takes the least color no
+  // column sharing one of its rows holds (the conflict graph is walked in
+  // place, never stored: a dense pattern's would hold n^3 entries)
   std::vector<char> used;
   int64_t ncolors = 0;
   for (int64_t c = 0; c < n_cols; ++c) colors[c] = -1;
   for (int64_t c = 0; c < n_cols; ++c) {
     used.assign(static_cast<size_t>(ncolors) + 1, 0);
-    for (const int64_t nb : adj[static_cast<size_t>(c)]) {
-      const int64_t nc = colors[nb];
-      if (nc >= 0) used[static_cast<size_t>(nc)] = 1;
+    for (const int64_t r : col_rows[static_cast<size_t>(c)]) {
+      for (const int64_t nb : row_cols[static_cast<size_t>(r)]) {
+        const int64_t nc = colors[nb];
+        if (nc >= 0) used[static_cast<size_t>(nc)] = 1;
+      }
     }
     int64_t pick = 0;
     while (used[static_cast<size_t>(pick)]) ++pick;

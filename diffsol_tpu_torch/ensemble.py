@@ -52,13 +52,24 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
     (B, n, n), (B, nb, n) or (B, K, nb, nb); the dense and banded tiers
     take member-major batches as they are, and the block tier's member and
     block axes fuse into one (B K, nb, nb) LU stack
-    (``blockdiag_lockstep(nb,K,B)``)."""
+    (``blockdiag_lockstep(nb,K,B)``).  The matrix-free tier's Jacobian
+    stays the frozen point, now of the batch, and its GMRES runs over the
+    joint B n system (``krylov_lockstep``; JAX ensemble.py:108-136,
+    200-215)."""
     eqn = problem.eqn
     vmap = torch.func.vmap
-    member_jac = eqn.rhs_jac or torch.func.jacfwd(eqn.rhs, argnums=1)
-    b_jac = vmap(member_jac, in_dims=(None, 0, 0))
-    if hasattr(member_jac, "jvp_probes"):
-        b_jac.jvp_probes = member_jac.jvp_probes
+    spec = problem.linear_solver
+    krylov = spec.name.startswith("krylov")
+    if krylov:
+        def b_jac(t, Y, Pb):
+            return (t, Y, Pb)
+
+        b_jac.jvp_probes = 0
+    else:
+        member_jac = eqn.rhs_jac or torch.func.jacfwd(eqn.rhs, argnums=1)
+        b_jac = vmap(member_jac, in_dims=(None, 0, 0))
+        if hasattr(member_jac, "jvp_probes"):
+            b_jac.jvp_probes = member_jac.jvp_probes
     b_mass = b_mass_diag = None
     if eqn.mass is not None:
         b_mass = vmap(eqn.mass, in_dims=(None, 0))
@@ -92,8 +103,15 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
         nparams=eqn.nparams,
     )
     params_b = problem.params.expand(nbatch, -1).clone()
-    spec = problem.linear_solver
-    if spec.name.startswith("blockdiag"):
+    if krylov:
+        from .ops.krylov import make_krylov_solver_lockstep
+
+        gmres_tol, restart, maxiter, precond, member_jac_fn = spec.meta[:5]
+        spec = make_krylov_solver_lockstep(
+            new_eqn.rhs, nbatch, gmres_tol=gmres_tol, restart=restart,
+            maxiter=maxiter, precond="none" if precond == "none" else "lu32",
+            member_jac_fn=member_jac_fn)
+    elif spec.name.startswith("blockdiag"):
         # the (B, K, nb, nb) Jacobian stack factors as one (B K, nb, nb) LU
         from .ops.blockdiag import make_blockdiag_solver_lockstep
 

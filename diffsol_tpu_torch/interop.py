@@ -6,8 +6,9 @@ adjoint parameter-row tolerances, the quadrature flag, all solver options
 and the consistent-IC options) into
 this package's problem as float64 tensors, a banded linear-solver tier as
 ``make_banded_solver(ml, mu)`` and a block-diagonal one as
-``make_blockdiag_solver(perm, nb, K)`` from the spec's ``meta``; a JAX
-problem built with ``use_coloring`` whose Jacobian stayed dense and
+``make_blockdiag_solver(perm, nb, K)`` and a matrix-free one as
+``krylov(...)`` with the same GMRES tolerance, restart, maximum restarts
+and preconditioner, from the spec's ``meta``; a JAX problem built with ``use_coloring`` whose Jacobian stayed dense and
 colored gets ``use_coloring`` here too.  The user's callables are passed
 in torch, since a jnp body cannot be converted (a Jacobian given through
 ``rhs_implicit`` as ``rhs_jac``); for the 2-D models,
@@ -115,11 +116,24 @@ def problem_from_jax(jax_problem, rhs=None, init=None, mass=None, root=None,
 
         nb, K, perm = spec.meta[:3]
         b = b.linear_solver(make_blockdiag_solver(np.asarray(perm), int(nb), int(K)))
+    elif spec.name.startswith("krylov"):
+        b = b.linear_solver("krylov")
     elif spec.name == "dense" and hasattr(jax_problem.eqn.rhs_jac, "jvp_probes"):
         b = b.use_coloring()  # the JAX OdeBuilder kept a colored dense Jacobian
     if str(np.asarray(jax_problem.t0).dtype) == "float32":
         b = b.dtype(torch.float32)  # its numbers are float32's, exactly
-    return b.build()
+    problem = b.build()
+    if spec.name.startswith("krylov"):
+        from .ops.krylov import make_krylov_solver
+
+        # the port's own preconditioner extractor (the builder's colored
+        # one, or jacfwd), with the JAX spec's GMRES settings
+        gmres_tol, restart, maxiter, precond = spec.meta[:4]
+        problem = dataclasses.replace(problem, linear_solver=make_krylov_solver(
+            problem.eqn.rhs, gmres_tol=float(gmres_tol), restart=int(restart),
+            maxiter=int(maxiter), precond=precond,
+            jac_fn=problem.linear_solver.meta[4]))
+    return problem
 
 
 def solution_to_numpy(sol) -> dict:

@@ -11,6 +11,10 @@
   it has no counterpart here.)
 * ``banded`` is the no-pivot band LU of :mod:`.banded`, made by
   ``make_banded_solver(ml, mu)``; ``meta`` carries its ``(ml, mu)``.
+* ``blockdiag`` and ``krylov`` (:mod:`.blockdiag`, :mod:`.krylov`): the
+  block stack, and the matrix-free GMRES tier whose "factorization" is the
+  frozen linearization point and a preconditioner (``meta`` its GMRES
+  settings, preconditioner and Jacobian extractor).
 """
 
 from __future__ import annotations

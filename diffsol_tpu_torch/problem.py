@@ -168,12 +168,6 @@ class OdeProblem:
         )
 
 
-def _later(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to diffsol_tpu_torch yet (ROADMAP.md {item})"
-    )
-
-
 def _is_diagonal(m: torch.Tensor) -> bool:
     return m.ndim == 2 and bool(
         torch.count_nonzero(m - torch.diag_embed(torch.diagonal(m))) == 0
@@ -362,18 +356,20 @@ class OdeBuilder:
         self._reset_n = r
         return self
 
-    # outside this port's slice -------------------------------------------
-    def linear_solver(self, spec: LinearSolverSpec):
+    def linear_solver(self, spec):
         """The Newton linear-solver tier: ``DENSE`` (the default),
-        ``ops.banded.make_banded_solver(ml, mu)`` or
-        ``ops.blockdiag.make_blockdiag_solver(perm, nb, K)``."""
+        ``ops.banded.make_banded_solver(ml, mu)``,
+        ``ops.blockdiag.make_blockdiag_solver(perm, nb, K)`` or
+        ``"krylov"``, the matrix-free GMRES tier (``krylov(lu32)``, built
+        with the rhs closure in :meth:`build`)."""
         if spec == "krylov":
-            _later("the matrix-free Krylov tier", "queue 1 item 14")
+            self._linear_solver = "krylov"
+            return self
         if not isinstance(spec, LinearSolverSpec):
             raise TypeError(
                 "linear_solver takes ops.linsol.DENSE, "
-                "ops.banded.make_banded_solver(ml, mu) or "
-                f"ops.blockdiag.make_blockdiag_solver(...), got {spec!r}")
+                "ops.banded.make_banded_solver(ml, mu), "
+                f"ops.blockdiag.make_blockdiag_solver(...) or \"krylov\", got {spec!r}")
         self._linear_solver = spec
         return self
 
@@ -479,9 +475,16 @@ class OdeBuilder:
                     return torch.diagonal(mass_f(t, p), dim1=-2, dim2=-1)
 
         # a user Jacobian (rhs_implicit) wins over the tier's own, as in the
-        # JAX OdeBuilder
+        # JAX OdeBuilder, except under the matrix-free tier, whose Jacobian is
+        # the frozen point (JAX problem.py:461-467)
         linear_solver = self._linear_solver
-        if rhs_jac is None and linear_solver.name.startswith("banded"):
+        if linear_solver == "krylov":
+            from .ops.krylov import make_krylov_jac, make_krylov_solver
+
+            linear_solver = make_krylov_solver(
+                rhs_f, jac_fn=self._colored_jac_or_none(rhs_f, init_f, params))
+            rhs_jac = make_krylov_jac()
+        elif rhs_jac is None and linear_solver.name.startswith("banded"):
             # the tier's representation is the band (builder.rs
             # use_coloring's role for a banded pattern)
             from .ops.banded import make_banded_jac
@@ -533,6 +536,25 @@ class OdeBuilder:
             linear_solver=linear_solver,
         )
 
+    def _colored_jac_or_none(self, rhs_f, init_f, params):
+        """The colored-probe dense-Jacobian extractor for the Krylov tier's
+        lu32 preconditioner, or None when detection fails or coloring does
+        not pay (ncolors >= max(n // 2, 8)), as the JAX OdeBuilder decides
+        (problem.py:407-430)."""
+        from .ops.coloring import detect_sparsity, greedy_color, make_colored_jac
+
+        try:
+            t0 = torch.tensor(self._t0, dtype=params.dtype)
+            y0 = init_f(t0, params)
+            n = int(y0.shape[-1])
+            rows, cols = detect_sparsity(rhs_f, t0, y0, params, n)
+            colors, ncolors = greedy_color(rows, cols, n, n)
+        except (RuntimeError, TypeError, ValueError):
+            return None  # the preconditioner then takes jacfwd
+        if ncolors >= max(n // 2, 8):
+            return None
+        return make_colored_jac(rhs_f, rows, cols, colors, ncolors, n)
+
     def _colored_tier(self, rhs_f, init_f, mass_f, params, linear_solver):
         """``use_coloring``'s routing, in the JAX OdeBuilder's order
         (problem.py:473-546): independent dense blocks to the
@@ -566,7 +588,11 @@ class OdeBuilder:
                     make_blockdiag_solver(perm, nb, K))
         if n >= 8 and ml + mu + 1 <= max(n // 2, 1):
             return make_banded_jac(rhs_f, ml, mu), make_banded_solver(ml, mu)
-        # (the JAX OdeBuilder's matrix-free Krylov route for n >= 256 is taken
-        # on a TPU only, where a dense f64 LU cannot compile; queue 1 item 14)
+        # the JAX OdeBuilder takes the matrix-free Krylov route for n >= 256
+        # on a TPU only, where a dense f64 LU cannot compile; off a TPU it
+        # keeps this dense route, and so does the port on the card, where
+        # the dense torch.linalg LU solves chip_smoke.py phase 24 (a)'s
+        # dense coupling at n = 962 20-21.5 times faster than krylov(lu32)
+        # (H100, PERF.md)
         colors, ncolors = greedy_color(rows, cols, n, n)
         return make_colored_jac(rhs_f, rows, cols, colors, ncolors, n), linear_solver

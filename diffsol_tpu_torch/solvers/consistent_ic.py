@@ -17,7 +17,9 @@ from n forward-mode probes broadcast over the members, or, under the
 banded tier, as the band from ml+mu+1 cyclically colored probes, factored
 through the problem's banded solver (the band LU kernels on the card).
 Under the dense and the block-diagonal tiers it is factored by a dense LU,
-as the JAX package does for both.
+as the JAX package does for both; under the matrix-free tier the solve
+stays matrix-free: GMRES on the residual's JVP, preconditioned by a float32
+LU of the packed Jacobian (one a member in lockstep).
 """
 
 from __future__ import annotations
@@ -71,10 +73,6 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
     p = problem
     spec = p.linear_solver
     banded = spec.name.startswith("banded")
-    if not banded and spec.name != "dense" and not spec.name.startswith("blockdiag"):
-        raise NotImplementedError(
-            f"consistent initial conditions under the {spec.name} tier are not "
-            "ported yet (ROADMAP.md queue 1 item 14)")
     t0 = p.t0 if t is None else p.t0.new_tensor(float(t))
     ic = p.ic_options
     tol = float(p.options.nonlinear_solver_tolerance)
@@ -112,22 +110,36 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
         converged = (eta_new * nrm < tol) and not diverged
         return (DIVERGED if diverged else CONVERGED if converged else CONTINUE), eta_new
 
+    # the packed Jacobian's (factorize, solve) in the problem's tier
     if banded:
         # the packed residual inherits the rhs band (plus the in-band mass
         # diagonal): ml+mu+1 probes whatever the size or the batch
         band_jac = make_banded_jac(lambda t_, x, p_: residual(x), *spec.meta[:2])
 
+        def factorize(x):
+            return spec.factor(band_jac(None, x, None))
+
+        lin_solve = spec.solve
+    elif spec.name.startswith("krylov"):
+        # matrix-free, as the JAX package's (consistent_ic.py:147-151)
+        from ..ops.krylov import make_matfree_residual_solver
+
+        factorize, lin_solve = make_matfree_residual_solver(residual)
+    else:
+        # the dense and block tiers take the JAX package's dense branch: a
+        # one-off (..., n, n) LU of the packed Jacobian
+        def factorize(x):
+            return DENSE.factor(_blockwise_jacfwd(residual, x))
+
+        lin_solve = DENSE.solve
+
     def newton_with_linesearch(x, eta):
         """One Newton campaign with a frozen factorization, in the
         problem's linear-solver tier."""
-        # the dense and block tiers take the JAX package's dense branch: a
-        # one-off (..., n, n) LU of the packed Jacobian
-        lu = spec if banded else DENSE
-        factors = lu.factor(band_jac(None, x, None) if banded
-                            else _blockwise_jacfwd(residual, x))
+        factors = factorize(x)
 
         def lin(v):
-            return lu.solve(factors, v)
+            return lin_solve(factors, v)
 
         delta = lin(residual(x))
         nrm = nrm_of(delta)

@@ -63,8 +63,8 @@ def test_bdf_diagonal_mass_and_failures():
     """A constant diagonal mass takes the elementwise path (M y' = f with
     M = diag(2, 2) halves the decay rate), a singular one starts from
     consistent initial conditions (y1 = y0 here), a dense one takes the
-    matrix path, each also in float32 (``OdeBuilder.dtype``), and what the
-    port still lacks raises with its ROADMAP item."""
+    matrix path, each also in float32 (``OdeBuilder.dtype``) and through
+    the matrix-free Krylov tier."""
     f64 = torch.float64
     problem = (
         dtt.OdeBuilder()
@@ -128,9 +128,21 @@ def test_bdf_diagonal_mass_and_failures():
         np.testing.assert_allclose(s32.ys.numpy(), s64.ys.numpy(), rtol=2e-4)
     with pytest.raises(TypeError, match="float64 or torch.float32"):
         dtt.OdeBuilder().dtype(torch.float16)
-    # what is still outside the port names its ROADMAP item
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        dtt.OdeBuilder().linear_solver("krylov")
+    # the matrix-free Krylov tier (ROADMAP item 14) takes the same three
+    # masses (identity-free, singular diagonal with its consistent ICs, and
+    # dense) in float64 and float32, GMRES in the problem's dtype
+    for prob in (problem, singular, dense_mass):
+        for dtype, rtol in ((f64, 1e-6), (torch.float32, 2e-4)):
+            kb = (dtt.OdeBuilder().rhs(prob.eqn.rhs).init(prob.eqn.init)
+                  .mass(prob.eqn.mass).p(prob.params.tolist()).linear_solver("krylov")
+                  .rtol(1e-8 if dtype == f64 else 1e-5).atol(1e-10 if dtype == f64 else 1e-7)
+                  .dtype(dtype))
+            kry = kb.build()
+            assert kry.linear_solver.name == "krylov(lu32)"
+            sk = dtt.solve_dense(dtt.BdfSolver(kry), [0.5, 1.0], device="cpu")
+            s64 = dtt.solve_dense(dtt.BdfSolver(prob), [0.5, 1.0], device="cpu")
+            assert sk.ys.dtype == dtype and sk.stop_reason == dtt.errors.TSTOP_REACHED
+            np.testing.assert_allclose(sk.ys.numpy(), s64.ys.numpy(), rtol=rtol)
 
 
 def test_solve_dense_runs_on_the_card_unless_asked_for_the_cpu():

@@ -192,15 +192,27 @@ def test_use_coloring_keeps_a_wide_pattern_dense_and_colored():
 
 def test_use_coloring_names_the_tiers_that_are_not_ported():
     """Independent blocks go to the block-diagonal tier, as in the JAX
-    OdeBuilder; ``"krylov"`` goes to the JAX package's matrix-free tier,
-    which the port names by its ROADMAP item."""
+    OdeBuilder; ``"krylov"`` builds the matrix-free tier, ``krylov(lu32)``,
+    whose preconditioner takes the colored extractor where coloring pays,
+    as in the JAX OdeBuilder (once the last tier the port lacked)."""
     tr = _groups_rhs(torch, 4)
     b = (dtt.OdeBuilder().rhs(tr)
          .init(lambda t, p: torch.tensor(np.tile([1.0, 0.0, 0.0], 4)))
          .p([0.04, 1e4, 3e7]).use_coloring())
     assert b.build().linear_solver.name == "blockdiag(3,4)"
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        dtt.OdeBuilder().linear_solver("krylov")
+    kry = (dtt.OdeBuilder().rhs(tr)
+           .init(lambda t, p: torch.tensor(np.tile([1.0, 0.0, 0.0], 4)))
+           .p([0.04, 1e4, 3e7]).linear_solver("krylov").use_coloring().build())
+    assert kry.linear_solver.name == "krylov(lu32)"
+    jac_fn = kry.linear_solver.meta[4]
+    assert jac_fn is not None and jac_fn.jvp_probes == 3  # 3 colors < max(12 // 2, 8)
+    y = torch.tensor(np.tile([1.0, 2e-5, 1e-4], 4))
+    t = torch.tensor(0.0, dtype=F64)
+    np.testing.assert_allclose(
+        jac_fn(t, y, kry.params).numpy(),
+        torch.func.jacfwd(tr, argnums=1)(t, y, kry.params).numpy(), rtol=1e-13)
+    with pytest.raises(TypeError, match="krylov"):
+        dtt.OdeBuilder().linear_solver("lu")
     # an explicit banded solver wins over use_coloring, as in the JAX OdeBuilder
     pr, _ = theat.make(7, banded=True)
     again = (dtt.OdeBuilder().rhs(pr.eqn.rhs).init(pr.eqn.init).p([1.0])

@@ -1319,3 +1319,66 @@ def test_sde_solvers_on_the_card():
     torch.testing.assert_close(mil.ys.cpu(), cpu, rtol=1e-12, atol=1e-14)
     with pytest.raises(ValueError, match="generator"):
         sde.solve_em(rhs, diff, y0, 0.0, 1.0, 10, [mu, sg], torch.Generator())
+
+
+@pytest.mark.cuda
+def test_krylov_solve_on_the_card_matches_cpu():
+    """The matrix-free Krylov tier on the card (GMRES on torch.func.jvp,
+    the float32 LU preconditioner from torch.linalg) against the same solve
+    on the CPU: heat1d (n = 32) single and a lockstep ensemble of 4
+    diffusivities, and the heat2d-like singular-mass DAE's matrix-free
+    consistent ICs; equal steps and Newton iterations, ys within 1e-8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.ensemble import make_lockstep_problem
+    from diffsol_tpu_torch.models import heat1d, heat2d
+    from diffsol_tpu_torch.ops import krylov
+
+    hp, _ = heat1d.make(31, rtol=1e-6, atol=1e-8)
+    kry = (dtt.OdeBuilder().rhs(hp.eqn.rhs).init(hp.eqn.init).p([1.0]).rtol(1e-6)
+           .atol(1e-8).linear_solver("krylov").build())
+    h2 = heat2d.make(8)
+    kdae = (dtt.OdeBuilder().rhs(h2.eqn.rhs).init(h2.eqn.init).mass(h2.eqn.mass)
+            .p(h2.params.tolist()).rtol(1e-5).atol(1e-5).linear_solver("krylov").build())
+    te = [0.05, 0.1]
+    lp = make_lockstep_problem(kry, 4)
+    pb = torch.linspace(0.8, 1.2, 4, dtype=torch.float64)[:, None]
+    for solver, params in ((dtt.BdfSolver(kry), None), (dtt.BdfSolver(lp), pb),
+                           (dtt.BdfSolver(kdae), None)):
+        krylov.reset_gmres_counts()
+        card = dtt.solve_dense(solver, te, params=params, max_steps=2000)
+        counts = krylov.gmres_counts()
+        cpu = dtt.solve_dense(solver, te, params=params, max_steps=2000, device="cpu")
+        assert card.ys.is_cuda and card.stop_reason == cpu.stop_reason >= 0
+        assert card.state.stats.steps == cpu.state.stats.steps
+        assert card.state.stats.newton_iterations == cpu.state.stats.newton_iterations
+        assert counts["host_reads"] == counts["calls"] + counts["restarts"]
+        torch.testing.assert_close(card.ys.cpu(), cpu.ys, rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_c_abi_consumer_on_the_card():
+    """The port's C consumer against libdiffsol_tpu_torch.so with
+    DIFFSOL_PLATFORM unset, which means the card: every check of
+    native/test_capi.c passes, and a handle's problem lives on cuda."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import shutil
+    import subprocess
+
+    from diffsol_tpu_torch import _build, capi_host
+
+    if shutil.which("g++") is None or shutil.which("gcc") is None:
+        pytest.skip("no g++/gcc")
+    built = _build.build_capi()
+    res = subprocess.run([str(built["consumer"])], env=_build.capi_env(None),
+                         cwd=built["dir"], capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, f"stdout:\n{res.stdout}\nstderr:\n{res.stderr}"
+    assert "ALL CHECKS PASSED" in res.stdout
+    h = capi_host.new_jit("in_i { r = 1.0 }\nu { 0.1 }\nF { r * u }\n")
+    try:
+        assert capi_host._get(h).problem().params.is_cuda
+        ys, stop = capi_host.solve_dense(h, [0.5, 1.0])
+        np.testing.assert_allclose(ys, 0.1 * np.exp([0.5, 1.0]), rtol=1e-5)
+    finally:
+        capi_host.free(h)
