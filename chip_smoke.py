@@ -3299,6 +3299,260 @@ def capi_phase(card_line):
           f"{np.max(np.abs(np.asarray(ys) - exact)):.2e} of the logistic", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 26: mode="independent" as one batched BDF loop
+# (solvers/bdf_independent.py): every member its own step control.  (a) the
+# Robertson cell's problem and members, against single solves of eight
+# members on the card and timed beside lockstep and the member loop; (b)
+# heat1d banded through K3/K4 on the refreshed members' bands; (c) 1,024
+# stop-at-root and bouncing balls, each at its own times.
+
+# a member of the batched loop against its single solve on the card: the
+# same accepted steps, ys within 1e-12 + 1e-9 |ref| (the control runs in
+# float64 on the card in one and on the host in the other)
+IND_RTOL, IND_ATOL = 1e-9, 1e-12
+# bench.py:338-346's gate: mass conserved within 1e-3, x within 2e-2 of
+# the CVODE table at t = 0.4, 4, 40 for the nominal member
+IND_CONS, IND_SOLN_REL = 1e-3, 2e-2
+B_BALLS = 1024
+BALL_ROOT_TOL = 2e-4
+BALL_T_EVAL_26 = [0.5, 1.0, 1.5, 2.0, 2.5]
+# the profiled independent call runs to t_eval[IND_PROFILE_EVAL - 1] = 40
+IND_PROFILE_EVAL = 3
+
+
+def ball_problem(reset):
+    from diffsol_tpu_torch import OdeBuilder
+
+    def rhs(t, y, p):
+        return torch.stack([y[1], -p[0] * torch.ones_like(y[1])])
+
+    b = (OdeBuilder().rhs(rhs)
+         .init(lambda t, p: torch.tensor([10.0, 0.0], dtype=torch.float64, device=p.device))
+         .root(lambda t, y, p: y[0:1]).p([9.81]).rtol(1e-8).atol(1e-10))
+    if reset:
+        b = b.reset(lambda t, y, p: torch.stack([torch.full_like(y[0], 1e-9), -0.8 * y[1]]))
+    return b.build()
+
+
+def member_vs_single(name, sol, problem, te, params, members, max_steps=100_000):
+    """Each of ``members`` against its single eager solve on the card;
+    returns (largest abs difference, the single solves' seconds each)."""
+    from diffsol_tpu_torch import BdfSolver, solve_dense
+
+    worst, secs = 0.0, []
+    for b in members:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = solve_dense(BdfSolver(problem), te, params=params[b], max_steps=max_steps)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got, ref = sol.ys[:, b], one.ys
+        steps_b = int(sol.state.stats.steps[b])
+        if steps_b != one.state.stats.steps or int(sol.stop_reason[b]) != one.stop_reason:
+            raise AssertionError(f"{name}: member {b} took {steps_b} steps (stop "
+                                 f"{int(sol.stop_reason[b])}), its single solve "
+                                 f"{one.state.stats.steps} (stop {one.stop_reason})")
+        bad = (got - ref).abs() > IND_ATOL + IND_RTOL * ref.abs()
+        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: member {b} off its single solve at "
+                                 f"{int(bad.sum())} entries, max abs "
+                                 f"{float((got - ref).abs().max()):.3e}")
+        worst = max(worst, float((got - ref).abs().max()))
+    return worst, secs
+
+
+def traced_rounds(fn):
+    """One profiled call: (wall ms, device busy ms, kernel launches,
+    rounds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sol = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [ev for ev in prof.key_averages()
+               if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    busy_ms = sum(getattr(ev, "self_device_time_total", 0.0) for ev in kernels) / 1e3
+    return wall_ms, busy_ms, sum(ev.count for ev in kernels), sol.state.rounds
+
+
+def independent_phase(dev, card_line, heat_problem, soln):
+    """Phase 26; returns the K3/K4 records of the banded independent path."""
+    from diffsol_tpu_torch import BdfSolver, errors, solve_dense_ensemble
+    from diffsol_tpu_torch.models import robertson
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.solvers.bdf_independent import IndependentState
+
+    # ---- (a) Robertson, the cell's problem and members
+    problem = robertson.problem_ode()
+    te = robertson.T_EVAL_4E10
+    rng = np.random.default_rng(SEED)
+    params = robertson_params(B_MAIN, rng, dev)
+
+    def run():
+        return solve_dense_ensemble(BdfSolver, problem, te, params, mode="independent")
+
+    sol, ms = timed_solve(run)
+    st = sol.state
+    if sol.tier != "independent" or not isinstance(st, IndependentState):
+        raise AssertionError(f"(a): tier {sol.tier!r}, state {type(st).__name__}")
+    if not bool((sol.stop_reason == errors.TSTOP_REACHED).all()):
+        raise AssertionError(f"(a): stop reasons {sol.stop_reason.unique().tolist()}")
+    ys = sol.ys
+    if tuple(ys.shape) != (len(te), B_MAIN, 3) or not bool(torch.isfinite(ys).all()):
+        raise AssertionError(f"(a): ys {tuple(ys.shape)} or non-finite values")
+    cons = float((ys.sum(-1) - 1.0).abs().max())
+    rel = [abs(float(ys[r - 1, 0, 0]) - robertson.SOLN[r, 1]) / robertson.SOLN[r, 1]
+           for r in (1, 2, 3)]
+    if not cons < IND_CONS or not max(rel) < IND_SOLN_REL:
+        raise AssertionError(f"(a): bench.py's gate: conservation {cons:.2e}, member 0 "
+                             f"vs SOLN {max(rel):.2e}")
+    drawn = sorted(np.random.default_rng(SEED + 26).choice(
+        np.arange(1, B_MAIN - 1), 6, replace=False).tolist())
+    members = [0, B_MAIN - 1] + drawn
+    worst, secs = member_vs_single("(a)", sol, problem, te, params, members)
+    steps = st.stats.steps
+    print(f"[26a] independent Robertson, B={B_MAIN} to t=4e10: every member "
+          f"TSTOP_REACHED, conservation {cons:.2e}, member 0 vs SOLN at t=0.4, 4, 40 "
+          f"{max(rel):.2e} (bench.py's gate {IND_CONS:g}, {IND_SOLN_REL:g}); members "
+          f"{members} against their single solves on the card: equal accepted steps, max "
+          f"abs {worst:.3e} (bound {IND_ATOL:g} + {IND_RTOL:g}|ref|)", flush=True)
+    # the trace of a whole call (~420,000 launches) takes the profiler
+    # minutes to gather: the profiled call runs the same members to t = 40
+    t_prof = time.perf_counter()
+    wall_ms, busy_ms, launches, rounds = traced_rounds(
+        lambda: solve_dense_ensemble(BdfSolver, problem, te[:IND_PROFILE_EVAL], params,
+                                     mode="independent"))
+    t_prof = time.perf_counter() - t_prof
+    lock_ms = timed_solve(lambda: solve_dense_ensemble(BdfSolver, problem, te, params,
+                                                       mode="lockstep"))[1]
+    loop_ms = float(np.mean(secs)) * 1e3
+    print(f"[26a] independent call {ms:.1f} ms (median of 3, CUDA events); {st.rounds} "
+          f"rounds, {st.host_reads} host reads ({st.host_reads / st.rounds:.2f} a round), "
+          f"{st.newton_sweeps} Newton sweeps; members' accepted steps min "
+          f"{int(steps.min())} max {int(steps.max())} median {int(steps.median())}; one "
+          f"profiled call to t={te[IND_PROFILE_EVAL - 1]:g} ({rounds} rounds) {wall_ms:.1f} "
+          f"ms, {launches} kernel launches = {launches / rounds:.1f} a round, device busy "
+          f"{busy_ms:.2f} ms = {busy_ms / wall_ms:.1%} (the trace took {t_prof:.1f} s in "
+          f"all); lockstep on the same problem {lock_ms:.1f} ms (median "
+          f"of 3); the member loop {loop_ms:.1f} ms a member (mean of the {len(secs)} "
+          f"single solves), {loop_ms * B_MAIN / 1e3:.0f} s for B={B_MAIN} extrapolated; "
+          f"card {card_line}", flush=True)
+
+    # ---- (b) heat1d banded: K3 on the refreshed members' bands, K4 on all
+    n = HEAT_MGRID + 1
+    d = np.linspace(0.5, 2.0, B_BAND)
+    hp = torch.tensor(d[:, None], device=dev)
+
+    def run_heat():
+        return solve_dense_ensemble(BdfSolver, heat_problem, HEAT_T_EVAL, hp,
+                                    mode="independent")
+
+    band_lu.launch_band_lu_factor.launches = 0
+    band_lu.launch_band_lu_solve.launches = 0
+    hs = run_heat()
+    torch.cuda.synchronize()
+    k3 = band_lu.launch_band_lu_factor.launches
+    k4 = band_lu.launch_band_lu_solve.launches
+    if k3 < 1 or k4 < 1:
+        raise AssertionError(f"(b): launched K3 {k3} and K4 {k4} times")
+    if not bool((hs.stop_reason == errors.TSTOP_REACHED).all()):
+        raise AssertionError(f"(b): stop reasons {hs.stop_reason.unique().tolist()}")
+    hys = hs.ys.cpu().numpy()
+    series = np.stack([soln(HEAT_T_EVAL, dd) for dd in d], axis=1)
+    err_b = float(np.abs(hys - series).max())
+    if not err_b < ANALYTIC_TOL:
+        raise AssertionError(f"(b): off the analytic series by {err_b}")
+    hmembers = [0, B_BAND // 3, 2 * B_BAND // 3, B_BAND - 1]
+    hworst, _ = member_vs_single("(b)", hs, heat_problem, HEAT_T_EVAL, hp, hmembers)
+    heat_ms = timed_solve(run_heat)[1]
+    hst = hs.state
+    print(f"[26b] independent heat1d banded, B={B_BAND}, n={n}: {k3} K3 launches (the "
+          f"refreshed members' bands), {k4} K4 launches (every member against its own "
+          f"factors), {hst.rounds} rounds; every member vs the analytic series "
+          f"{err_b:.3e} (bound {ANALYTIC_TOL:g}); members {hmembers} vs their single "
+          f"solves max abs {hworst:.3e}; {heat_ms:.1f} ms median of 3; "
+          f"steps min {int(hst.stats.steps.min())} max {int(hst.stats.steps.max())}; card "
+          f"{card_line}", flush=True)
+    # K3/K4 against their plain versions on this path's M - c J: each
+    # member's last Jacobian and c
+    band = heat_problem.linear_solver.assemble(
+        None, hst.jac, hst.c_last.view(-1, 1, 1))
+    b = torch.tensor(np.random.default_rng(SEED).standard_normal((B_BAND, n)), device=dev)
+    F, x = lu_once(band, b, 1, 1)
+    F_p = band_lu.band_lu_factor_reference(band, 1, 1)
+    x_p = band_lu.band_lu_solve_reference(F_p, b, 1, 1)
+    ef, ex = check_lu("(b) factor", F.lu, F_p), check_lu("(b) solve", x, x_p)
+    f_ms = time_ms(lambda: band_lu.launch_band_lu_factor(band, 1, 1), 20)
+    s_ms = time_ms(lambda: band_lu.launch_band_lu_solve(F.lu, b, 1, 1), 20)
+    f_plain = time_ms(lambda: band_lu.band_lu_factor_reference(band, 1, 1), 3)
+    s_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F.lu, b, 1, 1), 3)
+    dense = dense_of(band, 1, 1)
+    lu, piv = torch.linalg.lu_factor(dense)
+    lib_f = time_ms(lambda: torch.linalg.lu_factor(dense), 5)
+    lib_s = time_ms(lambda: torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)), 5)
+    nb = 3
+    f_bound = bound(8 * B_BAND * (nb * n + (n + 1) * nb), B_BAND * n * 4)
+    s_bound = bound(8 * B_BAND * ((n - 1) + 2 * n + 2 * n), B_BAND * (2 * (n - 1) + 3 * n))
+    print(f"[26b] K3/K4 on this path's M - cJ (B={B_BAND}): vs plain max abs factor "
+          f"{ef:.3e}, x {ex:.3e}; factor {f_ms:.4f} ms, solve {s_ms:.4f} ms (medians of "
+          f"20; least {f_bound[0]:.4f} / {s_bound[0]:.4f} ms); plain {f_plain:.2f} / "
+          f"{s_plain:.2f} ms; torch.linalg.lu_factor / lu_solve on the dense expansion "
+          f"{lib_f:.3f} / {lib_s:.3f} ms; card {card_line}", flush=True)
+    common = {"route": "cuda", "source": "diffsol_tpu_torch/csrc/band_lu.cuh"}
+    records = [
+        dict(name="band_lu_factor:independent", replaces="diffsol_tpu/ops/pallas_banded.py:51",
+             launches=k3, max_abs_err=ef, ms=f_ms, plain_ms=f_plain, bound_ms=f_bound[0],
+             bound_by=f_bound[1], library_ms=lib_f, **common),
+        dict(name="band_lu_solve:independent", replaces="diffsol_tpu/ops/pallas_banded.py:72",
+             launches=k4, max_abs_err=ex, ms=s_ms, plain_ms=s_plain, bound_ms=s_bound[0],
+             bound_by=s_bound[1], library_ms=lib_s, **common),
+    ]
+
+    # ---- (c) balls over gravities linspace(6, 15), each at its own times
+    g = torch.linspace(6.0, 15.0, B_BALLS, dtype=torch.float64, device=dev)[:, None]
+    t_land = torch.sqrt(20.0 / g[:, 0])
+    for reset in (False, True):
+        bp = ball_problem(reset)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bs = solve_dense_ensemble(BdfSolver, bp, BALL_T_EVAL_26, g, mode="independent",
+                                  max_steps=4000)
+        torch.cuda.synchronize()
+        ball_s = time.perf_counter() - t0
+        if reset:
+            if not bool((bs.stop_reason == errors.TSTOP_REACHED).all()):
+                raise AssertionError(f"(c) reset: stops {bs.stop_reason.unique().tolist()}")
+            gg = g[:, 0].cpu().numpy()
+            ref = np.stack([fc_ball_height(np.asarray(BALL_T_EVAL_26), gi) for gi in gg], 1)
+            err = float(np.abs(bs.ys[..., 0].cpu().numpy() - ref).max())
+            if not err < 1e-4:
+                raise AssertionError(f"(c) reset: heights off the closed form by {err}")
+            what = f"heights vs the closed form (to the second bounce) max abs {err:.2e}"
+        else:
+            if not bool((bs.stop_reason == errors.ROOT_FOUND).all()):
+                raise AssertionError(f"(c) stop: stops {bs.stop_reason.unique().tolist()}")
+            err = float((bs.root_t - t_land).abs().max())
+            if not err < BALL_ROOT_TOL or not bool((bs.root_idx == 0).all()):
+                raise AssertionError(f"(c) stop: root_t off sqrt(2*10/g) by {err}")
+            what = f"root_t vs sqrt(2*10/g) max abs {err:.2e} (bound {BALL_ROOT_TOL:g})"
+        print(f"[26c] independent balls, B={B_BALLS}, {'reset' if reset else 'stop at root'}"
+              f": {what}; {bs.state.rounds} rounds, {bs.state.host_reads} host reads, steps "
+              f"min {int(bs.state.stats.steps.min())} max {int(bs.state.stats.steps.max())}; "
+              f"{ball_s:.2f} s (host clock, one call); card {card_line}", flush=True)
+    return records
+
+
+def fc_ball_height(t, g, e=0.8, h0=10.0):
+    """The ball's height up to its second bounce (models/fused_cases.py)."""
+    from diffsol_tpu_torch.models import fused_cases
+
+    return fused_cases.ball_height(t, g=g, e=e, h0=h0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3421,9 +3675,12 @@ def main() -> int:
         phase()
         print(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s (host clock)",
               flush=True)
+    t_phase = time.perf_counter()
+    independent_records = independent_phase(dev, card_line, heat_problem, soln)
+    print(f"[26] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
     record = ([small_record] + variant_records + [mixed_record] + band_records
               + mol2d_records + wide_lu_records + diffsl_records + sens_records
-              + adjoint_records + f32_records)
+              + adjoint_records + f32_records + independent_records)
 
     print(f"card: {card_line}")
     print(json.dumps({"kernels": record}))

@@ -291,15 +291,31 @@ def _adjoint_problem(problem: OdeProblem, t_top: float, nparams: int,
         x = hermite_interp(table_ref[0], t)
         return like.new_tensor(t), x
 
-    def rhs(sigma, z, params):
+    # the last point's pullbacks: Newton evaluates the rhs several times at
+    # one time and table, and a vjp function may be applied again
+    last = [None]
+
+    def pullbacks(sigma, z, params):
+        key = (float(sigma), table_ref[0], params)
+        hit = last[0]
+        if hit is not None and hit[0][0] == key[0] and all(
+                a is b for a, b in zip(hit[0][1:], key[1:])):
+            return hit[1]
         tt, x = at(sigma, z)
         _, vjp = torch.func.vjp(lambda yy, pp: eqn.rhs(tt, yy, pp), x, params)
+        vjp_u = None
+        if ct_g is not None and eqn.out is not None:
+            _, vjp_u = torch.func.vjp(lambda yy, pp: out_fn(tt, yy, pp), x, params)
+        last[0] = (key, (vjp, vjp_u))
+        return vjp, vjp_u
+
+    def rhs(sigma, z, params):
+        vjp, vjp_u = pullbacks(sigma, z, params)
         dlam, dgp = vjp(z[..., :n].contiguous())
         if ct_g is not None:
             if eqn.out is None:  # u = y
                 dlam = dlam + ct_g
             else:
-                _, vjp_u = torch.func.vjp(lambda yy, pp: out_fn(tt, yy, pp), x, params)
                 du, dup = vjp_u(ct_g)
                 dlam, dgp = dlam + du, dgp + dup
         return torch.cat([dlam, dgp], dim=-1)
@@ -318,11 +334,17 @@ def _adjoint_problem(problem: OdeProblem, t_top: float, nparams: int,
 
     adj_mass = None
     if eqn.mass is not None:
+        last_mass = [None]
+
         def adj_mass(sigma, params):
+            hit = last_mass[0]
+            if hit is not None and hit[0] == float(sigma) and hit[1] is params:
+                return hit[2]
             m_t = eqn.mass(params.new_tensor(t_top - float(sigma)), params)
             out = torch.eye(N, dtype=F64, device=params.device).expand(
                 params.shape[:-1] + (N, N)).clone()
             out[..., :n, :n] = m_t.transpose(-1, -2)
+            last_mass[0] = (float(sigma), params, out)
             return out
 
     adj_eqn = OdeEquations(rhs=rhs, init=init, mass=adj_mass, rhs_jac=rhs_jac,

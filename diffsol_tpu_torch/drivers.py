@@ -40,19 +40,26 @@ class Solution:
     internal step and the first ``n_points`` rows are valid.  The fused
     tiers share one adaptive step sequence per member tile, and
     ``tile_steps`` holds each tile's accepted steps.
+
+    An independent ensemble (``tier="independent"``) keeps each member's
+    own fate: ``stop_reason`` is a (B,) integer tensor, ``root_t`` and
+    ``root_idx`` are (B,) tensors (NaN and -1 for a member that stopped at
+    no root), and ``state`` is one batched state: the batched solver's
+    :class:`~diffsol_tpu_torch.solvers.bdf_independent.IndependentState`,
+    or the member loop's final states stacked on a leading member axis.
     """
 
     ts: torch.Tensor
     ys: torch.Tensor
-    stop_reason: int
+    stop_reason: Any  # int, or a (B,) tensor for an independent ensemble
     n_points: int
     state: Any = None
     # the integrated output (or, with ``out`` and no quadrature, out(t, y))
     # at ``ts``; None without either
     gs: Optional[torch.Tensor] = None
     # the root a solve without a reset operator stopped at (NaN, -1: none)
-    root_t: float = math.nan
-    root_idx: int = -1
+    root_t: Any = math.nan
+    root_idx: Any = -1
     tile_steps: Optional[torch.Tensor] = None
     tier: Optional[str] = None
     # the augmented rows (forward sensitivities) at ``ts``, (neval, naug,
@@ -65,8 +72,17 @@ class Solution:
     def raise_for_status(self) -> "Solution":
         """Raise :class:`~diffsol_tpu_torch.errors.DiffsolError` when the
         solve failed (a negative ``stop_reason``), naming the time the
-        final state reached; else return the solution."""
-        errors.check_status(int(self.stop_reason), float(self.state.t))
+        final state reached; else return the solution.  An independent
+        ensemble fails when any member did, and the error names the first
+        failed member and its time."""
+        stop = self.stop_reason
+        if isinstance(stop, torch.Tensor) and stop.ndim:
+            bad = torch.nonzero(stop < 0).reshape(-1).tolist()
+            if bad:
+                b = bad[0]
+                errors.check_status(int(stop[b]), float(self.state.t[b]), member=b)
+            return self
+        errors.check_status(int(stop), float(self.state.t))
         return self
 
 

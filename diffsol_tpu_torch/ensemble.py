@@ -6,7 +6,14 @@
   states and then the max over members, and the dense LU runs on (B, n, n).
   (The JAX package keeps (n, B) for the TPU's (8, 128) tiling; the
   semantics, ``tier`` and ``stats`` are the same.)
-* **independent**: one solve per member, each with its own step sequence.
+* **independent**: each member with its own step sequence, events and
+  stop.  A plain ``BdfSolver`` over the dense tier (any mass) or the
+  banded tier runs all members in one batched loop
+  (:mod:`.solvers.bdf_independent`, the counterpart of the JAX package's
+  ``vmap``); any other solver (SDIRK, ERK, ``sens=True``, the block and
+  Krylov tiers) loops over the members, one eager solve each.  Either way
+  ``stop_reason``, ``root_t`` and ``root_idx`` are (B,) tensors and
+  ``state`` is one batched state.
 * **fused**: the whole-solve kernel tiers, the small-n stepper first
   (:mod:`.ops.fused_stepper`, n <= 8, tier ``"fused_small"``), then the
   banded stepper (:mod:`.ops.fused_band_stepper`, tier ``"fused_band"``).
@@ -44,10 +51,13 @@ from .problem import OdeProblem
 F64 = torch.float64
 
 
-def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
+def make_lockstep_problem(problem: OdeProblem, nbatch: int,
+                          member_t: bool = False) -> OdeProblem:
     """Lift a problem to member-major (B, n) lockstep form: ``params``
     gains a leading (nbatch,) axis and the callables act on all members at
-    once.  The member Jacobian (dense (n, n), the (nb, n) band of the
+    once.  With ``member_t`` the callables take a (B,) time, each member at
+    its own (the batched independent mode, :mod:`.solvers.bdf_independent`);
+    its Jacobian and mass are those of the dense or banded tier.  The member Jacobian (dense (n, n), the (nb, n) band of the
     banded tier or the (K, nb, nb) blocks of the block tier) stacks to
     (B, n, n), (B, nb, n) or (B, K, nb, nb); the dense and banded tiers
     take member-major batches as they are, and the block tier's member and
@@ -60,6 +70,7 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
     vmap = torch.func.vmap
     spec = problem.linear_solver
     krylov = spec.name.startswith("krylov")
+    td = 0 if member_t else None
     if krylov:
         def b_jac(t, Y, Pb):
             return (t, Y, Pb)
@@ -67,16 +78,17 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
         b_jac.jvp_probes = 0
     else:
         member_jac = eqn.rhs_jac or torch.func.jacfwd(eqn.rhs, argnums=1)
-        b_jac = vmap(member_jac, in_dims=(None, 0, 0))
+        b_jac = vmap(member_jac, in_dims=(td, 0, 0))
         if hasattr(member_jac, "jvp_probes"):
             b_jac.jvp_probes = member_jac.jvp_probes
     b_mass = b_mass_diag = None
     if eqn.mass is not None:
-        b_mass = vmap(eqn.mass, in_dims=(None, 0))
+        b_mass = vmap(eqn.mass, in_dims=(td, 0))
         if eqn.mass_diag_fn is not None:
-            b_mass_diag = vmap(eqn.mass_diag_fn, in_dims=(None, 0))
+            b_mass_diag = vmap(eqn.mass_diag_fn, in_dims=(td, 0))
+
     def over_members(f):
-        return None if f is None else vmap(f, in_dims=(None, 0, 0))
+        return None if f is None else vmap(f, in_dims=(td, 0, 0))
 
     new_eqn = OdeEquations(
         rhs=over_members(eqn.rhs),
@@ -93,9 +105,10 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
         reset=over_members(eqn.reset),
         # the fired root's index is one for all members (member 0's
         # crossing); the JAX lockstep problem drops reset_n (ROADMAP.md
-        # queue 3), so its N models reset with the current index
+        # queue 3), so its N models reset with the current index.  With
+        # member_t each member resets with its own (B,) index.
         reset_n=(None if eqn.reset_n is None
-                 else vmap(eqn.reset_n, in_dims=(None, 0, 0, None))),
+                 else vmap(eqn.reset_n, in_dims=(td, 0, 0, td))),
         rhs_jac=b_jac,
         nstates=eqn.nstates,
         nout=eqn.nout,
@@ -236,6 +249,30 @@ def _fused_solution(fsolve, tier, ts_on, params_batch, t_eval, problem) -> Solut
     )
 
 
+def stack_states(states):
+    """The member loop's final states as one batched state of their class:
+    tensors stacked on a new leading member axis, numbers as (B,) tensors,
+    tuples, named tuples and dataclasses (``Stats`` among them) field by
+    field; what is equal in every member (None) is kept once."""
+    first = states[0]
+    if isinstance(first, torch.Tensor):
+        if all(s.shape == first.shape for s in states):
+            return torch.stack(states)
+        return list(states)
+    if isinstance(first, bool) or isinstance(first, (int, float)):
+        return torch.tensor(states)
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return dataclasses.replace(first, **{
+            f.name: stack_states([getattr(s, f.name) for s in states])
+            for f in dataclasses.fields(first)})
+    if isinstance(first, tuple):
+        parts = [stack_states(list(col)) for col in zip(*states)]
+        return type(first)(*parts) if hasattr(first, "_fields") else tuple(parts)
+    if all(s is first for s in states):
+        return first
+    return list(states)
+
+
 def solve_dense_ensemble(
     make_solver,
     problem: OdeProblem,
@@ -252,7 +289,12 @@ def solve_dense_ensemble(
 
     ``make_solver`` is a problem -> solver factory (``BdfSolver``, or
     ``lambda pr: solver(pr, "tr_bdf2")``); the lockstep and independent
-    modes use it.  The fused and auto modes run the BDF kernels whenever
+    modes use it.  ``mode="independent"`` gives every member its own step
+    control: one batched loop when ``make_solver(problem)`` is a plain
+    ``BdfSolver`` over the dense or banded tier
+    (:func:`.solvers.bdf_independent.solve_dense_independent`), else one
+    eager solve a member; ``stop_reason``, ``root_t`` and ``root_idx`` come
+    back as (B,) tensors and ``state`` as one batched state.  The fused and auto modes run the BDF kernels whenever
     one takes the problem, whatever the method, as the JAX package does
     (its ensemble.py:441-476), so an SDIRK or ERK ensemble asks for
     ``mode="lockstep"``.  A factory whose solver carries sensitivities
@@ -308,7 +350,12 @@ def solve_dense_ensemble(
         return sol.replace(tier="lockstep")
 
     if mode == "independent":
+        from .solvers import bdf_independent
+
         solver = make_solver(problem)
+        if bdf_independent.takes(solver):
+            return bdf_independent.solve_dense_independent(
+                solver, t_eval, params_batch, max_steps=max_steps)
         sols = [
             solve_dense(solver, t_eval, params=params_batch[i],
                         max_steps=max_steps, device=dev)
@@ -321,9 +368,11 @@ def solve_dense_ensemble(
                 else torch.stack([s.gs for s in sols], dim=1)),
             sens=(None if sols[0].sens is None
                   else torch.stack([s.sens for s in sols], dim=2)),
-            stop_reason=torch.tensor([s.stop_reason for s in sols]),
+            stop_reason=torch.tensor([s.stop_reason for s in sols], device=dev),
             n_points=sols[0].n_points,
-            state=[s.state for s in sols],
+            state=stack_states([s.state for s in sols]),
+            root_t=torch.tensor([s.root_t for s in sols], dtype=F64, device=dev),
+            root_idx=torch.tensor([s.root_idx for s in sols], device=dev),
             tier="independent",
         )
 

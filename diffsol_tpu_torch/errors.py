@@ -39,16 +39,22 @@ _MESSAGES = {
 class DiffsolError(RuntimeError):
     """Raised at the Python API boundary when a solve fails."""
 
-    def __init__(self, code: int, t: float | None = None):
+    def __init__(self, code: int, t: float | None = None,
+                 member: int | None = None):
         self.code = code
         self.t = t
+        self.member = member
         msg = _MESSAGES.get(code, f"solver error code {code}")
+        where = [] if member is None else [f"member {member}"]
         if t is not None:
-            msg = f"{msg} (at t = {t})"
+            where.append(f"at t = {t}")
+        if where:
+            msg = f"{msg} ({', '.join(where)})"
         super().__init__(msg)
 
 
-def check_status(code: int, t: float | None = None) -> None:
-    """Raise :class:`DiffsolError` if ``code`` (a concrete int) is an error."""
+def check_status(code: int, t: float | None = None, member: int | None = None) -> None:
+    """Raise :class:`DiffsolError` if ``code`` (a concrete int) is an
+    error; ``member`` names the ensemble member that failed."""
     if code < 0:
-        raise DiffsolError(int(code), t)
+        raise DiffsolError(int(code), t, member)

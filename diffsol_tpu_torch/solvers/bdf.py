@@ -76,15 +76,17 @@ def _r_mat(f: float) -> np.ndarray:
     return np.cumprod(rows, axis=0)
 
 
+_IDX = np.arange(ND)
+_EYE = np.eye(ND)
+# rows and columns 0..order, and U = R(1) on them, for each order
+_VALID = [(_IDX[:, None] <= o) & (_IDX[None, :] <= o) for o in range(ND)]
+_U = [np.where(v, _r_mat(1.0), _EYE) for v in _VALID]
+
+
 def compute_ru(order: int, factor: float) -> np.ndarray:
     """(ND, ND) RU = R(factor) @ R(1) acting on D rows 0..order, identity
     on the tail (bdf.rs:433-463)."""
-    idx = np.arange(ND)
-    valid = (idx[:, None] <= order) & (idx[None, :] <= order)
-    eye = np.eye(ND)
-    r = np.where(valid, _r_mat(factor), eye)
-    u = np.where(valid, _r_mat(1.0), eye)
-    return r @ u
+    return np.where(_VALID[order], _r_mat(factor), _EYE) @ _U[order]
 
 
 def apply_ru(ru: np.ndarray, D: torch.Tensor) -> torch.Tensor:

@@ -10,12 +10,15 @@ import re
 from pathlib import Path
 
 import pytest
+import torch
 
 import diffsol_tpu_torch as dtt
 from diffsol_tpu_torch.models import heat1d
 from diffsol_tpu_torch.ops import fused_band_stepper as fb
 from diffsol_tpu_torch.ops.banded import make_banded_solver
 from diffsol_tpu_torch.ops.eqn_codegen import UnsupportedForKernel
+
+torch.set_num_threads(1)
 
 CSRC = Path(fb.__file__).resolve().parent.parent / "csrc"
 # the H100's limits: shared memory a block (sm_90), threads a block,

@@ -20,6 +20,8 @@ from diffsol_tpu import capi_host as jhost
 from diffsol_tpu_torch import _build
 from diffsol_tpu_torch import capi_host as thost
 
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # native/test_capi.c's logistic model

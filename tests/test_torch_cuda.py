@@ -1382,3 +1382,57 @@ def test_c_abi_consumer_on_the_card():
         np.testing.assert_allclose(ys, 0.1 * np.exp([0.5, 1.0]), rtol=1e-5)
     finally:
         capi_host.free(h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["banded", "dense"])
+def test_independent_mode_batched_on_the_card(tier):
+    """``mode="independent"`` as one batched loop on the card: heat1d on
+    the banded tier (K3 on the refreshed members' bands, K4 for every
+    member against its own factors, both counted) and Robertson on the
+    dense tier; members against their single solves on the card (equal
+    accepted steps, ys within 1e-12 + 1e-9 |ref|) and the whole batch
+    against the same batched solve on the CPU (equal steps, ys within a
+    thousandth of the solver's error weights)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.solvers.bdf_independent import IndependentState
+
+    if tier == "banded":
+        problem, _ = heat1d.make(31, rtol=1e-6, atol=1e-8, banded=True)
+        t_eval = [0.01, 0.05, 0.1]
+        params = np.linspace(0.5, 2.0, 64)[:, None]
+    else:
+        problem = trob.problem_ode()
+        t_eval = trob.T_EVAL_4E10
+        params = _params(64)
+    band_lu.launch_band_lu_factor.launches = 0
+    band_lu.launch_band_lu_solve.launches = 0
+    sol = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval, params,
+                                   mode="independent")
+    torch.cuda.synchronize()
+    k3 = band_lu.launch_band_lu_factor.launches
+    k4 = band_lu.launch_band_lu_solve.launches
+    assert sol.ys.is_cuda and isinstance(sol.state, IndependentState)
+    assert sol.stop_reason.tolist() == [dtt.errors.TSTOP_REACHED] * len(params)
+    if tier == "banded":
+        assert k3 >= 1 and k4 >= sol.state.newton_sweeps >= 1
+    else:
+        assert k3 == k4 == 0
+    pc = torch.tensor(params, device="cuda")
+    for b in (0, 21, 42, 63):
+        one = dtt.solve_dense(dtt.BdfSolver(problem), t_eval, params=pc[b])
+        assert int(sol.state.stats.steps[b]) == one.state.stats.steps
+        torch.testing.assert_close(sol.ys[:, b], one.ys, rtol=1e-9, atol=1e-12)
+    cpu = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval, params,
+                                   mode="independent", device="cpu")
+    assert sol.state.stats.steps.cpu().tolist() == cpu.state.stats.steps.tolist()
+    # each member's control rounds on the card as its single solve there,
+    # so the batch parts from the CPU's only as the single solves do, by
+    # the card's and the CPU's linear algebra rounding differently: far
+    # inside the solver's error weights (Robertson's y1 at t = 4e9 moved by
+    # 1.2e-12, 1.2e-4 of its weight)
+    weight = problem.atol.cpu() + problem.rtol.cpu() * cpu.ys.abs()
+    assert bool(((sol.ys.cpu() - cpu.ys).abs() <= 1e-3 * weight).all())
