@@ -160,7 +160,8 @@ reach no Pallas kernel).
     (UnsupportedForKernel), mode="auto" solves them lockstep on the card,
     y against its closed form and the hidden index N the fired root's.
 21. forward sensitivities, each path timed as the median of 3 after a
-    warm-up between CUDA events, with its steps, Newton iterations and
+    warm-up between CUDA events (the calls of seconds, (a), (b) and (d),
+    once after it: LONG_REPS), with its steps, Newton iterations and
     linear solver setups: (a) the Robertson ODE lockstep,
     BdfSolver(sens=True), B=10,000 with k1 spread +-10 % (numpy seed 0,
     member 0 nominal), 3 rows, to t = 4e10 on the dense tier: ys as in
@@ -256,6 +257,33 @@ reach no Pallas kernel).
     (g++/gcc), run the consumer with DIFFSOL_PLATFORM unset (the card) and
     require "ALL CHECKS PASSED" (build and run times printed), and show
     in-process that a handle's problem lives on the card.
+26. mode="independent" as one batched BDF loop, each member its own step
+    control: (a) the Robertson cell's B = 10,000 members to t = 4e10
+    (bench.py's gate, eight members against their single solves on the
+    card, one call timed after a warm-up, rounds, host reads, launches a round and the busy share of one
+    profiled call, beside lockstep and the member loop); (b) heat1d n=128
+    banded, B = 1,024 (K3/K4 counted, and held to their plain versions on
+    the path's M - cJ); (c) 1,024 balls, stop at the root and bounce.
+27. mode="independent" batched for SDIRK and ERK, with sens=True and on the
+    block tier: (a) TR-BDF2 on the Robertson cell's B = 10,000 members to
+    t = 4e6 (member 0 against the CVODE table; members 0, 9,999 and six
+    drawn with a seed against their single solves on the card: equal
+    Stats, ys within 1e-12 + 1e-9 |ref|), timed (one call after a warm-up)
+    with rounds,
+    host reads and launches a round, one profiled call's busy share, the
+    members' steps, lockstep at B = 10,000 and the member loop's time a
+    member; (b) TSIT45 on phase 17's logistic rates, B = 10,000, every
+    member within 200 rtol of the exact solution, 8 members against their
+    single solves; (c) ESDIRK34 on heat1d n=128 banded, B = 1,024
+    diffusivities linspace(0.5, 2.0): the analytic series within 1e-4, 4
+    members against single solves, K3/K4 counted and held to their plain
+    versions on the path's M - gamma h J; (d) BdfSolver(sens=True) on the
+    same heat1d members, one row: the rows against solve_dense_fwd_sens
+    (1e-3 of their largest), K3/K4 counted (the rows' solves are K4
+    launches of naug B right-hand sides) and held to their plain versions;
+    (e) robertson_ode g100 x b100 (bench.py:614-646) on the block tier,
+    every group against the CVODE table to t = 4e6 (rtol 5e-3), one call
+    timed after a warm-up.
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
@@ -267,8 +295,11 @@ banded gradient (`band_lu_factor:adjoint_heat1d`, `band_lu_solve:...`,
 launches of its forward pass, the other numbers phase 7's at that shape),
 the float K3/K4 at heat1d's and at nb=41's shape (`band_lu_factor:f32`,
 `band_lu_solve:f32`, `:f32_nb41`; launches on phase 23's heat1d and
-heat2d float32 paths) and K4 under forward mode
-(`band_lu_solve:jvp_heat1d`, launches on phase 23 d's path)
+heat2d float32 paths), K4 under forward mode
+(`band_lu_solve:jvp_heat1d`, launches on phase 23 d's path) and K3/K4 on
+the batched independent paths (`band_lu_factor:independent`,
+`band_lu_solve:independent` of phase 26 b; `:independent_rk` of phase 27
+c, `:independent_sens` of phase 27 d)
 (launches on their path, error against the plain version, times, the
 card's least time for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -1478,14 +1509,21 @@ BLOCK_RTOL, BLOCK_ATOL = 1e-6, 1e-10
 CARD_CPU_RTOL, CARD_CPU_ATOL, CARD_CPU_STEPS = 1e-8, 1e-14, 2
 
 
-def timed_solve(fn):
+# timed calls after the warm-up for a solve of seconds (the script's
+# 1,200 s budget): one; the host's speed, not the repetition, sets their
+# spread (up to 2x between runs on separate machines)
+LONG_REPS = 1
+
+
+def timed_solve(fn, reps=3):
     """``(solution, ms)``: ``fn``'s first call, whose solution the gates
-    read, is the warm-up; then the median of 3 calls between CUDA events
-    (an eager solve reads its status on the host, a sync, every step)."""
+    read, is the warm-up; then the median of ``reps`` calls between CUDA
+    events (an eager solve reads its status on the host, a sync, every
+    step)."""
     sol = fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(3):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2190,7 +2228,7 @@ def sens_phase(dev, card_line, heat_problem, soln):
             return dtt.solve_dense_ensemble(sens_solver, problem, te, params,
                                             mode="lockstep", max_steps=5000)
 
-        sol, ms = timed_solve(run)
+        sol, ms = timed_solve(run, LONG_REPS)
         if sol.tier != "lockstep" or sol.stop_reason != dtt.errors.TSTOP_REACHED:
             raise AssertionError(f"[21{tag}] tier {sol.tier}, stop_reason {sol.stop_reason}")
         if (tuple(sol.sens.shape) != (len(te), 3, B_MAIN, 3) or not sol.sens.is_cuda
@@ -2211,7 +2249,8 @@ def sens_phase(dev, card_line, heat_problem, soln):
             extra = f"; the rows at t0 sum to {drift:.1e} (< {SENS_CONSERVE_TOL:g})"
         label = "ODE" if tag == "a" else "DAE (mass diag(1, 1, 0), consistent_init)"
         print(f"[21{tag}] Robertson {label} lockstep B={B_MAIN}, BdfSolver(sens=True), 3 "
-              f"rows, t=4e10: {stats_line(sol)}, {ms:.1f} ms median of 3 (CUDA events); "
+              f"rows, t=4e10: {stats_line(sol)}, {ms:.1f} ms (one call after a warm-up, "
+              f"CUDA events); "
               f"member 0 meets the CVODE table; members {list(members)} within {err:.2e} "
               f"of solve_dense_fwd_sens at rtol {float(oracle_problem.rtol):g} (< {tol:g} "
               f"of its largest){extra}; card {card_line}", flush=True)
@@ -2294,7 +2333,8 @@ def sens_phase(dev, card_line, heat_problem, soln):
     wide = robertson.problem_ode_groups(1000)
     if wide.linear_solver.name != "blockdiag(3,1000)":
         raise AssertionError(f"[21d] ngroups=1000 routed to {wide.linear_solver.name}")
-    blk, blk_ms = timed_solve(lambda: dtt.solve_dense(sens_solver(wide), te, max_steps=5000))
+    blk, blk_ms = timed_solve(lambda: dtt.solve_dense(sens_solver(wide), te, max_steps=5000),
+                              LONG_REPS)
     one = dtt.solve_dense(sens_solver(robertson.problem_ode()), te, max_steps=5000)
     if blk.stop_reason != dtt.errors.TSTOP_REACHED or one.stop_reason != blk.stop_reason:
         raise AssertionError(f"[21d] stop_reason {blk.stop_reason}, {one.stop_reason}")
@@ -2303,7 +2343,8 @@ def sens_phase(dev, card_line, heat_problem, soln):
     if not err_b < SENS_BLOCK_TOL:
         raise AssertionError(f"[21d] groups off the single solve by {err_b:.3e}")
     print(f"[21d] robertson_ode ngroups=1000 (n=3000, blockdiag(3,1000)) BdfSolver(sens="
-          f"True) to t=4e10: {stats_line(blk)}, {blk_ms:.1f} ms median of 3 (CUDA events); "
+          f"True) to t=4e10: {stats_line(blk)}, {blk_ms:.1f} ms (one call after a warm-up, "
+          f"CUDA events); "
           f"every group's 3 rows within {err_b:.1e} of the dense-tier single solve's "
           f"largest (< {SENS_BLOCK_TOL:g}; steps {blk.state.stats.steps} vs "
           f"{one.state.stats.steps}); card {card_line}", flush=True)
@@ -3395,7 +3436,7 @@ def independent_phase(dev, card_line, heat_problem, soln):
     def run():
         return solve_dense_ensemble(BdfSolver, problem, te, params, mode="independent")
 
-    sol, ms = timed_solve(run)
+    sol, ms = timed_solve(run, LONG_REPS)
     st = sol.state
     if sol.tier != "independent" or not isinstance(st, IndependentState):
         raise AssertionError(f"(a): tier {sol.tier!r}, state {type(st).__name__}")
@@ -3430,7 +3471,8 @@ def independent_phase(dev, card_line, heat_problem, soln):
     lock_ms = timed_solve(lambda: solve_dense_ensemble(BdfSolver, problem, te, params,
                                                        mode="lockstep"))[1]
     loop_ms = float(np.mean(secs)) * 1e3
-    print(f"[26a] independent call {ms:.1f} ms (median of 3, CUDA events); {st.rounds} "
+    print(f"[26a] independent call {ms:.1f} ms (one call after a warm-up, CUDA events); "
+          f"{st.rounds} "
           f"rounds, {st.host_reads} host reads ({st.host_reads / st.rounds:.2f} a round), "
           f"{st.newton_sweeps} Newton sweeps; members' accepted steps min "
           f"{int(steps.min())} max {int(steps.max())} median {int(steps.median())}; one "
@@ -3544,6 +3586,280 @@ def independent_phase(dev, card_line, heat_problem, soln):
               f"min {int(bs.state.stats.steps.min())} max {int(bs.state.stats.steps.max())}; "
               f"{ball_s:.2f} s (host clock, one call); card {card_line}", flush=True)
     return records
+
+
+# ---------------------------------------------------------------------------
+# phase 27: mode="independent" batched for SDIRK and ERK, with sens=True and
+# on the block-diagonal tier (solvers/rk_independent.py and
+# solvers/bdf_independent.py on solvers/independent.py's driver).  (a)
+# TR-BDF2 on the Robertson cell's members, timed beside lockstep and the
+# member loop; (b) TSIT45 on phase 17's logistic rates; (c) ESDIRK34 on
+# heat1d banded through K3/K4; (d) BdfSolver(sens=True) on heat1d banded,
+# the rows' solves K4 launches of naug B right-hand sides; (e) the
+# g100 x b100 cell on the block tier.
+
+B_IND_LOGISTIC_MEMBERS = 8
+B_IND_G100 = 100
+
+
+def member_stats_match(name, sol, make, problem, te, params, members, max_steps=100_000):
+    """Each of ``members`` against its single eager solve on the card:
+    its whole Stats and stop equal, ys (and the rows) within 1e-12 + 1e-9
+    |ref|; returns (largest abs difference, the single solves' seconds
+    each)."""
+    import dataclasses
+
+    from diffsol_tpu_torch import solve_dense
+
+    worst, secs = 0.0, []
+    for b in members:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = solve_dense(make(problem), te, params=params[b], max_steps=max_steps)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got_stats = dataclasses.asdict(sol.state.member_stats(b))
+        if got_stats != dataclasses.asdict(one.state.stats) or \
+                int(sol.stop_reason[b]) != one.stop_reason:
+            raise AssertionError(f"{name}: member {b} Stats {got_stats} (stop "
+                                 f"{int(sol.stop_reason[b])}), its single solve "
+                                 f"{one.state.stats} (stop {one.stop_reason})")
+        pairs = [(sol.ys[:, b], one.ys)]
+        if one.sens is not None:
+            pairs.append((sol.sens[:, :, b], one.sens))
+        for got, ref in pairs:
+            bad = (got - ref).abs() > IND_ATOL + IND_RTOL * ref.abs()
+            if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{name}: member {b} off its single solve at "
+                                     f"{int(bad.sum())} entries, max abs "
+                                     f"{float((got - ref).abs().max()):.3e}")
+            worst = max(worst, float((got - ref).abs().max()))
+    return worst, secs
+
+
+def path_lu_records(dev, card_line, tag, band, nrows):
+    """K3 and K4 against their plain versions on a path's (B, nb, n) M - c J
+    band (ml = mu = 1), K4 with ``nrows`` B right-hand sides (row r against
+    factorization r mod B): max abs difference, time, the plain version's,
+    torch.linalg's on the dense expansion and the bound.  Returns the two
+    records without their ``launches``."""
+    from diffsol_tpu_torch.ops import band_lu
+
+    B, nb, n = band.shape
+    b = torch.tensor(np.random.default_rng(SEED).standard_normal((nrows * B, n)), device=dev)
+    F, x = lu_once(band, b, 1, 1)
+    F_p = band_lu.band_lu_factor_reference(band, 1, 1)
+    x_p = band_lu.band_lu_solve_reference(F_p, b, 1, 1)
+    ef, ex = check_lu(f"{tag} factor", F.lu, F_p), check_lu(f"{tag} solve", x, x_p)
+    f_ms = time_ms(lambda: band_lu.launch_band_lu_factor(band, 1, 1), 20)
+    s_ms = time_ms(lambda: band_lu.launch_band_lu_solve(F.lu, b, 1, 1), 20)
+    f_plain = time_ms(lambda: band_lu.band_lu_factor_reference(band, 1, 1), 3)
+    s_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F.lu, b, 1, 1), 3)
+    dense = dense_of(band, 1, 1)
+    lu, piv = torch.linalg.lu_factor(dense)
+    rhs = b.reshape(nrows, B, n, 1)
+    lib_f = time_ms(lambda: torch.linalg.lu_factor(dense), 5)
+    lib_s = time_ms(lambda: torch.linalg.lu_solve(lu, piv, rhs), 5)
+    f_bound = bound(8 * B * (nb * n + (n + 1) * nb), B * n * 4)
+    # each member's factors once (one multiplier and two U rows a column),
+    # the rows in and out
+    s_bound = bound(8 * (B * ((n - 1) + 2 * n) + 2 * nrows * B * n),
+                    nrows * B * (2 * (n - 1) + 3 * n))
+    print(f"[27{tag}] K3/K4 on this path's M - cJ (B={B}, K4 with {nrows * B} rows): vs "
+          f"plain max abs factor {ef:.3e}, x {ex:.3e}; factor {f_ms:.4f} ms, solve "
+          f"{s_ms:.4f} ms (medians of 20; least {f_bound[0]:.4f} / {s_bound[0]:.4f} ms); "
+          f"plain {f_plain:.2f} / {s_plain:.2f} ms; torch.linalg.lu_factor / lu_solve on "
+          f"the dense expansion {lib_f:.3f} / {lib_s:.3f} ms; card {card_line}", flush=True)
+    common = {"route": "cuda", "source": "diffsol_tpu_torch/csrc/band_lu.cuh"}
+    return (dict(name="band_lu_factor", replaces="diffsol_tpu/ops/pallas_banded.py:51",
+                 max_abs_err=ef, ms=f_ms, plain_ms=f_plain, bound_ms=f_bound[0],
+                 bound_by=f_bound[1], library_ms=lib_f, **common),
+            dict(name="band_lu_solve", replaces="diffsol_tpu/ops/pallas_banded.py:72",
+                 max_abs_err=ex, ms=s_ms, plain_ms=s_plain, bound_ms=s_bound[0],
+                 bound_by=s_bound[1], library_ms=lib_s, **common))
+
+
+def counted(fn):
+    """``fn()`` with K3's and K4's counts set to 0 just before it and read
+    just after: (its result, K3 launches, K4 launches, its ms between CUDA
+    events)."""
+    from diffsol_tpu_torch.ops import band_lu
+
+    band_lu.launch_band_lu_factor.launches = 0
+    band_lu.launch_band_lu_solve.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (out, band_lu.launch_band_lu_factor.launches,
+            band_lu.launch_band_lu_solve.launches, start.elapsed_time(end))
+
+
+def independent_rk_phase(dev, card_line, heat_problem, soln):
+    """Phase 27; returns the K3/K4 records of paths (c) and (d)."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch import errors
+    from diffsol_tpu_torch.models import logistic, robertson
+    from diffsol_tpu_torch.solvers.rk_independent import RkIndependentState
+
+    def method(name, **kw):
+        return lambda pr: dtt.solver(pr, name, **kw)
+
+    # ---- (a) TR-BDF2 on the Robertson cell's members, to phase 17's t_eval
+    te = robertson.SOLN[1:9, 0]
+    problem = robertson.problem_ode()
+    params = robertson_params(B_MAIN, np.random.default_rng(SEED), dev)
+    trbdf2 = method("tr_bdf2")
+
+    def run():
+        return dtt.solve_dense_ensemble(trbdf2, problem, te, params, mode="independent",
+                                        max_steps=20_000)
+
+    sol, ms = timed_solve(run, LONG_REPS)
+    st = sol.state
+    if sol.tier != "independent" or not isinstance(st, RkIndependentState):
+        raise AssertionError(f"(a): tier {sol.tier!r}, state {type(st).__name__}")
+    if not bool((sol.stop_reason == errors.TSTOP_REACHED).all()):
+        raise AssertionError(f"(a): stop reasons {sol.stop_reason.unique().tolist()}")
+    check_soln("(a) member 0", sol.ys[:, 0])
+    drawn = sorted(np.random.default_rng(SEED + 27).choice(
+        np.arange(1, B_MAIN - 1), 6, replace=False).tolist())
+    members = [0, B_MAIN - 1] + drawn
+    worst, secs = member_stats_match("(a)", sol, trbdf2, problem, te, params, members,
+                                     max_steps=20_000)
+    wall_ms, busy_ms, launches, rounds = traced_rounds(
+        lambda: dtt.solve_dense_ensemble(trbdf2, problem, te[:IND_PROFILE_EVAL], params,
+                                         mode="independent", max_steps=20_000))
+    lock_ms = timed_solve(lambda: dtt.solve_dense_ensemble(
+        trbdf2, problem, te, params, mode="lockstep", max_steps=20_000))[1]
+    loop_ms = float(np.mean(secs)) * 1e3
+    steps = st.stats.steps
+    print(f"[27a] independent TR-BDF2 Robertson, B={B_MAIN} to t=4e6: every member "
+          f"TSTOP_REACHED, member 0 meets the CVODE table (rtol 5e-3); members {members} "
+          f"against their single solves on the card: equal Stats, max abs {worst:.3e} "
+          f"(bound {IND_ATOL:g} + {IND_RTOL:g}|ref|); call {ms:.1f} ms (one call after a "
+          f"warm-up, CUDA events); {st.rounds} rounds, {st.host_reads} host reads "
+          f"({st.host_reads / st.rounds:.2f} a round), {st.newton_sweeps} Newton sweeps; "
+          f"members' accepted steps min {int(steps.min())} max {int(steps.max())}; one "
+          f"profiled call to t={te[IND_PROFILE_EVAL - 1]:g} ({rounds} rounds) {wall_ms:.1f} "
+          f"ms, {launches} kernel launches = {launches / rounds:.1f} a round, device busy "
+          f"{busy_ms:.2f} ms = {busy_ms / wall_ms:.1%}; lockstep on the same problem "
+          f"{lock_ms:.1f} ms (median of 3); the member loop {loop_ms:.1f} ms a member (mean "
+          f"of {len(secs)} single solves), {loop_ms * B_MAIN / 1e3:.0f} s for B={B_MAIN} "
+          f"extrapolated; card {card_line}", flush=True)
+
+    # ---- (b) TSIT45 on phase 17's logistic rates, B = 10,000
+    rng = np.random.default_rng(SEED)
+    r = 1.0 + 0.1 * rng.uniform(-1.0, 1.0, B_MAIN)
+    r[0] = 1.0
+    lp = torch.tensor(np.stack([r, np.ones(B_MAIN), np.full(B_MAIN, 0.1)], axis=1), device=dev)
+    tl = [1.0, 5.0, 10.0]
+    lproblem = logistic.problem()
+    tsit = method("tsit45")
+    lsol, l_ms = timed_solve(lambda: dtt.solve_dense_ensemble(tsit, lproblem, tl, lp,
+                                                              mode="independent"))
+    exact = np.stack([logistic.soln(tl, p) for p in lp.cpu().numpy()], axis=1)
+    err = float(np.max(np.abs(lsol.ys.cpu().numpy() - exact) / (np.abs(exact) + 1e-3)))
+    check = 200 * float(lproblem.rtol)
+    if not bool((lsol.stop_reason == errors.TSTOP_REACHED).all()) or not err < check:
+        raise AssertionError(f"(b): stops {lsol.stop_reason.unique().tolist()}, error {err}")
+    lmembers = sorted(set([0, B_MAIN - 1] + np.random.default_rng(SEED + 28).choice(
+        np.arange(1, B_MAIN - 1), B_IND_LOGISTIC_MEMBERS - 2, replace=False).tolist()))
+    lworst, _ = member_stats_match("(b)", lsol, tsit, lproblem, tl, lp, lmembers)
+    lst = lsol.state
+    print(f"[27b] independent TSIT45 logistic, B={B_MAIN}: every member within {err:.2e} of "
+          f"the exact solution (< {check:g}); members {lmembers} vs their single solves: "
+          f"equal Stats, max abs {lworst:.3e}; {l_ms:.1f} ms (median of 3, CUDA events); "
+          f"{lst.rounds} rounds, {lst.host_reads} host reads; steps min "
+          f"{int(lst.stats.steps.min())} max {int(lst.stats.steps.max())}; card {card_line}",
+          flush=True)
+
+    # ---- (c) ESDIRK34 on heat1d banded, n = 128, B = 1,024
+    n = HEAT_MGRID + 1
+    d = np.linspace(0.5, 2.0, B_BAND)
+    hp = torch.tensor(d[:, None], device=dev)
+    hmembers = [0, B_BAND // 3, 2 * B_BAND // 3, B_BAND - 1]
+    esdirk = method("esdirk34")
+    hs, k3c, k4c, c_ms = counted(lambda: dtt.solve_dense_ensemble(esdirk, heat_problem, HEAT_T_EVAL,
+                                                            hp, mode="independent"))
+    if k3c < 1 or k4c < 1:
+        raise AssertionError(f"(c): launched K3 {k3c} and K4 {k4c} times")
+    if not bool((hs.stop_reason == errors.TSTOP_REACHED).all()):
+        raise AssertionError(f"(c): stop reasons {hs.stop_reason.unique().tolist()}")
+    series = np.stack([soln(HEAT_T_EVAL, dd) for dd in d], axis=1)
+    err_c = float(np.abs(hs.ys.cpu().numpy() - series).max())
+    if not err_c < ANALYTIC_TOL:
+        raise AssertionError(f"(c): off the analytic series by {err_c}")
+    cworst, _ = member_stats_match("(c)", hs, esdirk, heat_problem, HEAT_T_EVAL, hp, hmembers)
+    hst = hs.state
+    print(f"[27c] independent ESDIRK34 heat1d banded, B={B_BAND}, n={n}: {k3c} K3 launches "
+          f"(the refreshed members' M - gamma h J), {k4c} K4 launches (every stage's Newton "
+          f"sweeps and error filter, each member against its own factors), {hst.rounds} "
+          f"rounds, {hst.host_reads} host reads, {hst.newton_sweeps} Newton sweeps; the "
+          f"call {c_ms:.1f} ms (one, CUDA events); every member vs the analytic series "
+          f"{err_c:.3e} (bound {ANALYTIC_TOL:g}); members {hmembers} vs their single solves: "
+          f"equal Stats, max abs {cworst:.3e}; steps min {int(hst.stats.steps.min())} max "
+          f"{int(hst.stats.steps.max())}; card {card_line}", flush=True)
+    gamma = dtt.solver(heat_problem, "esdirk34").gamma
+    band_c = heat_problem.linear_solver.assemble(
+        None, hst.jac, (gamma * hst.h_at_last_jac).view(-1, 1, 1))
+    fc_rec, sc_rec = path_lu_records(dev, card_line, "c", band_c, 1)
+    fc_rec.update(name="band_lu_factor:independent_rk", launches=k3c)
+    sc_rec.update(name="band_lu_solve:independent_rk", launches=k4c)
+
+    # ---- (d) BdfSolver(sens=True) on heat1d banded, one row, B = 1,024
+    bdf_sens = method("bdf", sens=True)
+    hr, k3d, k4d, d_ms = counted(lambda: dtt.solve_dense_ensemble(bdf_sens, heat_problem,
+                                                            HEAT_T_EVAL, hp,
+                                                            mode="independent"))
+    if k3d < 1 or k4d < 1:
+        raise AssertionError(f"(d): launched K3 {k3d} and K4 {k4d} times")
+    if not bool((hr.stop_reason == errors.TSTOP_REACHED).all()):
+        raise AssertionError(f"(d): stop reasons {hr.stop_reason.unique().tolist()}")
+    if tuple(hr.sens.shape) != (len(HEAT_T_EVAL), 1, B_BAND, n):
+        raise AssertionError(f"(d): rows {tuple(hr.sens.shape)}")
+    rmembers = [0, B_BAND // 2, B_BAND - 1]
+    oracle_err = sens_oracle_check("(d)", hr.sens, heat_problem, hp, rmembers, HEAT_T_EVAL,
+                                   SENS_ODE_TOL)
+    dworst, _ = member_stats_match("(d)", hr, bdf_sens, heat_problem, HEAT_T_EVAL, hp,
+                                   rmembers)
+    rst = hr.state
+    print(f"[27d] independent BdfSolver(sens=True) heat1d banded, B={B_BAND}, 1 row: {k3d} "
+          f"K3 and {k4d} K4 launches (the rows' Newton solves are K4 launches of naug B = "
+          f"{B_BAND} right-hand sides against the B members' factors), {rst.rounds} rounds, "
+          f"{rst.host_reads} host reads, {rst.newton_sweeps} Newton sweeps (state and rows); "
+          f"the call {d_ms:.1f} ms (one, CUDA events); steps min "
+          f"{int(rst.stats.steps.min())} max {int(rst.stats.steps.max())}; members {rmembers} vs "
+          f"solve_dense_fwd_sens {oracle_err:.2e} of their largest (< {SENS_ODE_TOL:g}) and "
+          f"vs their single solves: equal Stats, max abs {dworst:.3e}; card {card_line}",
+          flush=True)
+    band_d = heat_problem.linear_solver.assemble(None, rst.jac, rst.c_last.view(-1, 1, 1))
+    fd_rec, sd_rec = path_lu_records(dev, card_line, "d", band_d, 1)
+    fd_rec.update(name="band_lu_factor:independent_sens", launches=k3d)
+    sd_rec.update(name="band_lu_solve:independent_sens", launches=k4d)
+
+    # ---- (e) the g100 x b100 cell on the block tier (bench.py:614-646)
+    narrow = robertson.problem_ode_groups(100)
+    if narrow.linear_solver.name != "blockdiag(3,100)":
+        raise AssertionError(f"(e): ngroups=100 routed to {narrow.linear_solver.name}")
+    pb = torch.tensor(np.tile(np.array(robertson.P_DEFAULT), (B_IND_G100, 1)), device=dev)
+    g_sol, g_ms = timed_solve(lambda: dtt.solve_dense_ensemble(
+        dtt.BdfSolver, narrow, te, pb, mode="independent", max_steps=5000), LONG_REPS)
+    if not bool((g_sol.stop_reason == errors.TSTOP_REACHED).all()):
+        raise AssertionError(f"(e): stop reasons {g_sol.stop_reason.unique().tolist()}")
+    check_soln("(e) every group", g_sol.ys.reshape(len(te), B_IND_G100, 100, 3))
+    gworst, _ = member_stats_match("(e)", g_sol, dtt.BdfSolver, narrow, te, pb,
+                                   [0, B_IND_G100 - 1], max_steps=5000)
+    gst = g_sol.state
+    print(f"[27e] independent BdfSolver robertson_ode g100 x b100 (blockdiag(3,100), each "
+          f"member's 100 blocks in one (S 100, 3, 3) LU of the refreshed members): "
+          f"{g_ms:.1f} ms (one call after a warm-up, CUDA events), {gst.rounds} rounds, "
+          f"{int(gst.stats.steps.max())} steps, {int(gst.stats.linear_solver_setups.max())} "
+          f"factorizations a member; every group of every member meets the CVODE table to "
+          f"t=4e6 (rtol 5e-3); members 0 and {B_IND_G100 - 1} vs their single solves: equal "
+          f"Stats, max abs {gworst:.3e}; card {card_line}", flush=True)
+    return [fc_rec, sc_rec, fd_rec, sd_rec]
 
 
 def fc_ball_height(t, g, e=0.8, h0=10.0):
@@ -3678,9 +3994,12 @@ def main() -> int:
     t_phase = time.perf_counter()
     independent_records = independent_phase(dev, card_line, heat_problem, soln)
     print(f"[26] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
+    t_phase = time.perf_counter()
+    independent_rk_records = independent_rk_phase(dev, card_line, heat_problem, soln)
+    print(f"[27] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
     record = ([small_record] + variant_records + [mixed_record] + band_records
               + mol2d_records + wide_lu_records + diffsl_records + sens_records
-              + adjoint_records + f32_records + independent_records)
+              + adjoint_records + f32_records + independent_records + independent_rk_records)
 
     print(f"card: {card_line}")
     print(json.dumps({"kernels": record}))

@@ -143,7 +143,9 @@ class SensEquations(AugmentedEquations):
 
             dt*/dp_i = -(r_y s_i + r_p_i) / (r_y f- + r_t)   [fired root]
             s_i+     = R_y s_i + R_p_i + (R_y f- + R_t - f+) dt*/dp_i
-        """
+
+        Over the member-time lift (the batched independent mode) ``t`` and
+        ``root_idx`` are (B,), each member's own."""
         eqn = self.problem.eqn
         if eqn.reset_n is not None:
             def reset(tt, yy, pp):
@@ -164,7 +166,17 @@ class SensEquations(AugmentedEquations):
         r_p = self._param_rows(lambda pp: root(t, y_minus, pp), params)
 
         one = dy_minus.unsqueeze(0)
-        denom = (r_y(one)[0] + r_t)[..., root_idx]
+        denom = _fired(r_y(one)[0] + r_t, root_idx)
         c_dir = R_y(one)[0] + R_t - dy_plus
-        dt_dp = -(r_y(S) + r_p)[..., root_idx] / denom  # (naug,) or (naug, B)
+        dt_dp = -_fired(r_y(S) + r_p, root_idx) / denom  # (naug,) or (naug, B)
         return R_y(S) + R_p + c_dir * dt_dp[..., None]
+
+
+def _fired(x, root_idx):
+    """The fired root's entry of (..., nroots) values: one index for all,
+    or, with each member at its own time, a (B,) index over (..., B,
+    nroots)."""
+    if isinstance(root_idx, torch.Tensor) and root_idx.ndim:
+        idx = root_idx.expand(x.shape[:-1]).unsqueeze(-1)
+        return x.gather(-1, idx).squeeze(-1)
+    return x[..., root_idx]

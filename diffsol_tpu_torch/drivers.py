@@ -44,8 +44,9 @@ class Solution:
     An independent ensemble (``tier="independent"``) keeps each member's
     own fate: ``stop_reason`` is a (B,) integer tensor, ``root_t`` and
     ``root_idx`` are (B,) tensors (NaN and -1 for a member that stopped at
-    no root), and ``state`` is one batched state: the batched solver's
-    :class:`~diffsol_tpu_torch.solvers.bdf_independent.IndependentState`,
+    no root), and ``state`` is one batched state: the batched solvers'
+    :class:`~diffsol_tpu_torch.solvers.bdf_independent.IndependentState`
+    or :class:`~diffsol_tpu_torch.solvers.rk_independent.RkIndependentState`,
     or the member loop's final states stacked on a leading member axis.
     """
 

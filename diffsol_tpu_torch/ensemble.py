@@ -7,11 +7,12 @@
   (The JAX package keeps (n, B) for the TPU's (8, 128) tiling; the
   semantics, ``tier`` and ``stats`` are the same.)
 * **independent**: each member with its own step sequence, events and
-  stop.  A plain ``BdfSolver`` over the dense tier (any mass) or the
-  banded tier runs all members in one batched loop
-  (:mod:`.solvers.bdf_independent`, the counterpart of the JAX package's
-  ``vmap``); any other solver (SDIRK, ERK, ``sens=True``, the block and
-  Krylov tiers) loops over the members, one eager solve each.  Either way
+  stop.  A ``BdfSolver``, ``SdirkSolver`` or ``ErkSolver``, with or
+  without ``sens=True``, over the dense tier (any mass), the banded or the
+  block-diagonal tier runs all members in one batched loop
+  (:mod:`.solvers.bdf_independent`, :mod:`.solvers.rk_independent`, the
+  counterpart of the JAX package's ``vmap``); the Krylov tier's implicit
+  solvers loop over the members, one eager solve each.  Either way
   ``stop_reason``, ``root_t`` and ``root_idx`` are (B,) tensors and
   ``state`` is one batched state.
 * **fused**: the whole-solve kernel tiers, the small-n stepper first
@@ -56,8 +57,9 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
     """Lift a problem to member-major (B, n) lockstep form: ``params``
     gains a leading (nbatch,) axis and the callables act on all members at
     once.  With ``member_t`` the callables take a (B,) time, each member at
-    its own (the batched independent mode, :mod:`.solvers.bdf_independent`);
-    its Jacobian and mass are those of the dense or banded tier.  The member Jacobian (dense (n, n), the (nb, n) band of the
+    its own (the batched independent mode, :mod:`.solvers.independent`),
+    on the dense, banded and block-diagonal tiers alike.  The member
+    Jacobian (dense (n, n), the (nb, n) band of the
     banded tier or the (K, nb, nb) blocks of the block tier) stacks to
     (B, n, n), (B, nb, n) or (B, K, nb, nb); the dense and banded tiers
     take member-major batches as they are, and the block tier's member and
@@ -290,11 +292,13 @@ def solve_dense_ensemble(
     ``make_solver`` is a problem -> solver factory (``BdfSolver``, or
     ``lambda pr: solver(pr, "tr_bdf2")``); the lockstep and independent
     modes use it.  ``mode="independent"`` gives every member its own step
-    control: one batched loop when ``make_solver(problem)`` is a plain
-    ``BdfSolver`` over the dense or banded tier
-    (:func:`.solvers.bdf_independent.solve_dense_independent`), else one
-    eager solve a member; ``stop_reason``, ``root_t`` and ``root_idx`` come
-    back as (B,) tensors and ``state`` as one batched state.  The fused and auto modes run the BDF kernels whenever
+    control: one batched loop for a ``BdfSolver``, ``SdirkSolver`` or
+    ``ErkSolver`` (sensitivities or not) over the dense, banded or
+    block-diagonal tier
+    (:func:`.solvers.independent.solve_dense_independent`), one eager
+    solve a member on the Krylov tier; ``stop_reason``, ``root_t`` and
+    ``root_idx`` come back as (B,) tensors and ``state`` as one batched
+    state.  The fused and auto modes run the BDF kernels whenever
     one takes the problem, whatever the method, as the JAX package does
     (its ensemble.py:441-476), so an SDIRK or ERK ensemble asks for
     ``mode="lockstep"``.  A factory whose solver carries sensitivities
@@ -350,11 +354,11 @@ def solve_dense_ensemble(
         return sol.replace(tier="lockstep")
 
     if mode == "independent":
-        from .solvers import bdf_independent
+        from .solvers import independent
 
         solver = make_solver(problem)
-        if bdf_independent.takes(solver):
-            return bdf_independent.solve_dense_independent(
+        if independent.takes(solver):
+            return independent.solve_dense_independent(
                 solver, t_eval, params_batch, max_steps=max_steps)
         sols = [
             solve_dense(solver, t_eval, params=params_batch[i],

@@ -1436,3 +1436,70 @@ def test_independent_mode_batched_on_the_card(tier):
     # 1.2e-12, 1.2e-4 of its weight)
     weight = problem.atol.cpu() + problem.rtol.cpu() * cpu.ys.abs()
     assert bool(((sol.ys.cpu() - cpu.ys).abs() <= 1e-3 * weight).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tr_bdf2_dense", "tsit45_dense", "tr_bdf2_sens_dense",
+                                  "esdirk34_banded", "bdf_sens_banded", "tr_bdf2_block"])
+def test_independent_rk_rows_and_block_batched_on_the_card(case):
+    """``mode="independent"`` batched for SDIRK and ERK, with sens=True and
+    on the block tier, on the card: Robertson (dense and in an ngroups = 4
+    block layout) and heat1d banded (K3 on the refreshed members' M -
+    gamma h J or M - c J, K4 for every Newton sweep, the rows' among them,
+    both counted); members against their single solves on the card (equal
+    Stats, ys and rows within 1e-12 + 1e-9 |ref|) and the batch against
+    the same batched solve on the CPU (equal steps, ys within a thousandth
+    of the solver's error weights)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.ops import band_lu
+
+    method, tier = case.rsplit("_", 1)
+    sens = method.endswith("_sens")
+    name = method[:-len("_sens")] if sens else method
+
+    def make(pr):
+        return dtt.solver(pr, name, sens=sens)
+
+    if tier == "banded":
+        problem, _ = heat1d.make(31, rtol=1e-6, atol=1e-8, banded=True)
+        t_eval = [0.01, 0.05, 0.1]
+        params = np.linspace(0.5, 2.0, 64)[:, None]
+    elif tier == "block":
+        problem = trob.problem_ode_groups(4)
+        t_eval = [1.0, 100.0, 1e4]
+        params = _params(64)
+    else:
+        problem = trob.problem_ode()
+        t_eval = [1e-4, 1e-3, 3e-3] if name == "tsit45" else trob.SOLN[1:5, 0]
+        params = _params(64)
+    band_lu.launch_band_lu_factor.launches = 0
+    band_lu.launch_band_lu_solve.launches = 0
+    sol = dtt.solve_dense_ensemble(make, problem, t_eval, params, mode="independent",
+                                   max_steps=20_000)
+    torch.cuda.synchronize()
+    k3 = band_lu.launch_band_lu_factor.launches
+    k4 = band_lu.launch_band_lu_solve.launches
+    assert sol.ys.is_cuda and sol.tier == "independent"
+    assert sol.stop_reason.tolist() == [dtt.errors.TSTOP_REACHED] * len(params)
+    assert (sol.sens is not None) == sens
+    if tier == "banded":
+        assert k3 >= 1 and k4 >= sol.state.newton_sweeps >= 1
+    else:
+        assert k3 == k4 == 0
+    pc = torch.tensor(params, device="cuda")
+    for b in (0, 21, 42, 63):
+        one = dtt.solve_dense(make(problem), t_eval, params=pc[b], max_steps=20_000)
+        assert dataclasses.asdict(sol.state.member_stats(b)) == dataclasses.asdict(
+            one.state.stats)
+        torch.testing.assert_close(sol.ys[:, b], one.ys, rtol=1e-9, atol=1e-12)
+        if sens:
+            torch.testing.assert_close(sol.sens[:, :, b], one.sens, rtol=1e-9, atol=1e-12)
+    cpu = dtt.solve_dense_ensemble(make, problem, t_eval, params, mode="independent",
+                                   max_steps=20_000, device="cpu")
+    assert sol.state.stats.steps.cpu().tolist() == cpu.state.stats.steps.tolist()
+    weight = problem.atol.cpu() + problem.rtol.cpu() * cpu.ys.abs()
+    assert bool(((sol.ys.cpu() - cpu.ys).abs() <= 1e-3 * weight).all())

@@ -1,9 +1,10 @@
 """``mode="independent"``: every member with its own step control.
 
-A plain ``BdfSolver`` over the dense or banded tier runs batched
+A ``BdfSolver`` over the dense or banded tier runs batched
 (:mod:`diffsol_tpu_torch.solvers.bdf_independent`: one loop, each member
 its own step size, order, Newton iteration, Jacobian policy, events and
-stop); every other solver keeps the loop over members.  Each member of a
+stop); the other solvers' routing is checked here too, and their batched
+loops in tests/test_torch_independent_rk.py.  Each member of a
 batched solve is held to the port's own single solve of that member: the
 same accepted steps, Newton iterations and Jacobian evaluations (its
 whole ``Stats``), the same stop, and ys within 1e-12 + 1e-10 |ref|.  The
@@ -264,19 +265,42 @@ def test_max_steps_member_and_raise_for_status():
     assert exc.value.t == pytest.approx(float(sol.state.t[2]))
 
 
-@pytest.mark.parametrize("method", ["tr_bdf2", "tsit45", "bdf_sens"])
+@pytest.mark.parametrize("method", ["tr_bdf2", "tsit45", "bdf_sens", "krylov", "adjoint"])
 def test_other_solvers_keep_the_member_loop(method):
-    """SDIRK/ERK and sens=True go member by member, with the per-member
-    fields and one stacked state."""
+    """The routing of the other solvers: SDIRK, ERK and sens=True run the
+    batched loops (solvers/rk_independent.py, solvers/bdf_independent.py),
+    each member its single solve's steps and root; the Krylov tier and the
+    adjoint's independent mode keep the loop over members, one eager solve
+    each, with the per-member fields and one stacked state."""
+    from diffsol_tpu_torch.adjoint import make_differentiable_solve
+    from diffsol_tpu_torch.adjoint_ensemble import make_differentiable_solve_ensemble
+    from diffsol_tpu_torch.solvers.rk_independent import RkIndependentState
+
     pb = [[0.5], [1.0], [2.0]]
     problem = fc.root_stop_problem()
+    if method == "adjoint":
+        decay = (dtt.OdeBuilder().rhs(fc.decay_rhs).init(fc.decay_init).p([1.0])
+                 .rtol(1e-6).atol(1e-8).build())
+        te = [0.5, 1.0]
+        ys_of = make_differentiable_solve_ensemble(decay, te, 3, mode="independent",
+                                                   device="cpu")
+        one = make_differentiable_solve(decay, te, device="cpu")
+        params = torch.tensor(pb, dtype=F64)
+        np.testing.assert_array_equal(
+            ys_of(params).numpy(), torch.stack([one(params[b]) for b in range(3)], 1).numpy())
+        return
     if method == "bdf_sens":
         make = lambda pr: dtt.BdfSolver(pr, sens=True)  # noqa: E731
+    elif method == "krylov":
+        problem = (dtt.OdeBuilder().rhs(fc.decay_rhs).init(fc.decay_init).root(fc.decay_root)
+                   .p([1.0]).rtol(1e-6).atol(1e-8).linear_solver("krylov").build())
+        make = dtt.BdfSolver
     else:
         make = lambda pr: dtt.solver(pr, method)  # noqa: E731
     sol = dtt.solve_dense_ensemble(make, problem, fc.ROOT_STOP_T_EVAL, pb,
                                    mode="independent", device="cpu")
-    assert sol.tier == "independent" and not isinstance(sol.state, IndependentState)
+    batched = isinstance(sol.state, (IndependentState, RkIndependentState))
+    assert sol.tier == "independent" and batched == (method != "krylov")
     assert sol.stop_reason.tolist() == [errors.ROOT_FOUND] * 3
     assert sol.root_idx.tolist() == [0, 0, 0]
     # the root on each method's own interpolant (TR-BDF2's is 2e-5 off)
@@ -285,5 +309,15 @@ def test_other_solvers_keep_the_member_loop(method):
     for b in range(3):
         one = solve_dense(make(problem), fc.ROOT_STOP_T_EVAL, params=torch.tensor(pb[b]),
                           device="cpu")
-        assert float(sol.root_t[b]) == one.root_t
-        np.testing.assert_array_equal(sol.ys[:, b].numpy(), one.ys.numpy())
+        if not batched:  # the loop's member is its single solve
+            assert float(sol.root_t[b]) == one.root_t
+            np.testing.assert_array_equal(sol.ys[:, b].numpy(), one.ys.numpy())
+            continue
+        # the batched member takes its single solve's steps; its dense
+        # output rounds apart (a (B,) theta's weights are a matrix
+        # product, the single solve's a matrix-vector one)
+        assert dataclasses.asdict(sol.state.member_stats(b)) == dataclasses.asdict(
+            one.state.stats)
+        assert float(sol.root_t[b]) == pytest.approx(one.root_t, rel=1e-12)
+        np.testing.assert_allclose(sol.ys[:, b].numpy(), one.ys.numpy(), rtol=1e-10,
+                                   atol=1e-12)
