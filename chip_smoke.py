@@ -160,8 +160,9 @@ reach no Pallas kernel).
     (UnsupportedForKernel), mode="auto" solves them lockstep on the card,
     y against its closed form and the hidden index N the fired root's.
 21. forward sensitivities, each path timed as the median of 3 after a
-    warm-up between CUDA events (the calls of seconds, (a), (b) and (d),
-    once after it: LONG_REPS), with its steps, Newton iterations and
+    warm-up between CUDA events (the calls of seconds, (a), (b), (c)'s
+    heat1d, (d) and (f), on their first call: LONG_REPS), with its steps,
+    Newton iterations and
     linear solver setups: (a) the Robertson ODE lockstep,
     BdfSolver(sens=True), B=10,000 with k1 spread +-10 % (numpy seed 0,
     member 0 nominal), 3 rows, to t = 4e10 on the dense tier: ys as in
@@ -191,7 +192,9 @@ reach no Pallas kernel).
     tsit45 against central differences on the card (1e-3).
 22. adjoints (make_differentiable_solve / _quadrature and the ensemble
     forms), each path timed as the median of 3 after a warm-up between
-    CUDA events, with its forward and backward steps, Newton iterations and
+    CUDA events (the ensemble calls of (a)-(c) on their first call:
+    LONG_REPS),
+    with its forward and backward steps, Newton iterations and
     failures and the table's bytes: (a) Robertson ODE lockstep B=10,000 (k1
     spread +-10 %, numpy seed 0), t_eval 0.4 ... 4e6, loss sum ys^2: the
     forward alone (no_grad) and forward + backward; members 0, 4,999 and
@@ -245,8 +248,10 @@ reach no Pallas kernel).
     coupling), to t = 1 at rtol 1e-6, atol 1e-8, through krylov(lu32)
     and through the dense LU, each within rtol 1e-4, atol 1e-7 of scipy's
     expm, with steps, Newton iterations, GMRES calls, restarts, Arnoldi
-    iterations and host reads, the time (median of 3, CUDA events), one
-    traced call's launches a step and busy share, and which tier is
+    iterations and host reads, the time (CUDA events: the counted first
+    call, then the median of 3 calls for the dense LU and one call for
+    krylov(lu32)), one traced call's launches a step and busy share,
+    and which tier is
     faster; use_coloring's route for the dense coupling; (b) the heat2d
     DAE at mgrid 20 (n = 400) as a lockstep krylov ensemble of 1,024
     identical members (256, printed as a cut, where four times the B = 256
@@ -260,7 +265,7 @@ reach no Pallas kernel).
 26. mode="independent" as one batched BDF loop, each member its own step
     control: (a) the Robertson cell's B = 10,000 members to t = 4e10
     (bench.py's gate, eight members against their single solves on the
-    card, one call timed after a warm-up, rounds, host reads, launches a round and the busy share of one
+    card, its first call timed (LONG_REPS), rounds, host reads, launches a round and the busy share of one
     profiled call, beside lockstep and the member loop); (b) heat1d n=128
     banded, B = 1,024 (K3/K4 counted, and held to their plain versions on
     the path's M - cJ); (c) 1,024 balls, stop at the root and bounce.
@@ -268,7 +273,7 @@ reach no Pallas kernel).
     block tier: (a) TR-BDF2 on the Robertson cell's B = 10,000 members to
     t = 4e6 (member 0 against the CVODE table; members 0, 9,999 and six
     drawn with a seed against their single solves on the card: equal
-    Stats, ys within 1e-12 + 1e-9 |ref|), timed (one call after a warm-up)
+    Stats, ys within 1e-12 + 1e-9 |ref|), timed (its first call, LONG_REPS)
     with rounds,
     host reads and launches a round, one profiled call's busy share, the
     members' steps, lockstep at B = 10,000 and the member loop's time a
@@ -282,8 +287,34 @@ reach no Pallas kernel).
     (1e-3 of their largest), K3/K4 counted (the rows' solves are K4
     launches of naug B right-hand sides) and held to their plain versions;
     (e) robertson_ode g100 x b100 (bench.py:614-646) on the block tier,
-    every group against the CVODE table to t = 4e6 (rtol 5e-3), one call
-    timed after a warm-up.
+    every group against the CVODE table to t = 4e6 (rtol 5e-3), its first
+    call timed (LONG_REPS).
+28. the last two member loops of mode="independent" made batched: (a)
+    phase 24's coupling at n = 962 on krylov(lu32), B = 64 (p linspace(0.5,
+    2)) to t = 1, every member against e^(-p t) expm(C t) y0 (rtol 1e-4,
+    atol 1e-7), members 0, 63 and two drawn with a seed against their
+    single Krylov solves on the card (equal Stats, GMRES restarts and
+    Arnoldi iterations, ys within 1e-12 + 1e-9 |ref|), one call timed after
+    a B = 4 warm-up with rounds, host reads, the members' restarts and
+    Arnoldi iterations, launches a round and the busy share of one profiled
+    call to t = 0.001, and the single solve's time a member; (b) the heat2d
+    DAE (n = 400) on the Krylov tier, B = 16, with the batched matrix-free
+    consistent ICs, every member against the banded independent solve
+    (rtol 1e-3, atol 1e-6), member 0 against its single Krylov solve; (c)
+    the independent gradient (one batched forward, one batched backward)
+    of the Robertson cell's members to t = 4e6, loss sum ys^2, after a B =
+    64 warm-up to t = 0.4: B = 1,024 where ten times a B = 1,024 call passes 45 s
+    (the cut printed), else B = 10,000; members 0, B - 1, two drawn and the
+    first and last whose backward solve failed against their single
+    make_differentiable_solve on the card (equal forward and backward
+    Stats and statuses, gradients within 1e-12 + 1e-9 |ref|, NaN where the
+    single gradient is NaN), member 0 (the first whose backward solve succeeds) against 2
+    sum y.s from solve_dense_fwd_sens, a member whose backward solve spent
+    the 50 Newton failures NaN alone, forward alone and forward + backward
+    timed, the members' steps and failures; (d) the same gradient on
+    heat1d n=128 banded, B = 1,024 diffusivities: K3/K4 counted in the
+    forward pass (none in the backward) and held to their plain versions
+    on the path's M - cJ, two members against their single gradients.
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
@@ -299,7 +330,8 @@ heat2d float32 paths), K4 under forward mode
 (`band_lu_solve:jvp_heat1d`, launches on phase 23 d's path) and K3/K4 on
 the batched independent paths (`band_lu_factor:independent`,
 `band_lu_solve:independent` of phase 26 b; `:independent_rk` of phase 27
-c, `:independent_sens` of phase 27 d)
+c, `:independent_sens` of phase 27 d, `:independent_adjoint` of phase 28
+d)
 (launches on their path, error against the plain version, times, the
 card's least time for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -389,7 +421,9 @@ def robertson_params(nbatch: int, rng, device) -> torch.Tensor:
 
 def time_ms(fn, reps: int) -> float:
     """Median wall time of ``fn`` in ms between CUDA events, after one
-    warm-up call."""
+    warm-up call (``reps=0``: the first call's)."""
+    if reps == 0:
+        return events_ms(fn)[1]
     fn()
     torch.cuda.synchronize()
     times = []
@@ -1510,16 +1544,20 @@ CARD_CPU_RTOL, CARD_CPU_ATOL, CARD_CPU_STEPS = 1e-8, 1e-14, 2
 
 
 # timed calls after the warm-up for a solve of seconds (the script's
-# 1,200 s budget): one; the host's speed, not the repetition, sets their
-# spread (up to 2x between runs on separate machines)
-LONG_REPS = 1
+# 1,200 s budget, which phase 28 brought near): none, their first call is
+# timed; the host's speed, not the repetition, sets their spread (up to 2x
+# between runs on separate machines)
+LONG_REPS = 0
+LONG_WHEN = "the first call, no warm-up (LONG_REPS)"
 
 
 def timed_solve(fn, reps=3):
     """``(solution, ms)``: ``fn``'s first call, whose solution the gates
     read, is the warm-up; then the median of ``reps`` calls between CUDA
     events (an eager solve reads its status on the host, a sync, every
-    step)."""
+    step).  ``reps=0`` times the first call itself."""
+    if reps == 0:
+        return events_ms(fn)
     sol = fn()
     torch.cuda.synchronize()
     times = []
@@ -2249,7 +2287,7 @@ def sens_phase(dev, card_line, heat_problem, soln):
             extra = f"; the rows at t0 sum to {drift:.1e} (< {SENS_CONSERVE_TOL:g})"
         label = "ODE" if tag == "a" else "DAE (mass diag(1, 1, 0), consistent_init)"
         print(f"[21{tag}] Robertson {label} lockstep B={B_MAIN}, BdfSolver(sens=True), 3 "
-              f"rows, t=4e10: {stats_line(sol)}, {ms:.1f} ms (one call after a warm-up, "
+              f"rows, t=4e10: {stats_line(sol)}, {ms:.1f} ms ({LONG_WHEN}, "
               f"CUDA events); "
               f"member 0 meets the CVODE table; members {list(members)} within {err:.2e} "
               f"of solve_dense_fwd_sens at rtol {float(oracle_problem.rtol):g} (< {tol:g} "
@@ -2276,7 +2314,7 @@ def sens_phase(dev, card_line, heat_problem, soln):
     if k3 < 1 or k4 < 1:
         raise AssertionError(f"[21c] launched K3 {k3} and K4 {k4} times")
     err_ys = check_heat("[21c]", heat, soln, d, n)
-    _, heat_ms = timed_solve(run_heat)
+    _, heat_ms = timed_solve(run_heat, LONG_REPS)
     m = int(np.argmin(np.abs(d - 1.0)))
     h = 1.0 / (HEAT_MGRID + 2)
     x = (np.arange(n) + 1.0) * h
@@ -2306,7 +2344,7 @@ def sens_phase(dev, card_line, heat_problem, soln):
                              f"{cpu.state.stats.steps}")
     print(f"[21c] heat1d n={n} banded lockstep B={B_BAND}, BdfSolver(sens=True), 1 row: "
           f"{stats_line(heat)}, K3 {k3} and K4 {k4} launches (the rows' solves among "
-          f"them), {heat_ms:.1f} ms median of 3 (CUDA events); ys vs the series "
+          f"them), {heat_ms:.1f} ms ({LONG_WHEN}, CUDA events); ys vs the series "
           f"{err_ys:.2e}; member d={d[m]:.4f} vs du/dd of the series {err_s:.2e} of max "
           f"|s| (< {SENS_HEAT_TOL:g}, t >= 0.01); members 0 and {B_BAND - 1} vs a B="
           f"{B_SENS_CPU} lockstep solve on the CPU within {worst:.1e} of their largest "
@@ -2343,7 +2381,7 @@ def sens_phase(dev, card_line, heat_problem, soln):
     if not err_b < SENS_BLOCK_TOL:
         raise AssertionError(f"[21d] groups off the single solve by {err_b:.3e}")
     print(f"[21d] robertson_ode ngroups=1000 (n=3000, blockdiag(3,1000)) BdfSolver(sens="
-          f"True) to t=4e10: {stats_line(blk)}, {blk_ms:.1f} ms (one call after a warm-up, "
+          f"True) to t=4e10: {stats_line(blk)}, {blk_ms:.1f} ms ({LONG_WHEN}, "
           f"CUDA events); "
           f"every group's 3 rows within {err_b:.1e} of the dense-tier single solve's "
           f"largest (< {SENS_BLOCK_TOL:g}; steps {blk.state.stats.steps} vs "
@@ -2375,7 +2413,7 @@ def sens_phase(dev, card_line, heat_problem, soln):
             return dtt.solve_dense(dtt.solver(lp, method, sens=True), [1.0, 5.0, 10.0],
                                    max_steps=20_000, device=device)
 
-        (sol, ms), ref = timed_solve(run_rk), run_rk("cpu")
+        (sol, ms), ref = timed_solve(run_rk, LONG_REPS), run_rk("cpu")
         diff = (sol.sens.cpu() - ref.sens).abs()
         dsteps = abs(sol.state.stats.steps - ref.state.stats.steps)
         if (sol.stop_reason != dtt.errors.TSTOP_REACHED or dsteps > CARD_CPU_STEPS
@@ -2384,7 +2422,7 @@ def sens_phase(dev, card_line, heat_problem, soln):
                                  f"{float(diff.max())}, steps {sol.state.stats.steps} vs "
                                  f"{ref.state.stats.steps}")
         print(f"[21f] logistic {method} sens=True (rows in the error test): "
-              f"{stats_line(sol)}, {ms:.2f} ms median of 3 (CUDA events); rows vs the CPU "
+              f"{stats_line(sol)}, {ms:.2f} ms ({LONG_WHEN}, CUDA events); rows vs the CPU "
               f"max abs {float(diff.max()):.2e}, steps {sol.state.stats.steps} vs "
               f"{ref.state.stats.steps}; card {card_line}", flush=True)
     tr = [2.0, 6.0, 10.0]
@@ -2398,13 +2436,13 @@ def sens_phase(dev, card_line, heat_problem, soln):
               (ys_at(0.1, 1.0 + eps) - ys_at(0.1, 1.0 - eps)) / (2 * eps)]
         (sol, ms) = timed_solve(lambda method=method: dtt.solve_dense(
             dtt.solver(exponential_decay.problem_with_reset(), method, sens=True), tr,
-            max_steps=4000))
+            max_steps=4000), LONG_REPS)
         errs = [float((sol.sens[:, j] - fd[j]).abs().max()) for j in range(2)]
         if sol.stop_reason != dtt.errors.TSTOP_REACHED or not max(errs) < SENS_FD_TOL:
             raise AssertionError(f"[21f] reset {method}: {sol.stop_reason}, vs central "
                                  f"differences {errs}")
         print(f"[21f] exponential decay with a reset, {method} sens=True: {stats_line(sol)}, "
-              f"{ms:.2f} ms median of 3 (CUDA events); rows vs central differences on the "
+              f"{ms:.2f} ms ({LONG_WHEN}, CUDA events); rows vs central differences on the "
               f"card {errs[0]:.1e} (p0, moves the event) and {errs[1]:.1e} (p1, the reset "
               f"value) (< {SENS_FD_TOL:g}); card {card_line}", flush=True)
     return records, heat
@@ -2477,9 +2515,9 @@ def adjoint_phase(dev, card_line, heat_problem, band_records):
         with torch.no_grad():
             return fn(params)
 
-    fwd_ms = time_ms(forward_only, 3)
+    fwd_ms = time_ms(forward_only, LONG_REPS)
     ys, g = grad_call(fn, params, sum_sq)
-    _, fb_ms = timed_solve(lambda: grad_call(fn, params, sum_sq))
+    _, fb_ms = timed_solve(lambda: grad_call(fn, params, sum_sq), LONG_REPS)
     if tuple(g.shape) != (B_MAIN, 3) or not g.is_cuda or not bool(torch.isfinite(g).all()):
         raise AssertionError(f"[22a] gradient {tuple(g.shape)} on {g.device} or not finite")
     check_soln("[22a] member 0", ys[:, 0])
@@ -2496,7 +2534,7 @@ def adjoint_phase(dev, card_line, heat_problem, band_records):
     info_a = adjoint_stats(fn)
     print(f"[22a] Robertson ODE lockstep B={B_MAIN} to t=4e6, make_differentiable_solve_"
           f"ensemble, loss sum ys^2: {info_a}; forward alone (no_grad) {fwd_ms:.1f} ms, "
-          f"forward + backward {fb_ms:.1f} ms, medians of 3 (CUDA events); members "
+          f"forward + backward {fb_ms:.1f} ms, each {LONG_WHEN} (CUDA events); members "
           f"{members} within {[f'{e:.2e}' for e in errs.tolist()]} of 2 sum y.s from "
           f"solve_dense_fwd_sens at rtol {SENS_ORACLE_RTOL:g} (< {ADJ_ORACLE_TOL:g} of the "
           f"largest); card {card_line}", flush=True)
@@ -2522,12 +2560,12 @@ def adjoint_phase(dev, card_line, heat_problem, band_records):
                                                      checkpoint_interval=32)
     peak_dense = peak_of(lambda: grad_call(fn, params, sum_sq))
     peak_bnd = peak_of(lambda: grad_call(bounded, params, sum_sq))
-    (_, g_bnd), bnd_ms = timed_solve(lambda: grad_call(bounded, params, sum_sq))
+    (_, g_bnd), bnd_ms = timed_solve(lambda: grad_call(bounded, params, sum_sq), LONG_REPS)
     err_c = float(member_rel(g_bnd, g).max())
     if not err_c < ADJ_BOUNDED_TOL:
         raise AssertionError(f"[22c] bounded gradient off the dense table's by {err_c:.3e}")
     print(f"[22c] Robertson checkpoint_interval=32: {adjoint_stats(bounded)}; forward + "
-          f"backward {bnd_ms:.1f} ms (dense table {fb_ms:.1f} ms), medians of 3; peak "
+          f"backward {bnd_ms:.1f} ms (dense table {fb_ms:.1f} ms), each {LONG_WHEN}; peak "
           f"memory above the inputs {peak_bnd:.1f} MiB (dense table {peak_dense:.1f} MiB, "
           f"torch.cuda.max_memory_allocated); every member within {err_c:.2e} of the dense "
           f"table's gradient (< {ADJ_BOUNDED_TOL:g}); card {card_line}", flush=True)
@@ -2555,8 +2593,8 @@ def adjoint_phase(dev, card_line, heat_problem, band_records):
         with torch.no_grad():
             return heat(d)
 
-    heat_fwd_ms = time_ms(heat_forward, 3)
-    _, heat_ms = timed_solve(lambda: grad_call(heat, d, sum_sq))
+    heat_fwd_ms = time_ms(heat_forward, LONG_REPS)
+    _, heat_ms = timed_solve(lambda: grad_call(heat, d, sum_sq), LONG_REPS)
     rows = dtt.solve_dense_ensemble(lambda pr: dtt.BdfSolver(pr, sens=True), heat_problem,
                                     HEAT_T_EVAL, d, mode="lockstep")
     ref_h = 2.0 * torch.einsum("tbn,tpbn->bp", rows.ys, rows.sens)
@@ -2567,8 +2605,8 @@ def adjoint_phase(dev, card_line, heat_problem, band_records):
     print(f"[22b] heat1d n={HEAT_MGRID + 1} banded lockstep B={B_BAND}, the gradient of sum "
           f"ys^2: {adjoint_stats(heat)}; K3 {fwd_k[0]} and K4 {fwd_k[1]} launches in the "
           f"forward pass, none in the dense (B, {HEAT_MGRID + 2}, {HEAT_MGRID + 2}) backward; "
-          f"forward alone {heat_fwd_ms:.1f} ms, forward + backward {heat_ms:.1f} ms, medians "
-          f"of 3; every member within {float(errs_h.max()):.2e} of 2 sum y.s from the "
+          f"forward alone {heat_fwd_ms:.1f} ms, forward + backward {heat_ms:.1f} ms, each "
+          f"{LONG_WHEN}; every member within {float(errs_h.max()):.2e} of 2 sum y.s from the "
           f"sens=True lockstep rows (< {ADJ_HEAT_TOL:g}); card {card_line}", flush=True)
     heat_bnd = dtt.make_differentiable_solve_ensemble(heat_problem, HEAT_T_EVAL, B_BAND,
                                                       checkpoint_interval=32)
@@ -3198,7 +3236,8 @@ def krylov_phase(dev, card_line):
         problem = build(route)
         solver = dtt.BdfSolver(problem)
         krylov.reset_gmres_counts()
-        sol = dtt.solve_dense(solver, KRYLOV_T_EVAL, max_steps=2000)
+        sol, ms_first = events_ms(lambda: dtt.solve_dense(solver, KRYLOV_T_EVAL,
+                                                          max_steps=2000))
         counts = krylov.gmres_counts()
         if sol.stop_reason < 0:
             raise RuntimeError(f"[24] (a) {route}: stop_reason {sol.stop_reason}")
@@ -3206,23 +3245,19 @@ def krylov_phase(dev, card_line):
                            / (KRYLOV_EXPM_ATOL + KRYLOV_EXPM_RTOL * np.abs(exact))))
         if not err <= 1.0:
             raise RuntimeError(f"[24] (a) {route}: {err:.3g} bounds from expm")
-        # the counted call was the warm-up: the median of 3 more
-        times = []
-        for _ in range(3):
-            start, end = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-            start.record()
-            dtt.solve_dense(solver, KRYLOV_T_EVAL, max_steps=2000)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        ms = float(np.median(times))
+        # the counted call was the warm-up: then the median of 3 timed
+        # calls of the dense LU's ~0.1 s, one of krylov's seconds
+        reps = 1 if route == "krylov" else 3
+        ms = float(np.median([events_ms(lambda: dtt.solve_dense(
+            solver, KRYLOV_T_EVAL, max_steps=2000))[1] for _ in range(reps)]))
+        when = "one call" if reps == 1 else f"median of {reps}"
         gm = (f"; GMRES {counts['calls']} calls, {counts['restarts']} restarts, "
               f"{counts['arnoldi']} Arnoldi iterations, {counts['host_reads']} host reads"
               if route == "krylov" else "")
         print(f"[24] (a) {problem.linear_solver.name}: {stats_line(sol)}, "
               f"{sol.state.stats.jacobian_evals} Jacobian evaluations{gm}; {ms:.1f} ms "
-              f"median of 3 (CUDA events); t = 1 within {err:.3f} of the expm bound "
+              f"({when} after the counted first call of {ms_first:.1f} ms, CUDA events); "
+              f"t = 1 within {err:.3f} of the expm bound "
               f"(rtol {KRYLOV_EXPM_RTOL:g}, atol {KRYLOV_EXPM_ATOL:g}); card {card_line}",
               flush=True)
         profile_line(f"24 a {route}",
@@ -3471,7 +3506,7 @@ def independent_phase(dev, card_line, heat_problem, soln):
     lock_ms = timed_solve(lambda: solve_dense_ensemble(BdfSolver, problem, te, params,
                                                        mode="lockstep"))[1]
     loop_ms = float(np.mean(secs)) * 1e3
-    print(f"[26a] independent call {ms:.1f} ms (one call after a warm-up, CUDA events); "
+    print(f"[26a] independent call {ms:.1f} ms ({LONG_WHEN}, CUDA events); "
           f"{st.rounds} "
           f"rounds, {st.host_reads} host reads ({st.host_reads / st.rounds:.2f} a round), "
           f"{st.newton_sweeps} Newton sweeps; members' accepted steps min "
@@ -3637,7 +3672,7 @@ def member_stats_match(name, sol, make, problem, te, params, members, max_steps=
     return worst, secs
 
 
-def path_lu_records(dev, card_line, tag, band, nrows):
+def path_lu_records(dev, card_line, tag, band, nrows, phase=27):
     """K3 and K4 against their plain versions on a path's (B, nb, n) M - c J
     band (ml = mu = 1), K4 with ``nrows`` B right-hand sides (row r against
     factorization r mod B): max abs difference, time, the plain version's,
@@ -3665,7 +3700,7 @@ def path_lu_records(dev, card_line, tag, band, nrows):
     # the rows in and out
     s_bound = bound(8 * (B * ((n - 1) + 2 * n) + 2 * nrows * B * n),
                     nrows * B * (2 * (n - 1) + 3 * n))
-    print(f"[27{tag}] K3/K4 on this path's M - cJ (B={B}, K4 with {nrows * B} rows): vs "
+    print(f"[{phase}{tag}] K3/K4 on this path's M - cJ (B={B}, K4 with {nrows * B} rows): vs "
           f"plain max abs factor {ef:.3e}, x {ex:.3e}; factor {f_ms:.4f} ms, solve "
           f"{s_ms:.4f} ms (medians of 20; least {f_bound[0]:.4f} / {s_bound[0]:.4f} ms); "
           f"plain {f_plain:.2f} / {s_plain:.2f} ms; torch.linalg.lu_factor / lu_solve on "
@@ -3738,8 +3773,8 @@ def independent_rk_phase(dev, card_line, heat_problem, soln):
     print(f"[27a] independent TR-BDF2 Robertson, B={B_MAIN} to t=4e6: every member "
           f"TSTOP_REACHED, member 0 meets the CVODE table (rtol 5e-3); members {members} "
           f"against their single solves on the card: equal Stats, max abs {worst:.3e} "
-          f"(bound {IND_ATOL:g} + {IND_RTOL:g}|ref|); call {ms:.1f} ms (one call after a "
-          f"warm-up, CUDA events); {st.rounds} rounds, {st.host_reads} host reads "
+          f"(bound {IND_ATOL:g} + {IND_RTOL:g}|ref|); call {ms:.1f} ms ({LONG_WHEN}, "
+          f"CUDA events); {st.rounds} rounds, {st.host_reads} host reads "
           f"({st.host_reads / st.rounds:.2f} a round), {st.newton_sweeps} Newton sweeps; "
           f"members' accepted steps min {int(steps.min())} max {int(steps.max())}; one "
           f"profiled call to t={te[IND_PROFILE_EVAL - 1]:g} ({rounds} rounds) {wall_ms:.1f} "
@@ -3854,12 +3889,344 @@ def independent_rk_phase(dev, card_line, heat_problem, soln):
     gst = g_sol.state
     print(f"[27e] independent BdfSolver robertson_ode g100 x b100 (blockdiag(3,100), each "
           f"member's 100 blocks in one (S 100, 3, 3) LU of the refreshed members): "
-          f"{g_ms:.1f} ms (one call after a warm-up, CUDA events), {gst.rounds} rounds, "
+          f"{g_ms:.1f} ms ({LONG_WHEN}, CUDA events), {gst.rounds} rounds, "
           f"{int(gst.stats.steps.max())} steps, {int(gst.stats.linear_solver_setups.max())} "
           f"factorizations a member; every group of every member meets the CVODE table to "
           f"t=4e6 (rtol 5e-3); members 0 and {B_IND_G100 - 1} vs their single solves: equal "
           f"Stats, max abs {gworst:.3e}; card {card_line}", flush=True)
     return [fc_rec, sc_rec, fd_rec, sd_rec]
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the last two member loops of mode="independent" made batched.
+# (a) the Krylov tier, each member its own GMRES (ops/krylov.py's
+# gmres_batched), on phase 24 (a)'s coupling; (b) the heat2d DAE on the
+# Krylov tier with the batched matrix-free consistent ICs; (c) the
+# independent gradient (adjoint_independent.py: one batched forward, one
+# batched backward) on the Robertson cell's members; (d) the same on heat1d
+# banded, its forward pass through K3/K4.
+
+B_KRY_IND, B_KRY_IND_WARM = 64, 4
+# the profiled (a) call runs to this time: its trace holds ~8,000 launches
+# a round, which the profiler takes seconds a 10,000 to gather
+KRY_PROFILE_T = 0.001
+B_KRY_DAE = 16
+B_ADJ_IND, B_ADJ_IND_CUT, B_ADJ_IND_WARM = B_MAIN, 1024, 64
+# (c) runs B = 1,024 where ten times a B = 1,024 call passes this
+ADJ_IND_BUDGET_S = 45.0
+IND_DRAWN = 2
+
+
+def drawn_members(B, seed):
+    """Members 0 and B - 1 and IND_DRAWN more drawn with ``seed``."""
+    drawn = np.random.default_rng(seed).choice(np.arange(1, B - 1), IND_DRAWN, replace=False)
+    return [0, B - 1] + sorted(int(b) for b in drawn)
+
+
+def ind_close(name, got, ref):
+    """``got`` within 1e-12 + 1e-9 |ref| of ``ref`` (NaN where ``ref`` is
+    NaN); returns the largest absolute difference."""
+    ok = ((got - ref).abs() <= IND_ATOL + IND_RTOL * ref.abs()) | (ref.isnan() & got.isnan())
+    if not bool(ok.all()):
+        raise AssertionError(f"{name}: {int((~ok).sum())} entries off, max abs "
+                             f"{float((got - ref).abs().max()):.3e}")
+    return float(torch.nan_to_num(got - ref).abs().max())
+
+
+def krylov_members(name, sol, problem, te, params, members):
+    """Each of ``members`` against its single Krylov solve on the card:
+    equal whole Stats, GMRES restarts and Arnoldi iterations, ys within
+    1e-12 + 1e-9 |ref|; returns (largest abs difference, the single solves'
+    seconds each)."""
+    import dataclasses
+
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.ops import krylov
+
+    st, worst, secs = sol.state, 0.0, []
+    for b in members:
+        krylov.reset_gmres_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = dtt.solve_dense(dtt.BdfSolver(problem), te, params=params[b], max_steps=5000)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        c = krylov.gmres_counts()
+        got = (dataclasses.asdict(st.member_stats(b)), int(st.gmres_restarts[b]),
+               int(st.gmres_arnoldi[b]))
+        want = (dataclasses.asdict(one.state.stats), c["restarts"], c["arnoldi"])
+        if got != want:
+            raise AssertionError(f"{name}: member {b} Stats/restarts/Arnoldi {got}, its "
+                                 f"single solve {want}")
+        worst = max(worst, ind_close(f"{name} member {b}", sol.ys[:, b], one.ys))
+    return worst, secs
+
+
+def gradient_members(name, fn, params, members, make_one):
+    """Each of ``members`` of the independent gradient ``fn`` (just called)
+    against its single ``make_differentiable_solve`` on the card: equal
+    forward and backward Stats and statuses, the gradient within 1e-12 +
+    1e-9 |ref|; returns (largest abs difference, seconds each)."""
+    import dataclasses
+
+    def sum_sq(ys):
+        return (ys**2).sum()
+
+    info, (_, g) = fn.info, fn.last
+    worst, secs = 0.0, []
+    for b in members:
+        one = make_one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, g1 = grad_call(one, params[b], sum_sq)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        for key in ("forward", "backward"):
+            got = {f.name: int(getattr(info[key], f.name)[b])
+                   for f in dataclasses.fields(info[key])}
+            if got != dataclasses.asdict(one.info[key]):
+                raise AssertionError(f"{name}: member {b} {key} Stats {got}, its single "
+                                     f"solve's {one.info[key]}")
+        if (int(info["status"][b]), int(info["backward_status"][b])) != (
+                one.info["status"], one.info["backward_status"]):
+            raise AssertionError(f"{name}: member {b} statuses differ from its single solve")
+        worst = max(worst, ind_close(f"{name} member {b}", g[b], g1))
+    return worst, secs
+
+
+def ind_gradient(problem, te, B):
+    """The independent gradient of sum ys^2 over B members; ``fn.last``
+    keeps the last (ys, gradient)."""
+    import diffsol_tpu_torch as dtt
+
+    fn = dtt.make_differentiable_solve_ensemble(problem, te, B, mode="independent")
+
+    def sum_sq(ys):
+        return (ys**2).sum()
+
+    def call(params):
+        fn.last = grad_call(fn, params, sum_sq)
+        return fn.last
+
+    fn.call = call
+    return fn
+
+
+def events_ms(fn):
+    """``fn()`` between CUDA events: (its result, ms)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def independent_krylov_adjoint_phase(dev, card_line, heat_problem):
+    """Phase 28; returns the K3/K4 records of path (d)."""
+    import scipy.linalg
+
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch import errors
+    from diffsol_tpu_torch.models import heat2d, robertson
+    from diffsol_tpu_torch.ops import band_lu, krylov
+    from diffsol_tpu_torch.solvers.bdf_independent import IndependentState
+
+    # ---- (a) the coupling -p y + C y at n = 962 through krylov(lu32)
+    n = KRYLOV_N
+    C = np.random.default_rng(KRYLOV_SEED).uniform(-0.01, 0.01, (n, n))
+    c_on = {}
+
+    def rhs(t, y, p):
+        Cd = c_on.get(y.device)
+        if Cd is None:
+            Cd = c_on[y.device] = torch.tensor(C, device=y.device)
+        return -p[0] * y + Cd @ y
+
+    problem = (dtt.OdeBuilder().rhs(rhs)
+               .init(lambda t, p: torch.ones(n, dtype=torch.float64, device=p.device))
+               .p([1.0]).rtol(1e-6).atol(1e-8).linear_solver("krylov").build())
+    te = KRYLOV_T_EVAL
+    pk = torch.linspace(0.5, 2.0, B_KRY_IND, dtype=torch.float64, device=dev)[:, None]
+
+    def run_kry(params, t_eval=te):
+        return dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval, params,
+                                        mode="independent", max_steps=5000)
+
+    run_kry(pk[:B_KRY_IND_WARM])  # the warm-up
+    krylov.reset_gmres_counts()
+    sol, ms = events_ms(lambda: run_kry(pk))
+    counts = krylov.gmres_counts()
+    st = sol.state
+    if sol.tier != "independent" or not isinstance(st, IndependentState):
+        raise AssertionError(f"[28a] tier {sol.tier!r}, state {type(st).__name__}")
+    if not bool((sol.stop_reason == errors.TSTOP_REACHED).all()):
+        raise AssertionError(f"[28a] stop reasons {sol.stop_reason.unique().tolist()}")
+    expm = np.stack([scipy.linalg.expm(C * t) @ np.ones(n) for t in te])  # (neval, n)
+    decay = np.exp(-pk[:, 0].cpu().numpy()[None, :] * np.asarray(te)[:, None])
+    exact = decay[..., None] * expm[:, None, :]
+    got = sol.ys.cpu().numpy()
+    err = float(np.max(np.abs(got - exact) / (KRYLOV_EXPM_ATOL + KRYLOV_EXPM_RTOL * np.abs(exact))))
+    if not err <= 1.0:
+        raise AssertionError(f"[28a] a member {err:.3g} bounds from e^(-p t) expm(C t) y0")
+    members = drawn_members(B_KRY_IND, SEED + 28)
+    worst, secs = krylov_members("[28a]", sol, problem, te, pk, members)
+    wall_ms, busy_ms, launches, rounds = traced_rounds(lambda: run_kry(pk, [KRY_PROFILE_T]))
+    steps = st.stats.steps
+    print(f"[28a] independent krylov(lu32), coupling n={n}, B={B_KRY_IND} (p linspace(0.5, 2)) "
+          f"to t=1: every member within {err:.3f} of the e^(-p t) expm(C t) y0 bound (rtol "
+          f"{KRYLOV_EXPM_RTOL:g}, atol {KRYLOV_EXPM_ATOL:g}); members {members} against their "
+          f"single solves on the card: equal Stats, restarts and Arnoldi iterations, max abs "
+          f"{worst:.3e}; {ms:.1f} ms (one call after a B={B_KRY_IND_WARM} warm-up, CUDA events); "
+          f"{st.rounds} rounds, {st.host_reads} loop host reads + {counts['host_reads']} GMRES "
+          f"host reads ({counts['calls']} GMRES calls), restarts {int(st.gmres_restarts.sum())}"
+          f" and Arnoldi iterations {int(st.gmres_arnoldi.sum())} over the members (gmres_counts "
+          f"{counts['restarts']} / {counts['arnoldi']}); steps min {int(steps.min())} max "
+          f"{int(steps.max())}; one profiled call to t={KRY_PROFILE_T:g} ({rounds} rounds) {wall_ms:.1f} "
+          f"ms, {launches} launches = {launches / rounds:.1f} a round, device busy {busy_ms:.2f} "
+          f"ms = {busy_ms / wall_ms:.1%}; the member loop {np.mean(secs) * 1e3:.1f} ms a member "
+          f"(mean of {len(secs)} single solves), {np.mean(secs) * B_KRY_IND:.1f} s for "
+          f"B={B_KRY_IND}; card {card_line}", flush=True)
+
+    # ---- (b) heat2d DAE on the Krylov tier, the batched matrix-free ICs
+    fns = heat2d.callables(KRYLOV_MGRID)
+    kry = (dtt.OdeBuilder().rhs(fns["rhs"]).init(fns["init"]).mass(fns["mass"]).p([1.0])
+           .rtol(1e-5).atol(1e-5).linear_solver("krylov").build())
+    band = heat2d.make(KRYLOV_MGRID)
+    ph = torch.linspace(0.5, 2.0, B_KRY_DAE, dtype=torch.float64, device=dev)[:, None]
+    te2 = KRYLOV_HEAT2D_T_EVAL
+    krylov.reset_gmres_counts()
+    ks, k_ms = events_ms(lambda: dtt.solve_dense_ensemble(
+        dtt.BdfSolver, kry, te2, ph, mode="independent", max_steps=5000))
+    kc = krylov.gmres_counts()
+    bs, b_ms = events_ms(lambda: dtt.solve_dense_ensemble(
+        dtt.BdfSolver, band, te2, ph, mode="independent", max_steps=5000))
+    if not bool((ks.stop_reason >= 0).all()) or not bool((bs.stop_reason >= 0).all()):
+        raise AssertionError(f"[28b] stops {ks.stop_reason.tolist()} / {bs.stop_reason.tolist()}")
+    got, ref = ks.ys.cpu().numpy(), bs.ys.cpu().numpy()
+    err_b = float(np.max(np.abs(got - ref) / (KRYLOV_BAND_ATOL + KRYLOV_BAND_RTOL * np.abs(ref))))
+    if not err_b <= 1.0:
+        raise AssertionError(f"[28b] krylov against banded: {err_b:.3g} bounds")
+    worst_b, secs_b = krylov_members("[28b]", ks, kry, te2, ph, [0])
+    print(f"[28b] independent heat2d DAE n={KRYLOV_MGRID ** 2}, B={B_KRY_DAE}: "
+          f"krylov(lu32) {k_ms:.1f} ms ({ks.state.rounds} rounds, {kc['calls']} GMRES calls, the consistent "
+          f"ICs' among them, restarts {int(ks.state.gmres_restarts.sum())}, Arnoldi "
+          f"{int(ks.state.gmres_arnoldi.sum())}), the banded independent solve {b_ms:.1f} ms "
+          f"(one call each, CUDA events, the first at its shapes); every member within "
+          f"{err_b:.3f} of the bound (rtol {KRYLOV_BAND_RTOL:g}, atol {KRYLOV_BAND_ATOL:g}); "
+          f"member 0 against its single Krylov solve: equal Stats and GMRES counts, max abs "
+          f"{worst_b:.3e}, the single solve {secs_b[0]:.2f} s; card {card_line}", flush=True)
+
+    # ---- (c) the independent gradient on the Robertson cell's members
+    def sum_sq(ys):
+        return (ys**2).sum()
+
+    problem = robertson.problem_ode()
+    te6 = robertson.T_EVAL_4E10[:8]
+    params = robertson_params(B_ADJ_IND, np.random.default_rng(SEED), dev)
+    # the warm-up runs the outputs to t = 0.4 (every code path, a fifth of
+    # the rounds)
+    ind_gradient(problem, te6[:1], B_ADJ_IND_WARM).call(params[:B_ADJ_IND_WARM])
+    fn = ind_gradient(problem, te6, B_ADJ_IND_CUT)
+    _, cut_ms = events_ms(lambda: fn.call(params[:B_ADJ_IND_CUT]))
+    B = B_ADJ_IND_CUT
+    if 10 * cut_ms / 1e3 > ADJ_IND_BUDGET_S:
+        print(f"[28c] cut: B = {B_ADJ_IND_CUT}, not {B_ADJ_IND} (the B = {B_ADJ_IND_CUT} call "
+              f"took {cut_ms:.0f} ms; ten times that passes {ADJ_IND_BUDGET_S:g} s)", flush=True)
+        fb_ms = cut_ms
+    else:
+        B = B_ADJ_IND
+        fn = ind_gradient(problem, te6, B)
+        _, fb_ms = events_ms(lambda: fn.call(params))
+    pc = params[:B]
+
+    def forward_only():
+        with torch.no_grad():
+            return fn(pc)
+
+    _, fwd_ms = events_ms(forward_only)
+    ys, g = fn.last
+    info = fn.info
+    if tuple(g.shape) != (B, 3) or g.device.type != dev.type:
+        raise AssertionError(f"[28c] gradient {tuple(g.shape)} on {g.device}")
+    # a member whose backward solve spends the 50 Newton failures is NaN
+    # alone (at 4e6 the cell's members end near the limit, phase 22)
+    bad = info["backward_status"] < 0
+    finite = torch.isfinite(g).all(-1)
+    if not bool((bad == ~finite).all()) or not bool((info["status"] >= 0).all()):
+        raise AssertionError("[28c] NaN gradients and failed backward solves disagree")
+    failed = int(bad.sum())
+    # the drawn members and the first and last failed ones: a failed
+    # member must be its single solve's failure, with its Stats
+    fails = torch.nonzero(bad).squeeze(1).tolist()
+    failed_held = sorted({fails[0], fails[-1]}) if fails else []
+    members = drawn_members(B, SEED + 280)
+    members += [b for b in failed_held if b not in members]
+    worst_c, secs_c = gradient_members(
+        "[28c]", fn, pc, members,
+        lambda: dtt.make_differentiable_solve(problem, te6))
+    oracle = robertson.problem_ode(rtol=SENS_ORACLE_RTOL, atol=SENS_ORACLE_ATOL)
+    m0 = int(torch.nonzero(finite)[0])  # member 0 unless its backward solve failed
+    o_ys, o_sens = dtt.solve_dense_fwd_sens(dtt.BdfSolver(oracle), te6, params=pc[m0],
+                                            max_steps=20_000)
+    ref0 = 2.0 * torch.einsum("tn,ptn->p", o_ys, o_sens)
+    err0 = float(member_rel(g[m0:m0 + 1], ref0[None])[0])
+    if not err0 < ADJ_ORACLE_TOL:
+        raise AssertionError(f"[28c] member {m0} off its forward sensitivities by {err0:.3e}")
+    fs, bk = info["forward"].steps.float(), info["backward"].steps.float()
+    print(f"[28c] independent gradient, Robertson B={B} to t=4e6, loss sum ys^2: forward "
+          f"alone (no_grad) {fwd_ms:.1f} ms, forward + backward {fb_ms:.1f} ms (one call each "
+          f"after a B={B_ADJ_IND_WARM} warm-up, CUDA events); forward steps min/median/max "
+          f"{int(fs.min())}/{int(fs.median())}/{int(fs.max())}, backward "
+          f"{int(bk.min())}/{int(bk.median())}/{int(bk.max())}, backward Newton failures max "
+          f"{int(info['backward'].newton_fails.max())} (the limit 50), failed members "
+          f"{failed} (NaN, TOO_MANY_NONLINEAR_SOLVER_FAILURES each); "
+          f"{info['backward_rounds']} backward rounds, "
+          f"{info['backward_host_reads']} backward host reads; table "
+          f"{info['table_bytes'] / 2**20:.1f} MiB; members {members} against their single "
+          f"make_differentiable_solve on the card: equal forward and backward Stats, max abs "
+          f"{worst_c:.3e} (failed members {failed_held} among them: NaN and the same "
+          f"statuses as their single solves); member {m0} within {err0:.2e} of 2 sum y.s "
+          f"(< {ADJ_ORACLE_TOL:g}); "
+          f"the member loop {np.mean(secs_c):.2f} s a member ({np.mean(secs_c) * B / 3600:.2f} "
+          f"h for B={B}); card {card_line}", flush=True)
+
+    # ---- (d) heat1d banded, B = 1,024: the forward pass through K3/K4
+    nh = HEAT_MGRID + 1
+    hp = torch.tensor(np.linspace(0.5, 2.0, B_BAND)[:, None], device=dev)
+    heat = ind_gradient(heat_problem, HEAT_T_EVAL, B_BAND)
+
+    def forward_h():
+        with torch.no_grad():
+            return heat(hp)
+
+    _, k3, k4, hfwd_ms = counted(forward_h)  # the first call at its shapes
+    if k3 < 1 or k4 < 1:
+        raise AssertionError(f"[28d] the forward pass launched K3 {k3} and K4 {k4} times")
+    (_, hg), k3b, k4b, hfb_ms = counted(lambda: heat.call(hp))
+    if (k3b, k4b) != (k3, k4):
+        raise AssertionError(f"[28d] K3/K4 launches: forward {k3}/{k4}, forward + backward "
+                             f"{k3b}/{k4b} (the dense-table backward launches none)")
+    if not bool(torch.isfinite(hg).all()):
+        raise AssertionError("[28d] a gradient is not finite")
+    worst_d, secs_d = gradient_members(
+        "[28d]", heat, hp, [0, B_BAND - 1],
+        lambda: dtt.make_differentiable_solve(heat_problem, HEAT_T_EVAL))
+    hst = dtt.solve_dense_ensemble(dtt.BdfSolver, heat_problem, HEAT_T_EVAL, hp,
+                                   mode="independent").state
+    print(f"[28d] independent gradient, heat1d banded n={nh}, B={B_BAND}: forward {k3} K3 and "
+          f"{k4} K4 launches (0 in the backward), forward alone {hfwd_ms:.1f} ms, forward + "
+          f"backward {hfb_ms:.1f} ms (CUDA events, one call each, the forward's the first); backward "
+          f"steps max {int(heat.info['backward'].steps.max())}; members [0, {B_BAND - 1}] "
+          f"against their single gradients: equal Stats, max abs {worst_d:.3e}, "
+          f"{np.mean(secs_d):.2f} s each; card {card_line}", flush=True)
+    # the forward pass is this independent solve: its members' last M - c J
+    band_h = heat_problem.linear_solver.assemble(None, hst.jac, hst.c_last.view(-1, 1, 1))
+    f_rec, s_rec = path_lu_records(dev, card_line, "d", band_h, 1, phase=28)
+    return [dict(f_rec, name="band_lu_factor:independent_adjoint", launches=k3),
+            dict(s_rec, name="band_lu_solve:independent_adjoint", launches=k4)]
+
 
 
 def fc_ball_height(t, g, e=0.8, h0=10.0):
@@ -3878,6 +4245,7 @@ def main() -> int:
     from diffsol_tpu_torch.ops import fused_band_stepper as fb
     from diffsol_tpu_torch.ops import fused_stepper as fs
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     card_line = card()
@@ -3997,9 +4365,15 @@ def main() -> int:
     t_phase = time.perf_counter()
     independent_rk_records = independent_rk_phase(dev, card_line, heat_problem, soln)
     print(f"[27] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
+    t_phase = time.perf_counter()
+    independent_adj_records = independent_krylov_adjoint_phase(dev, card_line, heat_problem)
+    print(f"[28] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
+    print(f"[1-28] the whole script {time.perf_counter() - t_start:.1f} s (host clock)",
+          flush=True)
     record = ([small_record] + variant_records + [mixed_record] + band_records
               + mol2d_records + wide_lu_records + diffsl_records + sens_records
-              + adjoint_records + f32_records + independent_records + independent_rk_records)
+              + adjoint_records + f32_records + independent_records + independent_rk_records
+              + independent_adj_records)
 
     print(f"card: {card_line}")
     print(json.dumps({"kernels": record}))

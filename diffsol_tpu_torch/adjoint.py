@@ -371,6 +371,12 @@ def _adjoint_problem(problem: OdeProblem, t_top: float, nparams: int,
     )
 
 
+def _time_like(x, t):
+    """A host time as a scalar tensor beside ``x``; a tensor (a member's
+    time under ``vmap``) as it is."""
+    return t if isinstance(t, torch.Tensor) else x.new_tensor(t)
+
+
 def _make_jump(problem):
     """Discrete output-jump operator ``(lam, gp, v, t, x, params) -> (lam,
     gp)`` of one member.
@@ -390,7 +396,7 @@ def _make_jump(problem):
             return lam + v, gp_rows
     elif alg is None:
         def jump(lam, gp_rows, v, t, x, params):
-            m_t = eqn.mass(x.new_tensor(t), params).transpose(-1, -2)
+            m_t = eqn.mass(_time_like(x, t), params).transpose(-1, -2)
             return lam + torch.linalg.solve(m_t, v), gp_rows
     else:
         diff = ~alg
@@ -398,7 +404,7 @@ def _make_jump(problem):
         eye_a = torch.diag(alg.to(F64))
 
         def jump(lam, gp_rows, v, t, x, params):
-            tt = x.new_tensor(t)
+            tt = _time_like(x, t)
             A = torch.func.jacfwd(lambda yy: eqn.rhs(tt, yy, params))(x).T
             Ap = torch.where(alg[:, None] & alg[None, :], A, 0.0) + eye_d
             va = torch.linalg.solve(Ap, torch.where(alg, v, 0.0))
@@ -423,12 +429,13 @@ def _event_correction_core(eqn, out_fn, with_ct_g: bool):
         c = R_y f- + R_t - f+,   d = (r_y f- + r_t)_k
 
     (reference adjoint.rs:106-148, state.rs:560-692
-    apply_reset_with_adjoint).  ``t_star`` (a host float) and the root index
-    ``k`` are one for all members of a lockstep event; the rest is one
-    member's, so the ensemble vmaps it."""
+    apply_reset_with_adjoint).  The root index ``k`` (a host int) is one
+    for all the members corrected together, and ``t_star`` too in a
+    lockstep event (a host float); the rest is one member's, so an ensemble
+    vmaps it (the independent one over ``t_star`` as well, a tensor)."""
 
     def correct1(lam, gp_rows, t_star, y_m, dy_m, y_p, dy_p, k, params, ct_g_m):
-        ts = y_m.new_tensor(t_star)
+        ts = _time_like(y_m, t_star)
         if eqn.reset_n is not None:
             def reset(tt, yy, pp):
                 return eqn.reset_n(tt, yy, pp, k)

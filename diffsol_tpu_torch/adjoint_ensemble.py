@@ -24,8 +24,9 @@ crates/diffsol-la/src/context/mod.rs:20-51); the lockstep lift of
 * gradients come out per member, (B, nparams).
 
 The reference has no such capability: its adjoint is single-context.
-``mode="independent"`` calls the single-instance differentiable solve once
-a member, each with its own step sequences.
+``mode="independent"`` runs one batched forward and one batched backward
+pass, each member with its own step sequences
+(:mod:`diffsol_tpu_torch.adjoint_independent`).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from .adjoint import (
 from .drivers import resolve_device
 from .ensemble import make_lockstep_problem
 from .problem import OdeProblem
+from .solvers.bdf import BdfSolver
 
 
 def _make_event_correction_lockstep(base_problem, events, params_b, ct_g, out_fn):
@@ -156,15 +158,28 @@ def make_differentiable_solve_ensemble(
     selects the bounded-memory mode, as in
     :func:`~diffsol_tpu_torch.adjoint.make_differentiable_solve`.
 
-    ``mode="independent"`` calls the single-instance differentiable solve
-    once a member: each gets its own forward and backward step sequences
-    (as in the JAX package, this mode keeps the dense table whatever
-    ``checkpoint_interval`` says).  ``device`` as in
+    ``mode="independent"`` gives each member its own forward and backward
+    step sequences in one batched forward and one batched backward pass
+    (:func:`~diffsol_tpu_torch.adjoint_independent.make_independent`; as in
+    the JAX package, this mode keeps the dense table whatever
+    ``checkpoint_interval`` says).  Its ``ys_of.info`` is per member: the
+    forward and backward ``Stats`` as (B,) counters, ``status`` and
+    ``backward_status`` as (B,) tensors; a member whose backward solve
+    fails has a NaN gradient, the others keep theirs.  A solver class
+    other than ``BdfSolver`` calls the single-instance function once a
+    member (its ``info`` the last member's).  ``device`` as in
     ``make_differentiable_solve``: the card unless the caller asks for the
     CPU; ``params_b`` (B, nparams) must lie there.
     """
     who = "make_differentiable_solve_ensemble"
+    if mode == "independent" and (solver_cls or BdfSolver) is BdfSolver and (
+            bwd_solver_cls or solver_cls or BdfSolver) is BdfSolver:
+        from .adjoint_independent import make_independent
+
+        return make_independent(problem, t_eval, nbatch, max_steps, bwd_max_steps,
+                                resolve_device(device, who), who)
     if mode == "independent":
+        # another solver class: its single-instance function once a member
         dev = resolve_device(device, who)
         one = make_differentiable_solve(problem, t_eval, solver_cls=solver_cls,
                                         max_steps=max_steps, bwd_solver_cls=bwd_solver_cls,

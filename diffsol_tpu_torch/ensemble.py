@@ -8,13 +8,15 @@
   semantics, ``tier`` and ``stats`` are the same.)
 * **independent**: each member with its own step sequence, events and
   stop.  A ``BdfSolver``, ``SdirkSolver`` or ``ErkSolver``, with or
-  without ``sens=True``, over the dense tier (any mass), the banded or the
-  block-diagonal tier runs all members in one batched loop
+  without ``sens=True``, over the dense tier (any mass), the banded, the
+  block-diagonal or the matrix-free Krylov tier (each member its own
+  GMRES) runs all members in one batched loop
   (:mod:`.solvers.bdf_independent`, :mod:`.solvers.rk_independent`, the
-  counterpart of the JAX package's ``vmap``); the Krylov tier's implicit
-  solvers loop over the members, one eager solve each.  Either way
-  ``stop_reason``, ``root_t`` and ``root_idx`` are (B,) tensors and
-  ``state`` is one batched state.
+  counterpart of the JAX package's ``vmap``).  Another solver class, or
+  augmented equations other than the forward sensitivities, loops over
+  the members, one eager solve each.  Either way ``stop_reason``,
+  ``root_t`` and ``root_idx`` are (B,) tensors and ``state`` is one
+  batched state.
 * **fused**: the whole-solve kernel tiers, the small-n stepper first
   (:mod:`.ops.fused_stepper`, n <= 8, tier ``"fused_small"``), then the
   banded stepper (:mod:`.ops.fused_band_stepper`, tier ``"fused_band"``).
@@ -67,13 +69,23 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
     (``blockdiag_lockstep(nb,K,B)``).  The matrix-free tier's Jacobian
     stays the frozen point, now of the batch, and its GMRES runs over the
     joint B n system (``krylov_lockstep``; JAX ensemble.py:108-136,
-    200-215)."""
+    200-215); with ``member_t`` each member keeps its own frozen point,
+    preconditioner and GMRES (``krylov_independent``, as JAX's ``vmap`` of
+    the single solve gives them)."""
     eqn = problem.eqn
     vmap = torch.func.vmap
     spec = problem.linear_solver
     krylov = spec.name.startswith("krylov")
     td = 0 if member_t else None
-    if krylov:
+    if krylov and member_t:
+        from .ops.krylov import MemberPoint
+
+        def b_jac(t, Y, Pb):
+            # the points are the batch's own, written member by member
+            return MemberPoint(t.clone(), Y.clone(), Pb.clone())
+
+        b_jac.jvp_probes = 0
+    elif krylov:
         def b_jac(t, Y, Pb):
             return (t, Y, Pb)
 
@@ -118,7 +130,14 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
         nparams=eqn.nparams,
     )
     params_b = problem.params.expand(nbatch, -1).clone()
-    if krylov:
+    if krylov and member_t:
+        from .ops.krylov import make_krylov_solver_independent
+
+        gmres_tol, restart, maxiter, precond, member_jac_fn = spec.meta[:5]
+        spec = make_krylov_solver_independent(
+            new_eqn.rhs, eqn.rhs, nbatch, gmres_tol=gmres_tol, restart=restart,
+            maxiter=maxiter, precond=precond, member_jac_fn=member_jac_fn)
+    elif krylov:
         from .ops.krylov import make_krylov_solver_lockstep
 
         gmres_tol, restart, maxiter, precond, member_jac_fn = spec.meta[:5]
@@ -293,10 +312,10 @@ def solve_dense_ensemble(
     ``lambda pr: solver(pr, "tr_bdf2")``); the lockstep and independent
     modes use it.  ``mode="independent"`` gives every member its own step
     control: one batched loop for a ``BdfSolver``, ``SdirkSolver`` or
-    ``ErkSolver`` (sensitivities or not) over the dense, banded or
-    block-diagonal tier
+    ``ErkSolver`` (sensitivities or not) over the dense, banded,
+    block-diagonal or Krylov tier
     (:func:`.solvers.independent.solve_dense_independent`), one eager
-    solve a member on the Krylov tier; ``stop_reason``, ``root_t`` and
+    solve a member for any other solver; ``stop_reason``, ``root_t`` and
     ``root_idx`` come back as (B,) tensors and ``state`` as one batched
     state.  The fused and auto modes run the BDF kernels whenever
     one takes the problem, whatever the method, as the JAX package does
@@ -360,6 +379,9 @@ def solve_dense_ensemble(
         if independent.takes(solver):
             return independent.solve_dense_independent(
                 solver, t_eval, params_batch, max_steps=max_steps)
+        # only a solver class other than BdfSolver, SdirkSolver or
+        # ErkSolver, or augmented equations other than SensEquations, come
+        # here: one eager solve a member
         sols = [
             solve_dense(solver, t_eval, params=params_batch[i],
                         max_steps=max_steps, device=dev)

@@ -89,10 +89,27 @@ def compute_ru(order: int, factor: float) -> np.ndarray:
     return np.where(_VALID[order], _r_mat(factor), _EYE) @ _U[order]
 
 
+def sum_in_order(r: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """D'[j] = sum_i r[i, j] * D[i] (``r`` (ND, ND) broadcast against D's
+    trailing axes), summed over i in order: one product and one cumsum
+    along the leading axis, whose sum runs column by column from i = 0 on
+    the CPU and the card alike, whatever D's other axes hold."""
+    return torch.cumsum(r * D.unsqueeze(1), 0)[-1]
+
+
 def apply_ru(ru: np.ndarray, D: torch.Tensor) -> torch.Tensor:
-    """D'[j] = sum_i ru[i, j] * D[i]."""
+    """D'[j] = sum_i ru[i, j] * D[i].  float64 sums over i in order
+    (:func:`sum_in_order`), as each member of the batched independent loop
+    does (bdf_independent._Batched.rescale), so that a member and its
+    single solve agree bit for bit: a matrix product's order depends on
+    its shapes.  float32 keeps the matrix product, in both modules, with
+    which its card and CPU solves were measured to agree
+    (tests/test_torch_cuda.py's float32 step bound); there a member agrees
+    with its single solve to float32's bound, not step for step."""
     ru_t = torch.as_tensor(ru, dtype=D.dtype, device=D.device)
-    return torch.tensordot(ru_t, D, dims=([0], [0]))
+    if D.dtype != torch.float64:
+        return torch.tensordot(ru_t, D, dims=([0], [0]))
+    return sum_in_order(ru_t.view((ND, ND) + (1,) * (D.ndim - 1)), D)
 
 
 def rescale_all(D, gD, sD, order: int, factor: float):

@@ -44,7 +44,8 @@ import torch
 from .. import errors
 from ..norms import error_scale
 from ..ops.newton import ETA_RESET_JACOBIAN, ETA_RESET_TIMESTEP
-from .bdf import MAX_ORDER, ND, _ALPHA, _ERROR_CONST2, _EPS, _GAMMA, _r_mat, BdfSolver
+from .bdf import (MAX_ORDER, ND, _ALPHA, _ERROR_CONST2, _EPS, _GAMMA, _r_mat, BdfSolver,
+                  sum_in_order)
 from .independent import (F64, I64, _CAUSES, BatchedLoop, _cast, _rdiv, _where,
                           _where_nd, _wm, member_stats)
 from .rk_common import Stats
@@ -89,6 +90,10 @@ class IndependentState:
     rounds: int = 0
     host_reads: int = 0
     newton_sweeps: int = 0  # Newton iterations of the batch (any member)
+    # the Krylov tier's restarts and Arnoldi iterations, (B,) (None on the
+    # other tiers)
+    gmres_restarts: Optional[torch.Tensor] = None
+    gmres_arnoldi: Optional[torch.Tensor] = None
 
     def member_stats(self, b: int) -> Stats:
         """Member ``b``'s counters as the single solve's :class:`Stats`."""
@@ -113,8 +118,8 @@ class _Batched(BatchedLoop):
             "steps_since_jac", "steps_since_rhs_jac", "c_last", "newton_fails_total",
             "state_modified")
 
-    def __init__(self, solver: BdfSolver, params_b: torch.Tensor):
-        super().__init__(solver, params_b)
+    def __init__(self, solver: BdfSolver, params_b: torch.Tensor, lifted=None):
+        super().__init__(solver, params_b, lifted)
         if self.sens:
             self.SNAP = self.SNAP + ("sD",)
         tk = dict(dtype=F64, device=self.dev)
@@ -192,7 +197,10 @@ class _Batched(BatchedLoop):
     def rescale(self, mask, order, factor, *Ds):
         """Each D (ND, B, ...) or the rows' sD (ND, naug, B, n) under a
         step-size change by ``factor`` for the members of ``mask``
-        (rescale_all); the others untouched, and None passed through."""
+        (rescale_all); the others untouched, and None passed through.  Each
+        member sums as bdf.apply_ru does for its single solve: in order in
+        float64 (bit for bit), a matrix product in float32 (float32's
+        bound)."""
         ru = self.ru(order, torch.where(mask, factor, 1.0))
         out = []
         for D in Ds:
@@ -200,11 +208,14 @@ class _Batched(BatchedLoop):
                 out.append(D)
                 continue
             r = _cast(ru, D.dtype)
-            if D.ndim == 4:  # the rows
-                out.append(_wm(mask, torch.einsum("bij,iabk->jabk", r, D), D))
-                continue
-            new = torch.einsum("bij,ib...->jb...", r, D)
-            out.append(_where_nd(mask, new, D))
+            if D.dtype != F64:  # bdf.apply_ru's matrix product, a member's RU each
+                new = (torch.einsum("bij,iabk->jabk", r, D) if D.ndim == 4
+                       else torch.einsum("bij,ib...->jb...", r, D))
+            else:  # bdf.apply_ru's sum in order: (ND, ND, [1,] B, 1) columns
+                r = r.permute(1, 2, 0).reshape((ND, ND) + (1,) * (D.ndim - 3)
+                                               + (r.shape[0], 1))
+                new = sum_in_order(r, D)
+            out.append(_wm(mask, new, D) if D.ndim == 4 else _where_nd(mask, new, D))
         return out
 
     def interp(self, t, D, t1, h, order):
@@ -306,8 +317,7 @@ class _Batched(BatchedLoop):
         zl = torch.zeros(B, dtype=I64, device=self.dev)
         stats = self.new_stats()
         jac = self.eqn.jac(self.tt(t), y, params)
-        a = self.spec.assemble(self.eqn.mass_repr(self.tt(t), params), jac,
-                               c0.to(self.dtype).view(-1, *([1] * (jac.ndim - 1))))
+        a = self.spec.assemble(self.eqn.mass_repr(self.tt(t), params), jac, self.c_of(c0, jac))
         factors = self.spec.factor(a)
         stats.linear_solver_setups += 1
         stats.lu_from_checkpoint += 1
@@ -334,20 +344,102 @@ class _Batched(BatchedLoop):
             state_modified=torch.zeros(B, dtype=torch.bool, device=self.dev),
             s=s, sD=sD, n_steps=zl.clone(),
         )
-        # set_stop_time (bdf.py:347-369)
-        st.tstop = torch.full((B,), float(t_final), dtype=F64, device=self.dev)
+        self.set_stop(st, torch.ones(B, dtype=torch.bool, device=self.dev),
+                      torch.full((B,), float(t_final), dtype=F64, device=self.dev))
+        return st
+
+    def set_stop(self, st, mask, tstop):
+        """set_stop_time (bdf.py:347-369) for the members of ``mask``, each
+        to its own (B,) ``tstop``."""
+        st.tstop = torch.where(mask, tstop, st.tstop)
         tr = 100.0 * _EPS * (st.t.abs() + st.h.abs())
         reached = (st.t - st.tstop).abs() <= tr
-        over = ~reached & torch.where(st.h > 0.0, st.t + st.h > st.tstop + tr,
-                                      st.t + st.h < st.tstop - tr)
+        over = mask & ~reached & torch.where(st.h > 0.0, st.t + st.h > st.tstop + tr,
+                                             st.t + st.h < st.tstop - tr)
         factor = (st.tstop - st.t) / st.h
         st.D, st.gD, st.sD = self.rescale(over, st.order, factor, st.D, st.gD, st.sD)
         st.h = torch.where(over, st.h * factor, st.h)
         st.n_equal_steps = torch.where(over, 0, st.n_equal_steps)
         st.eta = torch.where(over, ETA_RESET_TIMESTEP, st.eta)
-        st.status = torch.where(st.tstop < st.t - tr,
+        st.status = torch.where(mask & (st.tstop < st.t - tr),
                                 errors.STOP_TIME_BEFORE_CURRENT_TIME, st.status)
-        return st
+
+    # ------------------------------------------------------------------
+    def integrate_schedule(self, st, targets, nstages, apply, max_steps: int, live=None):
+        """Each member integrates to its targets in turn (``targets`` (B,
+        L + 1), ascending in each row; member b's first ``nstages[b]``
+        are boundaries, the next its end): at each boundary
+        ``apply(st, mask, stage)`` changes the members of ``mask``, and
+        the next step of those restarts at order 1.  A target at or
+        behind a member's time is reached at once; an integration stops
+        at its target, at a fatal step or after ``max_steps`` steps, as
+        adjoint._integrate_to (a fatal status before a boundary ends the
+        member there).  Members outside ``live`` take no part.  Returns
+        the first fatal status of each member (0: none)."""
+        B, dev = self.B, self.dev
+        ar = torch.arange(B, device=dev)
+        stage = torch.zeros(B, dtype=I64, device=dev)
+        k = torch.zeros(B, dtype=I64, device=dev)
+        failed = torch.zeros(B, dtype=I64, device=dev)
+        done = (torch.zeros(B, dtype=torch.bool, device=dev) if live is None
+                else ~live.to(dev))
+        integ = torch.zeros_like(done)
+        fresh = torch.ones_like(done)
+        self.begin(st)
+        snap = {nm: getattr(st, nm) for nm in self.SNAP}
+        snap_stats = self.stats_mat.clone()
+
+        def open_(mask):
+            """Start each member of ``mask`` toward its current target: an
+            integration (status reset, stop time set) where the target lies
+            ahead, else an arrival."""
+            tgt = targets[ar, stage]
+            need = mask & (tgt > st.t)
+            st.status = torch.where(need, errors.INTERNAL_TIMESTEP, st.status)
+            self.set_stop(st, need, tgt)
+            return need, mask & ~need
+
+        integ, arrived = open_(~done)
+        rounds = 0
+        while True:
+            # ---- arrivals: a fatal status ends the member; a boundary is
+            # applied and the next target opened (at once where it is due)
+            while self.read(arrived.any()):
+                bad = arrived & (st.status < 0)
+                failed = torch.where(bad & (failed == 0), st.status, failed)
+                at_b = arrived & ~bad & (stage < nstages)
+                done = done | (arrived & ~at_b)
+                apply(st, at_b, stage)
+                stage = torch.where(at_b, stage + 1, stage)
+                k = torch.where(at_b, 0, k)
+                need, arrived = open_(at_b)
+                integ = integ | need
+            any_run, any_mod = self.read(torch.stack(
+                [integ.any(), (integ & fresh & st.state_modified).any()]))
+            if not any_run:
+                break
+            rounds += 1
+            run = integ
+            fr = run & fresh
+            mod = fr & st.state_modified
+            for nm in self.SNAP:
+                snap[nm] = _wm(fr, getattr(st, nm), snap[nm])
+            snap_stats = torch.where(fr, self.stats_mat, snap_stats)
+            acc, status_f, step_stop, _, _ = self.attempt(st, run, fr, mod, any_mod)
+            fatal = run & (status_f != 0)
+            # a fatal step keeps its start (the single solver returns the
+            # old state with the status)
+            self.restore(st, fatal, snap, snap_stats)
+            st.status = torch.where(fatal, status_f, torch.where(acc, step_stop, st.status))
+            fin = acc | fatal
+            fresh = fin | (fresh & ~run)
+            k = k + fin.to(I64)
+            arrived = fin & ((st.status != errors.INTERNAL_TIMESTEP) | (k >= max_steps))
+            integ = integ & ~arrived
+        st.rounds = rounds
+        st.host_reads = self.reads
+        st.newton_sweeps = self.newton_sweeps
+        return failed
 
     # ------------------------------------------------------------------
     def begin(self, st):

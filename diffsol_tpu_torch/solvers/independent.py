@@ -6,8 +6,8 @@ solver's ``step`` and ``diffsol_tpu.drivers.solve_dense``, as
 :class:`BatchedLoop` holds the solve loop and the host control; a method
 family brings its state and its step attempt (:mod:`.bdf_independent`,
 :mod:`.rk_independent`).  :func:`takes` says which solvers and tiers run
-batched (the Krylov tier and other augmented equation sets do not), and
-:func:`solve_dense_independent` runs them.
+batched (augmented equation sets other than the forward sensitivities do
+not), and :func:`solve_dense_independent` runs them.
 
 * **The solve loop** (:meth:`BatchedLoop.solve_dense`, drivers.solve_dense
   of every member): one step attempt of every unfinished member a round;
@@ -36,8 +36,16 @@ batched (the Krylov tier and other augmented equation sets do not), and
 * **Factorizations of a subset**: the refreshed members' matrices are
   factored alone and written into the batch's (:func:`_scatter_factors`):
   a dense (B, n, n) LU, the banded tier's (n+mu, nb, B) factors (K3 on the
-  card), or the block tier's (B K, nb, nb) stack, each member against its
-  own K blocks.
+  card), the block tier's (B K, nb, nb) stack, each member against its
+  own K blocks, or the Krylov tier's frozen points and preconditioners
+  (a :class:`~diffsol_tpu_torch.ops.krylov.MemberFactors`).
+* **The Krylov tier** (``krylov_independent``): every member its own
+  frozen point, float32 LU or tridiagonal preconditioner and GMRES
+  (:func:`~diffsol_tpu_torch.ops.krylov.gmres_batched`), run for the
+  members that iterate (:meth:`~BatchedLoop.lin_solve`); the (B,)
+  restarts and Arnoldi iterations of each member end on the state
+  (``gmres_restarts``, ``gmres_arnoldi``).  A GMRES call reads the device
+  once a restart round, whatever B (``ops.krylov.gmres_counts``).
 
 The members' vectors are member-major (B, n) as in the lockstep lift, the
 augmented rows (naug, B, n) as a lockstep ensemble's; the callables are
@@ -64,6 +72,7 @@ import torch
 from .. import errors
 from ..norms import error_scale, scaled_per_member
 from ..ops.band_lu import BandFactors
+from ..ops.krylov import MemberFactors
 from ..ops.newton import ETA_RESET_JACOBIAN
 from .consistent_ic import algebraic_mask
 from .rk_common import Stats
@@ -115,7 +124,11 @@ def _f64(x: torch.Tensor) -> torch.Tensor:
 
 
 def _where(mask, a, b):
-    """``torch.where`` with a (B,) mask broadcast over trailing axes."""
+    """``torch.where`` with a (B,) mask broadcast over trailing axes (field
+    by field for a tuple of such tensors: the Krylov tier's frozen
+    points)."""
+    if isinstance(a, tuple):
+        return type(a)(*(_where(mask, x, y) for x, y in zip(a, b)))
     while mask.ndim < a.ndim:
         mask = mask.unsqueeze(-1)
     return torch.where(mask, a, b)
@@ -145,9 +158,9 @@ def member_stats(stats: Stats, b: int) -> Stats:
 def takes(solver) -> bool:
     """Whether ``mode="independent"`` runs this solver batched: a
     :class:`~.bdf.BdfSolver` or :class:`~.sdirk.SdirkSolver` over the dense
-    tier (any mass), the banded or the block-diagonal tier, or an
-    :class:`~.erk.ErkSolver` (which solves no linear system), each with no
-    augmented rows or the forward sensitivities."""
+    tier (any mass), the banded, the block-diagonal or the matrix-free
+    Krylov tier, or an :class:`~.erk.ErkSolver` (which solves no linear
+    system), each with no augmented rows or the forward sensitivities."""
     from ..augmented import SensEquations
     from .bdf import BdfSolver
     from .erk import ErkSolver
@@ -159,7 +172,7 @@ def takes(solver) -> bool:
         return True
     name = solver.problem.linear_solver.name
     return (type(solver) in (BdfSolver, SdirkSolver)
-            and (name == "dense" or name.startswith(("banded", "blockdiag"))))
+            and (name == "dense" or name.startswith(("banded", "blockdiag", "krylov("))))
 
 
 def solve_dense_independent(solver, t_eval, params_batch: torch.Tensor,
@@ -192,7 +205,7 @@ class BatchedLoop:
 
     SNAP: tuple = ()
 
-    def __init__(self, solver, params_b: torch.Tensor):
+    def __init__(self, solver, params_b: torch.Tensor, lifted=None):
         from ..augmented import SensEquations
         from ..ensemble import make_lockstep_problem
 
@@ -201,12 +214,17 @@ class BatchedLoop:
         self.cfg = solver.config
         self.opts = p.options
         self.B = params_b.shape[0]
-        lp = make_lockstep_problem(p, self.B, member_t=True)
+        # the member-time lift of the solver's problem, or the caller's own
+        # (the independent adjoint's, whose members read their own tables)
+        lp = lifted if lifted is not None else make_lockstep_problem(p, self.B, member_t=True)
         self.eqn = lp.eqn
         # the lift's tier: the block tier's member and block axes fuse into
         # one (B K, nb, nb) stack; the dense and banded tiers are unchanged
         self.spec = lp.linear_solver
         self.banded = self.spec.name.startswith("banded")
+        # the Krylov tier: each member's GMRES counts, added by every call
+        self.krylov = self.spec.name.startswith("krylov")
+        self.gmres = self.spec.meta[-1] if self.krylov else None
         self.params = params_b
         self.dev = params_b.device
         self.dtype = p.dtype
@@ -344,7 +362,7 @@ class BatchedLoop:
         it = it.clone()  # the caller has read that some member runs
         for sweep in range(1, max_iter + 1):
             self.newton_sweeps += 1
-            delta = self.spec.solve(factors, residual(x))
+            delta = self.lin_solve(factors, residual(x), it)
             x = _wm(it, x - delta, x)
             sq = scaled_per_member(delta, scale)
             nrm = torch.sqrt(_f64(sq if sq.ndim == 1 else sq.amax(0)))
@@ -359,6 +377,19 @@ class BatchedLoop:
             if not going:
                 break
         return x, conv, niter, eta
+
+    def lin_solve(self, factors, b, active):
+        """The tier's solve of ``b`` (B, n) or the rows (naug, B, n); the
+        Krylov tier's GMRES runs for the members of ``active`` alone (the
+        others' columns come back zero and are not counted)."""
+        if self.krylov:
+            return self.spec.solve(factors, b, active)
+        return self.spec.solve(factors, b)
+
+    def c_of(self, c, jac):
+        """The step's (B,) c onto the tier's Jacobian stack ((B,) for the
+        Krylov tier's frozen points)."""
+        return c.to(self.dtype).view(-1, *([1] * (jac.ndim - 1)))
 
     # ------------------------------------------------------------------
     def initial_step_size(self, t, y0, dy0, order: int):
@@ -429,13 +460,25 @@ class BatchedLoop:
                 return self.spec.factor(make_banded_jac(
                     lambda t_, xx, p_: residual(xx, sel), ml, mu)(None, x, None))
 
-            lin_solve = self.spec.solve
+            def lin_solve(factors, b, active):
+                return self.spec.solve(factors, b)
+        elif self.krylov:
+            # matrix-free, each member its own GMRES (consistent_ic.py's
+            # make_matfree_residual_solver, per member)
+            from ..ops.krylov import make_matfree_residual_solver
+
+            fac_b, lin_solve = make_matfree_residual_solver(residual, per_member=True,
+                                                            counts=self.gmres)
+
+            def factorize(x, sel):
+                return fac_b(x, lambda xx: residual(xx, sel))
         else:
             # the dense and block tiers take the single solve's dense branch
             def factorize(x, sel):
                 return DENSE.factor(_blockwise_jacfwd(lambda xx: residual(xx, sel), x))
 
-            lin_solve = DENSE.solve
+            def lin_solve(factors, b, active):
+                return DENSE.solve(factors, b)
 
         def nrm_of(delta):
             return torch.sqrt(self.wnorm2(delta, y, p.atol, p.rtol))
@@ -472,7 +515,7 @@ class BatchedLoop:
             ls = live & ~start
             x_try = x - self.s(alpha) * delta
             z = torch.where(st_.unsqueeze(-1), x, x_try)
-            d_new = lin_solve(factors, residual(z))
+            d_new = lin_solve(factors, residual(z), live)
             n_new = nrm_of(d_new)
             # campaign start: the first Newton iterate
             s1, e1 = check(torch.ones_like(niter), n_new, n_new, eta, st_)
@@ -606,10 +649,14 @@ class BatchedLoop:
         return found, res_t, res_i, g1, any_found
 
     # ------------------------------------------------------------------
-    def solve_dense(self, t_eval, max_steps: int):
+    def solve_dense(self, t_eval, max_steps: int, recorder=None):
         """drivers.solve_dense of every member, one step attempt of each
         unfinished member a round -> (ts, ys, gs, sens, stop, root_t,
-        root_idx, state)."""
+        root_idx, state).  A ``recorder`` (the independent adjoint's
+        forward pass) sees the initial state (``start``), each member's
+        accepted steps (``step``) and each reset event (``event``, which
+        returns the members past its capacity: they stop with
+        EVENT_CAPACITY_EXCEEDED)."""
         p, eqn, params, B = self.p, self.eqn, self.params, self.B
         te_host = [float(v) for v in torch.as_tensor(t_eval, dtype=F64).reshape(-1).tolist()]
         te = torch.as_tensor(te_host, dtype=F64, device=self.dev)
@@ -634,6 +681,8 @@ class BatchedLoop:
         sol_root_idx = torch.full((B,), -1, dtype=I64, device=dev)
         k = st.n_steps
         fresh = torch.ones(B, dtype=torch.bool, device=dev)
+        if recorder is not None:
+            recorder.start(st)
         self.begin(st)
         snap = {nm: getattr(st, nm) for nm in self.SNAP}
         snap_stats = self.stats_mat.clone()
@@ -696,6 +745,7 @@ class BatchedLoop:
             tsr = acc & (step_stop == errors.TSTOP_REACHED)
             done = done | tsr
             stop = torch.where(tsr, errors.TSTOP_REACHED, stop)
+            rf = None
             if any_found:
                 rf = acc & (step_stop == errors.ROOT_FOUND)
                 self.pin(st, rf, step_root_t)
@@ -705,18 +755,31 @@ class BatchedLoop:
                     sol_root_t = torch.where(rf, st.t, sol_root_t)
                     sol_root_idx = torch.where(rf, st.root_idx, sol_root_idx)
                 else:
+                    pinned = (st.t, st.y, st.dy)
                     rs_status = self.apply_reset(st, rf)
+                    if recorder is not None:
+                        over = recorder.event(rf, pinned, st)
+                        rs_status = torch.where(over, errors.EVENT_CAPACITY_EXCEEDED, rs_status)
+                        st.status = torch.where(over, errors.EVENT_CAPACITY_EXCEEDED,
+                                                st.status)
                     bad = rf & (rs_status < 0)
                     done = done | bad
                     stop = torch.where(bad, rs_status, stop)
                     past = rf & ~bad & (st.t >= final_time)
                     done = done | past
                     stop = torch.where(past, errors.TSTOP_REACHED, stop)
+            if recorder is not None:
+                kept = acc & (step_stop >= 0)
+                recorder.step(kept if rf is None else kept & ~rf, st)
         stop = torch.where(done, stop, errors.MAX_STEPS_REACHED)
         st.n_steps = k
         st.rounds = rounds
         st.host_reads = self.reads
         st.newton_sweeps = self.newton_sweeps
+        if self.krylov:
+            zero = torch.zeros(B, dtype=I64, device=dev)
+            st.gmres_restarts, st.gmres_arnoldi = (
+                zero if self.gmres[k] is None else self.gmres[k] for k in ("restarts", "arnoldi"))
         return te, ys, gs, ss, stop, sol_root_t, sol_root_idx, st
 
     def restore(self, st, mask, snap, snap_stats):
@@ -770,9 +833,8 @@ class BatchedLoop:
         (K3 on the card's banded tier) and written into the batch's
         factors."""
         pb = self.params.index_select(0, idx)
-        c_s = c_s.to(self.dtype)
         a = self.spec.assemble(self.eqn.mass_repr(self.tt(t_s), pb), jac_s,
-                               c_s.view(-1, *([1] * (jac_s.ndim - 1))))
+                               self.c_of(c_s, jac_s))
         _scatter_factors(st.factors, idx, self.spec.factor(a))
 
 
@@ -782,12 +844,39 @@ def _member_rows(x, r):
     return x.view((-1, r) + tuple(x.shape[1:]))
 
 
+def _scatter_tree(full, idx, sub):
+    """Every tensor of a :class:`MemberFactors` (nested tuples, None kept)
+    written along its leading member axis."""
+    if isinstance(full, torch.Tensor):
+        full.index_copy_(0, idx, sub)
+    elif full is not None:
+        for a, b in zip(full, sub):
+            _scatter_tree(a, idx, b)
+
+
+def _expand_tree(sub, B):
+    """A :class:`MemberFactors` of B members, zeros (pivots the identity's)
+    outside the subset's, which the caller writes."""
+    if sub is None:
+        return None
+    if isinstance(sub, torch.Tensor):
+        if sub.dtype in (torch.int32, torch.int64):  # LU pivots
+            return torch.arange(1, sub.shape[-1] + 1, dtype=sub.dtype,
+                                device=sub.device).expand((B,) + sub.shape[1:]).clone()
+        return sub.new_zeros((B,) + sub.shape[1:])
+    parts = [_expand_tree(x, B) for x in sub]
+    return type(sub)(*parts) if hasattr(sub, "_fields") else type(sub)(parts)
+
+
 def _scatter_factors(factors, idx, sub):
     """Write a subset's factorization into the batch's, in place: the band
     LU's (n+mu, nb, B) factors along their member axis and its band along
     the first; the dense LU's (lu, pivots) and the block tier's (B K, nb,
-    nb) stack along the first, a member's rows together."""
-    if isinstance(factors, BandFactors):
+    nb) stack along the first, a member's rows together; the Krylov tier's
+    frozen points and preconditioners along the first."""
+    if isinstance(factors, MemberFactors):
+        _scatter_tree(factors, idx, sub)
+    elif isinstance(factors, BandFactors):
         factors.lu.index_copy_(2, idx, sub.lu)
         factors.band.index_copy_(0, idx, sub.band)
     else:
@@ -799,7 +888,9 @@ def _scatter_factors(factors, idx, sub):
 def _expand_factors(sub, idx, B):
     """A batch's factorization holding a subset's (the rest zero, never
     read: only the subset's members solve before their own refresh)."""
-    if isinstance(sub, BandFactors):
+    if isinstance(sub, MemberFactors):
+        full = _expand_tree(sub, B)
+    elif isinstance(sub, BandFactors):
         lu = sub.lu.new_zeros(sub.lu.shape[:2] + (B,))
         band = sub.band.new_zeros((B,) + sub.band.shape[1:])
         full = BandFactors(lu, band)

@@ -98,6 +98,10 @@ class RkIndependentState:
     rounds: int = 0
     host_reads: int = 0
     newton_sweeps: int = 0  # Newton iterations of the batch (any member)
+    # the Krylov tier's restarts and Arnoldi iterations, (B,) (None on the
+    # other tiers)
+    gmres_restarts: Optional[torch.Tensor] = None
+    gmres_arnoldi: Optional[torch.Tensor] = None
 
     def member_stats(self, b: int) -> Stats:
         """Member ``b``'s counters as the single solve's :class:`Stats`."""
@@ -305,8 +309,7 @@ class RkBatched(BatchedLoop):
             # the policy's checkpoint: J and M - gamma h J of every member
             st.jac = self.eqn.jac(self.tt(t), y, params)
             a = self.spec.assemble(self.eqn.mass_repr(self.tt(t), params), st.jac,
-                                   (self.gamma * h).to(self.dtype).view(
-                                       -1, *([1] * (st.jac.ndim - 1))))
+                                   self.c_of(self.gamma * h, st.jac))
             st.factors = self.spec.factor(a)
             stats.jacobian_evals += 1
             stats.jac_mul_evals += self.jvp_probes
@@ -528,11 +531,13 @@ class RkBatched(BatchedLoop):
         def filtered(x):
             if eqn.mass is not None:
                 x = eqn.mass_mul(self.tt(st.t), params, x)
-            return self.spec.solve(st.factors, x)
+            return self.lin_solve(st.factors, x, ok)
 
+        # the rows' estimate is solved where the error control reads it
+        sens_err = sdiff is not None and p.sens_in_error_control()
         err = self.error_norm(
             st, filtered(stage_sum(self.d, diff)), stage_sum(self.d, gdiff),
-            None if sdiff is None else filtered(stage_sum(self.d, sdiff)))
+            filtered(stage_sum(self.d, sdiff)) if sens_err else None)
         safety = _rdiv(2.0 * m + 1.0, 2.0 * m + niter.to(F64))
         raw = self.pi_raw(err, self.prev_err, float(self.order + 1), ok)
         factor = clamp_factors(0.9 * safety * raw, *self.clamps)

@@ -1,5 +1,6 @@
 """The port's differentiable ensembles, twins of the ten tests of
-tests/test_adjoint_ensemble.py: per-member gradients of lockstep and
+tests/test_adjoint_ensemble.py (the singular-mass one in
+tests/test_torch_adjoint_ensemble_dae.py): per-member gradients of lockstep and
 independent solves, each held to the JAX test's oracle (the port's
 single-instance adjoint, its forward sensitivities, or its dense-table
 mode) at the JAX test's tolerance.
@@ -32,7 +33,6 @@ import diffsol_tpu_torch as dtt
 from diffsol_tpu_torch.interop import problem_from_jax
 from diffsol_tpu_torch.models import exponential_decay as ted
 from diffsol_tpu_torch.models import logistic as tlog
-from diffsol_tpu_torch.models import robertson as trob
 
 from test_torch_adjoint import JAX_RTOL, grad_of, jax_counted
 
@@ -80,23 +80,6 @@ def test_lockstep_grad_matches_jacfwd():
                                             device="cpu")
         g_fwd = (2.0 * torch.einsum("ij,kij->k", ys, sens)).numpy()
         np.testing.assert_allclose(grad_b[b], g_fwd, rtol=1e-4, atol=1e-10)
-
-
-def test_lockstep_grad_dae_mass():
-    """Singular mass (Robertson DAE): the per-member partitioned output
-    jump and algebraic lambda rows."""
-    problem = trob.problem_dae(rtol=1e-8, atol=(1e-10, 1e-10, 1e-10))
-    t_eval = [0.1, 1.0, 10.0]
-    B = 3
-    pb = _member_params(problem.params, B, spread=0.1)
-    w = torch.tensor([1.0, 1e4, 1.0], dtype=F64)
-    ys_of = dtt.make_differentiable_solve_ensemble(problem, t_eval, B, device="cpu")
-    grad_b = grad_of(ys_of, pb, lambda ys: torch.sum((w * ys) ** 2))
-    one = dtt.make_differentiable_solve(problem, t_eval, device="cpu")
-    for b in range(B):
-        g1 = grad_of(one, pb[b], lambda ys: torch.sum((w * ys) ** 2))
-        # lockstep shares one step sequence, the single solves take their own
-        assert np.max(np.abs(grad_b[b] - g1) / np.max(np.abs(g1))) < 1e-3, (grad_b[b], g1)
 
 
 def _quad_problem():

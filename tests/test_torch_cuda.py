@@ -1503,3 +1503,94 @@ def test_independent_rk_rows_and_block_batched_on_the_card(case):
     assert sol.state.stats.steps.cpu().tolist() == cpu.state.stats.steps.tolist()
     weight = problem.atol.cpu() + problem.rtol.cpu() * cpu.ys.abs()
     assert bool(((sol.ys.cpu() - cpu.ys).abs() <= 1e-3 * weight).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["krylov", "adjoint", "adjoint_reset"])
+def test_independent_krylov_and_adjoint_batched_on_the_card(case):
+    """The last two batched paths of ``mode="independent"`` on the card:
+    the Krylov tier (the coupling -p y + C y at n = 40, each member its own
+    GMRES) and the independent gradient (Robertson to t = 4e6, one batched
+    forward and one batched backward; and the exponential decay with a
+    reset at y[0] = 0.6, each member's two events at its own times, their
+    corrections vmapped over the members).  Members against their single solves
+    on the card (equal Stats, GMRES counts, forward and backward Stats; ys
+    and gradients within 1e-12 + 1e-9 |ref|) and the batch against the same
+    batched call on the CPU (equal steps; ys within a thousandth of the
+    error weights, gradients within 1e-4 of their largest component, far
+    inside the adjoint's own error at rtol 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from diffsol_tpu_torch.ops import krylov
+
+    if case == "krylov":
+        n = 40
+        C = np.random.default_rng(2).uniform(-0.01, 0.01, (n, n))
+        on = {}
+
+        def rhs(t, y, p):
+            Cd = on.setdefault(y.device, torch.tensor(C, device=y.device))
+            return -p[0] * y + Cd @ y
+
+        problem = (dtt.OdeBuilder().rhs(rhs)
+                   .init(lambda t, p: torch.ones(n, dtype=torch.float64, device=p.device))
+                   .p([1.0]).rtol(1e-6).atol(1e-8).linear_solver("krylov").build())
+        t_eval = [0.5, 1.0]
+        params = np.linspace(0.5, 2.0, 16)[:, None]
+        sol = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval, params,
+                                       mode="independent")
+        st = sol.state
+        assert sol.ys.is_cuda and st.gmres_restarts.is_cuda
+        pc = torch.tensor(params, device="cuda")
+        for b in (0, 7, 15):
+            krylov.reset_gmres_counts()
+            one = dtt.solve_dense(dtt.BdfSolver(problem), t_eval, params=pc[b])
+            counts = krylov.gmres_counts()
+            assert dataclasses.asdict(st.member_stats(b)) == dataclasses.asdict(
+                one.state.stats)
+            assert (int(st.gmres_restarts[b]), int(st.gmres_arnoldi[b])) == (
+                counts["restarts"], counts["arnoldi"])
+            torch.testing.assert_close(sol.ys[:, b], one.ys, rtol=1e-9, atol=1e-12)
+        cpu = dtt.solve_dense_ensemble(dtt.BdfSolver, problem, t_eval, params,
+                                       mode="independent", device="cpu")
+        assert st.stats.steps.cpu().tolist() == cpu.state.stats.steps.tolist()
+        weight = problem.atol.cpu() + problem.rtol.cpu() * cpu.ys.abs()
+        assert bool(((sol.ys.cpu() - cpu.ys).abs() <= 1e-3 * weight).all())
+        return
+    if case == "adjoint":
+        problem = trob.problem_ode()
+        t_eval = [t for t in trob.T_EVAL_4E10 if t <= 4e6]
+        params = _params(8)
+    else:
+        from diffsol_tpu_torch.models import exponential_decay
+
+        problem = exponential_decay.problem_with_reset()
+        t_eval = [0.5, 1.0, 2.0, 4.0]
+        params = np.stack([np.linspace(0.3, 0.8, 8), np.linspace(1.0, 2.0, 8)], axis=1)
+
+    def grad(fn, p):
+        p = p.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad((fn(p) ** 2).sum(), p)
+        return g
+
+    fn = dtt.make_differentiable_solve_ensemble(problem, t_eval, 8, mode="independent")
+    pc = torch.tensor(params, device="cuda")
+    g = grad(fn, pc)
+    info = fn.info
+    assert g.is_cuda and bool(torch.isfinite(g).all())
+    for b in (0, 4, 7):
+        one = dtt.make_differentiable_solve(problem, t_eval)
+        g1 = grad(one, pc[b])
+        for key in ("forward", "backward"):
+            got = {f.name: int(getattr(info[key], f.name)[b])
+                   for f in dataclasses.fields(info[key])}
+            assert got == dataclasses.asdict(one.info[key]), (key, b)
+        torch.testing.assert_close(g[b], g1, rtol=1e-9, atol=1e-12)
+    cpu = dtt.make_differentiable_solve_ensemble(problem, t_eval, 8, mode="independent",
+                                                 device="cpu")
+    gc = grad(cpu, torch.tensor(params))
+    assert info["forward"].steps.cpu().tolist() == cpu.info["forward"].steps.tolist()
+    rel = ((g.cpu() - gc).abs().amax(-1) / gc.abs().amax(-1)).max()
+    assert float(rel) < 1e-4

@@ -4,7 +4,8 @@ dense tier (twin of tests/test_ensemble.py::test_f32_lockstep_ensemble),
 heat1d on the banded tier through the band LU's float plain version
 (against JAX's ``make_banded_solver(kernel="xla")`` in float32), the
 block-diagonal tier, TR-BDF2 and TSIT45, the fused tiers' float64 kernels
-on a float32 problem, and ``interop.problem_from_jax`` carrying the dtype.
+on a float32 problem, and ``interop.problem_from_jax`` carrying the dtype;
+and the float32 independent ensemble against its members' single solves.
 
 The JAX package keeps its times and step control in float32, the port
 keeps them in Python floats (float64), so the two float32 solves part by
@@ -127,6 +128,32 @@ def test_f32_block_tier_lockstep():
     j32 = _jax_lockstep(jrob.problem_ode_groups(4, rtol=1e-4, dtype=jnp.float32), params, t_eval)
     np.testing.assert_allclose(y32, np.swapaxes(np.asarray(j32.ys, np.float64), 1, 2),
                                rtol=0, atol=F32_ATOL)
+
+
+def test_f32_independent_members_and_their_single_solves():
+    """mode="independent" in float32: 4 Robertson members, k1 spread 0.5x
+    to 4x, each against its single float32 solve.  float32 keeps the R.U
+    rescale's matrix product (bdf.apply_ru, _Batched.rescale) and the
+    batched LU rounds otherwise than the single one, so the contract is
+    float32's bound, not equal steps as in float64: the same stop, ys
+    within 2e-4 and steps within 15 %."""
+    from diffsol_tpu_torch.drivers import solve_dense
+
+    k1 = 0.04 * np.geomspace(0.5, 4.0, 4)
+    params = np.stack([k1, np.full(4, 1e4), np.full(4, 3e7)], axis=1)
+    t_eval = [0.4, 40.0, 4e5]
+    pr = robertson.problem_ode(rtol=1e-4, atol=1e-6, dtype=F32)
+    sol = dtt.solve_dense_ensemble(dtt.BdfSolver, pr, t_eval, params, mode="independent",
+                                   max_steps=5000, device="cpu")
+    assert sol.tier == "independent" and sol.ys.dtype == F32
+    for b in range(4):
+        one = solve_dense(dtt.BdfSolver(pr), t_eval, params=torch.tensor(params[b], dtype=F32),
+                          max_steps=5000, device="cpu")
+        assert int(sol.stop_reason[b]) == one.stop_reason == errors.TSTOP_REACHED
+        steps = int(sol.state.member_stats(b).steps)
+        assert abs(steps - one.state.stats.steps) <= 0.15 * one.state.stats.steps, b
+        np.testing.assert_allclose(sol.ys[:, b].double().numpy(), one.ys.double().numpy(),
+                                   rtol=0, atol=F32_ATOL)
 
 
 @pytest.mark.parametrize("method", ["tr_bdf2", "esdirk34", "tsit45"])

@@ -3,8 +3,11 @@
 A ``BdfSolver`` over the dense or banded tier runs batched
 (:mod:`diffsol_tpu_torch.solvers.bdf_independent`: one loop, each member
 its own step size, order, Newton iteration, Jacobian policy, events and
-stop); the other solvers' routing is checked here too, and their batched
-loops in tests/test_torch_independent_rk.py.  Each member of a
+stop); the other solvers' routing is checked here too (SDIRK, ERK,
+sens=True, the Krylov tier and the adjoint's independent mode, all
+batched), and their batched loops in tests/test_torch_independent_rk.py,
+tests/test_torch_independent_krylov.py and
+tests/test_torch_independent_adjoint.py.  Each member of a
 batched solve is held to the port's own single solve of that member: the
 same accepted steps, Newton iterations and Jacobian evaluations (its
 whole ``Stats``), the same stop, and ys within 1e-12 + 1e-10 |ref|.  The
@@ -267,11 +270,12 @@ def test_max_steps_member_and_raise_for_status():
 
 @pytest.mark.parametrize("method", ["tr_bdf2", "tsit45", "bdf_sens", "krylov", "adjoint"])
 def test_other_solvers_keep_the_member_loop(method):
-    """The routing of the other solvers: SDIRK, ERK and sens=True run the
-    batched loops (solvers/rk_independent.py, solvers/bdf_independent.py),
-    each member its single solve's steps and root; the Krylov tier and the
-    adjoint's independent mode keep the loop over members, one eager solve
-    each, with the per-member fields and one stacked state."""
+    """The routing of the other solvers: SDIRK, ERK, sens=True and the
+    Krylov tier run the batched loops (solvers/rk_independent.py,
+    solvers/bdf_independent.py), each member its single solve's steps and
+    root; the adjoint's independent mode runs one batched forward and one
+    batched backward (adjoint_independent.py), each member its single
+    differentiable solve's outputs, forward Stats and gradient."""
     from diffsol_tpu_torch.adjoint import make_differentiable_solve
     from diffsol_tpu_torch.adjoint_ensemble import make_differentiable_solve_ensemble
     from diffsol_tpu_torch.solvers.rk_independent import RkIndependentState
@@ -284,10 +288,21 @@ def test_other_solvers_keep_the_member_loop(method):
         te = [0.5, 1.0]
         ys_of = make_differentiable_solve_ensemble(decay, te, 3, mode="independent",
                                                    device="cpu")
-        one = make_differentiable_solve(decay, te, device="cpu")
-        params = torch.tensor(pb, dtype=F64)
-        np.testing.assert_array_equal(
-            ys_of(params).numpy(), torch.stack([one(params[b]) for b in range(3)], 1).numpy())
+        params = torch.tensor(pb, dtype=F64, requires_grad=True)
+        ys = ys_of(params)
+        (grad,) = torch.autograd.grad((ys**2).sum(), params)
+        fwd = ys_of.info["forward"]
+        for b in range(3):
+            one = make_differentiable_solve(decay, te, device="cpu")
+            pb_b = params[b].detach().clone().requires_grad_(True)
+            ys_b = one(pb_b)
+            (grad_b,) = torch.autograd.grad((ys_b**2).sum(), pb_b)
+            assert {f.name: int(getattr(fwd, f.name)[b]) for f in dataclasses.fields(fwd)} \
+                == dataclasses.asdict(one.info["forward"])
+            np.testing.assert_allclose(ys[:, b].detach().numpy(), ys_b.detach().numpy(),
+                                       rtol=1e-10, atol=1e-12)
+            np.testing.assert_allclose(grad[b].numpy(), grad_b.numpy(), rtol=1e-10,
+                                       atol=1e-12)
         return
     if method == "bdf_sens":
         make = lambda pr: dtt.BdfSolver(pr, sens=True)  # noqa: E731
@@ -299,8 +314,8 @@ def test_other_solvers_keep_the_member_loop(method):
         make = lambda pr: dtt.solver(pr, method)  # noqa: E731
     sol = dtt.solve_dense_ensemble(make, problem, fc.ROOT_STOP_T_EVAL, pb,
                                    mode="independent", device="cpu")
-    batched = isinstance(sol.state, (IndependentState, RkIndependentState))
-    assert sol.tier == "independent" and batched == (method != "krylov")
+    assert sol.tier == "independent"
+    assert isinstance(sol.state, (IndependentState, RkIndependentState))
     assert sol.stop_reason.tolist() == [errors.ROOT_FOUND] * 3
     assert sol.root_idx.tolist() == [0, 0, 0]
     # the root on each method's own interpolant (TR-BDF2's is 2e-5 off)
@@ -309,10 +324,6 @@ def test_other_solvers_keep_the_member_loop(method):
     for b in range(3):
         one = solve_dense(make(problem), fc.ROOT_STOP_T_EVAL, params=torch.tensor(pb[b]),
                           device="cpu")
-        if not batched:  # the loop's member is its single solve
-            assert float(sol.root_t[b]) == one.root_t
-            np.testing.assert_array_equal(sol.ys[:, b].numpy(), one.ys.numpy())
-            continue
         # the batched member takes its single solve's steps; its dense
         # output rounds apart (a (B,) theta's weights are a matrix
         # product, the single solve's a matrix-vector one)
