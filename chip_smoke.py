@@ -13,8 +13,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    three DiffSL ones, the band LU
    (csrc/band_lu.cuh) and the fused band BDF kernel
    (csrc/fused_band_bdf.cuh) once for each of the heat1d, heat2d and
-   foodweb rhs headers and phase 20's DiffSL heat1d and heat2d, and the
-   fused BDF kernel's mixed-precision build;
+   foodweb rhs headers, phase 20's DiffSL heat1d and heat2d and phase
+   29's heat1d example, and the fused BDF kernel's mixed-precision build;
    print each fused BDF build's time and, for each of its two kernels (the
    256- and the 1024-thread build), ptxas's registers, stack frame, spill
    store and spill load bytes;
@@ -315,6 +315,20 @@ reach no Pallas kernel).
     heat1d n=128 banded, B = 1,024 diffusivities: K3/K4 counted in the
     forward pass (none in the backward) and held to their plain versions
     on the path's M - cJ, two members against their single gradients.
+29. the examples (diffsol_tpu_torch/examples/), each through its main()
+    on the card, its host-clock seconds printed: robertson_ensemble (B =
+    10,000, mode="auto": tier fused_small, K1 counted), heat1d_band_ensemble
+    (B = 256: tier fused_band, K2 counted) and pde_heat (K3/K4 counted)
+    in full, each kernel example's first tile against the card's lockstep
+    solve of the same members (MODES_ATOL + MODES_RTOL |ref|), the kernel
+    against its plain version on the example's members (K1, K2 by phase
+    12's gates; K3/K4 on pde_heat's M - cJ by phase 7's) and timed; the
+    single-solve and staged examples in full; the fits (predator_prey_fitting
+    and the four adjoint fits) at full width with their loops cut to one
+    or two iterations (the cut printed): the loss falls from the first
+    iteration to the fitted parameters, and each adjoint fit's
+    first gradient equals the same example's on the CPU within 1e-8 of its
+    largest entry.
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
@@ -331,7 +345,9 @@ heat2d float32 paths), K4 under forward mode
 the batched independent paths (`band_lu_factor:independent`,
 `band_lu_solve:independent` of phase 26 b; `:independent_rk` of phase 27
 c, `:independent_sens` of phase 27 d, `:independent_adjoint` of phase 28
-d)
+d) and the kernel examples of phase 29 (`fused_bdf:example_robertson`,
+`fused_band_bdf:example_heat1d`, `band_lu_factor:example_pde_heat`,
+`band_lu_solve:example_pde_heat`)
 (launches on their path, error against the plain version, times, the
 card's least time for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -4229,6 +4245,194 @@ def independent_krylov_adjoint_phase(dev, card_line, heat_problem):
 
 
 
+# ---- phase 29: the examples on the card
+# the fitting examples' loops cut to a few iterations (the full counts run
+# in scripts/torch_examples_card.py; each fit's losses end with its fitted
+# parameters' loss, so one iteration shows a fall): predator_prey_fitting's
+# Gauss-Newton loop (4 forward-mode solves, ~14 s an iteration on the H100)
+# and mass_spring_fitting_adjoint's descent (~6 s) to one
+EXAMPLE_CUTS = {"predator_prey_fitting": {"iterations": 1},
+                "mass_spring_fitting_adjoint": {"iterations": 1},
+                "neural_ode": {"iterations": 2},
+                "diffsl_logistic_fit": {"iterations": 2},
+                "mass_spring_fitting_ensemble": {"iterations": 2}}
+# the adjoint examples' first gradient on the card against the same
+# example's on the CPU (one iteration there)
+EXAMPLE_GRADIENTS = ("mass_spring_fitting_adjoint", "neural_ode", "diffsl_logistic_fit",
+                     "mass_spring_fitting_ensemble")
+EXAMPLE_GRAD_RTOL = 1e-8
+
+
+def example_fused_gate(name, sol_ys, lock_ys):
+    """The fused result of a kernel example's first tile against the card's
+    lockstep solve of the same members at §2's gate (MODES_ATOL + MODES_RTOL
+    |ref|); returns the largest absolute difference."""
+    diff = (sol_ys - lock_ys).abs()
+    if not bool(torch.isfinite(sol_ys).all()) or bool(
+            (diff > MODES_ATOL + MODES_RTOL * lock_ys.abs()).any()):
+        raise AssertionError(f"{name}: fused and lockstep disagree: max abs "
+                             f"{float(diff.max())}")
+    return float(diff.max())
+
+
+def example_robertson(dev, card_line, out, launches):
+    """robertson_ensemble's K1 record: its first tile against lockstep, the
+    kernel against its plain version on the example's members, times and
+    the bound."""
+    from diffsol_tpu_torch import BdfSolver, solve_dense_ensemble
+    from diffsol_tpu_torch.examples import robertson_ensemble as ex
+    from diffsol_tpu_torch.models import robertson
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+    from diffsol_tpu_torch.ops.eqn_codegen import op_count, trace_model
+
+    problem = robertson.problem_ode()
+    B = out["nbatch"]
+    params = ex.make_params(B).to(dev)
+    fsolve = fs.make_fused_bdf_solve(problem, ex.T_EVAL, B, max_steps=5000)
+    tile = fsolve.tile
+    lock = solve_dense_ensemble(BdfSolver, problem, ex.T_EVAL, params[:tile],
+                                mode="lockstep", device=dev)
+    gate = example_fused_gate("robertson_ensemble", out["ys"][:, :tile], lock.ys)
+    (ys_p, st_p, steps_p), plain_ms = events_ms(lambda: fsolve.reference(params))
+    if int(st_p.min()) != fs.OK:
+        raise AssertionError(f"robertson_ensemble: plain version status {st_p.tolist()}")
+    err, share = check_close("robertson_ensemble", out["ys"].movedim(1, -1), ys_p,
+                             out["tile_steps"], steps_p)
+
+    def path():
+        return solve_dense_ensemble(BdfSolver, problem, ex.T_EVAL, params, mode="auto",
+                                    max_steps=5000, device=dev)
+
+    ms = time_ms(path, 3)
+    n = 3
+    rhs_ops = op_count(trace_model(problem.eqn.rhs, None, n, 3).rhs)
+    steps = out["tile_steps"].cpu().numpy()
+    ops = B * float(np.mean(steps)) * bdf_step_ops(n, rhs_ops, 2 * n * n)
+    bound_ms, bound_by = bound(8 * (params.numel() + out["ys"].numel() + len(ex.T_EVAL)), ops)
+    print(f"[29] robertson_ensemble: B={B}, tier {out['tier']}, K1 launches {launches}, "
+          f"first tile ({tile} members) vs lockstep max abs {gate:.3e}; kernel vs plain max "
+          f"abs {err:.3e} ({share:.3e} of the bound, equal steps per tile); {ms:.3f} ms "
+          f"median of 3, plain {plain_ms:.1f} ms (one run), least {bound_ms:.4f} ms by "
+          f"{bound_by}; card {card_line}", flush=True)
+    return k1_record("example_robertson", launches=launches, max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def example_heat1d(dev, card_line, out, launches):
+    """heat1d_band_ensemble's K2 record, by the rule of example_robertson."""
+    from diffsol_tpu_torch import BdfSolver, solve_dense_ensemble
+    from diffsol_tpu_torch.examples import heat1d_band_ensemble as ex
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+    from diffsol_tpu_torch.ops.eqn_codegen import op_count, trace_model
+
+    problem = ex.make_problem()
+    B = out["nbatch"]
+    params = torch.tensor(np.linspace(0.5, 2.0, B)[:, None], dtype=torch.float64, device=dev)
+    fsolve = fb.make_fused_band_bdf_solve(problem, ex.T_EVAL, B)
+    tile = fsolve.tile
+    lock = solve_dense_ensemble(BdfSolver, problem, ex.T_EVAL, params[:tile],
+                                mode="lockstep", device=dev)
+    gate = example_fused_gate("heat1d_band_ensemble", out["ys"][:, :tile], lock.ys)
+    (ys_p, st_p, steps_p), plain_ms = events_ms(lambda: fsolve.reference(params))
+    if int(st_p.min()) != fs.OK:
+        raise AssertionError(f"heat1d_band_ensemble: plain version status {st_p.tolist()}")
+    err, share = check_close("heat1d_band_ensemble", out["ys"].movedim(1, -1), ys_p,
+                             out["tile_steps"], steps_p)
+    ms = time_ms(lambda: solve_dense_ensemble(BdfSolver, problem, ex.T_EVAL, params,
+                                              mode="auto", device=dev), 3)
+    rhs_ops = op_count(trace_model(problem.eqn.rhs, None, ex.N, 1).rhs)
+    bound_ms, bound_by, _ = k2_bound(ex.N, 1, 1, rhs_ops, B, out["tile_steps"].cpu().numpy(),
+                                     B, out["ys"].numel())
+    print(f"[29] heat1d_band_ensemble: B={B}, n={ex.N}, tier {out['tier']}, K2 launches "
+          f"{launches}, first tile ({tile} members) vs lockstep max abs {gate:.3e}; kernel vs "
+          f"plain max abs {err:.3e} ({share:.3e} of the bound, equal steps per tile); "
+          f"{ms:.3f} ms median of 3, plain {plain_ms:.1f} ms (one run), least "
+          f"{bound_ms:.4f} ms by {bound_by}; card {card_line}", flush=True)
+    return k2_record("fused_band_bdf:example_heat1d", launches=launches, max_abs_err=err,
+                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def example_pde_heat(dev, card_line, out):
+    """pde_heat's K3/K4 records: the kernels against their plain versions
+    on its M - cJ (n = 51, c = 1e-3, one member), launches from its run."""
+    from diffsol_tpu_torch.examples import pde_heat as ex
+
+    problem, _ = ex.make_problem()
+    n = problem.eqn.nstates
+    jac = torch.func.vmap(problem.to(dev).eqn.jac, in_dims=(None, 0, 0))(
+        torch.tensor(0.0, dtype=torch.float64, device=dev),
+        torch.zeros(1, n, dtype=torch.float64, device=dev), problem.params.to(dev)[None])
+    band = problem.linear_solver.assemble(None, jac, 1e-3)
+    f_rec, s_rec = path_lu_records(dev, card_line, "example_pde_heat", band, 1, phase=29)
+    f_rec["name"] += ":example_pde_heat"
+    s_rec["name"] += ":example_pde_heat"
+    f_rec["launches"] = out["band_lu_factor_launches"]
+    s_rec["launches"] = out["band_lu_solve_launches"]
+    return [f_rec, s_rec]
+
+
+def examples_phase(dev, card_line):
+    """Phase 29; returns the kernel examples' records."""
+    import importlib
+
+    from diffsol_tpu_torch import examples
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+
+    records, seconds = [], {}
+    for name in examples.NAMES:
+        mod = importlib.import_module(f"diffsol_tpu_torch.examples.{name}")
+        cut = EXAMPLE_CUTS.get(name, {})
+        if cut:
+            print(f"[29] {name}: cut to {cut['iterations']} of its {mod.ITERATIONS} iterations "
+                  f"(all of them run in scripts/torch_examples_card.py)", flush=True)
+        fs.launch_fused_bdf.launches = 0
+        fb.launch_fused_band_bdf.launches = 0
+        band_lu.launch_band_lu_factor.launches = 0
+        band_lu.launch_band_lu_solve.launches = 0
+        t0 = time.perf_counter()
+        out = mod.main(device=dev, **cut)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        k1, k2 = fs.launch_fused_bdf.launches, fb.launch_fused_band_bdf.launches
+        print(f"[29] {name}: {seconds[name]:.1f} s (host clock); K1 {k1}, K2 {k2}, K3 "
+              f"{band_lu.launch_band_lu_factor.launches}, K4 "
+              f"{band_lu.launch_band_lu_solve.launches} launches", flush=True)
+        if name == "robertson_ensemble":
+            if out["tier"] != "fused_small" or k1 < 1:
+                raise AssertionError(f"robertson_ensemble: tier {out['tier']!r}, K1 {k1}")
+            records.append(example_robertson(dev, card_line, out, k1))
+        elif name == "heat1d_band_ensemble":
+            if out["tier"] != "fused_band" or k2 < 1:
+                raise AssertionError(f"heat1d_band_ensemble: tier {out['tier']!r}, K2 {k2}")
+            records.append(example_heat1d(dev, card_line, out, k2))
+        elif name == "pde_heat":
+            if out["band_lu_factor_launches"] < 1 or out["band_lu_solve_launches"] < 1:
+                raise AssertionError(f"pde_heat: band LU launches {out}")
+            records += example_pde_heat(dev, card_line, out)
+        losses = out.get("losses", out.get("residuals"))
+        if cut:
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"{name}: the loss did not fall: {losses}")
+            print(f"[29] {name}: loss {losses[0]:.6e} -> {losses[-1]:.6e}", flush=True)
+        if name in EXAMPLE_GRADIENTS:
+            g = torch.as_tensor(out["first_grad"], dtype=torch.float64).cpu()
+            gc = torch.as_tensor(mod.main(device="cpu", iterations=1)["first_grad"],
+                                 dtype=torch.float64)
+            rel = float((g - gc).abs().max() / gc.abs().max())
+            if not rel <= EXAMPLE_GRAD_RTOL:
+                raise AssertionError(f"{name}: the first gradient on the card is {rel:.3e} "
+                                     f"(relative) from the CPU's")
+            print(f"[29] {name}: first gradient, card vs CPU, {rel:.3e} relative to its "
+                  f"largest entry (bound {EXAMPLE_GRAD_RTOL:g})", flush=True)
+    print(f"[29] examples (host clock, s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; {sum(seconds.values()):.1f} s in all; card {card_line}", flush=True)
+    return records
+
+
 def fc_ball_height(t, g, e=0.8, h0=10.0):
     """The ball's height up to its second bounce (models/fused_cases.py)."""
     from diffsol_tpu_torch.models import fused_cases
@@ -4270,6 +4474,10 @@ def main() -> int:
     f32_check = fs.make_fused_bdf_solve(
         robertson.problem_ode(rtol=1e-4, atol=1e-6, dtype=torch.float32), F32_T_EVAL,
         B_F32_CMP)
+    from diffsol_tpu_torch.examples import heat1d_band_ensemble
+
+    example_band = fb.make_fused_band_bdf_solve(heat1d_band_ensemble.make_problem(),
+                                                heat1d_band_ensemble.T_EVAL, 256)
     t0 = time.perf_counter()
     diffsl = diffsl_models()
     diffsl_checks = diffsl_check_solves(diffsl)
@@ -4279,11 +4487,13 @@ def main() -> int:
                  **{k: v for k, v in diffsl_checks.items() if k in K1_DIFFSL}}
     band_solves = {"heat1d": band_check, **mol2d_checks,
                    **{k: v for k, v in diffsl_checks.items() if k not in K1_DIFFSL}}
-    with ThreadPoolExecutor(max_workers=len(k1_solves) + len(band_solves) + 1) as ex:
+    with ThreadPoolExecutor(max_workers=len(k1_solves) + len(band_solves) + 2) as ex:
         # one nvcc each, all started together; the widest first
         builds = [ex.submit(_build.load_fused_band_bdf, sv.header, sv.cfg.ml, sv.cfg.mu)
                   for sv in reversed(band_solves.values())]
         builds.append(ex.submit(_build.load_band_lu))
+        # phase 29's heat1d example: its own rhs, so its own header
+        builds.append(ex.submit(_build.load_fused_band_bdf, example_band.header, 1, 1))
         k1_libs = {name: ex.submit(_build.load_fused_bdf, sv.header)
                    for name, sv in k1_solves.items()}
         for b in builds + list(k1_libs.values()):
@@ -4368,12 +4578,15 @@ def main() -> int:
     t_phase = time.perf_counter()
     independent_adj_records = independent_krylov_adjoint_phase(dev, card_line, heat_problem)
     print(f"[28] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
-    print(f"[1-28] the whole script {time.perf_counter() - t_start:.1f} s (host clock)",
+    t_phase = time.perf_counter()
+    example_records = examples_phase(dev, card_line)
+    print(f"[29] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
+    print(f"[1-29] the whole script {time.perf_counter() - t_start:.1f} s (host clock)",
           flush=True)
     record = ([small_record] + variant_records + [mixed_record] + band_records
               + mol2d_records + wide_lu_records + diffsl_records + sens_records
               + adjoint_records + f32_records + independent_records + independent_rk_records
-              + independent_adj_records)
+              + independent_adj_records + example_records)
 
     print(f"card: {card_line}")
     print(json.dumps({"kernels": record}))

@@ -134,8 +134,9 @@ def _apply_reset(solver, state, params):
     return state
 
 
-def _prepare(solver, params, state, device, who):
-    """The solver, params and state of a solve on its device."""
+def _on_device(solver, params, device, who):
+    """The solver, with its problem moved to the solve's device (a copy
+    where it lay elsewhere), and the params there."""
     dev = resolve_device(device, who)
     if solver.problem.t0.device != dev:
         solver = copy.copy(solver)
@@ -143,8 +144,26 @@ def _prepare(solver, params, state, device, who):
     p = solver.problem
     params = p.params if params is None else torch.as_tensor(
         params, dtype=p.dtype).to(dev)
+    return solver, params
+
+
+def init_state(solver, params=None, device=None):
+    """The solver's initial state on the solve's device, for staged solves:
+    change it (``dataclasses.replace(state, y=..., state_modified=True)``)
+    and hand it to :func:`solve` or :func:`solve_dense` as ``state=``.
+    Counterpart of the JAX package's ``drivers.init_state_jit``; ``device``
+    as in :func:`solve_dense`, and a solver whose problem lies elsewhere
+    starts from a copy with its problem moved there, as a solve does."""
+    solver, params = _on_device(solver, params, device, "init_state")
+    return solver.init_state(params)
+
+
+def _prepare(solver, params, state, device, who):
+    """The solver, params and state of a solve on its device."""
+    solver, params = _on_device(solver, params, device, who)
+    dev = solver.problem.t0.device
     if state is None:
-        state = solver.init_state(params)
+        state = init_state(solver, params, dev)
     elif state.y.device != dev:
         raise ValueError(f"state lies on {state.y.device}, the solve on {dev}")
     return solver, params, state

@@ -1594,3 +1594,43 @@ def test_independent_krylov_and_adjoint_batched_on_the_card(case):
     assert info["forward"].steps.cpu().tolist() == cpu.info["forward"].steps.tolist()
     rel = ((g.cpu() - gc).abs().amax(-1) / gc.abs().amax(-1)).max()
     assert float(rel) < 1e-4
+
+
+@pytest.mark.cuda
+def test_init_state_starts_a_staged_solve_on_the_card():
+    """A problem built on the CPU: drivers.init_state puts its state on the
+    card, and a solve from it equals the plain solve there; a dose added
+    between stages goes on from the card's state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from diffsol_tpu_torch.drivers import init_state
+
+    solver = dtt.BdfSolver(trob.problem_ode())
+    state = init_state(solver)
+    assert state.y.is_cuda
+    plain = dtt.solve(solver, 0.4)
+    staged = dtt.solve(solver, 0.4, state=state)
+    assert staged.n_points == plain.n_points and torch.equal(staged.ys, plain.ys)
+    assert dataclasses.asdict(staged.state.stats) == dataclasses.asdict(plain.state.stats)
+    y = staged.state.y.clone()
+    y[0] += 1.0
+    on = dtt.solve(solver, 0.8, state=dataclasses.replace(staged.state, y=y,
+                                                          state_modified=True))
+    assert on.stop_reason == dtt.errors.TSTOP_REACHED and on.ys.is_cuda
+
+
+@pytest.mark.cuda
+def test_kernel_examples_take_their_kernels_cuda():
+    """The three examples that reach a kernel do so on the card: the
+    Robertson sweep K1 (tier fused_small), heat1d's ensemble K2 (fused_band)
+    and pde_heat the band LU K3/K4 (their launch counters)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsol_tpu_torch.examples import heat1d_band_ensemble, pde_heat, robertson_ensemble
+
+    assert robertson_ensemble.main(nbatch=256)["tier"] == "fused_small"
+    assert heat1d_band_ensemble.main(nbatch=256)["tier"] == "fused_band"
+    out = pde_heat.main()
+    assert out["band_lu_factor_launches"] > 0 and out["band_lu_solve_launches"] > 0
