@@ -325,10 +325,30 @@ reach no Pallas kernel).
     12's gates; K3/K4 on pde_heat's M - cJ by phase 7's) and timed; the
     single-solve and staged examples in full; the fits (predator_prey_fitting
     and the four adjoint fits) at full width with their loops cut to one
-    or two iterations (the cut printed): the loss falls from the first
+    iteration (the cut printed): the loss falls from the first
     iteration to the fitted parameters, and each adjoint fit's
     first gradient equals the same example's on the CPU within 1e-8 of its
     largest entry.
+30. the ensemble sharded over a torch DeviceMesh (diffsol_tpu_torch/
+    sharding.py): two spawned ranks of a gloo mesh ("dp") on the one card
+    (every collective and the join under a time limit; gloo's all-reduce
+    and all-gather on card tensors tried and printed), each calling with
+    the global batch, their launch counters and all-gathers read around
+    each call: (a) Robertson fused, B = 10,000 to 4e10 as 2 x 5,000 (K1),
+    each block equal to the unsharded fused call on its members (equal
+    tile statuses and steps, ys within 1e-12 + 1e-9 |ref|), member 0 on
+    robertson.SOLN, K1 on rank 0's block against its plain version; (b)
+    heat1d fused n=128, B = 1,024 (K2), the same gates and the analytic
+    series; (c) heat2d lockstep on the banded tier, B = 1,024, one joint
+    solve with its reductions as collectives: every rank's Stats equal to
+    the unsharded solve's, ys within 1e-12 + 1e-9 |ref|, K3/K4 counted
+    and held to their plain versions on rank 0's block of the last M - cJ;
+    (d) Robertson independent, B = 1,024 to 4e6: every member's Stats
+    equal to the unsharded batch's; (e) the lockstep gradient of
+    Robertson, B = 1,024 to 4e6: equal forward and backward Stats, the
+    gradient within 1e-10 of the unsharded one; (f) (c) again over a
+    1-rank NCCL mesh.  Each call's time and all-gathers are printed; two
+    ranks share one card, so nothing here measures scaling.
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
@@ -347,13 +367,17 @@ the batched independent paths (`band_lu_factor:independent`,
 c, `:independent_sens` of phase 27 d, `:independent_adjoint` of phase 28
 d) and the kernel examples of phase 29 (`fused_bdf:example_robertson`,
 `fused_band_bdf:example_heat1d`, `band_lu_factor:example_pde_heat`,
-`band_lu_solve:example_pde_heat`)
+`band_lu_solve:example_pde_heat`) and the sharded paths of phase 30
+(`fused_bdf:sharded`, `fused_band_bdf:sharded`,
+`band_lu_factor:sharded_heat2d`, `band_lu_solve:sharded_heat2d`; launches
+over both ranks)
 (launches on their path, error against the plain version, times, the
 card's least time for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -2531,9 +2555,21 @@ def adjoint_phase(dev, card_line, heat_problem, band_records):
         with torch.no_grad():
             return fn(params)
 
+    def peak_of(run):
+        """``(run(), MiB)``: its result and the card's peak memory above
+        what was allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = run()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
     fwd_ms = time_ms(forward_only, LONG_REPS)
-    ys, g = grad_call(fn, params, sum_sq)
-    _, fb_ms = timed_solve(lambda: grad_call(fn, params, sum_sq), LONG_REPS)
+    # one gradient call: the gates read it, its time is the timed one, its
+    # peak memory (c)'s dense-table figure
+    ((ys, g), fb_ms), peak_dense = peak_of(
+        lambda: timed_solve(lambda: grad_call(fn, params, sum_sq), LONG_REPS))
     if tuple(g.shape) != (B_MAIN, 3) or not g.is_cuda or not bool(torch.isfinite(g).all()):
         raise AssertionError(f"[22a] gradient {tuple(g.shape)} on {g.device} or not finite")
     check_soln("[22a] member 0", ys[:, 0])
@@ -2564,19 +2600,10 @@ def adjoint_phase(dev, card_line, heat_problem, band_records):
                  steps_of=lambda _: short.info["backward"].steps)
 
     # ---- (c) bounded memory, Robertson: the same ensemble, checkpoint_interval=32
-    def peak_of(run):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        run()
-        torch.cuda.synchronize()
-        return (torch.cuda.max_memory_allocated() - base) / 2**20
-
     bounded = dtt.make_differentiable_solve_ensemble(problem, te6, B_MAIN,
                                                      checkpoint_interval=32)
-    peak_dense = peak_of(lambda: grad_call(fn, params, sum_sq))
-    peak_bnd = peak_of(lambda: grad_call(bounded, params, sum_sq))
-    (_, g_bnd), bnd_ms = timed_solve(lambda: grad_call(bounded, params, sum_sq), LONG_REPS)
+    ((_, g_bnd), bnd_ms), peak_bnd = peak_of(
+        lambda: timed_solve(lambda: grad_call(bounded, params, sum_sq), LONG_REPS))
     err_c = float(member_rel(g_bnd, g).max())
     if not err_c < ADJ_BOUNDED_TOL:
         raise AssertionError(f"[22c] bounded gradient off the dense table's by {err_c:.3e}")
@@ -4246,16 +4273,15 @@ def independent_krylov_adjoint_phase(dev, card_line, heat_problem):
 
 
 # ---- phase 29: the examples on the card
-# the fitting examples' loops cut to a few iterations (the full counts run
-# in scripts/torch_examples_card.py; each fit's losses end with its fitted
+# the fitting examples' loops cut to one iteration (the full counts run in
+# scripts/torch_examples_card.py; each fit's losses end with its fitted
 # parameters' loss, so one iteration shows a fall): predator_prey_fitting's
-# Gauss-Newton loop (4 forward-mode solves, ~14 s an iteration on the H100)
-# and mass_spring_fitting_adjoint's descent (~6 s) to one
-EXAMPLE_CUTS = {"predator_prey_fitting": {"iterations": 1},
-                "mass_spring_fitting_adjoint": {"iterations": 1},
-                "neural_ode": {"iterations": 2},
-                "diffsl_logistic_fit": {"iterations": 2},
-                "mass_spring_fitting_ensemble": {"iterations": 2}}
+# Gauss-Newton loop (4 forward-mode solves, ~14 s an iteration on the H100),
+# mass_spring_fitting_adjoint's descent (~6 s), diffsl_logistic_fit's (~4.7
+# s), neural_ode's and mass_spring_fitting_ensemble's (~1 s)
+EXAMPLE_CUTS = {name: {"iterations": 1} for name in (
+    "predator_prey_fitting", "mass_spring_fitting_adjoint", "neural_ode",
+    "diffsl_logistic_fit", "mass_spring_fitting_ensemble")}
 # the adjoint examples' first gradient on the card against the same
 # example's on the CPU (one iteration there)
 EXAMPLE_GRADIENTS = ("mass_spring_fitting_adjoint", "neural_ode", "diffsl_logistic_fit",
@@ -4440,6 +4466,534 @@ def fc_ball_height(t, g, e=0.8, h0=10.0):
     return fused_cases.ball_height(t, g=g, e=e, h0=h0)
 
 
+# ---- phase 30: the ensemble sharded over a DeviceMesh (sharding.py)
+# two ranks of a gloo mesh on the one card (NCCL refuses two ranks on one
+# GPU), then a 1-rank NCCL mesh; the ranks share the card, so nothing here
+# measures scaling across cards
+B_SHARD = 1024
+SHARD_TIMEOUT_S = 420
+SHARD_GRAD_RTOL = 1e-10
+
+
+def shard_cells(dev):
+    """Phase 30's cells, name -> run(mesh): with a mesh the call sharded on
+    its "dp" axis, with None the unsharded call on ``dev``; and the cells'
+    global inputs."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import heat1d, robertson
+
+    rob = robertson.problem_ode()
+    heat, _ = heat1d.make(HEAT_MGRID, rtol=1e-6, atol=1e-8, banded=True)
+    te6 = robertson.T_EVAL_4E10[:8]  # to t = 4e6
+    inputs = dict(
+        rob=robertson_params(B_MAIN, np.random.default_rng(SEED + 30), dev),
+        heat=torch.linspace(0.5, 2.0, B_BAND, dtype=torch.float64, device=dev)[:, None],
+        ind=robertson_params(B_SHARD, np.random.default_rng(SEED + 31), dev))
+
+    def ens(problem, te, key, mode, **kw):
+        def run(mesh):
+            return dtt.solve_dense_ensemble(dtt.BdfSolver, problem, te, inputs[key], mode=mode,
+                                            mesh=mesh, device=None if mesh else dev, **kw)
+        return run
+
+    def grad(mesh):
+        fn = dtt.make_differentiable_solve_ensemble(rob, te6, B_SHARD, mesh=mesh,
+                                                    device=None if mesh else dev)
+        pb = inputs["ind"].clone().requires_grad_(True)
+        ys = fn(pb)
+        (ys ** 2).sum().backward()
+        return dict(ys=ys.detach(), grad=pb.grad, forward=fn.info["forward"],
+                    backward=fn.info["backward"], backward_status=fn.info["backward_status"])
+
+    return {
+        "robertson_fused": ens(rob, robertson.T_EVAL_4E10, "rob", "fused"),
+        "heat1d_fused": ens(heat, HEAT_T_EVAL, "heat", "fused"),
+        "heat2d_lockstep": ens(mol2d_problem("heat2d"), MOL2D["heat2d"][1], "heat",
+                               "lockstep", max_steps=MOL2D["heat2d"][2]),
+        "robertson_independent": ens(rob, te6, "ind", "independent"),
+        "robertson_grad": grad,
+    }, inputs
+
+
+def _host(res):
+    """A cell's result on the host: a Solution as its ys, stop, tile steps
+    and Stats, a Stats as its fields."""
+    import dataclasses
+
+    from diffsol_tpu_torch.drivers import Solution
+
+    if isinstance(res, Solution):
+        return dict(ys=res.ys.cpu(), stop=_host(res.stop_reason), tier=res.tier,
+                    tile_steps=_host(res.tile_steps),
+                    stats=None if res.state is None else _host(res.state.stats))
+    if isinstance(res, dict):
+        return {k: _host(v) for k, v in res.items()}
+    if isinstance(res, torch.Tensor):
+        return res.detach().cpu()
+    if dataclasses.is_dataclass(res) and not isinstance(res, type):
+        return {f.name: _host(getattr(res, f.name)) for f in dataclasses.fields(res)}
+    return res
+
+
+def kernel_wrappers():
+    """The launch wrappers of K1, K2, K3 and K4, each with its count."""
+    from diffsol_tpu_torch.ops import band_lu
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+
+    return (fs.launch_fused_bdf, fb.launch_fused_band_bdf, band_lu.launch_band_lu_factor,
+            band_lu.launch_band_lu_solve)
+
+
+@contextlib.contextmanager
+def counted_all_gathers():
+    """``torch.distributed.all_gather`` counted while open: yields a
+    one-element list holding the count (sharding.py calls it through the
+    module, so every collective of a solve is seen)."""
+    import torch.distributed as dist
+
+    real, calls = dist.all_gather, [0]
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    dist.all_gather = counting
+    try:
+        yield calls
+    finally:
+        dist.all_gather = real
+
+
+def barrier():
+    """Every rank of the default group here, so that a call timed next
+    starts on all ranks together (NCCL's barrier on the current card)."""
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def run_shard_cells(mesh, dev, names=None, again=("robertson_fused", "heat1d_fused")):
+    """Phase 30's cells sharded over ``mesh``, each with every launch
+    counter and the all-gathers set to 0 just before it and read just
+    after: name -> result on the host, ms (CUDA events, the first call,
+    from a barrier of all ranks: the whole sharded call, the gather
+    included), [K1, K2, K3, K4] launches, all-gathers; the cells in
+    ``again`` timed once more (``ms_warm``)."""
+    cells, _ = shard_cells(dev)
+    out = {}
+    with counted_all_gathers() as calls:
+        for name, run in cells.items():
+            if names is not None and name not in names:
+                continue
+            for w in kernel_wrappers():
+                w.launches = 0
+            barrier()
+            calls[0] = 0
+            res, ms = events_ms(lambda: run(mesh))
+            out[name] = dict(result=_host(res), ms=ms,
+                             launches=[w.launches for w in kernel_wrappers()],
+                             all_gathers=calls[0])
+            if name in again:
+                # past the first call (the kernels' trace and load)
+                barrier()
+                out[name]["ms_warm"] = events_ms(lambda: run(mesh))[1]
+    return out
+
+
+def gloo_cuda_check(rank, world):
+    """gloo's all-reduce and all-gather called on the card's tensors
+    directly (the port stages gloo's collectives through the host)."""
+    import torch.distributed as dist
+
+    out = {}
+    t = torch.full((2,), float(rank + 1), dtype=torch.float64, device="cuda")
+    try:
+        dist.all_reduce(t)
+        out["all_reduce"] = t.tolist() == [world * (world + 1) / 2] * 2
+    except RuntimeError as e:
+        out["all_reduce"] = f"raised {str(e).splitlines()[0]}"
+    parts = [torch.empty(2, dtype=torch.float64, device="cuda") for _ in range(world)]
+    try:
+        dist.all_gather(parts, torch.full((2,), float(rank), dtype=torch.float64,
+                                          device="cuda"))
+        out["all_gather"] = [float(q[0]) for q in parts] == [float(r) for r in range(world)]
+    except RuntimeError as e:
+        out["all_gather"] = f"raised {str(e).splitlines()[0]}"
+    return out
+
+
+def spmd_rank(rank, world, store, out_dir, backend, timeout, body, args):
+    """One rank of :func:`spawn_ranks`: joins the ``world``-rank process
+    group (each collective bounded by ``timeout`` seconds) and saves
+    ``body(rank, world, *args)``, a dict, or its traceback to
+    ``out_dir``/rank<r>.pt."""
+    import datetime
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    path = os.path.join(out_dir, f"rank{rank}.pt")
+    dist.init_process_group(backend, init_method=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout))
+    try:
+        torch.save(body(rank, world, *args), path)
+    except BaseException:
+        torch.save({"error": traceback.format_exc()}, path)
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(body, world, out_dir, args=(), backend="gloo", timeout=SHARD_TIMEOUT_S):
+    """``world`` SPMD ranks of ``body(rank, world, *args)`` (a module-level
+    function returning a dict), started with torch.multiprocessing's
+    "spawn" on a ``file://`` store under ``out_dir``, joined by a deadline
+    of ``timeout`` + 60 s and killed after it; every rank's dict.  Raises
+    when a rank failed, hung or wrote nothing."""
+    import os
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    store = "file://" + os.path.join(out_dir, "store")
+    procs = [ctx.Process(target=spmd_rank,
+                         args=(r, world, store, out_dir, backend, timeout, body, tuple(args)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout + 60
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 1.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    res = []
+    for r in range(world):
+        path = os.path.join(out_dir, f"rank{r}.pt")
+        res.append(torch.load(path, weights_only=False) if os.path.exists(path)
+                   else {"error": "wrote nothing"})
+    errs = [f"rank {r}: {x['error']}" for r, x in enumerate(res) if "error" in x]
+    if hung or errs or any(p.exitcode != 0 for p in procs):
+        raise RuntimeError(f"SPMD ranks failed (hung {hung}, exit codes "
+                           f"{[p.exitcode for p in procs]}):\n" + "\n".join(errs))
+    return res
+
+
+def shard_rank(rank, world, device_type):
+    """One rank of phase 30's gloo mesh on the card (every rank on card 0):
+    gloo on card tensors, then the cells."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    out = {}
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+        out["gloo_cuda"] = gloo_cuda_check(rank, world)
+    mesh = init_device_mesh(device_type, (world,), mesh_dim_names=("dp",))
+    out.update(run_shard_cells(mesh, torch.device(device_type, 0)
+                               if device_type == "cuda" else torch.device("cpu")))
+    return out
+
+
+def same_stats(name, got, ref):
+    """Equal Stats (as dicts of ints or (B,) tensors)."""
+    diff = {k: (got[k], ref[k]) for k in ref if not _equal(got[k], ref[k])}
+    if diff or got.keys() != ref.keys():
+        raise AssertionError(f"{name}: Stats differ from the unsharded call's: {diff}")
+
+
+def _equal(a, b):
+    return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def shard_close(name, got, ref):
+    """ys within YS_ATOL + YS_RTOL |ref| (NaN where ref is NaN); the
+    largest absolute difference."""
+    nan = torch.isnan(ref)
+    if not torch.equal(nan, torch.isnan(got)):
+        raise AssertionError(f"{name}: NaN where the unsharded call has none, or the reverse")
+    g, r = got[~nan], ref[~nan]
+    if bool(((g - r).abs() > YS_ATOL + YS_RTOL * r.abs()).any()):
+        raise AssertionError(f"{name}: sharded and unsharded differ by up to "
+                             f"{float((g - r).abs().max()):.3e}")
+    return float((g - r).abs().max()) if g.numel() else 0.0
+
+
+def sharding_phase(dev, card_line, soln):
+    """Phase 30; returns the kernels' records on the sharded paths."""
+    import datetime
+    import os
+    import shutil
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from diffsol_tpu_torch import errors
+    from diffsol_tpu_torch.models import heat1d, robertson
+    from diffsol_tpu_torch.ops import fused_band_stepper as fb
+    from diffsol_tpu_torch.ops import fused_stepper as fs
+    from diffsol_tpu_torch.ops.eqn_codegen import op_count, trace_model
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase30")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(shard_rank, 2, out_dir, args=(dev.type,))
+    spawn_s = time.perf_counter() - t0
+    print(f"[30] 2 ranks of a gloo mesh ('dp') on the one card: {spawn_s:.1f} s (host clock, "
+          f"start to join); gloo's collectives on card tensors: "
+          f"{ranks[0].get('gloo_cuda')}", flush=True)
+    cells, inputs = shard_cells(dev)
+    names = list(cells)
+    for name in names:
+        a, b = ranks[0][name]["result"], ranks[1][name]["result"]
+        ya, yb = a.get("ys"), b.get("ys")
+        if not torch.equal(ya.nan_to_num(7.0), yb.nan_to_num(7.0)):
+            raise AssertionError(f"[30] {name}: the two ranks hold different results")
+    refs, ref_ms = {}, {}
+    for name in ("heat2d_lockstep", "robertson_independent", "robertson_grad"):
+        res, ref_ms[name] = events_ms(lambda: cells[name](None))
+        refs[name] = res
+    for name in names:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        warm = (f", again {r0['ms_warm']:.1f} / {r1['ms_warm']:.1f} ms" if "ms_warm" in r0
+                else "")
+        print(f"[30] {name}: the whole sharded call {r0['ms']:.1f} / {r1['ms']:.1f} ms on "
+              f"ranks 0 / 1 (CUDA events from a barrier, the first call{warm}); launches K1, K2, K3, K4 rank 0 "
+              f"{r0['launches']}, rank 1 {r1['launches']}; {r0['all_gathers']} all-gathers "
+              f"a rank; card {card_line}", flush=True)
+    records = []
+
+    # ---- (a) Robertson fused, 2 x 5,000 members to 4e10 (K1 on each block)
+    got = ranks[0]["robertson_fused"]["result"]
+    half = B_MAIN // 2
+    rob = robertson.problem_ode()
+    te = robertson.T_EVAL_4E10
+    blocks = [cells_block(rob, te, inputs["rob"][lo:lo + half]) for lo in (0, half)]
+    ref_ys = torch.cat([b.ys for b in blocks], 1).cpu()
+    ref_steps = torch.cat([b.tile_steps for b in blocks]).cpu()
+    err_a, _ = check_close("[30a] sharded vs blocks", got["ys"].movedim(1, -1),
+                           ref_ys.movedim(1, -1), got["tile_steps"], ref_steps)
+    stop = min(b.stop_reason for b in blocks)
+    if got["stop"] != stop or stop != errors.TSTOP_REACHED or got["tier"] != blocks[0].tier:
+        raise AssertionError(f"[30a] stop {got['stop']} (blocks {stop}), tier {got['tier']!r}")
+    need_launches("[30a] K1", [res["robertson_fused"]["launches"][0] for res in ranks])
+    rows = robertson.SOLN[1:][robertson.SOLN[1:, 0] <= 4e6]
+    y0 = got["ys"][: len(rows), 0, :].numpy()
+    for s_, tol in enumerate(SOLN_TOL):
+        if tol is not None:
+            np.testing.assert_allclose(y0[:, s_], rows[:, 1 + s_], rtol=tol[0], atol=tol[1])
+    solve0 = fs.make_fused_bdf_solve(rob, te, half)
+    (ys_p, st_p, steps_p), plain_ms = events_ms(lambda: solve0.reference(inputs["rob"][:half]))
+    if int(st_p.min()) != fs.OK:
+        raise AssertionError(f"[30a] plain version status {st_p.tolist()}")
+    k1_err, k1_share = check_close("[30a] K1 on rank 0's block vs plain",
+                                   got["ys"][:, :half].movedim(1, -1), ys_p.cpu(),
+                                   got["tile_steps"][: len(steps_p)], steps_p.cpu())
+    n = 3
+    rhs_ops = op_count(trace_model(rob.eqn.rhs, None, n, 3).rhs)
+    steps0 = got["tile_steps"][: len(steps_p)].double().mean().item()
+    b_ms, b_by = bound(8 * (half * 3 + len(te) * half * n + len(te)),
+                       half * steps0 * bdf_step_ops(n, rhs_ops, 2 * n * n))
+    k1 = ranks[0]["robertson_fused"]["launches"][0] + ranks[1]["robertson_fused"]["launches"][0]
+    print(f"[30a] Robertson fused B={B_MAIN} as 2 x {half} to 4e10: each block equal to the "
+          f"unsharded call on its members (steps per tile equal, max abs {err_a:.3e}), stop "
+          f"TSTOP_REACHED, member 0 on robertson.SOLN; K1 {k1} launches over the ranks; rank "
+          f"0's block vs plain max abs {k1_err:.3e} ({k1_share:.3e} of the bound), plain "
+          f"{plain_ms:.1f} ms (one run), least {b_ms:.4f} ms by {b_by}; card {card_line}",
+          flush=True)
+    # the kernel's own time on one shard's block (its record's ms, as every
+    # K1 record's); the sharded calls' times above are the whole call
+    k1_ms = time_ms(lambda: solve0(inputs["rob"][:half]), 3)
+    print(f"[30a] K1 on one shard's block ({half} members): {k1_ms:.3f} ms (median of 3 "
+          f"after a warm-up, CUDA events); card {card_line}", flush=True)
+    records.append(k1_record("sharded", launches=k1, max_abs_err=k1_err, ms=k1_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+
+    # ---- (b) heat1d fused, n = 128, B = 1,024 as 2 x 512 (K2 on each block)
+    got = ranks[0]["heat1d_fused"]["result"]
+    hb = B_BAND // 2
+    heat, _ = heat1d.make(HEAT_MGRID, rtol=1e-6, atol=1e-8, banded=True)
+    nh = heat.eqn.nstates
+    blocks = [cells_block(heat, HEAT_T_EVAL, inputs["heat"][lo:lo + hb]) for lo in (0, hb)]
+    ref_ys = torch.cat([b.ys for b in blocks], 1).cpu()
+    ref_steps = torch.cat([b.tile_steps for b in blocks]).cpu()
+    err_b, _ = check_close("[30b] sharded vs blocks", got["ys"].movedim(1, -1),
+                           ref_ys.movedim(1, -1), got["tile_steps"], ref_steps)
+    if got["tier"] != blocks[0].tier:
+        raise AssertionError(f"[30b] tier {got['tier']!r}")
+    need_launches("[30b] K2", [res["heat1d_fused"]["launches"][1] for res in ranks])
+    d = inputs["heat"][:, 0].cpu().numpy()
+    series = check_heat("[30b]", SimpleNamespace(stop_reason=got["stop"], ys=got["ys"]), soln,
+                        d, nh)
+    solve0 = fb.make_fused_band_bdf_solve(heat, HEAT_T_EVAL, hb)
+    (ys_p, st_p, steps_p), plain_b = events_ms(lambda: solve0.reference(inputs["heat"][:hb]))
+    if int(st_p.min()) != fs.OK:
+        raise AssertionError(f"[30b] plain version status {st_p.tolist()}")
+    k2_err, k2_share = check_close("[30b] K2 on rank 0's block vs plain",
+                                   got["ys"][:, :hb].movedim(1, -1), ys_p.cpu(),
+                                   got["tile_steps"][: len(steps_p)], steps_p.cpu())
+    rhs_ops = op_count(trace_model(heat.eqn.rhs, None, nh, 1).rhs)
+    b_ms, b_by, _ = k2_bound(nh, 1, 1, rhs_ops, hb, got["tile_steps"][: len(steps_p)].numpy(),
+                             hb, len(HEAT_T_EVAL) * hb * nh)
+    k2 = ranks[0]["heat1d_fused"]["launches"][1] + ranks[1]["heat1d_fused"]["launches"][1]
+    print(f"[30b] heat1d fused n={nh}, B={B_BAND} as 2 x {hb}: each block equal to the "
+          f"unsharded call on its members (steps per tile equal, max abs {err_b:.3e}), the "
+          f"member nearest d = 1 {series:.2e} from the series; K2 {k2} launches over the "
+          f"ranks; rank 0's block vs plain max abs {k2_err:.3e} ({k2_share:.3e} of the "
+          f"bound), plain {plain_b:.1f} ms (one run), least {b_ms:.4f} ms by {b_by}; card "
+          f"{card_line}", flush=True)
+    k2_ms = time_ms(lambda: solve0(inputs["heat"][:hb]), 3)
+    print(f"[30b] K2 on one shard's block ({hb} members): {k2_ms:.3f} ms (median of 3 after "
+          f"a warm-up, CUDA events); card {card_line}", flush=True)
+    records.append(k2_record("fused_band_bdf:sharded", launches=k2, max_abs_err=k2_err,
+                             ms=k2_ms, plain_ms=plain_b, bound_ms=b_ms, bound_by=b_by))
+
+    # ---- (c) heat2d lockstep on the banded tier, B = 1,024: one joint solve
+    ref = refs["heat2d_lockstep"]
+    ref_h = _host(ref)
+    steps = int(ref.state.stats.steps)
+    for r, res in enumerate(ranks):
+        got = res["heat2d_lockstep"]["result"]
+        same_stats(f"[30c] rank {r}", got["stats"], ref_h["stats"])
+        err_c = shard_close(f"[30c] rank {r}", got["ys"], ref_h["ys"])
+        if got["stop"] != ref.stop_reason or ref.stop_reason != errors.TSTOP_REACHED:
+            raise AssertionError(f"[30c] stop {got['stop']} against {ref.stop_reason}")
+    lk = [res["heat2d_lockstep"]["launches"] for res in ranks]
+    need_launches("[30c] K3 and K4", [x[2] for x in lk] + [x[3] for x in lk])
+    gathers = ranks[0]["heat2d_lockstep"]["all_gathers"]
+    print(f"[30c] heat2d lockstep n=400 banded, B={B_BAND} as 2 x {B_BAND // 2}: every rank's "
+          f"Stats equal to the unsharded solve's ({steps} steps, "
+          f"{int(ref.state.stats.newton_iterations)} Newton iterations), ys max abs "
+          f"{err_c:.3e}; K3 {lk[0][2]} / K4 {lk[0][3]} launches a rank; {gathers} all-gathers "
+          f"a rank = {gathers / steps:.2f} a step; sharded {ranks[0]['heat2d_lockstep']['ms']:.1f}"
+          f" ms, unsharded {ref_ms['heat2d_lockstep']:.1f} ms (one call each, CUDA events); "
+          f"card {card_line}", flush=True)
+    problem2 = mol2d_problem("heat2d").to(dev)
+    ml, mu = problem2.linear_solver.meta
+    mass = problem2.eqn.mass_repr(problem2.t0, problem2.params)  # the same for every member
+    band = problem2.linear_solver.assemble(mass, ref.state.jac[: B_BAND // 2],
+                                           ref.state.c_last).contiguous()
+    records += shard_lu_records(dev, card_line, band, ml, mu,
+                                (lk[0][2] + lk[1][2], lk[0][3] + lk[1][3]))
+
+    # ---- (d) Robertson independent, B = 1,024 to 4e6
+    ref_h = _host(refs["robertson_independent"])
+    for r, res in enumerate(ranks):
+        got = res["robertson_independent"]["result"]
+        same_stats(f"[30d] rank {r}", got["stats"], ref_h["stats"])
+        if not torch.equal(got["stop"], ref_h["stop"]):
+            raise AssertionError(f"[30d] rank {r}: stop reasons differ")
+        err_d = shard_close(f"[30d] rank {r}", got["ys"], ref_h["ys"])
+    st = ref_h["stats"]["steps"]
+    print(f"[30d] Robertson independent B={B_SHARD} to 4e6 as 2 x {B_SHARD // 2}: every "
+          f"member's Stats (all {len(st)} of each counter) equal to the unsharded batch's, "
+          f"ys max abs {err_d:.3e}; steps min {int(st.min())} max {int(st.max())}; sharded "
+          f"{ranks[0]['robertson_independent']['ms']:.1f} ms, unsharded "
+          f"{ref_ms['robertson_independent']:.1f} ms (one call each, CUDA events), "
+          f"{ranks[0]['robertson_independent']['all_gathers']} all-gathers a rank (the "
+          f"gather at the end); card {card_line}", flush=True)
+
+    # ---- (e) the lockstep gradient, Robertson B = 1,024 to 4e6
+    ref_h = _host(refs["robertson_grad"])
+    for r, res in enumerate(ranks):
+        got = res["robertson_grad"]["result"]
+        same_stats(f"[30e] rank {r} forward", got["forward"], ref_h["forward"])
+        same_stats(f"[30e] rank {r} backward", got["backward"], ref_h["backward"])
+        g, gr = got["grad"], ref_h["grad"]
+        if not torch.isfinite(gr).all():
+            raise AssertionError(f"[30e] the unsharded gradient is not finite "
+                                 f"(backward status {ref_h['backward_status']})")
+        rel_e = float((g - gr).abs().max() / gr.abs().max())
+        if not rel_e <= SHARD_GRAD_RTOL:
+            raise AssertionError(f"[30e] rank {r}: gradient {rel_e:.3e} from the unsharded one")
+    fwd, bwd = ref_h["forward"], ref_h["backward"]
+    gathers = ranks[0]["robertson_grad"]["all_gathers"]
+    print(f"[30e] lockstep gradient, Robertson B={B_SHARD} to 4e6, loss sum ys^2, as 2 x "
+          f"{B_SHARD // 2}: forward and backward Stats equal to the unsharded call's "
+          f"({fwd['steps']} forward, {bwd['steps']} backward steps), gradient within "
+          f"{rel_e:.2e} of it (bound {SHARD_GRAD_RTOL:g}, relative to its largest entry); "
+          f"{gathers} all-gathers a rank = {gathers / (fwd['steps'] + bwd['steps']):.2f} a "
+          f"step; sharded {ranks[0]['robertson_grad']['ms']:.1f} ms, unsharded "
+          f"{ref_ms['robertson_grad']:.1f} ms (one call each, CUDA events); card "
+          f"{card_line}", flush=True)
+
+    # ---- (f) a 1-rank NCCL mesh: heat2d lockstep with its collectives on the card
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(out_dir, "nccl"),
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh1 = init_device_mesh("cuda", (1,), mesh_dim_names=("dp",))
+        one = run_shard_cells(mesh1, dev, names=("heat2d_lockstep",))["heat2d_lockstep"]
+    finally:
+        dist.destroy_process_group()
+    ref_h = _host(refs["heat2d_lockstep"])
+    same_stats("[30f]", one["result"]["stats"], ref_h["stats"])
+    err_f = shard_close("[30f]", one["result"]["ys"], ref_h["ys"])
+    print(f"[30f] heat2d lockstep B={B_BAND} over a 1-rank NCCL mesh: Stats equal to the "
+          f"unsharded solve's, ys max abs {err_f:.3e}; {one['all_gathers']} all-gathers on the "
+          f"card (NCCL), K3 {one['launches'][2]} / K4 {one['launches'][3]} launches; "
+          f"{one['ms']:.1f} ms (CUDA events, one call); card {card_line}", flush=True)
+    return records
+
+
+def need_launches(name, counts):
+    """Every rank launched the kernel on its path."""
+    if min(counts) < 1:
+        raise AssertionError(f"{name}: launches {counts}: a rank launched none")
+
+
+def cells_block(problem, te, params):
+    """The unsharded fused call on a block of members."""
+    from diffsol_tpu_torch import BdfSolver, solve_dense_ensemble
+
+    return solve_dense_ensemble(BdfSolver, problem, te, params, mode="fused",
+                                device=params.device)
+
+
+def shard_lu_records(dev, card_line, band, ml, mu, launches):
+    """K3 and K4 against their plain versions on rank 0's block of the
+    heat2d lockstep solve's last M - cJ (phase 14's bounds and library
+    calls), with the launches of the sharded run over both ranks."""
+    from diffsol_tpu_torch.ops import band_lu
+
+    B, nb, n = band.shape
+    b = torch.tensor(np.random.default_rng(SEED).standard_normal((B, n)), device=dev)
+    F, x = lu_once(band, b, ml, mu)
+    F_p = band_lu.band_lu_factor_reference(band, ml, mu)
+    x_p = band_lu.band_lu_solve_reference(F_p, b, ml, mu)
+    ef, ex = check_lu("[30c] factor", F.lu, F_p), check_lu("[30c] solve", x, x_p)
+    k3_ms = time_ms(lambda: band_lu.launch_band_lu_factor(band, ml, mu), 10)
+    k4_ms = time_ms(lambda: band_lu.launch_band_lu_solve(F.lu, b, ml, mu), 10)
+    k3_plain = time_ms(lambda: band_lu.band_lu_factor_reference(band, ml, mu), 0)
+    k4_plain = time_ms(lambda: band_lu.band_lu_solve_reference(F.lu, b, ml, mu), 0)
+    dense = dense_of(band, ml, mu)
+    lu, piv = torch.linalg.lu_factor(dense)
+    lib_f = time_ms(lambda: torch.linalg.lu_factor(dense), 3)
+    lib_s = time_ms(lambda: torch.linalg.lu_solve(lu, piv, b.unsqueeze(-1)), 3)
+    f_bound = bound(8 * B * (nb * n + (n + mu) * nb), B * n * 2 * ml * mu)
+    s_bound = bound(8 * B * ((n - 1) * ml + n * (mu + 1) + 2 * n),
+                    B * n * (2 * ml + 2 * mu + 1))
+    print(f"[30c] K3/K4 on rank 0's block of the solve's last M - cJ (B={B}, n={n}, nb={nb}): "
+          f"vs plain max abs factor {ef:.3e}, x {ex:.3e}; factor {k3_ms:.4f} ms, solve "
+          f"{k4_ms:.4f} ms (medians of 10; least {f_bound[0]:.4f} / {s_bound[0]:.4f} ms by "
+          f"{f_bound[1]} / {s_bound[1]}); plain {k3_plain:.1f} / {k4_plain:.1f} ms (one run); "
+          f"torch.linalg.lu_factor / lu_solve on the dense expansion {lib_f:.3f} / "
+          f"{lib_s:.3f} ms; card {card_line}", flush=True)
+    common = {"route": "cuda", "source": "diffsol_tpu_torch/csrc/band_lu.cuh"}
+    return [dict(name="band_lu_factor:sharded_heat2d", replaces="diffsol_tpu/ops/pallas_banded.py:51",
+                 launches=launches[0], max_abs_err=ef, ms=k3_ms, plain_ms=k3_plain,
+                 bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=lib_f, **common),
+            dict(name="band_lu_solve:sharded_heat2d", replaces="diffsol_tpu/ops/pallas_banded.py:72",
+                 launches=launches[1], max_abs_err=ex, ms=k4_ms, plain_ms=k4_plain,
+                 bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=lib_s, **common)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4581,12 +5135,15 @@ def main() -> int:
     t_phase = time.perf_counter()
     example_records = examples_phase(dev, card_line)
     print(f"[29] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
-    print(f"[1-29] the whole script {time.perf_counter() - t_start:.1f} s (host clock)",
+    t_phase = time.perf_counter()
+    sharding_records = sharding_phase(dev, card_line, soln)
+    print(f"[30] phase took {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
+    print(f"[1-30] the whole script {time.perf_counter() - t_start:.1f} s (host clock)",
           flush=True)
     record = ([small_record] + variant_records + [mixed_record] + band_records
               + mol2d_records + wide_lu_records + diffsl_records + sens_records
               + adjoint_records + f32_records + independent_records + independent_rk_records
-              + independent_adj_records + example_records)
+              + independent_adj_records + example_records + sharding_records)
 
     print(f"card: {card_line}")
     print(json.dumps({"kernels": record}))

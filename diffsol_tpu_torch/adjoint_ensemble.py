@@ -114,13 +114,38 @@ def backward_pass_bounded_lockstep(base_problem, lockstep_problem, solver_cls,
         events, t_eval, ct_ys, params_b, max_steps, ct_g, info)
 
 
+def _sharded_passes(forward, backward, maxis, output):
+    """The passes of a rank's block as the whole batch's: the forward pass
+    takes the global params and returns the global output, the backward
+    pass takes its global cotangent and returns the global gradient (the
+    members on ys' axis 1, on the quadrature's and the params' axis 0)."""
+    dim = 1 if output == "ys" else 0
+
+    def forward_all(params, info):
+        out, saved = forward(maxis.split(params), info)
+        return maxis.gather(out, dim), saved
+
+    def backward_all(saved, ct, info):
+        return maxis.gather(backward(saved, maxis.split(ct, dim), info))
+
+    return forward_all, backward_all
+
+
 def _lockstep(problem, t_eval, nbatch, output, solver_cls, max_steps, bwd_solver_cls,
-              bwd_max_steps, checkpoint_interval, device, who):
+              bwd_max_steps, checkpoint_interval, device, who, mesh=None, axis="dp"):
     from .solvers.bdf import BdfSolver
 
+    maxis = None
+    if mesh is not None:
+        from .sharding import MemberAxis, mesh_device
+
+        device = mesh_device(mesh, device)
+        maxis = MemberAxis.of(mesh, axis, nbatch)
     dev = resolve_device(device, who)
     base = problem.to(dev)
-    lp = make_lockstep_problem(base, nbatch)
+    # under a mesh the lockstep problem is the rank's block, and the
+    # backward pass's adjoint problem (a replace of it) keeps its member axis
+    lp = make_lockstep_problem(base, nbatch if maxis is None else maxis.local, axis=maxis)
     solver_cls = solver_cls or BdfSolver
     solver = solver_cls(lp)
     bwd_cls = bwd_solver_cls or solver_cls
@@ -137,6 +162,8 @@ def _lockstep(problem, t_eval, nbatch, output, solver_cls, max_steps, bwd_solver
 
     forward, backward = _passes(solver, t_eval, output, base.eqn.nstates, max_steps,
                                 MAX_EVENTS, K, backward_pass_of)
+    if maxis is not None:
+        forward, backward = _sharded_passes(forward, backward, maxis, output)
     return _differentiable(forward, backward, dev, who, nbatch=nbatch)
 
 
@@ -151,6 +178,8 @@ def make_differentiable_solve_ensemble(
     bwd_max_steps: Optional[int] = None,
     checkpoint_interval: Optional[int] = None,
     device=None,
+    mesh=None,
+    axis: str = "dp",
 ):
     """Return ``ys_of(params_b) -> (neval, B, n)``, differentiable per member:
     the gradient of any scalar of the output is (B, nparams), from one
@@ -170,8 +199,20 @@ def make_differentiable_solve_ensemble(
     member (its ``info`` the last member's).  ``device`` as in
     ``make_differentiable_solve``: the card unless the caller asks for the
     CPU; ``params_b`` (B, nparams) must lie there.
+
+    ``mesh`` and ``axis`` shard the lockstep gradient's members over a
+    ``DeviceMesh`` dimension, as :func:`~.ensemble.solve_dense_ensemble`'s
+    do: every rank calls ``ys_of`` with the global params and gets the
+    global ys, and ``.backward()`` gives it the global gradient.  The
+    forward and the backward adjoint solve are each one joint lockstep
+    solve over the whole axis.  ``mode="independent"`` under a mesh raises
+    ``NotImplementedError`` (ROADMAP 20d).
     """
     who = "make_differentiable_solve_ensemble"
+    if mesh is not None and mode != "lockstep":
+        raise NotImplementedError(
+            f"{who}: mode={mode!r} over a mesh is not ported (ROADMAP 20d); "
+            "mode='lockstep' is")
     if mode == "independent" and (solver_cls or BdfSolver) is BdfSolver and (
             bwd_solver_cls or solver_cls or BdfSolver) is BdfSolver:
         from .adjoint_independent import make_independent
@@ -194,7 +235,7 @@ def make_differentiable_solve_ensemble(
     if mode != "lockstep":
         raise ValueError(f"unknown ensemble mode: {mode!r}")
     return _lockstep(problem, t_eval, nbatch, "ys", solver_cls, max_steps, bwd_solver_cls,
-                     bwd_max_steps, checkpoint_interval, device, who)
+                     bwd_max_steps, checkpoint_interval, device, who, mesh, axis)
 
 
 def make_differentiable_quadrature_ensemble(

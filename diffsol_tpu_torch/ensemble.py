@@ -55,7 +55,7 @@ F64 = torch.float64
 
 
 def make_lockstep_problem(problem: OdeProblem, nbatch: int,
-                          member_t: bool = False) -> OdeProblem:
+                          member_t: bool = False, axis=None) -> OdeProblem:
     """Lift a problem to member-major (B, n) lockstep form: ``params``
     gains a leading (nbatch,) axis and the callables act on all members at
     once.  With ``member_t`` the callables take a (B,) time, each member at
@@ -71,11 +71,20 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
     joint B n system (``krylov_lockstep``; JAX ensemble.py:108-136,
     200-215); with ``member_t`` each member keeps its own frozen point,
     preconditioner and GMRES (``krylov_independent``, as JAX's ``vmap`` of
-    the single solve gives them)."""
+    the single solve gives them).
+
+    ``axis`` (a :class:`~.sharding.MemberAxis`) makes it one rank's block of
+    a lockstep ensemble sharded over a mesh: ``nbatch`` is the block's size,
+    and every reduction over members in the solve runs over the whole mesh
+    axis, so that all ranks take the unsharded solve's step sequence."""
     eqn = problem.eqn
     vmap = torch.func.vmap
     spec = problem.linear_solver
     krylov = spec.name.startswith("krylov")
+    if krylov and axis is not None:
+        raise NotImplementedError(
+            "the matrix-free Krylov tier's lockstep GMRES over a mesh (its dot "
+            "products and norms as all-reduced sums) is not ported: ROADMAP 20b")
     td = 0 if member_t else None
     if krylov and member_t:
         from .ops.krylov import MemberPoint
@@ -153,7 +162,7 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
         spec = make_blockdiag_solver_lockstep(perm, nb, K, nbatch)
     return dataclasses.replace(
         problem, eqn=new_eqn, params=params_b, lockstep_nbatch=nbatch,
-        linear_solver=spec,
+        linear_solver=spec, member_axis=axis,
     )
 
 
@@ -270,6 +279,70 @@ def _fused_solution(fsolve, tier, ts_on, params_batch, t_eval, problem) -> Solut
     )
 
 
+def _sharded_fused(fsolve, maxis):
+    """The fused solve of the rank's block, its raw outputs gathered into
+    the whole batch's: ys and gs along their member axis (the last), the
+    per-tile status, steps and roots in rank order (each rank's tiles are
+    tiles of its block, as under JAX's ``shard_map``)."""
+    def gathered(k, v):
+        return None if v is None else maxis.gather(v, -1 if k in ("ys", "gs") else 0)
+
+    def run(params_batch):
+        raw = fsolve(maxis.split(params_batch))
+        if isinstance(raw, dict):
+            return {k: gathered(k, v) for k, v in raw.items()}
+        ys, status, steps = raw
+        return gathered("ys", ys), gathered("status", status), gathered("steps", steps)
+
+    return run
+
+
+def _gather_state(maxis, state, dim=0):
+    """The whole batch's state from every rank's block of it: a tensor
+    along ``dim``; a dataclass field by field, each along the member
+    dimension its class declares in ``MEMBER_DIMS`` (a batched independent
+    state: bdf_independent, rk_independent) or else ``dim``, a field
+    declared None (the Newton matrices, whose layout is the tier's) as
+    None, the loop's own counts (ints) as their largest over the ranks.  A
+    tensor whose member dimension is not the block's size raises."""
+    if isinstance(state, torch.Tensor):
+        if state.dim() <= dim or state.shape[dim] != maxis.local:
+            raise ValueError(f"a state tensor of shape {tuple(state.shape)} has no member "
+                             f"dimension {dim} of the block's {maxis.local}")
+        return maxis.gather(state, dim)
+    if isinstance(state, tuple):
+        parts = [_gather_state(maxis, v, dim) for v in state]
+        return type(state)(*parts) if hasattr(state, "_fields") else tuple(parts)
+    if not (dataclasses.is_dataclass(state) and not isinstance(state, type)):
+        return state
+    dims = getattr(type(state), "MEMBER_DIMS", {})
+    upd = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if f.name in dims and dims[f.name] is None:
+            upd[f.name] = None
+        elif isinstance(v, int) and not isinstance(v, bool):
+            upd[f.name] = int(maxis.partials([v]).amax())
+        else:
+            upd[f.name] = _gather_state(maxis, v, dims.get(f.name, dim))
+    return dataclasses.replace(state, **upd)
+
+
+def _gather_solution(maxis, sol, with_state=False) -> Solution:
+    """An ensemble Solution of the rank's block as the whole batch's: ys and
+    gs (neval, B, ...), sens (neval, naug, B, n) and, ``with_state`` (an
+    independent ensemble), its (B,) stop_reason, root_t and root_idx and
+    its state; a lockstep solve's state stays the rank's block's."""
+    def g(v, dim):
+        return None if v is None else maxis.gather(v, dim)
+
+    upd = dict(ys=g(sol.ys, 1), gs=g(sol.gs, 1), sens=g(sol.sens, 2))
+    if with_state:
+        upd.update(stop_reason=g(sol.stop_reason, 0), root_t=g(sol.root_t, 0),
+                   root_idx=g(sol.root_idx, 0), state=_gather_state(maxis, sol.state))
+    return sol.replace(**upd)
+
+
 def stack_states(states):
     """The member loop's final states as one batched state of their class:
     tensors stacked on a new leading member axis, numbers as (B,) tensors,
@@ -304,6 +377,8 @@ def solve_dense_ensemble(
     tile=None,
     device=None,
     precision: str = "df",
+    mesh=None,
+    axis: str = "dp",
 ) -> Solution:
     """Solve an ensemble over ``params_batch`` (B, nparams) in the
     problem's dtype (float64, or float32 for ``OdeBuilder.dtype``).
@@ -335,9 +410,31 @@ def solve_dense_ensemble(
     ``"mixed"`` (the Newton matrix path in float32; trajectories agree with
     ``"df"`` at the error test's tolerance) or ``"fast"`` (runs the ``"df"``
     build); see :func:`.ops.fused_stepper.make_fused_bdf_solve`.
+
+    ``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh``) shards the
+    members over its dimension ``axis``, as the JAX package's ``mesh=`` and
+    ``axis=`` do (:mod:`.sharding`): every rank of an SPMD program (one
+    process a device, ``torchrun``) calls with the same global
+    ``params_batch``, solves its contiguous block of B / k members on its
+    device (the current card for a CUDA mesh, the CPU for a CPU mesh; a
+    ``device`` that says otherwise raises) and gets the whole Solution
+    back.  ``mode="fused"`` runs the kernels on each rank's block, with no
+    collective in the solve; lockstep is ONE joint solve whose every
+    reduction over members (error, Newton and order norms, the root scan,
+    the initial step) runs over the whole axis, so every rank takes the
+    unsharded solve's steps and ``Stats``, and its ``state`` is the rank's
+    block's; independent gathers each member's result and its batched
+    state (the Newton matrices ``jac`` and ``factors`` stay with their
+    rank and come back None).  A B that the axis does not divide raises
+    ``ValueError``, as in JAX.  The Krylov tier's lockstep solve under a
+    mesh raises ``NotImplementedError`` (ROADMAP 20b).
     """
     if precision not in ("df", "mixed", "fast"):
         raise ValueError(f"precision must be 'df', 'mixed' or 'fast': {precision!r}")
+    if mesh is not None:
+        from .sharding import mesh_device
+
+        device = mesh_device(mesh, device)
     dev = resolve_device(device, "solve_dense_ensemble")
     if isinstance(params_batch, torch.Tensor):
         if params_batch.dtype != problem.dtype:
@@ -348,6 +445,11 @@ def solve_dense_ensemble(
     params_batch = params_batch.to(dev)
     nbatch = params_batch.shape[0]
 
+    def member_axis():
+        from .sharding import MemberAxis
+
+        return None if mesh is None else MemberAxis.of(mesh, axis, nbatch)
+
     if mode in ("fused", "auto") and getattr(make_solver(problem), "has_sens", False):
         if mode == "fused":
             raise UnsupportedForKernel(
@@ -355,21 +457,37 @@ def solve_dense_ensemble(
                 "(mode='auto' takes it) for a solver with sens=True")
         mode = "lockstep"
     if mode in ("fused", "auto"):
+        if mesh is not None:
+            from .sharding import axis_size
+
+            if nbatch % axis_size(mesh, axis):
+                raise ValueError(
+                    f"fused+mesh needs nbatch divisible by mesh axis {axis!r} "
+                    f"({nbatch} % {axis_size(mesh, axis)})")
+        maxis = member_axis()
         try:
-            fsolve, tier, ts_on = _fused_solve_cached(problem, t_eval, nbatch,
-                                                      max_steps, tile, precision)
+            fsolve, tier, ts_on = _fused_solve_cached(
+                problem, t_eval, nbatch if maxis is None else maxis.local, max_steps,
+                tile, precision)
         except UnsupportedForKernel:
             if mode == "fused":
                 raise
         else:
+            if maxis is not None:
+                fsolve = _sharded_fused(fsolve, maxis)
             return _fused_solution(fsolve, tier, ts_on, params_batch, t_eval, problem)
         mode = "lockstep"
 
     problem = problem.to(dev)
+    maxis = member_axis()
+    if maxis is not None:
+        params_batch = maxis.split(params_batch)
     if mode == "lockstep":
-        lp = make_lockstep_problem(problem, nbatch)
+        lp = make_lockstep_problem(problem, params_batch.shape[0], axis=maxis)
         sol = solve_dense(make_solver(lp), t_eval, params=params_batch,
                           max_steps=max_steps, device=dev)
+        if maxis is not None:
+            sol = _gather_solution(maxis, sol)
         return sol.replace(tier="lockstep")
 
     if mode == "independent":
@@ -377,17 +495,18 @@ def solve_dense_ensemble(
 
         solver = make_solver(problem)
         if independent.takes(solver):
-            return independent.solve_dense_independent(
+            sol = independent.solve_dense_independent(
                 solver, t_eval, params_batch, max_steps=max_steps)
+            return sol if maxis is None else _gather_solution(maxis, sol, with_state=True)
         # only a solver class other than BdfSolver, SdirkSolver or
         # ErkSolver, or augmented equations other than SensEquations, come
         # here: one eager solve a member
         sols = [
             solve_dense(solver, t_eval, params=params_batch[i],
                         max_steps=max_steps, device=dev)
-            for i in range(nbatch)
+            for i in range(params_batch.shape[0])
         ]
-        return Solution(
+        sol = Solution(
             ts=sols[0].ts,
             ys=torch.stack([s.ys for s in sols], dim=1),
             gs=(None if sols[0].gs is None
@@ -401,5 +520,7 @@ def solve_dense_ensemble(
             root_idx=torch.tensor([s.root_idx for s in sols], device=dev),
             tier="independent",
         )
+        # the stacked states' member axis is their leading one
+        return sol if maxis is None else _gather_solution(maxis, sol, with_state=True)
 
     raise ValueError(f"unknown ensemble mode: {mode!r}")

@@ -13,6 +13,7 @@ Python floats for the times and the g values.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -46,7 +47,7 @@ class RootCheckResult(NamedTuple):
 
 
 def check_root(root_fn: Callable, interp_y: Callable, g0, t0: float, y_new,
-               t_new: float, nbatch: int = 1) -> RootCheckResult:
+               t_new: float, nbatch: int = 1, axis=None) -> RootCheckResult:
     """Look for a root in (t0, t_new].  ``root_fn(t, y)`` evaluates the
     root function and ``interp_y(t)`` the state inside the accepted step.
 
@@ -54,15 +55,31 @@ def check_root(root_fn: Callable, interp_y: Callable, g0, t0: float, y_new,
     member must agree on (found, crossing index), the reference's batch
     consistency (vector/cuda.rs root_finding).  The secant then polishes
     member 0's crossing to a SHARED root time; a disagreement sets
-    ``inconsistent`` and clears ``found``."""
+    ``inconsistent`` and clears ``found``.  Under a mesh ``axis`` the scan
+    runs over every rank's g values (one all-gather of g0 and g1), and the
+    rank that holds member 0 polishes its crossing for all (a second
+    collective, only when member 0 has a sign change)."""
     g1_t = root_fn(t_new, y_new)
-    if nbatch > 1:
+    if axis is not None:
+        both = axis.gather(torch.cat([g0, g1_t], dim=-1)).tolist()
+        nr = g1_t.shape[-1]
+        rows0, rows1 = [r[:nr] for r in both], [r[nr:] for r in both]
+    elif nbatch > 1:
         rows0, rows1 = g0.tolist(), g1_t.tolist()
+    if axis is not None or nbatch > 1:
         scans = [root_finding(a, b) for a, b in zip(rows0, rows1)]
         inconsistent = any(s[0] != scans[0][0] or s[2] != scans[0][2]
                            for s in scans)
-        res0 = _check_one(lambda tt, yy: root_fn(tt, yy)[0], interp_y,
-                          rows0[0], t0, rows1[0], t_new)
+        if axis is None or scans[0][2] < 0:
+            # without a sign change member 0's check reads only its rows
+            res0 = _check_one(lambda tt, yy: root_fn(tt, yy)[0], interp_y,
+                              rows0[0], t0, rows1[0], t_new)
+        else:
+            mine = (_check_one(lambda tt, yy: root_fn(tt, yy)[0], interp_y,
+                               rows0[0], t0, rows1[0], t_new)
+                    if axis.index == 0 else (False, math.nan, -1))
+            found0, t_root0, idx0 = axis.from_first(mine)
+            res0 = (bool(found0), t_root0, int(idx0))
         return RootCheckResult(
             found=res0[0] and not inconsistent, t_root=res0[1],
             root_idx=res0[2], g0_next=g1_t, inconsistent=inconsistent)

@@ -126,6 +126,10 @@ class OdeProblem:
     param_scales: Optional[torch.Tensor] = None
     integrate_out: bool = False
     lockstep_nbatch: int = 1
+    # a lockstep ensemble sharded over a mesh: its member axis
+    # (sharding.MemberAxis), over which every reduction of the solve runs;
+    # lockstep_nbatch is then this rank's block
+    member_axis: Optional[object] = None
     options: OdeSolverOptions = field(default_factory=OdeSolverOptions)
     ic_options: InitialConditionOptions = field(
         default_factory=InitialConditionOptions)

@@ -45,7 +45,7 @@ import torch
 
 from .. import errors
 from ..augmented import SensEquations
-from ..norms import squared_norm, squared_norm_and_worst
+from ..norms import error_test_norms, max_norms
 from ..ops.controller import pi_controller_raw
 from ..ops.newton import ETA_RESET_JACOBIAN, ETA_RESET_TIMESTEP, newton_solve
 from ..ops.rootfind import check_root
@@ -273,14 +273,9 @@ class BdfSolver:
             residual, lambda v: p.linear_solver.solve(factors, v),
             s_pred, s_pred, aug.atol(p), aug.rtol(p), eta,
             tol=p.options.nonlinear_solver_tolerance,
-            max_iter=self.config.maximum_newton_iterations,
+            max_iter=self.config.maximum_newton_iterations, axis=p.member_axis,
         )
         return res.x - s_pred, res.converged, res.niter
-
-    def _sens_err(self, x, s):
-        """The rows' squared error norm: the largest row's."""
-        p = self.problem
-        return float(squared_norm(x, s, p.sens_atol, p.sens_rtol))
 
     # ------------------------------------------------------------------
     def _jac_slim(self, st: dict, t, y, params, c, rhs_pred, jac_pred,
@@ -479,6 +474,7 @@ class BdfSolver:
                 residual, lambda v: p.linear_solver.solve(factors, v),
                 y_pred, y_pred, atol, rtol, st["eta"],
                 tol=opts.nonlinear_solver_tolerance, max_iter=max_newton,
+                axis=p.member_axis,
             )
             d = res.x - y_pred
             solve_ok = res.converged
@@ -495,16 +491,18 @@ class BdfSolver:
                 g_delta = (cval * self._out(state.t + h, y_pred, params)
                            - psi_from_diff(gD, order))
 
-            sq_d, wm_new = squared_norm_and_worst(d, state.y, atol, rtol)
-            err_a = float(sq_d) * float(_ERROR_CONST2[order - 1])
+            # the quadrature and the rows join the test with the NEXT
+            # error constant (the rows' norm is the largest row's)
+            others = []
             if out_in_err:
-                # the quadrature joins the test with the NEXT error constant
-                err_a = max(err_a, float(squared_norm(
-                    g_delta, state.g, p.out_atol, p.out_rtol))
-                    * float(_ERROR_CONST2[order]))
+                others.append((g_delta, state.g, p.out_atol, p.out_rtol))
             if sens_in_err:
-                err_a = max(err_a, self._sens_err(s_delta, state.s)
-                            * float(_ERROR_CONST2[order]))
+                others.append((s_delta, state.s, p.sens_atol, p.sens_rtol))
+            sq_d, wm_new, sq_o = error_test_norms((d, state.y, atol, rtol), others,
+                                                  p.member_axis)
+            err_a = sq_d * float(_ERROR_CONST2[order - 1])
+            for e in sq_o:
+                err_a = max(err_a, e * float(_ERROR_CONST2[order]))
             accepted_a = solve_ok and err_a <= 1.0
             stats = st["stats"]
             if solve_ok:
@@ -587,14 +585,21 @@ class BdfSolver:
         # ---- order selection (bdf.rs:1489-1562)
         new_order, sel_factor, do_change = order, 1.0, False
         if n_equal > order:
-            def predicted_err(col, const_idx):
-                e = float(squared_norm(D_new[col], y_new, atol, rtol))
+            # the predicted errors at order - 1 (D column order) and order + 1
+            # (column order + 2), each with the rows' when they join the test
+            cols = [c for c, on in ((order, order > 1), (order + 2, order < MAX_ORDER))
+                    if on]
+            parts = []
+            for col in cols:
+                parts.append((D_new[col], y_new, atol, rtol))
                 if sens_in_err:
-                    e = max(e, self._sens_err(sD_new[col], s_new))
-                return e * float(_ERROR_CONST2[const_idx])
-
-            em = predicted_err(order, max(order - 1, 0)) if order > 1 else math.inf
-            ep = (predicted_err(order + 2, min(order + 1, MAX_ORDER))
+                    parts.append((sD_new[col], s_new, p.sens_atol, p.sens_rtol))
+            sq = max_norms(parts, p.member_axis)
+            per = 2 if sens_in_err else 1
+            pred = {col: max(sq[i * per:(i + 1) * per]) for i, col in enumerate(cols)}
+            em = (pred[order] * float(_ERROR_CONST2[max(order - 1, 0)])
+                  if order > 1 else math.inf)
+            ep = (pred[order + 2] * float(_ERROR_CONST2[min(order + 1, MAX_ORDER)])
                   if order < MAX_ORDER else math.inf)
             f3 = [float(pi_controller_raw(e, err, ki, kp, order + k))
                   for k, e in enumerate((em, err, ep))]
@@ -634,7 +639,7 @@ class BdfSolver:
             res_root = check_root(
                 lambda tt, yy: p.eqn.root(self._t(tt), yy, params),
                 lambda tt: interp_from_diff(tt, D_new, t_new, h_new, order_new),
-                root_g0, state.t, y_new, t_new, nbatch=self._nb)
+                root_g0, state.t, y_new, t_new, nbatch=self._nb, axis=p.member_axis)
             if res_root.found and stop == errors.INTERNAL_TIMESTEP:
                 stop = errors.ROOT_FOUND
                 root_t, root_idx = res_root.t_root, res_root.root_idx

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, ClassVar, Optional
 
 import torch
 
@@ -58,6 +58,11 @@ class IndependentState:
     scalars, (B, n) for vectors, (ND, B, n) for D; the rows (naug, B, n)
     and their sD (ND, naug, B, n)), ``stats`` a :class:`~.rk_common.Stats`
     of (B,) counters, and the loop's own counts."""
+
+    # the member dimension of each field whose leading one it is not, for
+    # the gather of a sharded ensemble (ensemble.py); None for the Newton
+    # matrices, whose layout is the tier's and which stay with their rank
+    MEMBER_DIMS: ClassVar[dict] = dict(D=1, gD=1, s=1, sD=2, jac=None, factors=None)
 
     y: torch.Tensor
     dy: torch.Tensor

@@ -92,7 +92,7 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
         return f - mdu
 
     def nrm_of(delta):
-        return float(wrms_norm(delta, y_fixed, p.atol, p.rtol))
+        return float(wrms_norm(delta, y_fixed, p.atol, p.rtol, p.member_axis))
 
     def check(niter, nrm, first_norm, eta):
         """Convergence check (convergence.rs:69-130) -> (status, eta)."""

@@ -28,7 +28,7 @@ from typing import Optional
 import numpy as np
 
 from .. import errors
-from ..norms import squared_norm, squared_norm_and_worst
+from ..norms import error_test_norms
 from ..ops.controller import clamp_factor, pi_controller_raw
 from ..problem import OdeProblem, SolverConfig
 from .rk_common import RkSolver, RkState, Stats, stage_sum
@@ -150,16 +150,16 @@ class ErkSolver(RkSolver):
             stages = self._stages(h, state.y, state.dy, g_dg, state.t, params, a,
                                   state.s if self.sens else None, ds0)
             diff, gdiff, y_new, dy_new = stages[:4]
-            sq, wm = squared_norm_and_worst(stage_sum(d_vec, diff), state.y,
-                                            p.atol, p.rtol)
-            err = float(sq)
+            others = []
             if p.output_in_error_control():
-                err = max(err, float(squared_norm(stage_sum(d_vec, gdiff), state.g,
-                                                  p.out_atol, p.out_rtol)))
+                others.append((stage_sum(d_vec, gdiff), state.g, p.out_atol, p.out_rtol))
             if self.sens and p.sens_in_error_control():
-                err = max(err, float(squared_norm(
-                    stage_sum(d_vec, stages[4]), state.s, self.aug.atol(p),
-                    self.aug.rtol(p))))
+                others.append((stage_sum(d_vec, stages[4]), state.s, self.aug.atol(p),
+                               self.aug.rtol(p)))
+            err, wm, sq_o = error_test_norms(
+                (stage_sum(d_vec, diff), state.y, p.atol, p.rtol), others, p.member_axis)
+            for e in sq_o:
+                err = max(err, e)
             accepted = err < 1.0
             if not accepted:
                 raw = float(pi_controller_raw(err, prev, ki, kp, eff_order))

@@ -280,7 +280,7 @@ class RkSolver:
             res = check_root(
                 lambda tt, yy: p.eqn.root(self._t(tt), yy, params),
                 lambda tt: self.interpolate(new, tt),
-                root_g, old.t, new.y, new.t, nbatch=self._nb)
+                root_g, old.t, new.y, new.t, nbatch=self._nb, axis=p.member_axis)
             if res.found:
                 stop = errors.ROOT_FOUND
                 new = dataclasses.replace(new, root_t=res.t_root, root_idx=res.root_idx)

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, ClassVar, Optional
 
 import torch
 
@@ -63,6 +63,10 @@ class RkIndependentState:
     (naug, B, n), their stage values (s, naug, B, n)), ``stats`` a
     :class:`~.rk_common.Stats` of (B,) counters, and the loop's own
     counts.  The Jacobian and the policy's fields stay None for ERK."""
+
+    # as bdf_independent.IndependentState.MEMBER_DIMS
+    MEMBER_DIMS: ClassVar[dict] = dict(diff=1, gdiff=1, s=1, ds=1, s_prev=1, sdiff=2,
+                                       jac=None, factors=None)
 
     y: torch.Tensor
     dy: torch.Tensor

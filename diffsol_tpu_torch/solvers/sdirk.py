@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import errors
-from ..norms import squared_norm, squared_norm_and_worst
+from ..norms import error_test_norms
 from ..ops.controller import clamp_factor, pi_controller_raw
 from ..ops.newton import ETA_RESET_JACOBIAN, ETA_RESET_TIMESTEP, newton_solve
 from ..problem import OdeProblem, SolverConfig
@@ -251,7 +251,7 @@ class SdirkSolver(RkSolver):
                         residual, lin,
                         self._stage_predict(i, h, state.dy, diff), state.y,
                         p.atol, p.rtol, st["eta"], tol=opts.nonlinear_solver_tolerance,
-                        max_iter=cfg.maximum_newton_iterations)
+                        max_iter=cfg.maximum_newton_iterations, axis=p.member_axis)
                     st["eta"] = res.eta
                     niter = res.niter
                     z_last = res.x
@@ -274,7 +274,7 @@ class SdirkSolver(RkSolver):
                             residual_s, lin, self._stage_predict(i, h, ds0, sdiff),
                             state.s, aug.atol(p), aug.rtol(p), st["eta"],
                             tol=opts.nonlinear_solver_tolerance,
-                            max_iter=cfg.maximum_newton_iterations)
+                            max_iter=cfg.maximum_newton_iterations, axis=p.member_axis)
                         sz_last = res_s.x
                         sdiff[i] = sz_last
                         s_stage = sphi + gamma * sz_last
@@ -309,18 +309,19 @@ class SdirkSolver(RkSolver):
             if p.eqn.mass is not None:
                 err_vec = p.eqn.mass_mul(self._t(state.t), params, err_vec)
             err_vec = p.linear_solver.solve(st["factors"], err_vec)
-            sq, wm = squared_norm_and_worst(err_vec, state.y, p.atol, p.rtol)
-            err = float(sq)
+            others = []
             if p.output_in_error_control():
-                err = max(err, float(squared_norm(stage_sum(d_vec, gdiff), state.g,
-                                                  p.out_atol, p.out_rtol)))
+                others.append((stage_sum(d_vec, gdiff), state.g, p.out_atol, p.out_rtol))
             if self.sens and p.sens_in_error_control():
                 serr = stage_sum(d_vec, sdiff)
                 if p.eqn.mass is not None:
                     serr = p.eqn.mass_mul(self._t(state.t), params, serr)
                 serr = p.linear_solver.solve(st["factors"], serr)
-                err = max(err, float(squared_norm(serr, state.s, aug.atol(p),
-                                                  aug.rtol(p))))
+                others.append((serr, state.s, aug.atol(p), aug.rtol(p)))
+            err, wm, sq_o = error_test_norms((err_vec, state.y, p.atol, p.rtol), others,
+                                             p.member_axis)
+            for e in sq_o:
+                err = max(err, e)
             safety = (2.0 * m + 1.0) / (2.0 * m + niter)
             raw = float(pi_controller_raw(err, prev_err, ki, kp, eff_order))
             factor = clamp_factor(0.9 * safety * raw, *clamps)

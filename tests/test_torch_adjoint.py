@@ -44,11 +44,18 @@ F64 = torch.float64
 JAX_RTOL = 1e-9
 
 
+def value_and_grad_of(fn, params, loss):
+    """``(fn(p), dL/dp)`` of ``loss(fn(p))`` by torch.autograd, as numpy:
+    the output of the same call whose gradient is taken."""
+    p = torch.as_tensor(params, dtype=F64).clone().requires_grad_(True)
+    out = fn(p)
+    (g,) = torch.autograd.grad(loss(out), p)
+    return out.detach().numpy(), g.numpy()
+
+
 def grad_of(fn, params, loss):
     """dL/dp of ``loss(fn(p))`` by torch.autograd, as numpy."""
-    p = torch.as_tensor(params, dtype=F64).clone().requires_grad_(True)
-    (g,) = torch.autograd.grad(loss(fn(p)), p)
-    return g.numpy()
+    return value_and_grad_of(fn, params, loss)[1]
 
 
 def jax_counted(counts, tag):

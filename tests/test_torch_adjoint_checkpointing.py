@@ -42,7 +42,7 @@ from diffsol_tpu_torch.models import exponential_decay as ted
 from diffsol_tpu_torch.models import logistic as tlog
 from diffsol_tpu_torch.models import robertson as trob
 
-from test_torch_adjoint import JAX_RTOL, grad_of, jax_grad
+from test_torch_adjoint import JAX_RTOL, grad_of, jax_grad, value_and_grad_of
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -50,13 +50,14 @@ F64 = torch.float64
 
 def _grads(problem, t_eval, loss, K, **kw):
     """(dense gradient, bounded gradient), with the outputs of the two modes
-    held together first."""
+    (those of the same calls) held together first."""
     dense = dtt.make_differentiable_solve(problem, t_eval, device="cpu", **kw)
     bounded = dtt.make_differentiable_solve(problem, t_eval, checkpoint_interval=K,
                                             device="cpu", **kw)
     p = problem.params
-    np.testing.assert_allclose(bounded(p).numpy(), dense(p).numpy(), rtol=1e-9, atol=1e-12)
-    return grad_of(dense, p, loss), grad_of(bounded, p, loss)
+    (y_d, g_d), (y_b, g_b) = value_and_grad_of(dense, p, loss), value_and_grad_of(bounded, p, loss)
+    np.testing.assert_allclose(y_b, y_d, rtol=1e-9, atol=1e-12)
+    return g_d, g_b
 
 
 def test_bounded_matches_dense_logistic():
@@ -133,8 +134,10 @@ def test_bounded_quadrature():
     dense = dtt.make_differentiable_quadrature(pq, 4.0, device="cpu")
     bounded = dtt.make_differentiable_quadrature(pq, 4.0, checkpoint_interval=8, device="cpu")
     p = pq.params
-    np.testing.assert_allclose(bounded(p).numpy(), dense(p).numpy(), rtol=1e-9)
-    np.testing.assert_allclose(grad_of(bounded, p, torch.sum), grad_of(dense, p, torch.sum),
+    (y_b, g_b), (y_d, g_d) = (value_and_grad_of(bounded, p, torch.sum),
+                              value_and_grad_of(dense, p, torch.sum))
+    np.testing.assert_allclose(y_b, y_d, rtol=1e-9)
+    np.testing.assert_allclose(g_b, g_d,
                                rtol=1e-5)
 
 

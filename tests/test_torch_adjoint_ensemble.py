@@ -34,7 +34,7 @@ from diffsol_tpu_torch.interop import problem_from_jax
 from diffsol_tpu_torch.models import exponential_decay as ted
 from diffsol_tpu_torch.models import logistic as tlog
 
-from test_torch_adjoint import JAX_RTOL, grad_of, jax_counted
+from test_torch_adjoint import JAX_RTOL, grad_of, jax_counted, value_and_grad_of
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -130,9 +130,10 @@ def test_lockstep_bounded_memory_grad():
     t_eval = np.linspace(0.5, 3.0, 4)
     pb = torch.tensor(_member_params(problem.params, 3))
     dense, bounded = _bounded_pair(problem, t_eval, 3)
-    np.testing.assert_allclose(bounded(pb).numpy(), dense(pb).numpy(), rtol=1e-10)
-    np.testing.assert_allclose(grad_of(bounded, pb, _sum_sq), grad_of(dense, pb, _sum_sq),
-                               rtol=2e-4, atol=1e-10)
+    (y_b, g_b), (y_d, g_d) = (value_and_grad_of(bounded, pb, _sum_sq),
+                              value_and_grad_of(dense, pb, _sum_sq))
+    np.testing.assert_allclose(y_b, y_d, rtol=1e-10)
+    np.testing.assert_allclose(g_b, g_d, rtol=2e-4, atol=1e-10)
 
 
 def test_lockstep_bounded_quadrature_grad():
@@ -142,9 +143,10 @@ def test_lockstep_bounded_quadrature_grad():
                                                         device="cpu")
     bounded = dtt.make_differentiable_quadrature_ensemble(problem, 2.0, 3, max_steps=4096,
                                                           checkpoint_interval=16, device="cpu")
-    np.testing.assert_allclose(bounded(pb).numpy(), dense(pb).numpy(), rtol=1e-10)
-    np.testing.assert_allclose(grad_of(bounded, pb, torch.sum), grad_of(dense, pb, torch.sum),
-                               rtol=2e-4, atol=1e-10)
+    (y_b, g_b), (y_d, g_d) = (value_and_grad_of(bounded, pb, torch.sum),
+                              value_and_grad_of(dense, pb, torch.sum))
+    np.testing.assert_allclose(y_b, y_d, rtol=1e-10)
+    np.testing.assert_allclose(g_b, g_d, rtol=2e-4, atol=1e-10)
 
 
 def _time_reset_problem(builder=dtt.OdeBuilder, xp=torch):
@@ -202,9 +204,10 @@ def test_lockstep_reset_grad_bounded_memory():
     t_eval = [1.0, 3.0, 4.0]
     pb = torch.tensor(_member_params(problem.params, 3, spread=0.15))
     dense, bounded = _bounded_pair(problem, t_eval, 3)
-    np.testing.assert_allclose(bounded(pb).numpy(), dense(pb).numpy(), rtol=1e-10)
-    np.testing.assert_allclose(grad_of(bounded, pb, _sum_sq), grad_of(dense, pb, _sum_sq),
-                               rtol=2e-4, atol=1e-10)
+    (y_b, g_b), (y_d, g_d) = (value_and_grad_of(bounded, pb, _sum_sq),
+                              value_and_grad_of(dense, pb, _sum_sq))
+    np.testing.assert_allclose(y_b, y_d, rtol=1e-10)
+    np.testing.assert_allclose(g_b, g_d, rtol=2e-4, atol=1e-10)
 
 
 # ---------------------------------------------------------------------------

@@ -1634,3 +1634,54 @@ def test_kernel_examples_take_their_kernels_cuda():
     assert heat1d_band_ensemble.main(nbatch=256)["tier"] == "fused_band"
     out = pde_heat.main()
     assert out["band_lu_factor_launches"] > 0 and out["band_lu_solve_launches"] > 0
+
+
+# K1, K2 and K3/K4 sharded over a 2-rank gloo mesh on the one card: each
+# rank's block against the unsharded call (tests/torch_sharding_ranks.py)
+SHARD_CASES = {"robertson_fused": 64, "heat1d_fused": 16, "heat1d_lockstep": 16}
+
+
+@pytest.fixture(scope="module")
+def card_mesh2(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_sharding_ranks as ranks
+
+    return ranks.spawn(list(SHARD_CASES.items()), str(tmp_path_factory.mktemp("card_mesh2")),
+                       device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,kernel", [("robertson_fused", 0), ("heat1d_fused", 1),
+                                         ("heat1d_lockstep", 2)])
+def test_sharded_kernels_match_unsharded_cuda(card_mesh2, case, kernel):
+    """Each rank launches its kernel on its own block (K1 and K2 fused:
+    the block's tiles; K3/K4 in the joint lockstep solve) and gets the
+    whole result: fused blocks equal the unsharded fused call on the same
+    members (equal tile statuses and steps, ys within 1e-12 + 1e-9 |ref|),
+    lockstep equals the unsharded lockstep solve (equal Stats, ys within
+    1e-12 + 1e-9 |ref|)."""
+    import torch_sharding_ranks as ranks
+
+    B = 4 * SHARD_CASES[case]
+    if case.endswith("fused"):
+        blocks = [ranks.run_case(case, dev="cuda", scale=SHARD_CASES[case],
+                                 members=slice(lo, lo + B // 2)) for lo in (0, B // 2)]
+        ref = dict(ys=np.concatenate([b["ys"] for b in blocks], axis=1),
+                   tile_steps=np.concatenate([b["tile_steps"] for b in blocks]),
+                   stop=min(b["stop"] for b in blocks), tier=blocks[0]["tier"])
+    else:
+        ref = ranks.run_case(case, dev="cuda", scale=SHARD_CASES[case])
+    for res in card_mesh2:
+        got = res[case]
+        assert got["tier"] == ref["tier"] and got["stop"] == ref["stop"]
+        if "stats" in ref:
+            for k, v in ref["stats"].items():
+                assert np.array_equal(got["stats"][k], v), k
+        else:
+            np.testing.assert_array_equal(got["tile_steps"], ref["tile_steps"])
+        np.testing.assert_allclose(got["ys"], ref["ys"], rtol=YS_RTOL, atol=YS_ATOL)
+        launches = res[case + ":launches"]
+        assert launches[kernel] >= 1
+        if kernel == 2:
+            assert launches[3] >= 1  # K4 beside K3
