@@ -199,8 +199,7 @@ reach no Pallas kernel).
     spread +-10 %, numpy seed 0), t_eval 0.4 ... 4e6, loss sum ys^2: the
     forward alone (no_grad) and forward + backward; members 0, 4,999 and
     9,999 against 2 sum y.s from solve_dense_fwd_sens at rtol 1e-6 (5e-3
-    of the largest); one traced backward pass (of the outputs to t = 40):
-    launches a step and the busy share; (b) heat1d n=128 banded lockstep
+    of the largest); (b) heat1d n=128 banded lockstep
     B=1,024: K3/K4 counted around the forward pass (above 0) and around
     the dense-table backward pass (exactly 0), every member against 2 sum
     y.s from the sens=True lockstep rows (1e-4); (c) checkpoint_interval=32
@@ -250,9 +249,10 @@ reach no Pallas kernel).
     expm, with steps, Newton iterations, GMRES calls, restarts, Arnoldi
     iterations and host reads, the time (CUDA events: the counted first
     call, then the median of 3 calls for the dense LU and one call for
-    krylov(lu32)), one traced call's launches a step and busy share,
-    and which tier is
-    faster; use_coloring's route for the dense coupling; (b) the heat2d
+    krylov(lu32)), the dense LU's traced call's launches a step and busy
+    share (krylov(lu32)'s ~100k-launch trace, ~20 s of processing, went to
+    phase 30's sharded paths), and which tier is faster; use_coloring's
+    route for the dense coupling; (b) the heat2d
     DAE at mgrid 20 (n = 400) as a lockstep krylov ensemble of 1,024
     identical members (256, printed as a cut, where four times the B = 256
     call would pass 36 s), its matrix-free consistent ICs and joint GMRES,
@@ -265,8 +265,8 @@ reach no Pallas kernel).
 26. mode="independent" as one batched BDF loop, each member its own step
     control: (a) the Robertson cell's B = 10,000 members to t = 4e10
     (bench.py's gate, eight members against their single solves on the
-    card, its first call timed (LONG_REPS), rounds, host reads, launches a round and the busy share of one
-    profiled call, beside lockstep and the member loop); (b) heat1d n=128
+    card, its first call timed (LONG_REPS), rounds and host reads, beside
+    lockstep and the member loop); (b) heat1d n=128
     banded, B = 1,024 (K3/K4 counted, and held to their plain versions on
     the path's M - cJ); (c) 1,024 balls, stop at the root and bounce.
 27. mode="independent" batched for SDIRK and ERK, with sens=True and on the
@@ -275,9 +275,8 @@ reach no Pallas kernel).
     drawn with a seed against their single solves on the card: equal
     Stats, ys within 1e-12 + 1e-9 |ref|), timed (its first call, LONG_REPS)
     with rounds,
-    host reads and launches a round, one profiled call's busy share, the
-    members' steps, lockstep at B = 10,000 and the member loop's time a
-    member; (b) TSIT45 on phase 17's logistic rates, B = 10,000, every
+    host reads, the members' steps, lockstep at B = 10,000 and the member
+    loop's time a member; (b) TSIT45 on phase 17's logistic rates, B = 10,000, every
     member within 200 rtol of the exact solution, 8 members against their
     single solves; (c) ESDIRK34 on heat1d n=128 banded, B = 1,024
     diffusivities linspace(0.5, 2.0): the analytic series within 1e-4, 4
@@ -296,8 +295,7 @@ reach no Pallas kernel).
     single Krylov solves on the card (equal Stats, GMRES restarts and
     Arnoldi iterations, ys within 1e-12 + 1e-9 |ref|), one call timed after
     a B = 4 warm-up with rounds, host reads, the members' restarts and
-    Arnoldi iterations, launches a round and the busy share of one profiled
-    call to t = 0.001, and the single solve's time a member; (b) the heat2d
+    Arnoldi iterations, and the single solve's time a member; (b) the heat2d
     DAE (n = 400) on the Krylov tier, B = 16, with the batched matrix-free
     consistent ICs, every member against the banded independent solve
     (rtol 1e-3, atol 1e-6), member 0 against its single Krylov solve; (c)
@@ -310,8 +308,8 @@ reach no Pallas kernel).
     Stats and statuses, gradients within 1e-12 + 1e-9 |ref|, NaN where the
     single gradient is NaN), member 0 (the first whose backward solve succeeds) against 2
     sum y.s from solve_dense_fwd_sens, a member whose backward solve spent
-    the 50 Newton failures NaN alone, forward alone and forward + backward
-    timed, the members' steps and failures; (d) the same gradient on
+    the 50 Newton failures NaN alone, forward + backward timed, the
+    members' steps and failures; (d) the same gradient on
     heat1d n=128 banded, B = 1,024 diffusivities: K3/K4 counted in the
     forward pass (none in the backward) and held to their plain versions
     on the path's M - cJ, two members against their single gradients.
@@ -346,9 +344,22 @@ reach no Pallas kernel).
     (d) Robertson independent, B = 1,024 to 4e6: every member's Stats
     equal to the unsharded batch's; (e) the lockstep gradient of
     Robertson, B = 1,024 to 4e6: equal forward and backward Stats, the
-    gradient within 1e-10 of the unsharded one; (f) (c) again over a
-    1-rank NCCL mesh.  Each call's time and all-gathers are printed; two
-    ranks share one card, so nothing here measures scaling.
+    gradient within 1e-10 of the unsharded one; (g) phase 24's heat2d DAE
+    lockstep on the Krylov tier, B = 256 as 2 x 128, one GMRES over both
+    ranks' members (its dot products and norms summed over the mesh):
+    every rank's Stats and GMRES counts equal to phase 24's B = 256 call's
+    and ys within 1e-10 of its largest entry; (h) heat1d ERK with every
+    member's 2^20 states sharded over a (dp = 1, sp = 2) mesh of the same
+    two ranks, B = 2, five steps from init_state: each rank's block of y
+    and dy, the time, step and Stats equal bit for bit to the unsharded
+    five steps, with the all-gathers a step; (i) phase 28 d's independent
+    gradient of heat1d banded, B = 1,024 as 2 x 512, every member's ys,
+    gradient, forward and backward Stats and statuses equal bit for bit to
+    phase 28 d's, K3/K4 counted on each rank and held to their plain
+    versions on rank 0's block of the forward pass's last M - cJ; (f) (c)
+    again over a 1-rank NCCL mesh.  Each call's time and all-gathers are
+    printed; two ranks share one card, so nothing here measures
+    scaling.
 
 The line before the last is a JSON record of the kernels: the fused BDF
 kernel once for each variant, the band LU's two and the fused band kernel,
@@ -369,8 +380,9 @@ d) and the kernel examples of phase 29 (`fused_bdf:example_robertson`,
 `fused_band_bdf:example_heat1d`, `band_lu_factor:example_pde_heat`,
 `band_lu_solve:example_pde_heat`) and the sharded paths of phase 30
 (`fused_bdf:sharded`, `fused_band_bdf:sharded`,
-`band_lu_factor:sharded_heat2d`, `band_lu_solve:sharded_heat2d`; launches
-over both ranks)
+`band_lu_factor:sharded_heat2d`, `band_lu_solve:sharded_heat2d`,
+`band_lu_factor:sharded_independent_adjoint`,
+`band_lu_solve:sharded_independent_adjoint`; launches over both ranks)
 (launches on their path, error against the plain version, times, the
 card's least time for the same work); the last line is the JSON result
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -1321,9 +1333,10 @@ def mol2d_phases(dev, card_line, check_solves):
                     f"{float(((ys_k - ys_p).abs() / ys_p.abs()).max()):.3e}), not the "
                     f"1e-9 rule: its steps follow the last bit of the rhs")
         print(f"[13] {name}: fused band kernel vs plain, B={B_BAND_CHECK} "
-              f"tile={check.tile}: max abs diff {abs_c:.3e}, {gate}; steps per tile kernel "
-              f"{steps_k.tolist()} plain {steps_p.tolist()}; plain version {plain_ms:.0f} ms "
-              f"(one run, host clock, B={B_BAND_CHECK})", flush=True)
+              f"tile={check.tile}, to t = {check.cfg.t_eval[-1]:g}: max abs diff "
+              f"{abs_c:.3e}, {gate}; steps per tile kernel {steps_k.tolist()} plain "
+              f"{steps_p.tolist()}; plain version {plain_ms:.0f} ms (one run, host clock, "
+              f"B={B_BAND_CHECK})", flush=True)
 
         # ---- times and the least time for the accepted steps' work
         timed_b, timed = B_BAND, path
@@ -1737,10 +1750,9 @@ def rk_lockstep_phase(dev, card_line):
           f"card {card_line}", flush=True)
 
 
-def profile_line(tag, fn, card_line, steps_of=lambda sol: sol.state.stats.steps):
-    """One traced call of ``fn`` (a solve, whose steps ``steps_of`` reads
-    from its result): the kernel launches a step and the card's busy share
-    of the call."""
+def profile_line(tag, fn, card_line):
+    """One traced call of ``fn`` (a solve): the kernel launches a step and
+    the card's busy share of the call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1749,7 +1761,7 @@ def profile_line(tag, fn, card_line, steps_of=lambda sol: sol.state.stats.steps)
     t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        steps = steps_of(fn())
+        steps = fn().state.stats.steps
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [ev for ev in prof.key_averages()
@@ -2092,9 +2104,10 @@ def diffsl_phase(dev, card_line, models, check_solves):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         max_abs = check_variant(f"{name} B={check.cfg.nbatch}", got, ref)
-        print(f"[20] {name}: kernel vs plain, B={check.cfg.nbatch} tile={check.tile}: max abs "
-              f"{max_abs:.3e}, statuses {sorted(set(got['status'].tolist()))}, equal steps "
-              f"per tile; plain version {plain_ms:.1f} ms (one run, host clock)", flush=True)
+        print(f"[20] {name}: kernel vs plain, B={check.cfg.nbatch} tile={check.tile}, to t = "
+              f"{check.cfg.t_eval[-1]:g}: max abs {max_abs:.3e}, statuses "
+              f"{sorted(set(got['status'].tolist()))}, equal steps per tile; plain version "
+              f"{plain_ms:.1f} ms (one run, host clock)", flush=True)
 
         # ---- the hand-written twin on the same members
         if twin is not None:
@@ -2332,10 +2345,6 @@ def sens_phase(dev, card_line, heat_problem, soln):
               f"member 0 meets the CVODE table; members {list(members)} within {err:.2e} "
               f"of solve_dense_fwd_sens at rtol {float(oracle_problem.rtol):g} (< {tol:g} "
               f"of its largest){extra}; card {card_line}", flush=True)
-        if tag == "a":
-            # the card's busy share, over the first 77 steps (to t = 40)
-            profile_line("21a", lambda: dtt.solve_dense_ensemble(
-                sens_solver, problem, te[:4], params, mode="lockstep"), card_line)
 
     # ---- (c) heat1d banded lockstep: K3 on every factorization, K4 on the
     # main solves and every sensitivity solve (naug B rows a launch)
@@ -2590,14 +2599,6 @@ def adjoint_phase(dev, card_line, heat_problem, band_records):
           f"{members} within {[f'{e:.2e}' for e in errs.tolist()]} of 2 sum y.s from "
           f"solve_dense_fwd_sens at rtol {SENS_ORACLE_RTOL:g} (< {ADJ_ORACLE_TOL:g} of the "
           f"largest); card {card_line}", flush=True)
-    short = dtt.make_differentiable_solve_ensemble(problem, te6[:4], B_MAIN)
-    p_short = params.clone().requires_grad_(True)
-    out = short(p_short)
-    torch.cuda.synchronize()
-    print("[22a] the traced call below is the backward pass alone of the outputs to t = 40",
-          flush=True)
-    profile_line("22a", lambda: torch.autograd.grad(sum_sq(out), p_short), card_line,
-                 steps_of=lambda _: short.info["backward"].steps)
 
     # ---- (c) bounded memory, Robertson: the same ensemble, checkpoint_interval=32
     bounded = dtt.make_differentiable_solve_ensemble(problem, te6, B_MAIN,
@@ -3236,6 +3237,17 @@ KRYLOV_BAND_RTOL, KRYLOV_BAND_ATOL = 1e-3, 1e-6
 CAPI_TIMEOUT_S = 600
 
 
+def krylov_heat2d():
+    """The heat2d DAE (n = 400) on the matrix-free Krylov tier (phase 24 b,
+    phase 30 g)."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import heat2d
+
+    fns = heat2d.callables(KRYLOV_MGRID)
+    return (dtt.OdeBuilder().rhs(fns["rhs"]).init(fns["init"]).mass(fns["mass"]).p([1.0])
+            .rtol(1e-5).atol(1e-5).linear_solver("krylov").build())
+
+
 def krylov_phase(dev, card_line):
     """Phase 24: (a) rhs = -p y + C y at n = 962, C dense uniform(-0.01,
     0.01) from numpy seed 2, to t = 1 at rtol 1e-6, atol 1e-8, through
@@ -3303,8 +3315,10 @@ def krylov_phase(dev, card_line):
               f"t = 1 within {err:.3f} of the expm bound "
               f"(rtol {KRYLOV_EXPM_RTOL:g}, atol {KRYLOV_EXPM_ATOL:g}); card {card_line}",
               flush=True)
-        profile_line(f"24 a {route}",
-                     lambda: dtt.solve_dense(solver, KRYLOV_T_EVAL, max_steps=2000), card_line)
+        if route == "dense":
+            profile_line(f"24 a {route}",
+                         lambda: dtt.solve_dense(solver, KRYLOV_T_EVAL, max_steps=2000),
+                         card_line)
         results[route] = ms
     faster = min(results, key=results.get)
     slower = max(results, key=results.get)
@@ -3313,9 +3327,7 @@ def krylov_phase(dev, card_line):
           flush=True)
 
     # ---- (b) heat2d DAE, lockstep krylov against the banded lockstep
-    fns = heat2d.callables(KRYLOV_MGRID)
-    kry = (dtt.OdeBuilder().rhs(fns["rhs"]).init(fns["init"]).mass(fns["mass"]).p([1.0])
-           .rtol(1e-5).atol(1e-5).linear_solver("krylov").build())
+    kry = krylov_heat2d()
     band = heat2d.make(KRYLOV_MGRID)
     print(f"[24] (b) heat2d n = {KRYLOV_MGRID ** 2}: {kry.linear_solver.name}, its "
           f"preconditioner's Jacobian from "
@@ -3339,6 +3351,8 @@ def krylov_phase(dev, card_line):
     krylov.reset_gmres_counts()
     sol, ms_k = run(kry, B_KRYLOV_CUT)
     counts = krylov.gmres_counts()
+    # phase 30 (g)'s reference: the same problem and members, sharded there
+    PHASE_REFS["24b"] = _host(dict(sol=sol, gmres=counts))
     ms256, nb = ms_k, B_KRYLOV_CUT
     if ms256 * 4 / 1e3 <= KRYLOV_B_BUDGET_S:
         nb = B_KRYLOV
@@ -3436,8 +3450,6 @@ IND_CONS, IND_SOLN_REL = 1e-3, 2e-2
 B_BALLS = 1024
 BALL_ROOT_TOL = 2e-4
 BALL_T_EVAL_26 = [0.5, 1.0, 1.5, 2.0, 2.5]
-# the profiled independent call runs to t_eval[IND_PROFILE_EVAL - 1] = 40
-IND_PROFILE_EVAL = 3
 
 
 def ball_problem(reset):
@@ -3481,23 +3493,6 @@ def member_vs_single(name, sol, problem, te, params, members, max_steps=100_000)
     return worst, secs
 
 
-def traced_rounds(fn):
-    """One profiled call: (wall ms, device busy ms, kernel launches,
-    rounds)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sol = fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [ev for ev in prof.key_averages()
-               if getattr(ev, "device_type", None) == DeviceType.CUDA]
-    busy_ms = sum(getattr(ev, "self_device_time_total", 0.0) for ev in kernels) / 1e3
-    return wall_ms, busy_ms, sum(ev.count for ev in kernels), sol.state.rounds
-
-
 def independent_phase(dev, card_line, heat_problem, soln):
     """Phase 26; returns the K3/K4 records of the banded independent path."""
     from diffsol_tpu_torch import BdfSolver, errors, solve_dense_ensemble
@@ -3539,13 +3534,6 @@ def independent_phase(dev, card_line, heat_problem, soln):
           f"{max(rel):.2e} (bench.py's gate {IND_CONS:g}, {IND_SOLN_REL:g}); members "
           f"{members} against their single solves on the card: equal accepted steps, max "
           f"abs {worst:.3e} (bound {IND_ATOL:g} + {IND_RTOL:g}|ref|)", flush=True)
-    # the trace of a whole call (~420,000 launches) takes the profiler
-    # minutes to gather: the profiled call runs the same members to t = 40
-    t_prof = time.perf_counter()
-    wall_ms, busy_ms, launches, rounds = traced_rounds(
-        lambda: solve_dense_ensemble(BdfSolver, problem, te[:IND_PROFILE_EVAL], params,
-                                     mode="independent"))
-    t_prof = time.perf_counter() - t_prof
     lock_ms = timed_solve(lambda: solve_dense_ensemble(BdfSolver, problem, te, params,
                                                        mode="lockstep"))[1]
     loop_ms = float(np.mean(secs)) * 1e3
@@ -3553,11 +3541,8 @@ def independent_phase(dev, card_line, heat_problem, soln):
           f"{st.rounds} "
           f"rounds, {st.host_reads} host reads ({st.host_reads / st.rounds:.2f} a round), "
           f"{st.newton_sweeps} Newton sweeps; members' accepted steps min "
-          f"{int(steps.min())} max {int(steps.max())} median {int(steps.median())}; one "
-          f"profiled call to t={te[IND_PROFILE_EVAL - 1]:g} ({rounds} rounds) {wall_ms:.1f} "
-          f"ms, {launches} kernel launches = {launches / rounds:.1f} a round, device busy "
-          f"{busy_ms:.2f} ms = {busy_ms / wall_ms:.1%} (the trace took {t_prof:.1f} s in "
-          f"all); lockstep on the same problem {lock_ms:.1f} ms (median "
+          f"{int(steps.min())} max {int(steps.max())} median {int(steps.median())}; "
+          f"lockstep on the same problem {lock_ms:.1f} ms (median "
           f"of 3); the member loop {loop_ms:.1f} ms a member (mean of the {len(secs)} "
           f"single solves), {loop_ms * B_MAIN / 1e3:.0f} s for B={B_MAIN} extrapolated; "
           f"card {card_line}", flush=True)
@@ -3806,9 +3791,6 @@ def independent_rk_phase(dev, card_line, heat_problem, soln):
     members = [0, B_MAIN - 1] + drawn
     worst, secs = member_stats_match("(a)", sol, trbdf2, problem, te, params, members,
                                      max_steps=20_000)
-    wall_ms, busy_ms, launches, rounds = traced_rounds(
-        lambda: dtt.solve_dense_ensemble(trbdf2, problem, te[:IND_PROFILE_EVAL], params,
-                                         mode="independent", max_steps=20_000))
     lock_ms = timed_solve(lambda: dtt.solve_dense_ensemble(
         trbdf2, problem, te, params, mode="lockstep", max_steps=20_000))[1]
     loop_ms = float(np.mean(secs)) * 1e3
@@ -3819,10 +3801,8 @@ def independent_rk_phase(dev, card_line, heat_problem, soln):
           f"(bound {IND_ATOL:g} + {IND_RTOL:g}|ref|); call {ms:.1f} ms ({LONG_WHEN}, "
           f"CUDA events); {st.rounds} rounds, {st.host_reads} host reads "
           f"({st.host_reads / st.rounds:.2f} a round), {st.newton_sweeps} Newton sweeps; "
-          f"members' accepted steps min {int(steps.min())} max {int(steps.max())}; one "
-          f"profiled call to t={te[IND_PROFILE_EVAL - 1]:g} ({rounds} rounds) {wall_ms:.1f} "
-          f"ms, {launches} kernel launches = {launches / rounds:.1f} a round, device busy "
-          f"{busy_ms:.2f} ms = {busy_ms / wall_ms:.1%}; lockstep on the same problem "
+          f"members' accepted steps min {int(steps.min())} max {int(steps.max())}; "
+          f"lockstep on the same problem "
           f"{lock_ms:.1f} ms (median of 3); the member loop {loop_ms:.1f} ms a member (mean "
           f"of {len(secs)} single solves), {loop_ms * B_MAIN / 1e3:.0f} s for B={B_MAIN} "
           f"extrapolated; card {card_line}", flush=True)
@@ -3950,9 +3930,6 @@ def independent_rk_phase(dev, card_line, heat_problem, soln):
 # banded, its forward pass through K3/K4.
 
 B_KRY_IND, B_KRY_IND_WARM = 64, 4
-# the profiled (a) call runs to this time: its trace holds ~8,000 launches
-# a round, which the profiler takes seconds a 10,000 to gather
-KRY_PROFILE_T = 0.001
 B_KRY_DAE = 16
 B_ADJ_IND, B_ADJ_IND_CUT, B_ADJ_IND_WARM = B_MAIN, 1024, 64
 # (c) runs B = 1,024 where ten times a B = 1,024 call passes this
@@ -4037,12 +4014,23 @@ def gradient_members(name, fn, params, members, make_one):
     return worst, secs
 
 
-def ind_gradient(problem, te, B):
-    """The independent gradient of sum ys^2 over B members; ``fn.last``
-    keeps the last (ys, gradient)."""
+def ind_result(fn):
+    """The last call of an independent gradient ``fn`` (:func:`ind_gradient`)
+    on the host: ys, gradient, forward and backward Stats and statuses."""
+    info = fn.info
+    return _host(dict(ys=fn.last[0], grad=fn.last[1], forward=info["forward"],
+                      backward=info["backward"], status=info["status"],
+                      backward_status=info["backward_status"]))
+
+
+def ind_gradient(problem, te, B, mesh=None, device=None):
+    """The independent gradient of sum ys^2 over B members (sharded over
+    ``mesh``'s "dp" when given); ``fn.last`` keeps the last (ys,
+    gradient)."""
     import diffsol_tpu_torch as dtt
 
-    fn = dtt.make_differentiable_solve_ensemble(problem, te, B, mode="independent")
+    fn = dtt.make_differentiable_solve_ensemble(problem, te, B, mode="independent",
+                                                mesh=mesh, device=device)
 
     def sum_sq(ys):
         return (ys**2).sum()
@@ -4115,7 +4103,6 @@ def independent_krylov_adjoint_phase(dev, card_line, heat_problem):
         raise AssertionError(f"[28a] a member {err:.3g} bounds from e^(-p t) expm(C t) y0")
     members = drawn_members(B_KRY_IND, SEED + 28)
     worst, secs = krylov_members("[28a]", sol, problem, te, pk, members)
-    wall_ms, busy_ms, launches, rounds = traced_rounds(lambda: run_kry(pk, [KRY_PROFILE_T]))
     steps = st.stats.steps
     print(f"[28a] independent krylov(lu32), coupling n={n}, B={B_KRY_IND} (p linspace(0.5, 2)) "
           f"to t=1: every member within {err:.3f} of the e^(-p t) expm(C t) y0 bound (rtol "
@@ -4126,16 +4113,12 @@ def independent_krylov_adjoint_phase(dev, card_line, heat_problem):
           f"host reads ({counts['calls']} GMRES calls), restarts {int(st.gmres_restarts.sum())}"
           f" and Arnoldi iterations {int(st.gmres_arnoldi.sum())} over the members (gmres_counts "
           f"{counts['restarts']} / {counts['arnoldi']}); steps min {int(steps.min())} max "
-          f"{int(steps.max())}; one profiled call to t={KRY_PROFILE_T:g} ({rounds} rounds) {wall_ms:.1f} "
-          f"ms, {launches} launches = {launches / rounds:.1f} a round, device busy {busy_ms:.2f} "
-          f"ms = {busy_ms / wall_ms:.1%}; the member loop {np.mean(secs) * 1e3:.1f} ms a member "
+          f"{int(steps.max())}; the member loop {np.mean(secs) * 1e3:.1f} ms a member "
           f"(mean of {len(secs)} single solves), {np.mean(secs) * B_KRY_IND:.1f} s for "
           f"B={B_KRY_IND}; card {card_line}", flush=True)
 
     # ---- (b) heat2d DAE on the Krylov tier, the batched matrix-free ICs
-    fns = heat2d.callables(KRYLOV_MGRID)
-    kry = (dtt.OdeBuilder().rhs(fns["rhs"]).init(fns["init"]).mass(fns["mass"]).p([1.0])
-           .rtol(1e-5).atol(1e-5).linear_solver("krylov").build())
+    kry = krylov_heat2d()
     band = heat2d.make(KRYLOV_MGRID)
     ph = torch.linspace(0.5, 2.0, B_KRY_DAE, dtype=torch.float64, device=dev)[:, None]
     te2 = KRYLOV_HEAT2D_T_EVAL
@@ -4183,12 +4166,6 @@ def independent_krylov_adjoint_phase(dev, card_line, heat_problem):
         fn = ind_gradient(problem, te6, B)
         _, fb_ms = events_ms(lambda: fn.call(params))
     pc = params[:B]
-
-    def forward_only():
-        with torch.no_grad():
-            return fn(pc)
-
-    _, fwd_ms = events_ms(forward_only)
     ys, g = fn.last
     info = fn.info
     if tuple(g.shape) != (B, 3) or g.device.type != dev.type:
@@ -4219,8 +4196,8 @@ def independent_krylov_adjoint_phase(dev, card_line, heat_problem):
         raise AssertionError(f"[28c] member {m0} off its forward sensitivities by {err0:.3e}")
     fs, bk = info["forward"].steps.float(), info["backward"].steps.float()
     print(f"[28c] independent gradient, Robertson B={B} to t=4e6, loss sum ys^2: forward "
-          f"alone (no_grad) {fwd_ms:.1f} ms, forward + backward {fb_ms:.1f} ms (one call each "
-          f"after a B={B_ADJ_IND_WARM} warm-up, CUDA events); forward steps min/median/max "
+          f"+ backward {fb_ms:.1f} ms (one call after a B={B_ADJ_IND_WARM} warm-up, CUDA "
+          f"events); forward steps min/median/max "
           f"{int(fs.min())}/{int(fs.median())}/{int(fs.max())}, backward "
           f"{int(bk.min())}/{int(bk.median())}/{int(bk.max())}, backward Newton failures max "
           f"{int(info['backward'].newton_fails.max())} (the limit 50), failed members "
@@ -4253,6 +4230,8 @@ def independent_krylov_adjoint_phase(dev, card_line, heat_problem):
                              f"{k3b}/{k4b} (the dense-table backward launches none)")
     if not bool(torch.isfinite(hg).all()):
         raise AssertionError("[28d] a gradient is not finite")
+    # phase 30 (i)'s reference: the same members, sharded there
+    PHASE_REFS["28d"] = ind_result(heat)
     worst_d, secs_d = gradient_members(
         "[28d]", heat, hp, [0, B_BAND - 1],
         lambda: dtt.make_differentiable_solve(heat_problem, HEAT_T_EVAL))
@@ -4266,6 +4245,7 @@ def independent_krylov_adjoint_phase(dev, card_line, heat_problem):
           f"{np.mean(secs_d):.2f} s each; card {card_line}", flush=True)
     # the forward pass is this independent solve: its members' last M - c J
     band_h = heat_problem.linear_solver.assemble(None, hst.jac, hst.c_last.view(-1, 1, 1))
+    PHASE_REFS["28d_band"] = band_h
     f_rec, s_rec = path_lu_records(dev, card_line, "d", band_h, 1, phase=28)
     return [dict(f_rec, name="band_lu_factor:independent_adjoint", launches=k3),
             dict(s_rec, name="band_lu_solve:independent_adjoint", launches=k4)]
@@ -4473,6 +4453,16 @@ def fc_ball_height(t, g, e=0.8, h0=10.0):
 B_SHARD = 1024
 SHARD_TIMEOUT_S = 420
 SHARD_GRAD_RTOL = 1e-10
+# (g): the Krylov tier's sums over the mesh reorder the unsharded ones
+SHARD_KRYLOV_RTOL = 1e-10
+# (h): heat1d n = 2^20 states a member, sharded over "sp"
+ERK_SHARD_MGRID = 2**20 - 1
+ERK_SHARD_D = [[1.0], [0.5]]
+ERK_SHARD_STEPS = 5
+# results of earlier phases that phase 30 shards (phase 24 b's B = 256
+# Krylov solve, phase 28 d's gradient and its last M - cJ); a phase run
+# alone computes its own
+PHASE_REFS = {}
 
 
 def shard_cells(dev):
@@ -4488,7 +4478,10 @@ def shard_cells(dev):
     inputs = dict(
         rob=robertson_params(B_MAIN, np.random.default_rng(SEED + 30), dev),
         heat=torch.linspace(0.5, 2.0, B_BAND, dtype=torch.float64, device=dev)[:, None],
-        ind=robertson_params(B_SHARD, np.random.default_rng(SEED + 31), dev))
+        ind=robertson_params(B_SHARD, np.random.default_rng(SEED + 31), dev),
+        # phase 24 b's members and phase 28 d's
+        kry=torch.ones((B_KRYLOV_CUT, 1), dtype=torch.float64, device=dev),
+        heat_grad=torch.tensor(np.linspace(0.5, 2.0, B_BAND)[:, None], device=dev))
 
     def ens(problem, te, key, mode, **kw):
         def run(mesh):
@@ -4505,6 +4498,22 @@ def shard_cells(dev):
         return dict(ys=ys.detach(), grad=pb.grad, forward=fn.info["forward"],
                     backward=fn.info["backward"], backward_status=fn.info["backward_status"])
 
+    kry = krylov_heat2d()
+
+    def krylov_lockstep(mesh):
+        # phase 24 b's call: make_lockstep_problem + solve_dense, max_steps 5000
+        from diffsol_tpu_torch.ops import krylov
+
+        krylov.reset_gmres_counts()
+        sol = ens(kry, KRYLOV_HEAT2D_T_EVAL, "kry", "lockstep", max_steps=5000)(mesh)
+        return dict(sol=sol, gmres=krylov.gmres_counts())
+
+    def ind_grad(mesh):
+        # phase 28 d's call
+        fn = ind_gradient(heat, HEAT_T_EVAL, B_BAND, mesh=mesh, device=None if mesh else dev)
+        fn.call(inputs["heat_grad"])
+        return ind_result(fn)
+
     return {
         "robertson_fused": ens(rob, robertson.T_EVAL_4E10, "rob", "fused"),
         "heat1d_fused": ens(heat, HEAT_T_EVAL, "heat", "fused"),
@@ -4512,6 +4521,8 @@ def shard_cells(dev):
                                "lockstep", max_steps=MOL2D["heat2d"][2]),
         "robertson_independent": ens(rob, te6, "ind", "independent"),
         "robertson_grad": grad,
+        "heat2d_krylov_lockstep": krylov_lockstep,
+        "heat1d_ind_grad": ind_grad,
     }, inputs
 
 
@@ -4533,6 +4544,73 @@ def _host(res):
     if dataclasses.is_dataclass(res) and not isinstance(res, type):
         return {f.name: _host(getattr(res, f.name)) for f in dataclasses.fields(res)}
     return res
+
+
+def erk_state_cell(mesh, dev):
+    """(h): heat1d lockstep ERK, n = 2^20 states a member, B = 2, with
+    every member's states sharded over ``mesh``'s "sp" and the members over
+    its "dp" (None: unsharded on ``dev``); ERK_SHARD_STEPS steps from
+    init_state.  The final state and the steps' ms from a barrier of all
+    ranks (CUDA events)."""
+    from diffsol_tpu_torch.drivers import init_state
+    from diffsol_tpu_torch.ensemble import make_lockstep_problem
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.sharding import MemberAxis, StateAxis
+    from diffsol_tpu_torch.solvers.erk import ErkSolver
+
+    problem = heat1d.make(ERK_SHARD_MGRID)[0].to(dev)  # the solver steps on dev
+    params = torch.tensor(ERK_SHARD_D, dtype=torch.float64, device=dev)
+    maxis = saxis = None
+    if mesh is not None:
+        maxis = MemberAxis.of(mesh, "dp", len(ERK_SHARD_D))
+        saxis = StateAxis.of(mesh, "sp", problem.eqn.nstates)
+        params = maxis.split(params)
+    solver = ErkSolver(make_lockstep_problem(problem, params.shape[0], axis=maxis,
+                                             state_axis=saxis))
+    state = init_state(solver, params, device=dev)
+    if mesh is not None:
+        barrier()
+
+    def steps():
+        st = state
+        for _ in range(ERK_SHARD_STEPS):
+            st = solver.step(st, params)
+        return st
+
+    with counted_all_gathers() as calls:
+        state, ms = events_ms(steps)
+    return dict(state=state, ms=ms, offset=0 if saxis is None else saxis.offset,
+                all_gathers=calls[0])
+
+
+def erk_state_rank(device_type, world, dev):
+    """(h) in one rank: the cell over a (dp = 1, sp = ``world``) mesh of the
+    ranks, its final state's block and numbers on the host."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh_sp = init_device_mesh(device_type, (1, world), mesh_dim_names=("dp", "sp"))
+    cell = erk_state_cell(mesh_sp, dev)
+    st = cell["state"]
+    return dict(y=st.y.cpu(), dy=st.dy.cpu(), t=st.t, h=st.h, stats=_host(st.stats),
+                ms=cell["ms"], offset=cell["offset"], all_gathers=cell["all_gathers"])
+
+
+def check_erk_state(label, ranks, ref_st):
+    """Every rank's block of y and dy, its t, h and Stats equal bit for bit
+    to the unsharded state ``ref_st``'s."""
+    y_ref, dy_ref = ref_st.y.cpu(), ref_st.dy.cpu()
+    for r, got in enumerate(ranks):
+        lo, k = got["offset"], got["y"].shape[-1]
+        if not (torch.equal(got["y"], y_ref[:, lo:lo + k])
+                and torch.equal(got["dy"], dy_ref[:, lo:lo + k])):
+            raise AssertionError(f"{label} rank {r}: its block of y or dy differs from the "
+                                 f"unsharded steps")
+        if (got["t"], got["h"]) != (ref_st.t, ref_st.h):
+            raise AssertionError(f"{label} rank {r}: t, h {got['t']}, {got['h']} against "
+                                 f"{ref_st.t}, {ref_st.h}")
+        same_stats(f"{label} rank {r}", got["stats"], _host(ref_st.stats))
+    if ref_st.stats.steps != ERK_SHARD_STEPS or not bool(torch.isfinite(y_ref).all()):
+        raise AssertionError(f"{label}: {ref_st.stats.steps} steps, or non-finite y")
 
 
 def kernel_wrappers():
@@ -4694,8 +4772,10 @@ def shard_rank(rank, world, device_type):
         torch.cuda.set_device(0)
         out["gloo_cuda"] = gloo_cuda_check(rank, world)
     mesh = init_device_mesh(device_type, (world,), mesh_dim_names=("dp",))
-    out.update(run_shard_cells(mesh, torch.device(device_type, 0)
-                               if device_type == "cuda" else torch.device("cpu")))
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    out.update(run_shard_cells(mesh, dev))
+    # (h) on a (dp = 1, sp = world) mesh of the same ranks
+    out["erk_state"] = erk_state_rank(device_type, world, dev)
     return out
 
 
@@ -4752,6 +4832,8 @@ def sharding_phase(dev, card_line, soln):
     names = list(cells)
     for name in names:
         a, b = ranks[0][name]["result"], ranks[1][name]["result"]
+        if "sol" in a:
+            a, b = a["sol"], b["sol"]
         ya, yb = a.get("ys"), b.get("ys")
         if not torch.equal(ya.nan_to_num(7.0), yb.nan_to_num(7.0)):
             raise AssertionError(f"[30] {name}: the two ranks hold different results")
@@ -4922,6 +5004,92 @@ def sharding_phase(dev, card_line, soln):
           f"step; sharded {ranks[0]['robertson_grad']['ms']:.1f} ms, unsharded "
           f"{ref_ms['robertson_grad']:.1f} ms (one call each, CUDA events); card "
           f"{card_line}", flush=True)
+
+    # ---- (g) heat2d DAE lockstep on the Krylov tier, B = 256: one GMRES over both ranks
+    ref_g = PHASE_REFS.get("24b")
+    if ref_g is None:  # phase 30 run alone
+        ref_g = _host(cells["heat2d_krylov_lockstep"](None))
+    ref_sol = ref_g["sol"]
+    scale = float(ref_sol["ys"].abs().max())
+    for r, res in enumerate(ranks):
+        got = res["heat2d_krylov_lockstep"]["result"]
+        same_stats(f"[30g] rank {r}", got["sol"]["stats"], ref_sol["stats"])
+        if got["gmres"] != ref_g["gmres"]:
+            raise AssertionError(f"[30g] rank {r}: GMRES counts {got['gmres']}, phase 24's "
+                                 f"{ref_g['gmres']}")
+        if got["sol"]["stop"] != ref_sol["stop"] or ref_sol["stop"] < 0:
+            raise AssertionError(f"[30g] stop {got['sol']['stop']} against {ref_sol['stop']}")
+        rel_g = float((got["sol"]["ys"] - ref_sol["ys"]).abs().max()) / scale
+        if not rel_g <= SHARD_KRYLOV_RTOL:
+            raise AssertionError(f"[30g] rank {r}: ys {rel_g:.3e} of the largest from "
+                                 f"phase 24's")
+    st, gm = ref_sol["stats"], ref_g["gmres"]
+    gathers = ranks[0]["heat2d_krylov_lockstep"]["all_gathers"]
+    print(f"[30g] heat2d DAE lockstep on the Krylov tier, n={KRYLOV_MGRID ** 2}, "
+          f"B={B_KRYLOV_CUT} as 2 x {B_KRYLOV_CUT // 2}, one GMRES over both ranks' members: "
+          f"every rank's Stats ({st['steps']} steps, {st['newton_iterations']} Newton "
+          f"iterations) and GMRES counts ({gm['calls']} calls, {gm['restarts']} restarts, "
+          f"{gm['arnoldi']} Arnoldi iterations) equal to phase 24's B = {B_KRYLOV_CUT} call's, "
+          f"ys within {rel_g:.2e} of its largest entry (bound {SHARD_KRYLOV_RTOL:g}); "
+          f"{gathers} all-gathers a rank = {gathers / max(gm['arnoldi'], 1):.2f} an Arnoldi "
+          f"iteration; sharded {ranks[0]['heat2d_krylov_lockstep']['ms']:.1f} ms (CUDA "
+          f"events, one call); the preconditioner is torch.linalg's float32 LU, no kernel of "
+          f"the port's; card {card_line}", flush=True)
+
+    # ---- (h) heat1d ERK, 2^20 states a member sharded over "sp", B = 2
+    ref_h = erk_state_cell(None, dev)
+    ref_st = ref_h["state"]
+    check_erk_state("[30h]", [res["erk_state"] for res in ranks], ref_st)
+    eh = ranks[0]["erk_state"]
+    nh2 = ERK_SHARD_MGRID + 1
+    print(f"[30h] heat1d ERK (TSIT45), n={nh2} states a member sharded over a (dp = 1, "
+          f"sp = 2) mesh as 2 x {nh2 // 2}, B={len(ERK_SHARD_D)}, {ERK_SHARD_STEPS} steps: "
+          f"every rank's block of y and dy, t, h and Stats equal bit for bit to the "
+          f"unsharded steps ({ref_st.stats.error_test_failures} error-test failures, t = "
+          f"{ref_st.t:.6e}); {eh['all_gathers']} all-gathers a rank = "
+          f"{eh['all_gathers'] / ERK_SHARD_STEPS:.1f} a step (the rhs's state at every "
+          f"stage, the norms' terms); sharded {eh['ms']:.1f} / {ranks[1]['erk_state']['ms']:.1f} "
+          f"ms on ranks 0 / 1, unsharded {ref_h['ms']:.1f} ms (CUDA events from a barrier, "
+          f"the first call); no kernel of the port's; card {card_line}", flush=True)
+
+    # ---- (i) heat1d banded independent gradient, B = 1,024 as 2 x 512
+    ref_i = PHASE_REFS.get("28d")
+    if ref_i is None:  # phase 30 run alone
+        ref_i = _host(cells["heat1d_ind_grad"](None))
+    for r, res in enumerate(ranks):
+        got = res["heat1d_ind_grad"]["result"]
+        for key in ("ys", "grad", "status", "backward_status"):
+            if not torch.equal(got[key], ref_i[key]):
+                raise AssertionError(f"[30i] rank {r}: {key} differs from phase 28 d's")
+        same_stats(f"[30i] rank {r} forward", got["forward"], ref_i["forward"])
+        same_stats(f"[30i] rank {r} backward", got["backward"], ref_i["backward"])
+    if not bool(torch.isfinite(ref_i["grad"]).all()):
+        raise AssertionError("[30i] a gradient of phase 28 d is not finite")
+    li = [res["heat1d_ind_grad"]["launches"] for res in ranks]
+    need_launches("[30i] K3 and K4", [x[2] for x in li] + [x[3] for x in li])
+    gathers = ranks[0]["heat1d_ind_grad"]["all_gathers"]
+    print(f"[30i] independent gradient, heat1d banded n={HEAT_MGRID + 1}, B={B_BAND} as 2 x "
+          f"{B_BAND // 2}: every member's ys, gradient, forward and backward Stats and "
+          f"statuses equal bit for bit to phase 28 d's; K3 {li[0][2]} / K4 {li[0][3]} launches "
+          f"on rank 0, {li[1][2]} / {li[1][3]} on rank 1 (forward; none in the backward); "
+          f"{gathers} all-gathers a rank (the results', none in the passes); sharded "
+          f"{ranks[0]['heat1d_ind_grad']['ms']:.1f} / {ranks[1]['heat1d_ind_grad']['ms']:.1f} "
+          f"ms on ranks 0 / 1 (CUDA events from a barrier, forward and backward); card "
+          f"{card_line}", flush=True)
+    band_i = PHASE_REFS.get("28d_band")
+    if band_i is None:  # phase 30 run alone: the forward pass's last M - cJ
+        import diffsol_tpu_torch as dtt
+
+        heat, _ = heat1d.make(HEAT_MGRID, rtol=1e-6, atol=1e-8, banded=True)
+        hst = dtt.solve_dense_ensemble(dtt.BdfSolver, heat, HEAT_T_EVAL, inputs["heat_grad"],
+                                       mode="independent", device=dev).state
+        band_i = heat.linear_solver.assemble(None, hst.jac, hst.c_last.view(-1, 1, 1))
+    f_rec, s_rec = path_lu_records(dev, card_line, "i", band_i[: B_BAND // 2].contiguous(), 1,
+                                   phase=30)
+    records += [dict(f_rec, name="band_lu_factor:sharded_independent_adjoint",
+                     launches=li[0][2] + li[1][2]),
+                dict(s_rec, name="band_lu_solve:sharded_independent_adjoint",
+                     launches=li[0][3] + li[1][3])]
 
     # ---- (f) a 1-rank NCCL mesh: heat2d lockstep with its collectives on the card
     dist.init_process_group("nccl", init_method="file://" + os.path.join(out_dir, "nccl"),

@@ -200,25 +200,33 @@ def make_differentiable_solve_ensemble(
     ``make_differentiable_solve``: the card unless the caller asks for the
     CPU; ``params_b`` (B, nparams) must lie there.
 
-    ``mesh`` and ``axis`` shard the lockstep gradient's members over a
+    ``mesh`` and ``axis`` shard the gradient's members over a
     ``DeviceMesh`` dimension, as :func:`~.ensemble.solve_dense_ensemble`'s
     do: every rank calls ``ys_of`` with the global params and gets the
-    global ys, and ``.backward()`` gives it the global gradient.  The
-    forward and the backward adjoint solve are each one joint lockstep
-    solve over the whole axis.  ``mode="independent"`` under a mesh raises
-    ``NotImplementedError`` (ROADMAP 20d).
+    global ys, and ``.backward()`` gives it the global gradient.  In
+    lockstep the forward and the backward adjoint solve are each one joint
+    lockstep solve over the whole axis; ``mode="independent"`` runs both
+    batched passes on the rank's block with no collective and gathers ys,
+    the gradient and ``info``'s per-member entries (a BdfSolver only).
     """
     who = "make_differentiable_solve_ensemble"
-    if mesh is not None and mode != "lockstep":
+    bdf_only = (solver_cls or BdfSolver) is BdfSolver and (
+        bwd_solver_cls or solver_cls or BdfSolver) is BdfSolver
+    if mesh is not None and not (mode == "lockstep" or (mode == "independent" and bdf_only)):
         raise NotImplementedError(
-            f"{who}: mode={mode!r} over a mesh is not ported (ROADMAP 20d); "
-            "mode='lockstep' is")
-    if mode == "independent" and (solver_cls or BdfSolver) is BdfSolver and (
-            bwd_solver_cls or solver_cls or BdfSolver) is BdfSolver:
+            f"{who}: mode={mode!r} with solver_cls={solver_cls!r} over a mesh is not "
+            "ported; mode='lockstep', and mode='independent' with BdfSolver, are")
+    if mode == "independent" and bdf_only:
         from .adjoint_independent import make_independent
 
+        maxis = None
+        if mesh is not None:
+            from .sharding import MemberAxis, mesh_device
+
+            device = mesh_device(mesh, device)
+            maxis = MemberAxis.of(mesh, axis, nbatch)
         return make_independent(problem, t_eval, nbatch, max_steps, bwd_max_steps,
-                                resolve_device(device, who), who)
+                                resolve_device(device, who), who, maxis)
     if mode == "independent":
         # another solver class: its single-instance function once a member
         dev = resolve_device(device, who)

@@ -342,30 +342,47 @@ def backward_independent(base, t_eval, ct_ys, params_b, tab: Knots, live, max_st
 
 
 def make_independent(problem, t_eval, nbatch: int, max_steps: int, bwd_max_steps, dev,
-                     who: str):
+                     who: str, maxis=None):
     """``ys_of(params_b) -> (neval, B, n)`` of ``mode="independent"``: one
     ``torch.autograd.Function`` over the batched passes; ``ys_of.info``
     holds the last call's per-member forward and backward ``Stats`` ((B,)
     counters), ``status`` and ``backward_status`` ((B,) tensors; a member
     with a fatal forward status takes no backward solve: zero backward
-    counters, status 0) and the table's bytes."""
+    counters, status 0) and the table's bytes.
+
+    ``maxis`` (a mesh's :class:`~.sharding.MemberAxis`) runs both passes on
+    the rank's block of the global batch; the members are independent, so
+    neither pass makes a collective.  ``ys``, the gradient and ``info``'s
+    per-member entries are gathered whole on every rank (the table's bytes
+    and the backward's rounds and host reads stay the rank's)."""
     from .adjoint import _differentiable
+    from .ensemble import _gather_state
 
     base = problem.to(dev)
     te = [float(t) for t in t_eval]
     bwd_steps = bwd_max_steps or max_steps
 
+    def whole(x, dim=0):
+        return x if maxis is None else _gather_state(maxis, x, dim)
+
     def forward(params_b, info):
+        if maxis is not None:
+            params_b = maxis.split(params_b)
         ys, status, stats, tab = forward_independent(base, te, params_b, max_steps,
                                                      MAX_EVENTS)
-        info["forward"] = stats
-        info["status"] = status
+        info["forward"] = whole(stats)
+        info["status"] = whole(status)
         info["table_bytes"] = tab.nbytes()
-        return ys, (params_b, tab, status)
+        return whole(ys, 1), (params_b, tab, status)
 
     def backward(saved, ct, info):
         params_b, tab, status = saved
-        return backward_independent(base, te, ct, params_b, tab, status >= 0, bwd_steps,
+        if maxis is not None:
+            ct = maxis.split(ct, 1)
+        grad = backward_independent(base, te, ct, params_b, tab, status >= 0, bwd_steps,
                                     info)
+        info["backward"] = whole(info["backward"])
+        info["backward_status"] = whole(info["backward_status"])
+        return whole(grad)
 
     return _differentiable(forward, backward, dev, who, nbatch=nbatch)

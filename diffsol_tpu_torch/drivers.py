@@ -201,7 +201,11 @@ def solve_dense(solver, t_eval, params=None, state=None,
 
     ``device`` is where the solve runs: None means ``"cuda"``, and raises
     without a card; pass ``device="cpu"`` for the CPU.  A solver whose
-    problem lies elsewhere is copied with its problem moved there.
+    problem lies elsewhere is copied with its problem moved there.  A
+    problem whose states are sharded over a mesh axis (its ``state_axis``,
+    :func:`~diffsol_tpu_torch.ensemble.make_lockstep_problem`) returns
+    ``ys`` with every member's whole states, gathered on every rank, and
+    its ``state`` as the rank's block.
     """
     solver, params, state = _prepare(solver, params, state, device, "solve_dense")
     p = solver.problem
@@ -256,6 +260,8 @@ def solve_dense(solver, t_eval, params=None, state=None,
         k += 1
     if not done:
         stop = errors.MAX_STEPS_REACHED
+    if p.state_axis is not None:
+        ys = p.state_axis.gather(ys)
     return Solution(
         ts=t_eval.to(ys.device), ys=ys, stop_reason=int(stop),
         n_points=neval, state=state, gs=gs, root_t=root_t, root_idx=root_idx,
@@ -267,8 +273,8 @@ def solve(solver, final_time, params=None, state=None, max_steps: int = 10_000,
           device=None) -> Solution:
     """Adaptive solve to ``final_time``, recording every internal step.
     ``ts`` and ``ys`` have ``max_steps + 2`` rows (``ts`` NaN past the
-    end); the first ``n_points`` are valid.  ``device`` as in
-    :func:`solve_dense`."""
+    end); the first ``n_points`` are valid.  ``device`` and a sharded
+    state as in :func:`solve_dense`."""
     solver, params, state = _prepare(solver, params, state, device, "solve")
     p = solver.problem
     integrate_out = p.integrate_out
@@ -320,6 +326,8 @@ def solve(solver, final_time, params=None, state=None, max_steps: int = 10_000,
         nsteps += 1
     if not done:
         stop = errors.MAX_STEPS_REACHED
+    if p.state_axis is not None:
+        ys = p.state_axis.gather(ys)
     return Solution(
         ts=ts, ys=ys, stop_reason=int(stop), n_points=k, state=state, gs=gs,
         root_t=root_t, root_idx=root_idx, sens=ss,

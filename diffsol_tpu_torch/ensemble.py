@@ -55,7 +55,7 @@ F64 = torch.float64
 
 
 def make_lockstep_problem(problem: OdeProblem, nbatch: int,
-                          member_t: bool = False, axis=None) -> OdeProblem:
+                          member_t: bool = False, axis=None, state_axis=None) -> OdeProblem:
     """Lift a problem to member-major (B, n) lockstep form: ``params``
     gains a leading (nbatch,) axis and the callables act on all members at
     once.  With ``member_t`` the callables take a (B,) time, each member at
@@ -76,15 +76,33 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
     ``axis`` (a :class:`~.sharding.MemberAxis`) makes it one rank's block of
     a lockstep ensemble sharded over a mesh: ``nbatch`` is the block's size,
     and every reduction over members in the solve runs over the whole mesh
-    axis, so that all ranks take the unsharded solve's step sequence."""
+    axis, so that all ranks take the unsharded solve's step sequence (on the
+    Krylov tier one GMRES over all members, its sums over the axis).
+
+    ``state_axis`` (a :class:`~.sharding.StateAxis` of the problem's n
+    states) shards every member's states too, as the JAX package's
+    ``P("sp", ...)`` on a large method-of-lines problem: the state, ``atol``
+    and the callables' results are the rank's block of columns; the rhs
+    gathers each member's whole state over the axis (one all-gather a
+    call), runs the user's rhs unchanged and keeps its block; the error
+    norms gather their terms (:mod:`.norms`).  An explicit solve
+    (``ErkSolver``) then takes the unsharded solve's steps bit for bit.  A
+    problem with a mass, roots, an ``out`` or a quadrature, an implicit
+    solver and ``sens=True`` raise ``NotImplementedError`` (ROADMAP 20e)."""
     eqn = problem.eqn
     vmap = torch.func.vmap
     spec = problem.linear_solver
     krylov = spec.name.startswith("krylov")
-    if krylov and axis is not None:
-        raise NotImplementedError(
-            "the matrix-free Krylov tier's lockstep GMRES over a mesh (its dot "
-            "products and norms as all-reduced sums) is not ported: ROADMAP 20b")
+    if state_axis is not None:
+        from .sharding import not_on_sharded_state
+
+        for what, there in (("a member-time lift (mode='independent')", member_t),
+                            ("a mass matrix", eqn.mass is not None),
+                            ("roots", eqn.root is not None),
+                            ("an out() function", eqn.out is not None),
+                            ("a quadrature (integrate_out)", problem.integrate_out)):
+            if there:
+                raise not_on_sharded_state(f"a problem with {what}")
     td = 0 if member_t else None
     if krylov and member_t:
         from .ops.krylov import MemberPoint
@@ -113,11 +131,26 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
     def over_members(f):
         return None if f is None else vmap(f, in_dims=(td, 0, 0))
 
+    rhs_b = over_members(eqn.rhs)
+    init_b = vmap(eqn.init, in_dims=(None, 0))
+    if state_axis is not None:
+        # the user's callables see every member's whole state; the rank
+        # keeps its block of their results
+        rhs_all, init_all = rhs_b, init_b
+
+        def rhs_b(t, Y, Pb):
+            return state_axis.split(rhs_all(t, state_axis.gather(Y), Pb))
+
+        def init_b(t, Pb):
+            return state_axis.split(init_all(t, Pb))
+
+        b_jac = None  # no Newton matrix: an explicit solve only
+
     new_eqn = OdeEquations(
-        rhs=over_members(eqn.rhs),
+        rhs=rhs_b,
         # an init that ignores p comes back from vmap as a stride-0
         # expansion; the state must own its memory (jvp seeds it)
-        init=lambda t, pb: vmap(eqn.init, in_dims=(None, 0))(t, pb).contiguous(),
+        init=lambda t, pb: init_b(t, pb).contiguous(),
         mass=b_mass,
         mass_diag_fn=b_mass_diag,
         # (B, nroots), (B, nout), (B, n): every member must agree on a
@@ -153,16 +186,19 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
         spec = make_krylov_solver_lockstep(
             new_eqn.rhs, nbatch, gmres_tol=gmres_tol, restart=restart,
             maxiter=maxiter, precond="none" if precond == "none" else "lu32",
-            member_jac_fn=member_jac_fn)
+            member_jac_fn=member_jac_fn, axis=axis)
     elif spec.name.startswith("blockdiag"):
         # the (B, K, nb, nb) Jacobian stack factors as one (B K, nb, nb) LU
         from .ops.blockdiag import make_blockdiag_solver_lockstep
 
         nb, K, perm = spec.meta[:3]
         spec = make_blockdiag_solver_lockstep(perm, nb, K, nbatch)
+    atol = problem.atol
+    if state_axis is not None and atol.numel() == eqn.nstates:
+        atol = state_axis.split(atol.reshape(-1)).clone()
     return dataclasses.replace(
         problem, eqn=new_eqn, params=params_b, lockstep_nbatch=nbatch,
-        linear_solver=spec, member_axis=axis,
+        linear_solver=spec, member_axis=axis, state_axis=state_axis, atol=atol,
     )
 
 
@@ -422,12 +458,12 @@ def solve_dense_ensemble(
     collective in the solve; lockstep is ONE joint solve whose every
     reduction over members (error, Newton and order norms, the root scan,
     the initial step) runs over the whole axis, so every rank takes the
-    unsharded solve's steps and ``Stats``, and its ``state`` is the rank's
-    block's; independent gathers each member's result and its batched
-    state (the Newton matrices ``jac`` and ``factors`` stay with their
-    rank and come back None).  A B that the axis does not divide raises
-    ``ValueError``, as in JAX.  The Krylov tier's lockstep solve under a
-    mesh raises ``NotImplementedError`` (ROADMAP 20b).
+    unsharded solve's steps and ``Stats`` (on the Krylov tier one GMRES
+    over all members, whose sums reorder: ys agree to roundoff), and its
+    ``state`` is the rank's block's; independent gathers each member's
+    result and its batched state (the Newton matrices ``jac`` and
+    ``factors`` stay with their rank and come back None).  A B that the axis does not divide raises
+    ``ValueError``, as in JAX.
     """
     if precision not in ("df", "mixed", "fast"):
         raise ValueError(f"precision must be 'df', 'mixed' or 'fast': {precision!r}")

@@ -11,6 +11,11 @@ share one adaptive step (vector/mod.rs tests:756-775).  A NaN anywhere
 propagates into the norm.  A lockstep ensemble sharded over a mesh passes
 its member axis (:class:`~diffsol_tpu_torch.sharding.MemberAxis`) as
 ``axis``: the max then runs over every rank's members, in one collective.
+A state sharded over a second mesh axis passes its
+:class:`~diffsol_tpu_torch.sharding.StateAxis` as ``saxis``: each member's
+terms x_i / scale_i are gathered whole over it and reduced by the same
+mean as an unsharded solve's, so the norm keeps its bits (a sum of the
+ranks' partial means would not).
 """
 
 from __future__ import annotations
@@ -23,31 +28,34 @@ def error_scale(y, atol, rtol):
     return y.abs() * rtol + atol
 
 
-def _per_member(x, y, atol, rtol):
-    return scaled_per_member(x, error_scale(y, atol, rtol))
+def _per_member(x, y, atol, rtol, saxis=None):
+    return scaled_per_member(x, error_scale(y, atol, rtol), saxis)
 
 
-def scaled_per_member(x, scale):
-    """(1/n) sum_i (x_i / scale_i)^2 for each member (0-d for one)."""
+def scaled_per_member(x, scale, saxis=None):
+    """(1/n) sum_i (x_i / scale_i)^2 for each member (0-d for one); over a
+    state axis ``saxis`` the terms of every rank's states."""
     term = x / scale
+    if saxis is not None:
+        term = saxis.gather(term)
     return (term * term).mean(dim=-1)
 
 
-def squared_norm(x, y, atol, rtol, axis=None):
+def squared_norm(x, y, atol, rtol, axis=None, saxis=None):
     """Squared WRMS norm of ``x`` scaled by ``|y|*rtol + atol`` (0-d)."""
-    per = _per_member(x, y, atol, rtol)
+    per = _per_member(x, y, atol, rtol, saxis)
     return per.amax() if axis is None else axis.max(per)
 
 
-def norm(x, y, atol, rtol, axis=None):
+def norm(x, y, atol, rtol, axis=None, saxis=None):
     """WRMS norm (square root of :func:`squared_norm`)."""
-    return torch.sqrt(squared_norm(x, y, atol, rtol, axis))
+    return torch.sqrt(squared_norm(x, y, atol, rtol, axis, saxis))
 
 
-def squared_norm_and_worst(x, y, atol, rtol):
+def squared_norm_and_worst(x, y, atol, rtol, saxis=None):
     """(squared WRMS norm, index of the member that dominates it); the
     index is 0 for a single instance."""
-    per = _per_member(x, y, atol, rtol)
+    per = _per_member(x, y, atol, rtol, saxis)
     if per.ndim == 0:
         return per, 0
     flat = per.reshape(-1)
@@ -62,15 +70,17 @@ def max_norms(parts, axis=None):
     return axis.partials([_per_member(*q).amax() for q in parts]).amax(0).tolist()
 
 
-def error_test_norms(main, others=(), axis=None):
+def error_test_norms(main, others=(), axis=None, saxis=None):
     """The squared norms a step's error test reads together: ``main`` and
     each of ``others`` an ``(x, y, atol, rtol)``.  Returns ``(float, worst,
     [floats])``: main's norm, the member that dominates it and the others'
     norms; under a mesh ``axis`` the worst member is a global index and the
-    whole is one collective."""
+    whole is one collective (one more a part over a state axis
+    ``saxis``)."""
     if axis is None:
-        sq, worst = squared_norm_and_worst(*main)
-        return float(sq), worst, [float(squared_norm(*o)) for o in others]
-    sq, worst, rest = axis.max_and_argmax(
-        _per_member(*main).reshape(-1), [_per_member(*o).amax() for o in others])
+        sq, worst = squared_norm_and_worst(*main, saxis)
+        return float(sq), worst, [float(squared_norm(*o, saxis=saxis)) for o in others]
+    per = _per_member(*main, saxis).reshape(-1)
+    rest = [_per_member(*o, saxis).amax() for o in others]
+    sq, worst, rest = axis.max_and_argmax(per, rest)
     return float(sq), worst, [float(v) for v in rest]

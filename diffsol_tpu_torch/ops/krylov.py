@@ -35,7 +35,14 @@ arithmetic.
 A lockstep ensemble (:func:`make_krylov_solver_lockstep`) runs ONE GMRES
 over the joint B*n system with joint norms, as the JAX package does, here
 on the member-major (B, n) state; its float32 LU stack (B, n, n) is the
-preconditioner.  An independent ensemble
+preconditioner.  Sharded over a mesh (``axis``, a
+:class:`~diffsol_tpu_torch.sharding.MemberAxis`), the rank's (B_local, n)
+block is its part of that joint vector: every dot product and norm is the
+sum of the ranks' partial sums (``axis.sum``; the norm before
+orthogonalization and the Gram-Schmidt dots in one collective, the norm
+after it in another), so H, the least-squares solve and the restart test
+are the same on every rank, while the operator and the preconditioner act
+on the rank's own members.  An independent ensemble
 (:func:`make_krylov_solver_independent`) gives every member its own frozen
 point, preconditioner and GMRES.  Augmented rows (``(naug, n)``,
 ``(naug, B, n)``) each get their own GMRES, as JAX's ``vmap`` of a
@@ -123,15 +130,19 @@ def _thomas_solve(factors, b):
 # depend on the batch around it: the single solve is the batch of one.
 
 
-def _norm(x):
-    """Each row's 2-norm, (B,)."""
-    return torch.sqrt(torch.sum(x * x, dim=-1))
+def _norm(x, axis=None):
+    """Each row's 2-norm, (B,); over a mesh ``axis`` each row is the rank's
+    block of one joint row, its squares summed over the ranks."""
+    s = torch.sum(x * x, dim=-1)
+    return torch.sqrt(s if axis is None else axis.sum(s))
 
 
-def _safe_normalize(x, thresh=None):
+def _safe_normalize(x, thresh=None, axis=None, norm=None):
     """``(x / |x|, |x|)`` row by row, or zeros where |x| <= thresh (the
-    dtype's eps by default), as JAX's ``_safe_normalize``."""
-    norm = _norm(x)
+    dtype's eps by default), as JAX's ``_safe_normalize``; ``norm`` is
+    |x| where the caller has it."""
+    if norm is None:
+        norm = _norm(x, axis)
     if thresh is None:
         thresh = torch.finfo(norm.dtype).eps
     use = norm > thresh
@@ -139,11 +150,12 @@ def _safe_normalize(x, thresh=None):
             torch.where(use, norm, 0.0))
 
 
-def _gmres_restart(A, M, b, x0, unit_residual, residual_norm, restart):
+def _gmres_restart(A, M, b, x0, unit_residual, residual_norm, restart, axis=None):
     """One restart of batched GMRES (JAX ``_gmres_batched``) for every
     member: ``restart`` Arnoldi iterations, the rows after a member's
     breakdown left as the identity's, then the projected solution.  Returns
-    ``(x, unit_residual, residual_norm, arnoldi)``, each a member's."""
+    ``(x, unit_residual, residual_norm, arnoldi)``, each a member's; over a
+    mesh ``axis`` each row is the rank's block of one joint row."""
     B = b.shape[0]
     eps = torch.finfo(b.dtype).eps
     eye = torch.eye(restart, restart + 1, dtype=b.dtype, device=b.device)
@@ -154,13 +166,20 @@ def _gmres_restart(A, M, b, x0, unit_residual, residual_norm, restart):
     arnoldi = torch.zeros(B, dtype=torch.int64, device=b.device)
     for k in range(restart):
         v = M(A(V[:, k]))
-        _, v_norm_0 = _safe_normalize(v)
         # classical Gram-Schmidt; JAX's second pass never runs (its loop
         # test k < max_iterations - 1 fails after the first)
         Q = V[:, :k + 1]
-        h = torch.sum(Q * v[:, None], dim=-1)  # (B, k + 1)
+        if axis is None:
+            _, v_norm_0 = _safe_normalize(v)
+            h = torch.sum(Q * v[:, None], dim=-1)  # (B, k + 1)
+        else:
+            # |v|^2 and the dots in one collective
+            s = axis.sum(torch.cat([torch.sum(v * v, dim=-1)[:, None],
+                                    torch.sum(Q * v[:, None], dim=-1)], -1))
+            _, v_norm_0 = _safe_normalize(v, norm=torch.sqrt(s[:, 0]))
+            h = s[:, 1:]
         v = v - torch.sum(h[..., None] * Q, dim=1)
-        unit_v, v_norm_1 = _safe_normalize(v, eps * v_norm_0)
+        unit_v, v_norm_1 = _safe_normalize(v, eps * v_norm_0, axis)
         V[:, k + 1] = unit_v
         row = torch.cat([h, v_norm_1[:, None], h.new_zeros((B, restart - k - 1))], -1)
         H[:, k] = torch.where(broken[:, None], eye[k], row)
@@ -174,7 +193,7 @@ def _gmres_restart(A, M, b, x0, unit_residual, residual_norm, restart):
     z = torch.linalg.solve_triangular(L, b2[..., None], upper=False)
     y = torch.linalg.solve_triangular(L.transpose(-1, -2), z, upper=True)[..., 0]
     x = x0 + torch.sum(y[..., None] * V[:, :-1], dim=1)
-    unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
+    unit_residual, residual_norm = _safe_normalize(M(b - A(x)), axis=axis)
     return x, unit_residual, residual_norm, arnoldi
 
 
@@ -184,7 +203,7 @@ def _count(key, x):
 
 
 def gmres_batched(op, b, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None,
-                  active=None, counts=None):
+                  active=None, counts=None, axis=None):
     """Solve ``op(x) = b`` for every member of a (B, n) batch by restarted
     GMRES from x0 = 0, each member on its own (the algorithm of
     ``jax.scipy.sparse.linalg.gmres(solve_method="batched")`` under
@@ -197,14 +216,18 @@ def gmres_batched(op, b, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None
     and once after each, whatever B.  Returns ``(x, restarts, arnoldi,
     rounds)``: the (B,) restarts and Arnoldi iterations before breakdown
     of each member, and the restart rounds; ``counts`` (a dict) adds the
-    two (B,) counts to its ``"restarts"`` and ``"arnoldi"``."""
+    two (B,) counts to its ``"restarts"`` and ``"arnoldi"``.  Over a mesh
+    ``axis`` each row of ``b`` is the rank's block of one joint row of
+    ``axis.count`` equal blocks, and every rank takes the same restarts."""
     B, n = b.shape
+    if axis is not None:
+        n *= axis.count
     maxiter = 10 * n if maxiter is None else maxiter
     restart = min(restart, n)
     Mf = (lambda v: v) if M is None else M
-    atol_t = torch.clamp(tol * _norm(b), min=atol)
+    atol_t = torch.clamp(tol * _norm(b, axis), min=atol)
     x = torch.zeros_like(b)
-    unit, rnorm = _safe_normalize(Mf(b - op(x)))
+    unit, rnorm = _safe_normalize(Mf(b - op(x)), axis=axis)
     go = rnorm > atol_t
     if active is not None:
         go = go & active
@@ -216,7 +239,7 @@ def gmres_batched(op, b, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None
         _COUNTS["host_reads"] += 1
         if not bool(go.any()):
             break
-        x_n, unit_n, rnorm_n, arn = _gmres_restart(op, Mf, b, x, unit, rnorm, restart)
+        x_n, unit_n, rnorm_n, arn = _gmres_restart(op, Mf, b, x, unit, rnorm, restart, axis)
         x = torch.where(go[:, None], x_n, x)
         unit = torch.where(go[:, None], unit_n, unit)
         rnorm = torch.where(go, rnorm_n, rnorm)
@@ -232,12 +255,14 @@ def gmres_batched(op, b, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None
     return x, restarts, arnoldi, rounds
 
 
-def gmres(op, b, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None):
+def gmres(op, b, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None, axis=None):
     """Solve ``op(x) = b`` by restarted GMRES: :func:`gmres_batched` on one
     member.  ``b`` may have any shape (the system is over all its entries,
-    one joint norm); ``M`` is a preconditioner callable of the same shape.
-    Returns ``(x, restarts, arnoldi)``: the restarts taken and the Arnoldi
-    iterations before breakdown (a 0-d device tensor)."""
+    one joint norm; over a mesh ``axis`` over every rank's ``b``, the
+    rank's block of the joint system); ``M`` is a preconditioner callable
+    of the same shape.  Returns ``(x, restarts, arnoldi)``: the restarts
+    taken and the Arnoldi iterations before breakdown (a 0-d device
+    tensor)."""
     shape = b.shape
 
     def A(v):
@@ -245,7 +270,7 @@ def gmres(op, b, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None):
 
     Mf = None if M is None else (lambda v: M(v.reshape(shape)).reshape(1, -1))
     x, _, arnoldi, rounds = gmres_batched(A, b.reshape(1, -1), tol=tol, atol=atol,
-                                          restart=restart, maxiter=maxiter, M=Mf)
+                                          restart=restart, maxiter=maxiter, M=Mf, axis=axis)
     return x.reshape(shape), rounds, arnoldi[0]
 
 
@@ -363,14 +388,16 @@ def _member_columns(f, x):
 def make_krylov_solver_lockstep(rhs_b, nbatch: int, *, gmres_tol: float = 1e-6,
                                 restart: int = 30, maxiter: int = 10,
                                 precond: str = "lu32",
-                                member_jac_fn=None) -> LinearSolverSpec:
+                                member_jac_fn=None, axis=None) -> LinearSolverSpec:
     """Lockstep lift of the tier over the member-major (B, n) state:
     ``rhs_b(t, (B, n), (B, np)) -> (B, n)`` is the batched rhs.  One GMRES
     runs over the joint B*n system (the members' blocks are independent,
     so the joint Krylov space converges like the worst member); the lu32
     preconditioner is a (B, n, n) float32 LU stack from ``member_jac_fn``
     over the members, or else from n column probes of the batched
-    operator."""
+    operator.  ``axis`` (a mesh's member axis) makes the state the rank's
+    block of B members: the GMRES stays one over all members (its sums
+    over the axis), the preconditioner the rank's own members'."""
     if precond not in ("lu32", "none"):
         raise ValueError(
             f"lockstep krylov supports lu32/none preconditioning, got {precond!r}")
@@ -414,7 +441,7 @@ def make_krylov_solver_lockstep(rhs_b, nbatch: int, *, gmres_tol: float = 1e-6,
 
         def one(v):
             return gmres(lambda w: _op(mass, t, Y, Pb, c, w), v, tol=gmres_tol,
-                         atol=0.0, restart=restart, maxiter=maxiter, M=M)[0]
+                         atol=0.0, restart=restart, maxiter=maxiter, M=M, axis=axis)[0]
 
         return _rows(one, b, 2)
 
@@ -552,14 +579,15 @@ def make_krylov_jac():
 
 def make_matfree_residual_solver(residual, gmres_tol: float = 1e-8,
                                  restart: int = 30, maxiter: int = 20,
-                                 per_member: bool = False, counts=None):
+                                 per_member: bool = False, counts=None, axis=None):
     """``(factorize, solve)`` for Newton on a residual F(x) without a
     full-precision factorization (the consistent initial conditions of a
     matrix-free problem): ``factorize(x)`` freezes the point and builds the
     float32 LU of the exact dF/dx, (n, n), or (B, n, n) for a lockstep
     (B, n) state from n column probes broadcast over the members;
     ``solve(factors, v)`` runs preconditioned GMRES on the JVP operator,
-    jointly over the members.  With ``per_member`` (an independent
+    jointly over the members (over every rank's members under a mesh
+    ``axis``).  With ``per_member`` (an independent
     ensemble) each member of the (B, n) state is its own system:
     ``factorize(x, f)`` freezes the members' points of their residual ``f``
     (default ``residual``) and ``solve(factors, v, active)`` runs
@@ -590,6 +618,6 @@ def make_matfree_residual_solver(residual, gmres_tol: float = 1e-8,
         x0, pre = factors
         return gmres(lambda w: torch.func.jvp(residual, (x0,), (w,))[1], v,
                      tol=gmres_tol, atol=0.0, restart=restart, maxiter=maxiter,
-                     M=lambda w: _lu32_apply(pre, w))[0]
+                     M=lambda w: _lu32_apply(pre, w), axis=axis)[0]
 
     return factorize, solve

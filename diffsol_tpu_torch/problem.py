@@ -130,6 +130,10 @@ class OdeProblem:
     # (sharding.MemberAxis), over which every reduction of the solve runs;
     # lockstep_nbatch is then this rank's block
     member_axis: Optional[object] = None
+    # a lockstep ensemble whose states are sharded over a second mesh axis
+    # (sharding.StateAxis): the state, atol and the callables' results are
+    # this rank's block of every member's columns
+    state_axis: Optional[object] = None
     options: OdeSolverOptions = field(default_factory=OdeSolverOptions)
     ic_options: InitialConditionOptions = field(
         default_factory=InitialConditionOptions)

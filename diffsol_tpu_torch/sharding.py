@@ -22,6 +22,21 @@ as ``OdeProblem.member_axis``) and gives it
   a NaN, ``argmax`` takes the first maximum), so every rank takes the
   same decision from the same numbers, bit for bit.
 
+The matrix-free Krylov tier's lockstep GMRES is one GMRES over the joint
+B n system: its dot products and norms are sums over every member, each
+the ranks' partial sums added in rank order on every rank
+(:meth:`MemberAxis.sum`).  A sum reorders the unsharded one's terms, so a
+sharded Krylov solve agrees with the unsharded one to roundoff, and every
+rank holds the same bits as every other.
+
+A :class:`StateAxis` is a second mesh dimension over the states of each
+member (the JAX package's ``P("sp", ...)`` on the state dimension of a
+large method-of-lines problem): the rank holds the contiguous block of
+columns of its members' (B, n) state, the rhs sees each member's whole
+state (one all-gather of the blocks a call) and the error norms' mean over
+states runs on the gathered terms, so an explicit solve takes the
+unsharded one's steps bit for bit.
+
 An unsharded solve has no member axis (None) and makes no collective.  JAX
 refuses a batch that the mesh axis does not divide (its ``device_put`` and
 ``jit(in_shardings=)`` raise ``ValueError``), and so does :meth:`MemberAxis.of`:
@@ -62,39 +77,36 @@ def axis_size(mesh, axis: str) -> int:
     return mesh.size(names.index(axis))
 
 
-class MemberAxis:
-    """The rank's block of a global batch of ``nbatch`` members sharded
-    ``count`` ways over the process group ``group``: members
+class _Blocks:
+    """The rank's contiguous block of a dimension of ``size`` entries
+    sharded ``count`` ways over the process group ``group``: entries
     ``offset .. offset + local - 1``, where ``index`` is the rank's
     coordinate on the axis."""
 
-    def __init__(self, group, index: int, count: int, nbatch: int):
+    WHAT = ""  # the dimension's name in the error of :meth:`of`
+
+    def __init__(self, group, index: int, count: int, size: int):
         self.group = group
         self.index = index
         self.count = count
-        self.local = nbatch // count
+        self.local = size // count
         self.offset = index * self.local
         # where the collectives run: gloo's on host memory, NCCL's on the card
         self.device = (torch.device("cpu") if dist.get_backend(group) == "gloo"
                        else torch.device("cuda", torch.cuda.current_device()))
 
     @classmethod
-    def of(cls, mesh, axis: str, nbatch: int) -> "MemberAxis":
-        """The member axis of ``nbatch`` members over the mesh dimension
-        named ``axis``; a batch the axis does not divide raises
-        ``ValueError``, as JAX's ``NamedSharding(mesh, P(axis))`` does."""
+    def of(cls, mesh, axis: str, size: int):
+        """The axis of ``size`` entries over the mesh dimension named
+        ``axis``; a size the axis does not divide raises ``ValueError``, as
+        JAX's ``NamedSharding(mesh, P(axis))`` does."""
         count = axis_size(mesh, axis)
-        if nbatch % count:
+        if size % count:
             raise ValueError(
                 f"the sharding P({axis!r}) over a mesh axis of size {count} implies "
-                f"that the global size of the batch dimension should be divisible by "
-                f"{count}, but it is equal to {nbatch}")
-        return cls(mesh.get_group(axis), mesh.get_local_rank(axis), count, nbatch)
-
-    # ---- blocks -------------------------------------------------------------
-    def split(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """The rank's block of the global ``x`` along ``dim``."""
-        return x.narrow(dim, self.offset, self.local)
+                f"that the global size of the {cls.WHAT} dimension should be divisible by "
+                f"{count}, but it is equal to {size}")
+        return cls(mesh.get_group(axis), mesh.get_local_rank(axis), count, size)
 
     def _all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """(count, *t.shape): every rank's ``t``, in rank order, on ``t``'s
@@ -104,6 +116,18 @@ class MemberAxis:
         out = src.new_empty((self.count,) + tuple(src.shape))
         dist.all_gather(list(out.unbind(0)), src, group=self.group)
         return out.to(device=on, dtype=dtype)
+
+
+class MemberAxis(_Blocks):
+    """The rank's block of a global batch of members: members ``offset ..
+    offset + local - 1`` (:meth:`of` with the batch's size)."""
+
+    WHAT = "batch"
+
+    # ---- blocks -------------------------------------------------------------
+    def split(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The rank's block of the global ``x`` along ``dim``."""
+        return x.narrow(dim, self.offset, self.local)
 
     def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The global tensor from every rank's block of it along ``dim``."""
@@ -140,3 +164,49 @@ class MemberAxis:
     def from_first(self, values) -> list:
         """The first rank's ``values`` (numbers) on every rank."""
         return self.partials(values)[0].tolist()
+
+    def sum(self, local: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of their partial sums ``local`` (any
+        shape), added in rank order on every rank: one all-gather, on
+        ``local``'s device and in its dtype."""
+        parts = self._all_gather(local)
+        total = parts[0]
+        for r in range(1, self.count):
+            total = total + parts[r]
+        return total
+
+
+class StateAxis(_Blocks):
+    """The rank's block of the ``n`` states of each member: columns
+    ``offset .. offset + local - 1`` of the member-major (B, n) state
+    (:meth:`of` with n).  It splits and gathers states only; the
+    reductions over members stay the :class:`MemberAxis`'s."""
+
+    WHAT = "state"
+
+    def split(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The rank's block of the states of ``x`` (its last dimension)."""
+        return x.narrow(dim, self.offset, self.local)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every member's whole states from the ranks' blocks of them, laid
+        out as an unsharded state is (contiguous along the states): a
+        reduction over them then takes the unsharded one's order."""
+        parts = self._all_gather(x.movedim(dim, -1))  # (count, ..., local)
+        return parts.movedim(0, -2).flatten(-2).movedim(-1, dim)
+
+
+def not_on_sharded_state(what: str) -> NotImplementedError:
+    """The error for what a state-sharded problem does not run: only an
+    explicit solve without roots, outputs or sensitivities does."""
+    return NotImplementedError(
+        f"{what} over a sharded state is not ported (ROADMAP 20e: the Newton "
+        "linear solve, and the rest of an implicit solve, over a state sharded "
+        "across ranks); an ErkSolver without roots, outputs or sensitivities runs it")
+
+
+def refuse_state_axis(problem, what: str) -> None:
+    """Raise :func:`not_on_sharded_state` when ``problem``'s states are
+    sharded."""
+    if getattr(problem, "state_axis", None) is not None:
+        raise not_on_sharded_state(what)

@@ -50,6 +50,7 @@ from ..ops.controller import pi_controller_raw
 from ..ops.newton import ETA_RESET_JACOBIAN, ETA_RESET_TIMESTEP, newton_solve
 from ..ops.rootfind import check_root
 from ..problem import OdeProblem, SolverConfig
+from ..sharding import refuse_state_axis
 from .consistent_ic import algebraic_mask, make_consistent
 from .rk_common import Stats
 from .state import initial_state, initial_step_size
@@ -234,6 +235,7 @@ class BdfSolver:
     def __init__(self, problem: OdeProblem,
                  config: Optional[SolverConfig] = None, sens: bool = False,
                  augmented=None):
+        refuse_state_axis(problem, "BdfSolver (an implicit solve)")
         self.problem = problem
         self.config = config or SolverConfig.from_options(problem.options, "bdf")
         eqn = problem.eqn

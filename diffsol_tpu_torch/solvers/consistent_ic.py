@@ -124,7 +124,7 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
         # matrix-free, as the JAX package's (consistent_ic.py:147-151)
         from ..ops.krylov import make_matfree_residual_solver
 
-        factorize, lin_solve = make_matfree_residual_solver(residual)
+        factorize, lin_solve = make_matfree_residual_solver(residual, axis=p.member_axis)
     else:
         # the dense and block tiers take the JAX package's dense branch: a
         # one-off (..., n, n) LU of the packed Jacobian

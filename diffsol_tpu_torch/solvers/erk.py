@@ -31,6 +31,7 @@ from .. import errors
 from ..norms import error_test_norms
 from ..ops.controller import clamp_factor, pi_controller_raw
 from ..problem import OdeProblem, SolverConfig
+from ..sharding import refuse_state_axis
 from .rk_common import RkSolver, RkState, Stats, stage_sum
 from .state import initial_state, initial_step_size
 from .tableau import Tableau, tsit45
@@ -44,6 +45,8 @@ class ErkSolver(RkSolver):
                  augmented=None):
         if problem.eqn.mass is not None:
             raise ValueError("explicit RK does not support mass matrices")
+        if sens or augmented is not None:
+            refuse_state_axis(problem, "an ErkSolver with sensitivities")
         tab = tableau if tableau is not None else tsit45()
         a = np.asarray(tab.a)
         if not np.allclose(np.triu(a), 0.0):
@@ -157,7 +160,8 @@ class ErkSolver(RkSolver):
                 others.append((stage_sum(d_vec, stages[4]), state.s, self.aug.atol(p),
                                self.aug.rtol(p)))
             err, wm, sq_o = error_test_norms(
-                (stage_sum(d_vec, diff), state.y, p.atol, p.rtol), others, p.member_axis)
+                (stage_sum(d_vec, diff), state.y, p.atol, p.rtol), others, p.member_axis,
+                p.state_axis)
             for e in sq_o:
                 err = max(err, e)
             accepted = err < 1.0

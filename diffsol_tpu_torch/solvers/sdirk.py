@@ -42,6 +42,7 @@ from ..norms import error_test_norms
 from ..ops.controller import clamp_factor, pi_controller_raw
 from ..ops.newton import ETA_RESET_JACOBIAN, ETA_RESET_TIMESTEP, newton_solve
 from ..problem import OdeProblem, SolverConfig
+from ..sharding import refuse_state_axis
 from .consistent_ic import algebraic_mask, make_consistent
 from .rk_common import RkSolver, RkState, Stats, stage_sum
 from .state import initial_state, initial_step_size
@@ -62,6 +63,7 @@ class SdirkSolver(RkSolver):
     def __init__(self, problem: OdeProblem, tableau: Optional[Tableau] = None,
                  config: Optional[SolverConfig] = None, sens: bool = False,
                  augmented=None):
+        refuse_state_axis(problem, "SdirkSolver (an implicit solve)")
         tab = tableau if tableau is not None else tr_bdf2()
         a = np.asarray(tab.a)
         gamma = a[-1, -1]

@@ -32,19 +32,20 @@ def initial_step_size(problem, params, y0, dy0, solver_order: int) -> float:
     h1 = (0.01/max(d1, d2))^(1/(order+1)) and h = min(100 h0, h1).  The sign
     of ``problem.h0`` selects the direction of integration.
     """
-    atol, rtol, axis = problem.atol, problem.rtol, problem.member_axis
+    atol, rtol = problem.atol, problem.rtol
+    axes = (problem.member_axis, problem.state_axis)
     t0 = float(problem.t0)
     is_neg = float(problem.h0) < 0.0
 
-    d0 = float(wrms_norm(y0, y0, atol, rtol, axis))
-    d1 = float(wrms_norm(dy0, y0, atol, rtol, axis))
+    d0 = float(wrms_norm(y0, y0, atol, rtol, *axes))
+    d1 = float(wrms_norm(dy0, y0, atol, rtol, *axes))
     h0 = 1e-6 if (d0 < 1e-5 or d1 < 1e-5) else 0.01 * (d0 / d1)
 
     sgn = -1.0 if is_neg else 1.0
     t1 = problem.t0.new_tensor(t0 + sgn * h0)
     y1 = y0 + (sgn * h0) * dy0
     f1 = problem.eqn.rhs(t1, y1, params)
-    d2 = float(wrms_norm(f1 - dy0, y0, atol, rtol, axis)) / abs(h0)
+    d2 = float(wrms_norm(f1 - dy0, y0, atol, rtol, *axes)) / abs(h0)
 
     max_d = max(d1, d2)
     if max_d < 1e-15:

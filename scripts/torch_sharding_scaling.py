@@ -2,14 +2,19 @@
 """The sharded ensemble across cards: chip_smoke.py phase 30's cells at a
 wider global batch, unsharded on one card and then sharded over meshes of
 2 and 4 ranks, one card a rank (NCCL), every call timed between CUDA
-events and every sharded result held to the unsharded one.
+events and every sharded result held to the unsharded one.  The cells:
+Robertson and heat1d fused, heat2d lockstep on the banded tier and on the
+Krylov tier (one GMRES over the ranks' members), Robertson independent,
+the lockstep gradient, heat1d's independent gradient, and heat1d ERK with
+every member's 2^20 states sharded over the ranks (a (1, k) mesh).
 
     python scripts/torch_sharding_scaling.py [--out FILE.json]  # 4 cards
     python scripts/torch_sharding_scaling.py --cpu      # rehearsal: gloo on
                                                         # the CPU, tiny sizes
 
 Each rank calls with the global batch and solves its block (sharding.py);
-the lockstep cells reduce over the mesh every step, the fused and
+the lockstep cells reduce over the mesh every step (the Krylov tier every
+Arnoldi iteration, the state-sharded ERK every stage), the fused and
 independent ones gather at the end.  Per cell and mesh size it prints the
 call's time on rank 0 (the whole call, from a barrier of all ranks; its
 first and its second call), the all-gathers a
@@ -33,12 +38,13 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-# global batch of each cell (chip_smoke's B_MAIN, B_BAND, B_SHARD)
+# global batch of each cell (chip_smoke's B_MAIN, B_BAND, B_SHARD; the
+# Krylov cell keeps B_KRYLOV_CUT = 256, the ERK cell B = 2 at 2^20 states)
 CARD_SIZES = (40_000, 4096, 4096)
 CPU_SIZES = (8, 8, 8)
 TIMEOUT_S = 900
 CELLS = ("robertson_fused", "heat1d_fused", "heat2d_lockstep", "robertson_independent",
-         "robertson_grad")
+         "robertson_grad", "heat2d_krylov_lockstep", "heat1d_ind_grad")
 
 
 def configure(cpu):
@@ -46,6 +52,7 @@ def configure(cpu):
     host clock (no CUDA events there)."""
     cs.B_MAIN, cs.B_BAND, cs.B_SHARD = CPU_SIZES if cpu else CARD_SIZES
     if cpu:
+        cs.B_KRYLOV_CUT, cs.KRYLOV_MGRID, cs.ERK_SHARD_MGRID = 4, 4, 255
         def host_ms(fn):
             t0 = time.perf_counter()
             out = fn()
@@ -64,7 +71,10 @@ def rank(r, world, cpu):
     if not cpu:
         torch.cuda.set_device(r)
     mesh = init_device_mesh(dev.type, (world,), mesh_dim_names=("dp",))
-    return cs.run_shard_cells(mesh, dev, again=CELLS)
+    out = cs.run_shard_cells(mesh, dev, again=CELLS)
+    out["erk_state"] = cs.erk_state_rank(dev.type, world, dev)
+    out["erk_state_warm"] = cs.erk_state_rank(dev.type, world, dev)
+    return out
 
 
 def spawn(world, out_dir, cpu):
@@ -79,12 +89,25 @@ def check(cell, label, got, ref):
     independent equal Stats and ys within 1e-12 + 1e-9 |ref|; the gradient
     within 1e-10 of its largest entry; fused the stop and the member-0
     checks of phase 30 (its blocks are the shards' own tiles)."""
-    if cell == "robertson_grad":
+    if cell in ("robertson_grad", "heat1d_ind_grad"):
         cs.same_stats(label, got["forward"], ref["forward"])
         cs.same_stats(label, got["backward"], ref["backward"])
+        if cell == "heat1d_ind_grad":  # independent members: bit for bit
+            for key in ("ys", "grad", "status", "backward_status"):
+                if not torch.equal(got[key], ref[key]):
+                    raise AssertionError(f"{label}: {key} differs from the unsharded call's")
         rel = float((got["grad"] - ref["grad"]).abs().max() / ref["grad"].abs().max())
         if not rel <= cs.SHARD_GRAD_RTOL:
             raise AssertionError(f"{label}: gradient {rel:.3e} from the unsharded one")
+        return rel
+    if cell == "heat2d_krylov_lockstep":  # one GMRES over the ranks: sums reorder
+        if got["gmres"] != ref["gmres"]:
+            raise AssertionError(f"{label}: GMRES counts {got['gmres']}, {ref['gmres']}")
+        got, ref = got["sol"], ref["sol"]
+        cs.same_stats(label, got["stats"], ref["stats"])
+        rel = float((got["ys"] - ref["ys"]).abs().max() / ref["ys"].abs().max())
+        if not rel <= cs.SHARD_KRYLOV_RTOL:
+            raise AssertionError(f"{label}: ys {rel:.3e} of the largest from the unsharded")
         return rel
     if not torch.equal(torch.as_tensor(got["stop"]), torch.as_tensor(ref["stop"])):
         raise AssertionError(f"{label}: stop {got['stop']} against {ref['stop']}")
@@ -119,6 +142,10 @@ def main() -> int:
         ref_warm[name] = cs.events_ms(lambda: run(None))[1]
         print(f"[scaling] {name} unsharded on one card: {ref_ms[name]:.1f} ms (first call), "
               f"{ref_warm[name]:.1f} ms again; card {card}", flush=True)
+    ref_erk, ref_ms["erk_state"] = cs.events_ms(lambda: cs.erk_state_cell(None, dev)["state"])
+    ref_warm["erk_state"] = cs.events_ms(lambda: cs.erk_state_cell(None, dev))[1]
+    print(f"[scaling] erk_state unsharded on one card: {ref_ms['erk_state']:.1f} ms (first "
+          f"call), {ref_warm['erk_state']:.1f} ms again; card {card}", flush=True)
     record = {"card": card, "sizes": dict(zip(("B_MAIN", "B_BAND", "B_SHARD"), sizes)),
               "unsharded_ms": ref_ms, "unsharded_warm_ms": ref_warm, "meshes": {}}
     for world in (2, 4):
@@ -138,6 +165,18 @@ def main() -> int:
                   f"(second calls); {r0['all_gathers']} all-gathers "
                   f"a rank; launches K1, K2, K3, K4 of rank 0 {r0['launches']}; max abs "
                   f"{err:.3e} from the unsharded result; card {card}", flush=True)
+        er = [res["erk_state"] for res in ranks]
+        cs.check_erk_state(f"erk_state over {world}", er, ref_erk)
+        warm = ranks[0]["erk_state_warm"]["ms"]
+        rows["erk_state"] = dict(ms=er[0]["ms"], ms_warm=warm,
+                                 all_gathers=er[0]["all_gathers"],
+                                 speedup=ref_warm["erk_state"] / warm, max_abs_diff=0.0)
+        print(f"[scaling] erk_state over {world} ranks ({cs.ERK_SHARD_MGRID + 1} states a "
+              f"member, B = {len(cs.ERK_SHARD_D)}, {cs.ERK_SHARD_STEPS} steps, the states over "
+              f"all ranks): {er[0]['ms']:.1f} ms "
+              f"(first call), {warm:.1f} ms again, {ref_warm['erk_state'] / warm:.2f}x the "
+              f"unsharded steps; {er[0]['all_gathers']} all-gathers a rank; every block "
+              f"equal bit for bit; card {card}", flush=True)
         record["meshes"][world] = dict(spawn_to_join_s=wall, cells=rows)
         print(f"[scaling] {world} ranks: {wall:.1f} s from spawn to join", flush=True)
     if args.out:

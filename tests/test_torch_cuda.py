@@ -1638,7 +1638,8 @@ def test_kernel_examples_take_their_kernels_cuda():
 
 # K1, K2 and K3/K4 sharded over a 2-rank gloo mesh on the one card: each
 # rank's block against the unsharded call (tests/torch_sharding_ranks.py)
-SHARD_CASES = {"robertson_fused": 64, "heat1d_fused": 16, "heat1d_lockstep": 16}
+SHARD_CASES = {"robertson_fused": 64, "heat1d_fused": 16, "heat1d_lockstep": 16,
+               "heat1d_krylov_lockstep": 1, "heat1d_ind_grad": 1}
 
 
 @pytest.fixture(scope="module")
@@ -1685,3 +1686,40 @@ def test_sharded_kernels_match_unsharded_cuda(card_mesh2, case, kernel):
         assert launches[kernel] >= 1
         if kernel == 2:
             assert launches[3] >= 1  # K4 beside K3
+
+
+@pytest.mark.cuda
+def test_sharded_krylov_lockstep_matches_unsharded_cuda(card_mesh2):
+    """The Krylov tier's lockstep GMRES over the 2-rank mesh on the card,
+    its dot products and norms summed over both ranks (staged through the
+    host by gloo): the unsharded solve's steps, Newton iterations and GMRES
+    counts, ys within 1e-10 relative."""
+    import torch_sharding_ranks as ranks
+
+    ref = ranks.run_case("heat1d_krylov_lockstep", dev="cuda")
+    for res in card_mesh2:
+        got = res["heat1d_krylov_lockstep"]
+        for key in ("steps", "newton_iterations"):
+            assert int(got["stats"][key]) == int(ref["stats"][key]), key
+        assert got["gmres"] == ref["gmres"] and got["stop"] == ref["stop"] >= 0
+        np.testing.assert_allclose(got["ys"], ref["ys"], rtol=1e-10, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_sharded_independent_gradient_matches_unsharded_cuda(card_mesh2):
+    """The independent gradient of banded heat1d over the 2-rank mesh on the
+    card: each rank's block through K3/K4 in its forward pass, every
+    member's ys, gradient, forward and backward Stats and statuses equal to
+    the unsharded call's."""
+    import torch_sharding_ranks as ranks
+
+    ref = ranks.run_case("heat1d_ind_grad", dev="cuda")
+    for res in card_mesh2:
+        got = res["heat1d_ind_grad"]
+        for key in ("ys", "grad", "status", "backward_status"):
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+        for key in ("forward", "backward"):
+            for k, v in ref[key].items():
+                assert np.array_equal(got[key][k], v), (key, k)
+        launches = res["heat1d_ind_grad:launches"]
+        assert launches[2] >= 1 and launches[3] >= 1

@@ -293,11 +293,13 @@ def test_fused_and_auto_modes_with_a_sensitivity_solver():
     B = 4
     params = _lockstep_params(B, 13)
     t_eval = [0.4, 4.0]
-    jsol = jax_ensemble(lambda p: dt.BdfSolver(p, sens=True), jrob.problem_ode(),
-                        jnp.asarray(t_eval), jnp.asarray(params), mode="fused",
-                        interpret=True)
+    # the problem and shapes of tests/test_pallas_stepper.py's fused-mode
+    # call, whose compiled kernel the persistent cache then holds once
+    jp = jrob.problem_ode(rtol=1e-4, atol=(1e-8, 1e-6, 1e-6))
+    jsol = jax_ensemble(lambda p: dt.BdfSolver(p, sens=True), jp, t_eval,
+                        jnp.asarray(params), mode="fused", interpret=True)
     assert jsol.tier.startswith("fused") and jsol.sens is None
-    tp = problem_from_jax(jrob.problem_ode(), trob.rhs_ode, trob.init)
+    tp = problem_from_jax(jp, trob.rhs_ode, trob.init)
 
     def make(p):
         return dtt.BdfSolver(p, sens=True)

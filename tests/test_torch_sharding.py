@@ -305,10 +305,10 @@ def test_unsharded_lockstep_makes_no_collective(monkeypatch):
     assert got["stop"] == dtt.errors.ROOT_FOUND
 
 
-def test_krylov_lockstep_over_a_mesh_raises():
-    """The Krylov tier's lockstep GMRES is one GMRES over all members: a
-    per-shard GMRES would be another algorithm, so it is refused."""
-    problem = (dtt.OdeBuilder().rhs(ted.rhs).init(ted.init).p([0.1, 1.0])
-               .linear_solver("krylov").build())
-    with pytest.raises(NotImplementedError, match="ROADMAP 20b"):
-        make_lockstep_problem(problem, 2, axis=object())
+def test_implicit_solver_over_a_sharded_state_raises():
+    """A state sharded over a second mesh axis runs an explicit solve only:
+    BdfSolver's Newton linear solve over a sharded state is ROADMAP 20e."""
+    problem = dtt.OdeBuilder().rhs(ted.rhs).init(ted.init).p([0.1, 1.0]).build()
+    lp = dataclasses.replace(make_lockstep_problem(problem, 2), state_axis=object())
+    with pytest.raises(NotImplementedError, match="BdfSolver .*ROADMAP 20e"):
+        dtt.BdfSolver(lp)

@@ -86,6 +86,103 @@ def _loop_bdf():
     return LoopBdf
 
 
+def _krylov_heat1d(mgrid, rtol, atol):
+    """heat1d on the matrix-free Krylov tier (tests/test_torch_krylov_lockstep.py)."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import heat1d
+
+    tp, _ = heat1d.make(mgrid, rtol=rtol, atol=atol)
+    return (dtt.OdeBuilder().rhs(tp.eqn.rhs).init(tp.eqn.init).p([1.0]).rtol(rtol)
+            .atol(atol).linear_solver("krylov").build())
+
+
+KRYLOV_MGRID = 4  # n = 5: a joint system of 20, so GMRES restarts at 20 iterations
+KRYLOV_D = np.linspace(0.8, 1.2, 4)[:, None]
+KRYLOV_T_EVAL = [0.05, 0.1]
+ROB_GRAD_T_EVAL = [0.4, 4.0, 40.0]
+ROB_GRAD_PARAMS = np.stack([0.04 * np.array([0.5, 1.0, 2.0, 1.5]), np.full(4, 1e4),
+                            np.full(4, 3e7)], axis=1)
+HEAT_GRAD_MGRID = 7  # n = 8: JAX's sharded gradient compiles in ~2/3 of n = 16's time
+HEAT_GRAD_T_EVAL = [0.01, 0.05, 0.1]
+HEAT_GRAD_PARAMS = np.array([[0.5], [1.0], [2.0], [1.5]])
+ERK_MGRID = 255  # n = 256, JAX's program 2 (__graft_entry__.py:105-146)
+ERK_D = np.array([[1.0], [0.5], [2.0], [1.5]])
+ERK_T_EVAL = [2e-5, 5e-5]
+
+
+def _ind_grad(problem, t_eval, pb, mesh, dev):
+    """mode="independent"'s gradient of the sum of squares, with its
+    per-member info."""
+    from diffsol_tpu_torch.adjoint_ensemble import make_differentiable_solve_ensemble
+
+    fn = make_differentiable_solve_ensemble(problem, t_eval, pb.shape[0], mode="independent",
+                                            mesh=mesh, device=None if mesh else dev)
+    p = torch.tensor(pb, dtype=F64, device=dev).requires_grad_(True)
+    ys = fn(p)
+    (ys ** 2).sum().backward()
+    info = fn.info
+    return dict(ys=_np(ys.detach()), grad=_np(p.grad), forward=stats_of(info["forward"]),
+                backward=stats_of(info["backward"]), status=_np(info["status"]),
+                backward_status=_np(info["backward_status"]))
+
+
+def _erk_state(mesh, dev):
+    """heat1d (n = 256, B = 4) lockstep ERK with every member's states
+    sharded over "sp" and the members over "dp": five steps from
+    init_state, then a short solve_dense; the rank's blocks, its
+    coordinates and the all-gathers of the five steps."""
+    from diffsol_tpu_torch.drivers import init_state, solve_dense
+    from diffsol_tpu_torch.ensemble import make_lockstep_problem
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.sharding import MemberAxis, StateAxis
+    from diffsol_tpu_torch.solvers.erk import ErkSolver
+
+    problem = heat1d.make(ERK_MGRID)[0].to(dev)  # the solver steps on dev
+    n, B = problem.eqn.nstates, ERK_D.shape[0]
+    params = torch.tensor(ERK_D, dtype=F64, device=dev)
+    maxis = saxis = None
+    coords = (0, 0)
+    if mesh is not None:
+        maxis, saxis = MemberAxis.of(mesh, "dp", B), StateAxis.of(mesh, "sp", n)
+        params = maxis.split(params)
+        coords = (mesh.get_local_rank("dp"), mesh.get_local_rank("sp"))
+    solver = ErkSolver(make_lockstep_problem(problem, params.shape[0], axis=maxis,
+                                             state_axis=saxis))
+    state = init_state(solver, params, device=dev)
+    with cs.counted_all_gathers() as calls:
+        for _ in range(5):
+            state = solver.step(state, params)
+    sol = solve_dense(solver, ERK_T_EVAL, params=params, device=dev)
+    return dict(coords=coords, y=_np(state.y), dy=_np(state.dy), t=state.t, h=state.h,
+                stats=stats_of(state.stats), step_gathers=calls[0], ys=_np(sol.ys),
+                stop=sol.stop_reason, sol_stats=stats_of(sol.state.stats),
+                final_y=_np(sol.state.y))
+
+
+def _state_errors(mesh):
+    """What a state axis refuses: an n the axis does not divide, an
+    implicit solver."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.ensemble import make_lockstep_problem
+    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.sharding import StateAxis
+
+    out = {}
+    try:
+        StateAxis.of(mesh, "sp", 255)
+        out["uneven"] = None
+    except ValueError as e:
+        out["uneven"] = str(e)
+    problem, _ = heat1d.make(ERK_MGRID)
+    lp = make_lockstep_problem(problem, 2, state_axis=StateAxis.of(mesh, "sp", 256))
+    try:
+        dtt.BdfSolver(lp)
+        out["bdf"] = None
+    except NotImplementedError as e:
+        out["bdf"] = str(e)
+    return out
+
+
 def _ensemble(make_solver, problem, t_eval, params, mode, mesh, dev, members=None, **kw):
     from diffsol_tpu_torch.ensemble import solve_dense_ensemble
 
@@ -180,6 +277,27 @@ def run_case(name: str, mesh=None, dev="cpu", scale: int = 1, members=None) -> d
         ((ys - 0.5) ** 2).sum().backward()
         return dict(ys=_np(ys), grad=_np(pb.grad), forward=stats_of(ys_of.info["forward"]),
                     backward=stats_of(ys_of.info["backward"]))
+    if name in ("heat1d_krylov_lockstep", "heat1d_krylov_sens_lockstep"):
+        # one GMRES over every member (tests/test_torch_krylov_lockstep.py),
+        # and with the sensitivity rows each row's own joint GMRES
+        from diffsol_tpu_torch.ops import krylov as tk
+
+        sens = "sens" in name
+        problem = _krylov_heat1d(KRYLOV_MGRID, 1e-4, 1e-6)
+        tk.reset_gmres_counts()
+        out = _ensemble(lambda pr: bdf(pr, sens=sens), problem, KRYLOV_T_EVAL, KRYLOV_D,
+                        "lockstep", mesh, dev, max_steps=2000, **kw)
+        out["gmres"] = tk.gmres_counts()
+        return out
+    if name == "robertson_ind_grad":
+        return _ind_grad(robertson.problem_ode(), ROB_GRAD_T_EVAL, ROB_GRAD_PARAMS, mesh, dev)
+    if name == "heat1d_ind_grad":
+        problem, _ = heat1d.make(HEAT_GRAD_MGRID, rtol=1e-6, atol=1e-8, banded=True)
+        return _ind_grad(problem, HEAT_GRAD_T_EVAL, HEAT_GRAD_PARAMS, mesh, dev)
+    if name == "heat1d_erk_state":
+        return _erk_state(mesh, dev)
+    if name == "state_errors":
+        return _state_errors(mesh)
     if name == "errors":
         from diffsol_tpu_torch.ensemble import solve_dense_ensemble
 
