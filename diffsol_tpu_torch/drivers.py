@@ -193,6 +193,16 @@ def _after_step(solver, new, params, final_time):
     return new, False, None, None
 
 
+def _gathered(p, ys, gs):
+    """``ys``, and ``gs`` where it integrates the state itself, with every
+    member's whole states when ``p``'s states are sharded."""
+    if p.state_axis is None:
+        return ys, gs
+    if gs is not None and p.integrate_out and p.eqn.out is None:
+        gs = p.state_axis.gather(gs)
+    return p.state_axis.gather(ys), gs
+
+
 def solve_dense(solver, t_eval, params=None, state=None,
                 max_steps: int = 100_000, device=None) -> Solution:
     """Solve and interpolate onto ``t_eval`` (ascending).  ``ys`` has shape
@@ -205,7 +215,9 @@ def solve_dense(solver, t_eval, params=None, state=None,
     problem whose states are sharded over a mesh axis (its ``state_axis``,
     :func:`~diffsol_tpu_torch.ensemble.make_lockstep_problem`) returns
     ``ys`` with every member's whole states, gathered on every rank, and
-    its ``state`` as the rank's block.
+    its ``state`` as the rank's block; ``gs`` (``out`` or its quadrature,
+    whole on every rank, or the quadrature of the state itself, gathered)
+    and a root's time are every rank's.
     """
     solver, params, state = _prepare(solver, params, state, device, "solve_dense")
     p = solver.problem
@@ -260,8 +272,7 @@ def solve_dense(solver, t_eval, params=None, state=None,
         k += 1
     if not done:
         stop = errors.MAX_STEPS_REACHED
-    if p.state_axis is not None:
-        ys = p.state_axis.gather(ys)
+    ys, gs = _gathered(p, ys, gs)
     return Solution(
         ts=t_eval.to(ys.device), ys=ys, stop_reason=int(stop),
         n_points=neval, state=state, gs=gs, root_t=root_t, root_idx=root_idx,
@@ -326,8 +337,7 @@ def solve(solver, final_time, params=None, state=None, max_steps: int = 10_000,
         nsteps += 1
     if not done:
         stop = errors.MAX_STEPS_REACHED
-    if p.state_axis is not None:
-        ys = p.state_axis.gather(ys)
+    ys, gs = _gathered(p, ys, gs)
     return Solution(
         ts=ts, ys=ys, stop_reason=int(stop), n_points=k, state=state, gs=gs,
         root_t=root_t, root_idx=root_idx, sens=ss,

@@ -81,14 +81,21 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
 
     ``state_axis`` (a :class:`~.sharding.StateAxis` of the problem's n
     states) shards every member's states too, as the JAX package's
-    ``P("sp", ...)`` on a large method-of-lines problem: the state, ``atol``
-    and the callables' results are the rank's block of columns; the rhs
-    gathers each member's whole state over the axis (one all-gather a
-    call), runs the user's rhs unchanged and keeps its block; the error
-    norms gather their terms (:mod:`.norms`).  An explicit solve
-    (``ErkSolver``) then takes the unsharded solve's steps bit for bit.  A
-    problem with a mass, roots, an ``out`` or a quadrature, an implicit
-    solver and ``sens=True`` raise ``NotImplementedError`` (ROADMAP 20e)."""
+    ``P("sp", ...)`` on a large method-of-lines problem: the state and
+    ``atol`` are the rank's block of columns; every callable gathers each
+    member's whole state over the axis (one all-gather a call) and runs the
+    user's unchanged (:func:`~.sharding.shard_states`): the rhs and a reset
+    keep their block, the root function, ``out`` and the quadrature's
+    integrand are whole on every rank, and the Jacobian and the mass are
+    the whole members', so the Newton matrix is built and factored whole
+    and every linear solve gathers its right-hand side and keeps its block
+    (:meth:`~.sharding.StateAxis.whole_solve`).  The norms gather their
+    terms (:mod:`.norms`).  ``BdfSolver``, ``SdirkSolver`` and
+    ``ErkSolver`` on the dense and banded tiers, with a mass, consistent
+    initial conditions, roots and resets, ``out`` and a quadrature, then
+    take the unsharded solve's steps bit for bit.  ``sens=True``, the
+    Krylov and block-diagonal tiers and the member-time lift raise
+    ``NotImplementedError`` (ROADMAP 20f)."""
     eqn = problem.eqn
     vmap = torch.func.vmap
     spec = problem.linear_solver
@@ -97,12 +104,10 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
         from .sharding import not_on_sharded_state
 
         for what, there in (("a member-time lift (mode='independent')", member_t),
-                            ("a mass matrix", eqn.mass is not None),
-                            ("roots", eqn.root is not None),
-                            ("an out() function", eqn.out is not None),
-                            ("a quadrature (integrate_out)", problem.integrate_out)):
+                            ("the matrix-free Krylov tier", krylov),
+                            ("the block-diagonal tier", spec.name.startswith("blockdiag"))):
             if there:
-                raise not_on_sharded_state(f"a problem with {what}")
+                raise not_on_sharded_state(what)
     td = 0 if member_t else None
     if krylov and member_t:
         from .ops.krylov import MemberPoint
@@ -133,19 +138,6 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
 
     rhs_b = over_members(eqn.rhs)
     init_b = vmap(eqn.init, in_dims=(None, 0))
-    if state_axis is not None:
-        # the user's callables see every member's whole state; the rank
-        # keeps its block of their results
-        rhs_all, init_all = rhs_b, init_b
-
-        def rhs_b(t, Y, Pb):
-            return state_axis.split(rhs_all(t, state_axis.gather(Y), Pb))
-
-        def init_b(t, Pb):
-            return state_axis.split(init_all(t, Pb))
-
-        b_jac = None  # no Newton matrix: an explicit solve only
-
     new_eqn = OdeEquations(
         rhs=rhs_b,
         # an init that ignores p comes back from vmap as a stride-0
@@ -171,6 +163,11 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int,
         nroots=eqn.nroots,
         nparams=eqn.nparams,
     )
+    if state_axis is not None:
+        from .sharding import shard_states
+
+        new_eqn = shard_states(new_eqn, state_axis)
+        spec = dataclasses.replace(spec, solve=state_axis.whole_solve(spec.solve))
     params_b = problem.params.expand(nbatch, -1).clone()
     if krylov and member_t:
         from .ops.krylov import make_krylov_solver_independent

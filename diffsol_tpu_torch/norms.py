@@ -63,24 +63,27 @@ def squared_norm_and_worst(x, y, atol, rtol, saxis=None):
 
 
 def max_norms(parts, axis=None):
-    """The squared norms of ``parts``, each an ``(x, y, atol, rtol)``, as
-    floats; under a mesh ``axis`` in one collective."""
+    """The squared norms of ``parts``, each an ``(x, y, atol, rtol)`` or,
+    sharded over a state axis, ``(x, y, atol, rtol, saxis)``, as floats;
+    under a mesh ``axis`` in one collective."""
+    per = [_per_member(*q).amax() for q in parts]
     if axis is None:
-        return [float(squared_norm(*q)) for q in parts]
-    return axis.partials([_per_member(*q).amax() for q in parts]).amax(0).tolist()
+        return [float(v) for v in per]
+    return axis.partials(per).amax(0).tolist()
 
 
-def error_test_norms(main, others=(), axis=None, saxis=None):
+def error_test_norms(main, others=(), axis=None):
     """The squared norms a step's error test reads together: ``main`` and
-    each of ``others`` an ``(x, y, atol, rtol)``.  Returns ``(float, worst,
-    [floats])``: main's norm, the member that dominates it and the others'
-    norms; under a mesh ``axis`` the worst member is a global index and the
-    whole is one collective (one more a part over a state axis
-    ``saxis``)."""
+    each of ``others`` a part as in :func:`max_norms` (a state-sharded
+    part carries its state axis; a quadrature's is whole on every rank).
+    Returns ``(float, worst, [floats])``: main's norm, the member that
+    dominates it and the others' norms; under a mesh ``axis`` the worst
+    member is a global index and the whole is one collective (one more a
+    part over a state axis)."""
     if axis is None:
-        sq, worst = squared_norm_and_worst(*main, saxis)
-        return float(sq), worst, [float(squared_norm(*o, saxis=saxis)) for o in others]
-    per = _per_member(*main, saxis).reshape(-1)
-    rest = [_per_member(*o, saxis).amax() for o in others]
+        sq, worst = squared_norm_and_worst(*main)
+        return float(sq), worst, [float(_per_member(*o).amax()) for o in others]
+    per = _per_member(*main).reshape(-1)
+    rest = [_per_member(*o).amax() for o in others]
     sq, worst, rest = axis.max_and_argmax(per, rest)
     return float(sq), worst, [float(v) for v in rest]

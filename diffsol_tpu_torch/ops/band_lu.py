@@ -149,6 +149,19 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+_INT_MAX = 2**31 - 1
+
+
+def _check_int_sizes(n: int, mu: int, rows: int):
+    """The C entry points take n and the members or right-hand sides as
+    ``int``; the kernels index device memory with ``size_t`` (the factors'
+    (n+mu) nb B elements may pass 2^31) and shared memory with ``int``.
+    A size past ``int`` raises here rather than wrap in the launch."""
+    if n + mu > _INT_MAX or rows > _INT_MAX:
+        raise ValueError(f"band LU sizes past the kernels' int arguments: n + mu = "
+                         f"{n + mu}, {rows} members or right-hand sides")
+
+
 def _refuse_transformed(*tensors):
     """A kernel launch reads raw memory: under ``torch.func.jvp`` it would
     return tensors without a tangent, which the transform reads as zero
@@ -176,6 +189,7 @@ def launch_band_lu_factor(band: torch.Tensor, ml: int, mu: int) -> torch.Tensor:
     if not band3.is_cuda:
         raise ValueError("launch_band_lu_factor needs a CUDA tensor")
     B, nb, n = band3.shape
+    _check_int_sizes(n, mu, B)
     lib = load_band_lu()
     dev = band3.device
     with torch.cuda.device(dev):
@@ -215,6 +229,7 @@ def launch_band_lu_solve(F: torch.Tensor, b: torch.Tensor, ml: int,
     n, fb = F.shape[0] - mu, F.shape[2]
     _check_rows(fb, n, b)
     B = b.shape[0]
+    _check_int_sizes(n, mu, B)
     lib = load_band_lu()
     dev = F.device
     with torch.cuda.device(dev):

@@ -44,11 +44,12 @@ class NewtonResult(NamedTuple):
 
 def newton_solve(residual: Callable, lin_solve: Callable, x0, error_y, atol,
                  rtol, eta0, *, tol: float = 0.2,
-                 max_iter: int = 10, axis=None) -> NewtonResult:
+                 max_iter: int = 10, axis=None, saxis=None) -> NewtonResult:
     """Solve ``residual(x) = 0`` with the frozen iteration matrix applied
     by ``lin_solve``; ``eta0`` is the rate memory from the previous solve.
     ``axis`` is a sharded lockstep ensemble's member axis: the convergence
-    norm's max then runs over every rank's members."""
+    norm's max then runs over every rank's members; ``saxis`` its state
+    axis, over which the norm's mean gathers its terms."""
     x = x0
     # the weights stay those of error_y for the whole solve
     scale = error_scale(error_y, atol, rtol)
@@ -60,7 +61,7 @@ def newton_solve(residual: Callable, lin_solve: Callable, x0, error_y, atol,
     while status == CONTINUE and niter < max_iter:
         delta = lin_solve(residual(x))
         x = x - delta
-        per = scaled_per_member(delta, scale)
+        per = scaled_per_member(delta, scale, saxis)
         nrm = math.sqrt(float(per.amax() if axis is None else axis.max(per)))
         niter += 1
         if niter == 1:

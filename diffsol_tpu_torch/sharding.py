@@ -32,10 +32,15 @@ rank holds the same bits as every other.
 A :class:`StateAxis` is a second mesh dimension over the states of each
 member (the JAX package's ``P("sp", ...)`` on the state dimension of a
 large method-of-lines problem): the rank holds the contiguous block of
-columns of its members' (B, n) state, the rhs sees each member's whole
-state (one all-gather of the blocks a call) and the error norms' mean over
-states runs on the gathered terms, so an explicit solve takes the
-unsharded one's steps bit for bit.
+columns of its members' (B, n) state, the user's callables see each
+member's whole state (one all-gather of the blocks a call,
+:class:`StateShardedEquations`) and the norms' mean over states runs on
+the gathered terms.  An implicit solve gathers, then solves whole, as
+XLA's partitioner does with a sequential band LU: every rank builds and
+factors the whole member iteration matrix from the gathered state, solves
+it on the gathered residual and keeps its block
+(:meth:`StateAxis.whole_solve`).  So an explicit or an implicit solve
+takes the unsharded one's steps bit for bit.
 
 An unsharded solve has no member axis (None) and makes no collective.  JAX
 refuses a batch that the mesh axis does not divide (its ``device_put`` and
@@ -47,8 +52,13 @@ on the card.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, fields
+from typing import Callable, Optional
+
 import torch
 import torch.distributed as dist
+
+from .equations import OdeEquations
 
 F64 = torch.float64
 
@@ -195,14 +205,84 @@ class StateAxis(_Blocks):
         parts = self._all_gather(x.movedim(dim, -1))  # (count, ..., local)
         return parts.movedim(0, -2).flatten(-2).movedim(-1, dim)
 
+    def whole_solve(self, solve: Callable) -> Callable:
+        """A linear solve ``solve(factors, b)`` of whole members made to
+        take and return the rank's block of ``b`` (any leading axes): the
+        blocks are gathered, the whole members solved against the whole
+        factors every rank holds, and the rank keeps its block."""
+        def blocks(factors, b):
+            return self.split(solve(factors, self.gather(b)))
+
+        return blocks
+
+
+@dataclass(frozen=True, eq=False)
+class StateShardedEquations(OdeEquations):
+    """The lockstep equations of a problem whose states are sharded over
+    ``saxis``: built by :func:`shard_states` from the lifted equations of
+    whole members, each callable gathers the members' whole states and
+    calls the user's.  ``rhs``, ``init`` and the resets return the rank's
+    block; the root function and ``out`` their (B, nroots) and (B, nout)
+    values, the same on every rank; ``rhs_jac`` the whole members' (B, n,
+    n) matrix or (B, nb, n) band.  The mass is whole for the iteration
+    matrix (``mass_repr``) and applied to a block as the block of the
+    whole product (``mass_mul``).  ``rhs_whole`` and :meth:`mass_mul_whole`
+    act on whole states, for a Jacobian that must not differentiate
+    through a collective (the consistent initial conditions')."""
+
+    saxis: Optional[object] = None
+    rhs_whole: Optional[Callable] = None
+
+    def mass_mul(self, t, p, v):
+        if self.mass is None:
+            return v
+        if self.mass_diag_fn is not None:
+            return v * self.saxis.split(self.mass_diag_fn(t, p))
+        return self.saxis.split(self.mass_mul_whole(t, p, self.saxis.gather(v)))
+
+    def mass_mul_whole(self, t, p, v):
+        return OdeEquations.mass_mul(self, t, p, v)
+
+
+def shard_states(eqn: OdeEquations, saxis: StateAxis) -> StateShardedEquations:
+    """The lifted lockstep equations ``eqn`` of whole members over the
+    state axis ``saxis`` (:class:`StateShardedEquations`).  Nothing here
+    differentiates through a gather: the Jacobian is the user's, on the
+    gathered state."""
+    gather, split = saxis.gather, saxis.split
+
+    def rhs(t, Y, Pb):
+        return split(eqn.rhs(t, gather(Y), Pb))
+
+    def init(t, Pb):
+        return split(eqn.init(t, Pb)).contiguous()
+
+    def jac(t, Y, Pb):
+        return eqn.rhs_jac(t, gather(Y), Pb)
+
+    if hasattr(eqn.rhs_jac, "jvp_probes"):
+        jac.jvp_probes = eqn.rhs_jac.jvp_probes
+
+    def whole(f):
+        return None if f is None else (lambda t, Y, Pb: f(t, gather(Y), Pb))
+
+    def block(f):
+        return None if f is None else (lambda t, Y, Pb, *i: split(f(t, gather(Y), Pb, *i)))
+
+    kept = {f.name: getattr(eqn, f.name) for f in fields(OdeEquations)}
+    kept.update(rhs=rhs, init=init, rhs_jac=jac, root=whole(eqn.root), out=whole(eqn.out),
+                reset=block(eqn.reset), reset_n=block(eqn.reset_n))
+    return StateShardedEquations(**kept, saxis=saxis, rhs_whole=eqn.rhs)
+
 
 def not_on_sharded_state(what: str) -> NotImplementedError:
-    """The error for what a state-sharded problem does not run: only an
-    explicit solve without roots, outputs or sensitivities does."""
+    """The error for what a state-sharded problem does not run."""
     return NotImplementedError(
-        f"{what} over a sharded state is not ported (ROADMAP 20e: the Newton "
-        "linear solve, and the rest of an implicit solve, over a state sharded "
-        "across ranks); an ErkSolver without roots, outputs or sensitivities runs it")
+        f"{what} over a sharded state is not ported (ROADMAP 20f: the sensitivity "
+        "rows' jvp through the sharded rhs, the Krylov and block-diagonal tiers and "
+        "the member-time lift over a state sharded across ranks); BdfSolver, "
+        "SdirkSolver and ErkSolver without sensitivities run it on the dense and "
+        "banded tiers")
 
 
 def refuse_state_axis(problem, what: str) -> None:

@@ -235,7 +235,8 @@ class BdfSolver:
     def __init__(self, problem: OdeProblem,
                  config: Optional[SolverConfig] = None, sens: bool = False,
                  augmented=None):
-        refuse_state_axis(problem, "BdfSolver (an implicit solve)")
+        if sens or augmented is not None:
+            refuse_state_axis(problem, "a BdfSolver with sensitivities (sens=True)")
         self.problem = problem
         self.config = config or SolverConfig.from_options(problem.options, "bdf")
         eqn = problem.eqn
@@ -276,6 +277,7 @@ class BdfSolver:
             s_pred, s_pred, aug.atol(p), aug.rtol(p), eta,
             tol=p.options.nonlinear_solver_tolerance,
             max_iter=self.config.maximum_newton_iterations, axis=p.member_axis,
+            saxis=p.state_axis,
         )
         return res.x - s_pred, res.converged, res.niter
 
@@ -476,7 +478,7 @@ class BdfSolver:
                 residual, lambda v: p.linear_solver.solve(factors, v),
                 y_pred, y_pred, atol, rtol, st["eta"],
                 tol=opts.nonlinear_solver_tolerance, max_iter=max_newton,
-                axis=p.member_axis,
+                axis=p.member_axis, saxis=p.state_axis,
             )
             d = res.x - y_pred
             solve_ok = res.converged
@@ -500,8 +502,8 @@ class BdfSolver:
                 others.append((g_delta, state.g, p.out_atol, p.out_rtol))
             if sens_in_err:
                 others.append((s_delta, state.s, p.sens_atol, p.sens_rtol))
-            sq_d, wm_new, sq_o = error_test_norms((d, state.y, atol, rtol), others,
-                                                  p.member_axis)
+            sq_d, wm_new, sq_o = error_test_norms((d, state.y, atol, rtol, p.state_axis),
+                                                  others, p.member_axis)
             err_a = sq_d * float(_ERROR_CONST2[order - 1])
             for e in sq_o:
                 err_a = max(err_a, e * float(_ERROR_CONST2[order]))
@@ -593,7 +595,7 @@ class BdfSolver:
                     if on]
             parts = []
             for col in cols:
-                parts.append((D_new[col], y_new, atol, rtol))
+                parts.append((D_new[col], y_new, atol, rtol, p.state_axis))
                 if sens_in_err:
                     parts.append((sD_new[col], s_new, p.sens_atol, p.sens_rtol))
             sq = max_norms(parts, p.member_axis)

@@ -19,7 +19,12 @@ through the problem's banded solver (the band LU kernels on the card).
 Under the dense and the block-diagonal tiers it is factored by a dense LU,
 as the JAX package does for both; under the matrix-free tier the solve
 stays matrix-free: GMRES on the residual's JVP, preconditioned by a float32
-LU of the packed Jacobian (one a member in lockstep).
+LU of the packed Jacobian (one a member in lockstep).  Over a state
+sharded across ranks (``problem.state_axis``) the residual and the norms
+run on the rank's block, and the packed Jacobian is the whole members',
+probed on the gathered unknowns through the user's rhs on whole states
+(never through a gather), factored whole on every rank and solved on the
+gathered residual.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ from ..ops.newton import CONTINUE, CONVERGED, DIVERGED, ETA_RESET_JACOBIAN
 def algebraic_mask(problem, params=None):
     """(n,) boolean mask of the algebraic states (zero mass diagonal), or
     None when there is none; shared by the members of a lockstep problem
-    and broadcast over them."""
+    and broadcast over them; over a state axis the rank's block of the
+    whole mask (None on every rank when no state is algebraic)."""
     eqn = problem.eqn
     if eqn.mass is None:
         return None
@@ -51,7 +57,9 @@ def algebraic_mask(problem, params=None):
     if diag.ndim == 2:  # lockstep (B, n): the partition is shared
         diag = diag[0]
     mask = diag == 0.0
-    return mask if bool(mask.any()) else None
+    if not bool(mask.any()):
+        return None
+    return mask if problem.state_axis is None else problem.state_axis.split(mask)
 
 
 def _blockwise_jacfwd(f, x):
@@ -83,16 +91,32 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
     is_alg = is_alg.to(y.device)  # the solver's mask may predate the move to the card
     y_fixed = y
     zero = torch.zeros_like(y)
+    saxis = p.state_axis
 
-    def residual(x):
-        y0 = torch.where(is_alg, x, y_fixed)
-        f = p.eqn.rhs(t0, y0, params)
-        du = torch.where(is_alg, zero, x)
-        mdu = torch.where(is_alg, zero, p.eqn.mass_mul(t0, params, du))
-        return f - mdu
+    def packed(rhs, mass_mul, is_alg, y_fixed):
+        zero = torch.zeros_like(y_fixed)
+
+        def residual(x):
+            y0 = torch.where(is_alg, x, y_fixed)
+            f = rhs(t0, y0, params)
+            du = torch.where(is_alg, zero, x)
+            mdu = torch.where(is_alg, zero, mass_mul(t0, params, du))
+            return f - mdu
+
+        return residual
+
+    residual = packed(p.eqn.rhs, p.eqn.mass_mul, is_alg, y_fixed)
+    if saxis is None:
+        # the Jacobian's probes go through the residual itself
+        jac_residual, whole = residual, (lambda x: x)
+    else:
+        # through the whole members' residual, on the gathered unknowns
+        jac_residual = packed(p.eqn.rhs_whole, p.eqn.mass_mul_whole,
+                              saxis.gather(is_alg), saxis.gather(y_fixed))
+        whole = saxis.gather
 
     def nrm_of(delta):
-        return float(wrms_norm(delta, y_fixed, p.atol, p.rtol, p.member_axis))
+        return float(wrms_norm(delta, y_fixed, p.atol, p.rtol, p.member_axis, saxis))
 
     def check(niter, nrm, first_norm, eta):
         """Convergence check (convergence.rs:69-130) -> (status, eta)."""
@@ -114,10 +138,10 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
     if banded:
         # the packed residual inherits the rhs band (plus the in-band mass
         # diagonal): ml+mu+1 probes whatever the size or the batch
-        band_jac = make_banded_jac(lambda t_, x, p_: residual(x), *spec.meta[:2])
+        band_jac = make_banded_jac(lambda t_, x, p_: jac_residual(x), *spec.meta[:2])
 
         def factorize(x):
-            return spec.factor(band_jac(None, x, None))
+            return spec.factor(band_jac(None, whole(x), None))
 
         lin_solve = spec.solve
     elif spec.name.startswith("krylov"):
@@ -129,9 +153,9 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
         # the dense and block tiers take the JAX package's dense branch: a
         # one-off (..., n, n) LU of the packed Jacobian
         def factorize(x):
-            return DENSE.factor(_blockwise_jacfwd(residual, x))
+            return DENSE.factor(_blockwise_jacfwd(jac_residual, whole(x)))
 
-        lin_solve = DENSE.solve
+        lin_solve = DENSE.solve if saxis is None else saxis.whole_solve(DENSE.solve)
 
     def newton_with_linesearch(x, eta):
         """One Newton campaign with a frozen factorization, in the

@@ -46,7 +46,7 @@ class ErkSolver(RkSolver):
         if problem.eqn.mass is not None:
             raise ValueError("explicit RK does not support mass matrices")
         if sens or augmented is not None:
-            refuse_state_axis(problem, "an ErkSolver with sensitivities")
+            refuse_state_axis(problem, "an ErkSolver with sensitivities (sens=True)")
         tab = tableau if tableau is not None else tsit45()
         a = np.asarray(tab.a)
         if not np.allclose(np.triu(a), 0.0):
@@ -160,8 +160,8 @@ class ErkSolver(RkSolver):
                 others.append((stage_sum(d_vec, stages[4]), state.s, self.aug.atol(p),
                                self.aug.rtol(p)))
             err, wm, sq_o = error_test_norms(
-                (stage_sum(d_vec, diff), state.y, p.atol, p.rtol), others, p.member_axis,
-                p.state_axis)
+                (stage_sum(d_vec, diff), state.y, p.atol, p.rtol, p.state_axis), others,
+                p.member_axis)
             for e in sq_o:
                 err = max(err, e)
             accepted = err < 1.0

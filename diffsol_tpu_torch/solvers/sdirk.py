@@ -63,7 +63,8 @@ class SdirkSolver(RkSolver):
     def __init__(self, problem: OdeProblem, tableau: Optional[Tableau] = None,
                  config: Optional[SolverConfig] = None, sens: bool = False,
                  augmented=None):
-        refuse_state_axis(problem, "SdirkSolver (an implicit solve)")
+        if sens or augmented is not None:
+            refuse_state_axis(problem, "an SdirkSolver with sensitivities (sens=True)")
         tab = tableau if tableau is not None else tr_bdf2()
         a = np.asarray(tab.a)
         gamma = a[-1, -1]
@@ -253,7 +254,8 @@ class SdirkSolver(RkSolver):
                         residual, lin,
                         self._stage_predict(i, h, state.dy, diff), state.y,
                         p.atol, p.rtol, st["eta"], tol=opts.nonlinear_solver_tolerance,
-                        max_iter=cfg.maximum_newton_iterations, axis=p.member_axis)
+                        max_iter=cfg.maximum_newton_iterations, axis=p.member_axis,
+                        saxis=p.state_axis)
                     st["eta"] = res.eta
                     niter = res.niter
                     z_last = res.x
@@ -276,7 +278,8 @@ class SdirkSolver(RkSolver):
                             residual_s, lin, self._stage_predict(i, h, ds0, sdiff),
                             state.s, aug.atol(p), aug.rtol(p), st["eta"],
                             tol=opts.nonlinear_solver_tolerance,
-                            max_iter=cfg.maximum_newton_iterations, axis=p.member_axis)
+                            max_iter=cfg.maximum_newton_iterations, axis=p.member_axis,
+                            saxis=p.state_axis)
                         sz_last = res_s.x
                         sdiff[i] = sz_last
                         s_stage = sphi + gamma * sz_last
@@ -320,8 +323,8 @@ class SdirkSolver(RkSolver):
                     serr = p.eqn.mass_mul(self._t(state.t), params, serr)
                 serr = p.linear_solver.solve(st["factors"], serr)
                 others.append((serr, state.s, aug.atol(p), aug.rtol(p)))
-            err, wm, sq_o = error_test_norms((err_vec, state.y, p.atol, p.rtol), others,
-                                             p.member_axis)
+            err, wm, sq_o = error_test_norms(
+                (err_vec, state.y, p.atol, p.rtol, p.state_axis), others, p.member_axis)
             for e in sq_o:
                 err = max(err, e)
             safety = (2.0 * m + 1.0) / (2.0 * m + niter)

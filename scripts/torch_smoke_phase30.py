@@ -7,7 +7,7 @@ Run from the root of a checkout (or of a copy of one) with a CUDA card:
 
 Phase 30 spawns its two gloo ranks on the card and holds every sharded
 path to its reference; run alone, it computes the unsharded references
-that the whole script takes from phases 24 b and 28 d (PHASE_REFS).  Any
+that the whole script takes from phase 28 d (PHASE_REFS).  Any
 failed gate raises, so the exit code is non-zero.  It prints the phase's
 lines, its host-clock time and the names of its kernel records.
 """

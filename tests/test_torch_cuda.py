@@ -1723,3 +1723,44 @@ def test_sharded_independent_gradient_matches_unsharded_cuda(card_mesh2):
                 assert np.array_equal(got[key][k], v), (key, k)
         launches = res["heat1d_ind_grad:launches"]
         assert launches[2] >= 1 and launches[3] >= 1
+
+
+# BdfSolver over a state sharded on a (dp = 1, sp = 2) mesh of two gloo
+# ranks on the one card: each rank factors and solves the whole members
+@pytest.fixture(scope="module")
+def card_mesh_sp(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_sharding_ranks as ranks
+
+    return ranks.spawn([("heat1d_bdf_state", 1)], str(tmp_path_factory.mktemp("card_mesh_sp")),
+                       shape=(1, 2), names=("dp", "sp"), device="cuda")
+
+
+@pytest.mark.cuda
+def test_state_sharded_bdf_matches_unsharded_cuda(card_mesh_sp):
+    """Banded heat1d, n = 2^14 states a member (K4's x in device memory),
+    B = 2, the states split over "sp": init_state, five and twelve BDF
+    steps and a solve_dense, every rank's block of y, dy and D, its t, h,
+    order and Stats and the gathered ys equal bit for bit to the unsharded
+    solve on the card, K3 and K4 launched on each rank."""
+    import torch_sharding_ranks as ranks
+
+    ref = ranks.run_case("heat1d_bdf_state", dev="cuda")
+    for res in card_mesh_sp:
+        got = res["heat1d_bdf_state"]
+        j = got["coords"][1]
+        k = ref["steps"]["y"].shape[-1] // 2
+        for part in ("init", "five", "steps", "final"):
+            for key in ("y", "dy", "D"):
+                np.testing.assert_array_equal(got[part][key],
+                                              ref[part][key][..., k * j:k * (j + 1)],
+                                              err_msg=f"{part} {key}")
+            assert (got[part]["t"], got[part]["h"], got[part]["order"]) == (
+                ref[part]["t"], ref[part]["h"], ref[part]["order"])
+            for key, v in ref[part]["stats"].items():
+                assert np.array_equal(got[part]["stats"][key], v), (part, key)
+        np.testing.assert_array_equal(got["ys"], ref["ys"])
+        assert got["stop"] == ref["stop"] == dtt.errors.TSTOP_REACHED
+        launches = res["heat1d_bdf_state:launches"]
+        assert launches[2] >= 1 and launches[3] >= 1

@@ -306,9 +306,10 @@ def test_unsharded_lockstep_makes_no_collective(monkeypatch):
 
 
 def test_implicit_solver_over_a_sharded_state_raises():
-    """A state sharded over a second mesh axis runs an explicit solve only:
-    BdfSolver's Newton linear solve over a sharded state is ROADMAP 20e."""
+    """BdfSolver over a state sharded on a second mesh axis runs
+    (tests/test_torch_sharding_state.py); with sensitivity rows it raises,
+    since their jvp through the sharded rhs is ROADMAP 20f."""
     problem = dtt.OdeBuilder().rhs(ted.rhs).init(ted.init).p([0.1, 1.0]).build()
     lp = dataclasses.replace(make_lockstep_problem(problem, 2), state_axis=object())
-    with pytest.raises(NotImplementedError, match="BdfSolver .*ROADMAP 20e"):
-        dtt.BdfSolver(lp)
+    with pytest.raises(NotImplementedError, match="BdfSolver with sensitivities.*ROADMAP 20f"):
+        dtt.BdfSolver(lp, sens=True)

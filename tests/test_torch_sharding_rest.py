@@ -48,8 +48,7 @@ from diffsol_tpu.solvers.erk import ErkSolver as JaxErk
 import diffsol_tpu_torch as dtt
 import torch_sharding_ranks as ranks
 from diffsol_tpu_torch.ensemble import make_lockstep_problem
-from diffsol_tpu_torch.models import exponential_decay as ted
-from diffsol_tpu_torch.models import heat1d
+from diffsol_tpu_torch.models import heat1d, robertson
 
 torch.set_num_threads(1)
 KRYLOV = ["heat1d_krylov_lockstep", "heat1d_krylov_sens_lockstep"]
@@ -239,29 +238,39 @@ def test_state_sharded_erk_matches_jax(mesh2x2, jax_sharded):
 
 def test_state_axis_refuses(mesh2x2):
     """An n the "sp" axis does not divide raises ValueError, as JAX's
-    device_put does; an implicit solver names ROADMAP 20e."""
+    device_put does; what a sharded state does not run yet names ROADMAP
+    20f: sens=True on each solver, the Krylov and block-diagonal tiers and
+    the member-time lift."""
     for res in mesh2x2:
         got = res["state_errors"]
         assert "should be divisible by 2, but it is equal to 255" in got["uneven"]
-        assert got["bdf"].startswith("BdfSolver (an implicit solve) over a sharded state")
-        assert "ROADMAP 20e" in got["bdf"]
+        for key, what in (("bdf_sens", "a BdfSolver with sensitivities"),
+                          ("sdirk_sens", "an SdirkSolver with sensitivities"),
+                          ("erk_sens", "an ErkSolver with sensitivities"),
+                          ("independent", "a member-time lift"),
+                          ("krylov", "the matrix-free Krylov tier"),
+                          ("blockdiag", "the block-diagonal tier")):
+            assert got[key].startswith(what) and "over a sharded state" in got[key], key
+            assert "ROADMAP 20f" in got[key], key
 
 
 def test_state_axis_refuses_what_the_solve_would_miss():
-    """Roots, an out() function, a mass, a quadrature and the member-time
-    lift raise before the axis is touched; SDIRK and ERK with sensitivities
-    raise at construction."""
+    """The member-time lift and the Krylov and block-diagonal tiers raise
+    before the axis is touched; each solver with sensitivities raises at
+    construction, naming ROADMAP 20f."""
     axis = object()
-    with pytest.raises(NotImplementedError, match="roots over a sharded state.*ROADMAP 20e"):
-        make_lockstep_problem(ted.problem_with_root(), 2, state_axis=axis)
     problem, _ = heat1d.make(7)
-    with pytest.raises(NotImplementedError, match="member-time lift"):
+    with pytest.raises(NotImplementedError, match="member-time lift.*ROADMAP 20f"):
         make_lockstep_problem(problem, 2, member_t=True, state_axis=axis)
+    with pytest.raises(NotImplementedError, match="Krylov tier over a sharded state.*20f"):
+        make_lockstep_problem(ranks._krylov_heat1d(7, 1e-4, 1e-6), 2, state_axis=axis)
+    with pytest.raises(NotImplementedError, match="block-diagonal tier.*ROADMAP 20f"):
+        make_lockstep_problem(robertson.problem_ode_groups(4), 2, state_axis=axis)
     lp = dataclasses.replace(make_lockstep_problem(problem, 2), state_axis=axis)
-    with pytest.raises(NotImplementedError, match="SdirkSolver .*ROADMAP 20e"):
-        dtt.SdirkSolver(lp)
-    with pytest.raises(NotImplementedError, match="ErkSolver with sensitivities"):
-        dtt.ErkSolver(lp, sens=True)
+    for cls in (dtt.BdfSolver, dtt.SdirkSolver, dtt.ErkSolver):
+        with pytest.raises(NotImplementedError,
+                           match=f"{cls.__name__} with sensitivities.*ROADMAP 20f"):
+            cls(lp, sens=True)
 
 
 @pytest.mark.parametrize("case", GRADS)

@@ -108,6 +108,23 @@ HEAT_GRAD_PARAMS = np.array([[0.5], [1.0], [2.0], [1.5]])
 ERK_MGRID = 255  # n = 256, JAX's program 2 (__graft_entry__.py:105-146)
 ERK_D = np.array([[1.0], [0.5], [2.0], [1.5]])
 ERK_T_EVAL = [2e-5, 5e-5]
+# the implicit solves over a sharded state: heat1d n = 64, B = 2 (a member
+# each "dp" rank), the heat2d DAE n = 36 (nb = 13 on the banded tier)
+STATE_MGRID = 63
+STATE_D = np.array([[1.0], [0.5]])
+STATE_STEPS = 12  # past the first refreshes and an order change (BDF)
+STATE_JAX_STEPS = 5
+STATE_T_EVAL = [1e-3, 4e-3]
+DAE_MGRID = 6
+DENSE_MASS_MGRID = 15  # heat1d with a dense consistent mass, n = 16
+DAE_T_EVAL = [0.01, 0.03]
+# roots with a reset, out() and its quadrature: mean(y) falls through 0.3
+# at t ~ 0.05, then the reset doubles y; members close enough to cross in
+# one step
+EVENT_D = np.array([[1.0], [1.0 + 1e-7]])
+EVENT_T_EVAL = [0.02, 0.06, 0.1, 0.15]
+# the card's case: n = 2^14, where K4 keeps x in device memory
+CARD_STATE_MGRID = 2**14 - 1
 
 
 def _ind_grad(problem, t_eval, pb, mesh, dev):
@@ -160,26 +177,154 @@ def _erk_state(mesh, dev):
 
 
 def _state_errors(mesh):
-    """What a state axis refuses: an n the axis does not divide, an
-    implicit solver."""
+    """What a state axis refuses: an n the axis does not divide, and
+    (ROADMAP 20f) sens=True on every solver, the Krylov and block-diagonal
+    tiers and the member-time lift."""
     import diffsol_tpu_torch as dtt
     from diffsol_tpu_torch.ensemble import make_lockstep_problem
-    from diffsol_tpu_torch.models import heat1d
+    from diffsol_tpu_torch.models import heat1d, robertson
     from diffsol_tpu_torch.sharding import StateAxis
 
-    out = {}
-    try:
-        StateAxis.of(mesh, "sp", 255)
-        out["uneven"] = None
-    except ValueError as e:
-        out["uneven"] = str(e)
+    def error(fn, kind):
+        try:
+            fn()
+            return None
+        except kind as e:
+            return str(e)
+
+    out = dict(uneven=error(lambda: StateAxis.of(mesh, "sp", 255), ValueError))
     problem, _ = heat1d.make(ERK_MGRID)
-    lp = make_lockstep_problem(problem, 2, state_axis=StateAxis.of(mesh, "sp", 256))
-    try:
-        dtt.BdfSolver(lp)
-        out["bdf"] = None
-    except NotImplementedError as e:
-        out["bdf"] = str(e)
+    saxis = StateAxis.of(mesh, "sp", 256)
+    lp = make_lockstep_problem(problem, 2, state_axis=saxis)
+    for name, cls in (("bdf", dtt.BdfSolver), ("sdirk", dtt.SdirkSolver),
+                      ("erk", dtt.ErkSolver)):
+        out[name + "_sens"] = error(lambda c=cls: c(lp, sens=True), NotImplementedError)
+    out["independent"] = error(lambda: make_lockstep_problem(problem, 2, member_t=True,
+                                                             state_axis=saxis),
+                               NotImplementedError)
+    out["krylov"] = error(lambda: make_lockstep_problem(_krylov_heat1d(ERK_MGRID, 1e-4, 1e-6),
+                                                        2, state_axis=saxis),
+                          NotImplementedError)
+    out["blockdiag"] = error(lambda: make_lockstep_problem(
+        robertson.problem_ode_groups(4), 2, state_axis=StateAxis.of(mesh, "sp", 12)),
+        NotImplementedError)
+    return out
+
+
+def _state_sharded(problem, pb, mesh, dev):
+    """``problem`` lifted to lockstep over ``pb``'s members, over ``mesh``'s
+    "dp" (members) and "sp" (states) axes, or unsharded without a mesh
+    (chip_smoke.state_sharded): (lockstep problem, the rank's params, its
+    (dp, sp) coordinates)."""
+    lp, params, _ = cs.state_sharded(problem, torch.tensor(pb, dtype=F64, device=dev), mesh,
+                                     dev)
+    coords = ((0, 0) if mesh is None
+              else (mesh.get_local_rank("dp"), mesh.get_local_rank("sp")))
+    return lp, params, coords
+
+
+def _state_of(st) -> dict:
+    """A BDF or RK state's tensors of the states (the rank's blocks), its
+    scalars and Stats."""
+    out = dict(y=_np(st.y), dy=_np(st.dy), t=st.t, h=st.h, stats=stats_of(st.stats))
+    for key in ("D", "order", "diff", "g"):
+        if hasattr(st, key):
+            out[key] = _np(getattr(st, key))
+    return out
+
+
+def _steps_and_solve(make_solver, problem, pb, t_eval, mesh, dev, nsteps):
+    """STATE_JAX_STEPS and then ``nsteps`` steps from init_state, the
+    all-gathers of the steps, then solve_dense over ``t_eval``."""
+    from diffsol_tpu_torch.drivers import init_state, solve_dense
+
+    lp, params, coords = _state_sharded(problem, pb, mesh, dev)
+    solver = make_solver(lp)
+    state = init_state(solver, params, device=dev)
+    out = dict(coords=coords, init=_state_of(state))
+    with cs.counted_all_gathers() as calls:
+        for k in range(nsteps):
+            state = solver.step(state, params)
+            if k + 1 == STATE_JAX_STEPS:
+                out["five"] = _state_of(state)
+    out.update(steps=_state_of(state), step_gathers=calls[0])
+    sol = solve_dense(solver, t_eval, params=params, device=dev)
+    out.update(_solution(sol), final=_state_of(sol.state))
+    return out
+
+
+def _implicit_state(mesh, dev):
+    """heat1d n = 64, B = 2: BdfSolver and SdirkSolver (TR-BDF2) on the
+    dense and banded tiers, each STATE_STEPS steps and a solve_dense."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import heat1d
+
+    out = {}
+    for tier in ("dense", "banded"):
+        problem, _ = heat1d.make(STATE_MGRID, rtol=1e-6, atol=1e-8, banded=tier == "banded")
+        for name, cls in (("bdf", dtt.BdfSolver), ("sdirk", dtt.SdirkSolver)):
+            out[f"{name}_{tier}"] = _steps_and_solve(cls, problem, STATE_D, STATE_T_EVAL,
+                                                     mesh, dev, STATE_STEPS)
+    return out
+
+
+def _dae_state(mesh, dev):
+    """The heat2d DAE (diagonal mass, out()), n = 36, B = 2, on the dense
+    and banded tiers (consistent initial conditions), and heat1d n = 16
+    with a dense mass on the dense tier: BDF and SDIRK steps and a
+    solve_dense."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import heat2d
+
+    out = {}
+    problems = [(tier, heat2d.make(DAE_MGRID, banded=tier == "banded"))
+                for tier in ("dense", "banded")]
+    problems.append(("dense_mass", _dense_mass_heat1d(DENSE_MASS_MGRID)))
+    for tier, problem in problems:
+        for name, cls in (("bdf", dtt.BdfSolver), ("sdirk", dtt.SdirkSolver)):
+            out[f"{name}_{tier}"] = _steps_and_solve(cls, problem, [[1.0], [1.0]], DAE_T_EVAL,
+                                                     mesh, dev, STATE_STEPS)
+    return out
+
+
+def _dense_mass_heat1d(mgrid):
+    """heat1d (n = mgrid + 1) written M y' = M f(y) with the finite-element
+    consistent mass M (2/3 on the diagonal, 1/6 beside it) as a dense
+    (n, n) matrix: the solution is heat1d's, the mass is dense.  Its rhs
+    stays elementwise (a member's matrix product would round apart between
+    a rank's members and the whole batch)."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.models import heat1d
+
+    hp, _ = heat1d.make(mgrid, rtol=1e-6, atol=1e-8)
+    n = hp.eqn.nstates
+    M = torch.tensor(np.eye(n) * 2.0 / 3.0 + (np.eye(n, k=1) + np.eye(n, k=-1)) / 6.0)
+    f = hp.eqn.rhs
+
+    def rhs(t, y, p):  # M f(y), row by row
+        fy = f(t, y, p)
+        fp = torch.nn.functional.pad(fy, (1, 1))
+        return fy * (2.0 / 3.0) + (fp[..., :-2] + fp[..., 2:]) / 6.0
+
+    return (dtt.OdeBuilder().rhs(rhs).init(hp.eqn.init).mass(lambda t, p: M.to(p.device))
+            .p([1.0]).rtol(1e-6).atol(1e-8).build())
+
+
+def _events_state(mesh, dev):
+    """Roots, resets, out() and its quadrature over a sharded state:
+    solve_dense with BDF and SDIRK (a reset at each crossing), BDF and ERK
+    stopping at the first root, and BDF integrating the state itself."""
+    import diffsol_tpu_torch as dtt
+    from diffsol_tpu_torch.drivers import solve_dense
+
+    out = {}
+    for name, cls in (("bdf_reset", dtt.BdfSolver), ("sdirk_reset", dtt.SdirkSolver),
+                      ("bdf_stop", dtt.BdfSolver), ("erk_stop", dtt.ErkSolver),
+                      ("bdf_state_quad", dtt.BdfSolver)):
+        problem = cs.events_heat1d(STATE_MGRID, name.split("_", 1)[1])
+        lp, params, coords = _state_sharded(problem, EVENT_D, mesh, dev)
+        sol = solve_dense(cls(lp), EVENT_T_EVAL, params=params, device=dev, max_steps=20_000)
+        out[name] = dict(_solution(sol), coords=coords, final=_state_of(sol.state))
     return out
 
 
@@ -298,6 +443,15 @@ def run_case(name: str, mesh=None, dev="cpu", scale: int = 1, members=None) -> d
         return _erk_state(mesh, dev)
     if name == "state_errors":
         return _state_errors(mesh)
+    if name == "implicit_state":
+        return _implicit_state(mesh, dev)
+    if name == "dae_state":
+        return _dae_state(mesh, dev)
+    if name == "events_state":
+        return _events_state(mesh, dev)
+    if name == "heat1d_bdf_state":  # on the card: K3/K4 on the whole members
+        problem, _ = heat1d.make(CARD_STATE_MGRID, rtol=1e-6, atol=1e-8, banded=True)
+        return _steps_and_solve(bdf, problem, STATE_D, STATE_T_EVAL, mesh, dev, STATE_STEPS)
     if name == "errors":
         from diffsol_tpu_torch.ensemble import solve_dense_ensemble
 
